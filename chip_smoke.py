@@ -4,12 +4,16 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``..._tpu_torch/csrc`` with nvcc, holds every
-kernel against its plain PyTorch version at the main path's shapes (integer
-histograms and argmaxes must be exactly equal), drives the port's main path
-(``process`` on a 3072^2 uint16 radiograph, then the intermediates path of
-``process --debug-dump``) and checks that it went through the kernels, runs
-a batch of 4 through ``process_batch``, and times the pipeline and each
-kernel beside its plain version with CUDA events.
+kernel against its plain PyTorch version at the paths' 3072^2 shapes
+(integer histograms and argmaxes exactly equal; the CLAHE apply exactly
+equal with equal NaN masks), drives the port's main path (``process`` on a
+3072^2 uint16 radiograph, then the intermediates path of ``process
+--debug-dump``) and the CLAHE + linear-gradation variant path
+(``musica_forward`` as ``process --clahe --linear-gradation`` runs it) and
+checks that each went through its kernels and agrees with the port's CPU
+path, runs a batch of 4 through ``process_batch``, and times the pipeline,
+the variant path and each kernel beside its plain version with CUDA
+events.
 
 Every phase prints one line; any failure raises and exits non-zero.  The
 line before the last is a JSON object with one entry per kernel; the last
@@ -20,8 +24,10 @@ exits non-zero and prints no result.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -29,9 +35,12 @@ import numpy as np
 SIZE = 3072
 BATCH = 4
 PKG = "metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch"
-SOURCE = f"{PKG}/csrc/fused_hist.cu"
-PALLAS = ("metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_"
-          "processing_tpu/ops/pallas/fused_hist.py")
+PALLAS_DIR = ("metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_"
+              "processing_tpu/ops/pallas")
+PALLAS = f"{PALLAS_DIR}/fused_hist.py"
+SOURCES = {"noise_hist": "fused_hist.cu", "hist_argmax": "fused_hist.cu",
+           "grad_hist_relevant": "fused_hist.cu", "grad_hist": "fused_hist.cu",
+           "histogram": "histogram.cu", "clahe_apply": "clahe_apply.cu"}
 REPLACES = {
     "noise_hist": f"{PALLAS}:139 (_noise_kernel of noise_hist_fused; also the "
                   f"histogram of _noise_multi_kernel, :181)",
@@ -40,7 +49,15 @@ REPLACES = {
     "grad_hist_relevant": f"{PALLAS}:397 (_grad_relevant_kernel of "
                           f"grad_hist_relevant_fused)",
     "grad_hist": f"{PALLAS}:381 (_grad_kernel of grad_hist_fused)",
+    "histogram": f"{PALLAS_DIR}/histogram.py:97 (_hist_kernel of "
+                 f"factorized_histogram_pallas, pallas_call :148)",
+    "clahe_apply": f"{PALLAS_DIR}/clahe_apply.py:80 (_kernel of "
+                   f"clahe_apply_fused, pallas_call :188)",
 }
+# clahe_graded against the port's CPU path: the LUTs are order-stable sums
+# and the apply is exact, so only a recon that differs could move it; the
+# bound is the JAX package's own against golden (tests/test_clahe.py)
+CLAHE_ATOL = 1e-4
 # u8 parity bar against the port's own CPU path (docs/PARITY.md)
 MIN_PSNR, MIN_EXACT, MAX_DIFF = 90.0, 0.9999, 1
 
@@ -80,6 +97,20 @@ class KernelRecord:
         log(f"  {kernel} [{case}]: max |kernel - plain| = {err}")
         assert err == 0, f"{kernel} [{case}] differs from its plain version"
 
+    def equal_float(self, kernel: str, case: str, got, want) -> None:
+        """Equal NaN masks and max |kernel - plain| = 0 on finite values."""
+        import torch
+        assert got.shape == want.shape and got.dtype == want.dtype, (kernel, case)
+        nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+        assert torch.equal(nan_g, nan_w), f"{kernel} [{case}]: NaN masks differ"
+        fin = ~nan_w
+        err = float((got[fin] - want[fin]).abs().max())
+        prev = self.err[kernel]
+        self.err[kernel] = err if prev is None else max(prev, err)
+        log(f"  {kernel} [{case}]: max |kernel - plain| = {err} on "
+            f"{int(fin.sum())} finite px, {int(nan_w.sum())} NaN px in both")
+        assert err == 0.0, f"{kernel} [{case}] differs from its plain version"
+
 
 def random_levels(rng, sizes, dev):
     """Noise-hist inputs with every break kind: zeros, values above 0.1 and
@@ -112,6 +143,38 @@ def check_noise(rec, cfg, levels, case):
     rec.equal("hist_argmax", case, fh.hist_argmax(h), fh.hist_argmax_plain(h))
 
 
+def random_clahe(rng, n, dev):
+    """CLAHE inputs: recon in [-0.1, 1.1] with exact 1.0 pixels, a random
+    relevance mask that leaves tile (1, 2) empty, so its LUT is NaN (at 3072
+    no tile lies inside the 100-px relevance border)."""
+    import torch
+    recon = rng.uniform(-0.1, 1.1, (n, n)).astype(np.float32)
+    recon[rng.uniform(size=(n, n)) < 0.01] = 1.0
+    relevant = (rng.uniform(size=(n, n)) < 0.6).astype(np.float32)
+    ts = n // 4
+    relevant[ts:2 * ts, 2 * ts:3 * ts] = 0.0
+    return torch.from_numpy(recon).to(dev), torch.from_numpy(relevant).to(dev)
+
+
+def check_clahe(rec, cfg, recon, relevant, case):
+    """K6 on the CLAHE joint histogram and K5 on the resulting LUTs, each
+    against its plain version on the same inputs."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_apply as k_clahe
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import histogram as k_hist
+    nb = cfg.clahe_tiles ** 2 * cfg.clahe_bins
+    joint, w = clahe.clahe_joint_bins(recon, relevant, cfg)
+    h = k_hist.histogram(joint, w, nb)
+    rec.equal("histogram", f"{case}, {nb} joint bins", h, k_hist.histogram_plain(joint, w, nb))
+    px, py = clahe.clahe_curves(h.reshape(cfg.clahe_tiles, cfg.clahe_tiles, -1), cfg)
+    nan_tiles = int(torch.isnan(py).all(dim=-1).sum())
+    rec.equal_float("clahe_apply", f"{case}, {nan_tiles} NaN tile(s)",
+                    k_clahe.clahe_apply(recon, px, py, cfg),
+                    k_clahe.clahe_apply_plain(recon, px, py, cfg))
+    return nan_tiles
+
+
 def cuda_ms(fn, reps: int, warmup: int = 1, device_only: bool = False) -> float:
     """ms per call of ``fn`` between two CUDA events.  With ``device_only``
     the GPU sleeps while the host queues every call, so the events bracket
@@ -141,11 +204,14 @@ def main() -> int:
 
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu.testing.phantoms import (
         synthetic_radiograph)
-    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu.utils import io as uio
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig, cli
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
-    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import noise
-    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import build
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe, noise
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import build, launch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_apply as k_clahe
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import histogram as k_hist
 
     # ---- 1. device -------------------------------------------------------
     dev = torch.device("cuda:0")
@@ -163,7 +229,8 @@ def main() -> int:
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
     build.load_library()
-    log(f"[2] build: {time.perf_counter() - t0:.2f} s -> {build.library_path().name}")
+    log(f"[2] build: {time.perf_counter() - t0:.2f} s -> {build.library_path().name} "
+        f"({', '.join(p.name for p in build.sources())})")
     for line in build.build_log().splitlines():
         if "registers" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
@@ -172,6 +239,7 @@ def main() -> int:
     rec = KernelRecord()
     rng = np.random.default_rng(2024)
     cfg = MusicaConfig(image_size=SIZE)
+    cfg_var = cfg.with_(enable_clahe=True, grad_with_linear_image=True)
     img = synthetic_radiograph(SIZE, "thorax")
     log("[3] kernels vs plain versions on the card (exact equality)")
     lv3072 = analysis_levels(img, cfg, dev)
@@ -212,12 +280,46 @@ def main() -> int:
     rec.equal("grad_hist", "3072 random", fh.grad_hist(r_recon, r_rel, cfg),
               fh.grad_hist_plain(r_recon, r_rel, cfg))
 
+    log("[3b] CLAHE kernels vs plain versions at 3072 (histogram exact; apply "
+        "exact with equal NaN masks)")
+    var_inter = musica.musica_forward(x_dev, cfg_var, want_intermediates=True)
+    v_recon, v_rel = var_inter["recon"], var_inter["intermediates"]["relevant"]
+    rec.equal("grad_hist", "3072 thorax, squared image (CLAHE + linear path)",
+              fh.grad_hist(var_inter["intermediates"]["linear"], v_rel, cfg_var),
+              fh.grad_hist_plain(var_inter["intermediates"]["linear"], v_rel, cfg_var))
+    check_clahe(rec, cfg_var, v_recon, v_rel, "3072 thorax LUTs")
+    c_recon, c_rel = random_clahe(rng, SIZE, dev)
+    assert check_clahe(rec, cfg_var, c_recon, c_rel, "3072 random LUTs") >= 1
+    b256 = torch.from_numpy(rng.integers(-5, 261, SIZE * SIZE).astype(np.int32)).to(dev)
+    w256 = torch.from_numpy((rng.uniform(size=SIZE * SIZE) < 0.8).astype(np.float32)).to(dev)
+    rec.equal("histogram", "3072^2 pairs, 256 bins, float32 weights",
+              k_hist.histogram(b256, w256, 256), k_hist.histogram_plain(b256, w256, 256))
+    # ragged sizes: the kernel runs at every n (no block-shape condition)
+    for n in (600, 144):
+        cfg_n = MusicaConfig(image_size=n, enable_clahe=True)
+        check_clahe(rec, cfg_n, *random_clahe(rng, n, dev), f"{n} random LUTs")
+
+    log("[3c] CLAHE coordinates on the card vs numpy's true float32 division")
+    like = torch.zeros(1, device=dev)
+    ids = clahe.tile_ids(SIZE, cfg_var.clahe_tiles, like).cpu().numpy()
+    q = np.arange(SIZE, dtype=np.float32) / np.float32(SIZE)
+    assert np.array_equal(ids, (q * np.float32(4)).astype(np.int32)), "tile ids"
+    attrs = [a.cpu().numpy() for a in clahe.axis_attrs(SIZE, cfg_var, like)]
+    coord = np.arange(SIZE, dtype=np.float32) / np.float32(SIZE // 4)
+    base = np.floor(coord) + np.float32(0.5)
+    assert np.array_equal(attrs[2], np.float32(1) - np.abs(base - coord)), "weights"
+    assert np.array_equal(attrs[4], coord == base), "centre flags"
+    recip = (torch.arange(SIZE, dtype=torch.float32, device=dev) / float(SIZE // 4)).cpu().numpy()
+    log(f"  tile ids and blend weights equal numpy's; the reciprocal form "
+        f"(tensor / python float) differs at {int((recip != coord).sum())} of {SIZE} "
+        f"coordinates i/{SIZE // 4}")
+
     # ---- 4. the main path at 3072^2 ----------------------------------------
     log(f"[4] main path: process() on a {SIZE}^2 thorax phantom")
-    fh.reset_launch_counts()
+    launch.reset_launch_counts()
     out_gpu = musica.process(img, cfg, "cuda")
     torch.cuda.synchronize()
-    launches = dict(fh.LAUNCHES)
+    launches = dict(launch.LAUNCHES)
     log(f"  launches: {launches}")
     for k in ("noise_hist", "hist_argmax", "grad_hist_relevant"):
         assert launches[k] > 0, f"the main path did not launch {k}"
@@ -231,16 +333,74 @@ def main() -> int:
     assert np.array_equal(inter["out_u8"].cpu().numpy(), out_gpu)
 
     log("[4b] intermediates path (process --debug-dump)")
-    fh.reset_launch_counts()
+    launch.reset_launch_counts()
     dbg = musica.musica_forward(x_dev, cfg, want_intermediates=True)
     torch.cuda.synchronize()
-    launches_dbg = dict(fh.LAUNCHES)
+    launches_dbg = dict(launch.LAUNCHES)
     log(f"  launches: {launches_dbg}")
     for k in ("noise_hist", "hist_argmax", "grad_hist"):
         assert launches_dbg[k] > 0, f"the intermediates path did not launch {k}"
     assert np.array_equal(dbg["out_u8"].cpu().numpy(), out_gpu)
     assert all(bool(torch.isfinite(v).all()) for v in dbg["intermediates"].values()
                if isinstance(v, torch.Tensor) and v.is_floating_point())
+
+    log(f"[4c] variant path: musica_forward with CLAHE + linear gradation "
+        f"(process --clahe --linear-gradation) on the {SIZE}^2 thorax phantom")
+    launch.reset_launch_counts()
+    var = musica.musica_forward(x_dev, cfg_var)
+    var_out = var["out_u8"].cpu().numpy()
+    var_clahe = var["clahe_graded"].cpu()
+    torch.cuda.synchronize()
+    launches_var = dict(launch.LAUNCHES)
+    log(f"  launches: {launches_var}")
+    for k in ("noise_hist", "hist_argmax", "grad_hist", "histogram", "clahe_apply"):
+        assert launches_var[k] > 0, f"the variant path did not launch {k}"
+    assert var_out.shape == out_gpu.shape and var_out.dtype == np.uint8
+    assert 0 < int(var_out.max()) and int(var_out.min()) < 255, "degenerate output"
+    assert var_clahe.shape == (SIZE, SIZE) and bool(torch.isfinite(var_clahe).any())
+    t0 = time.perf_counter()
+    var_cpu = musica.musica_forward(torch.from_numpy(img), cfg_var)
+    log(f"  CPU path: {time.perf_counter() - t0:.1f} s")
+    check_parity("out_u8, GPU vs the port's CPU path", var_out, var_cpu["out_u8"].numpy())
+    d_recon = float((var["recon"].cpu() - var_cpu["recon"]).abs().max())
+    nan_g, nan_c = torch.isnan(var_clahe), torch.isnan(var_cpu["clahe_graded"])
+    assert torch.equal(nan_g, nan_c), "clahe_graded: NaN masks differ"
+    d_clahe = (var_clahe - var_cpu["clahe_graded"])[~nan_c].abs()
+    clahe_err = float(d_clahe.max())
+    log(f"  recon: max |GPU - CPU| = {d_recon}; clahe_graded: NaN masks equal "
+        f"({int(nan_c.sum())} NaN px), max |GPU - CPU| = {clahe_err} on finite px "
+        f"(bound {CLAHE_ATOL}), {int((d_clahe > 1e-2).sum())} px > 1e-2")
+    assert clahe_err <= CLAHE_ATOL, "clahe_graded differs from the CPU path"
+    # each variant alone: CLAHE leaves the tone map alone, linear gradation
+    # alone gives the variant path's tone map
+    only_clahe = musica.musica_forward(x_dev, cfg.with_(enable_clahe=True))
+    assert np.array_equal(only_clahe["out_u8"].cpu().numpy(), out_gpu)
+    torch.testing.assert_close(only_clahe["clahe_graded"].cpu(), var_clahe,
+                               rtol=0, atol=0, equal_nan=True)
+    only_linear = musica.musica_forward(x_dev, cfg.with_(grad_with_linear_image=True))
+    assert np.array_equal(only_linear["out_u8"].cpu().numpy(), var_out)
+    log("  CLAHE alone: the main path's out_u8 and the variant's clahe_graded; "
+        "linear gradation alone: the variant's out_u8")
+
+    log("[4d] the variant through timed_process and `cli process --clahe "
+        "--linear-gradation --timing`")
+    t_out, times, extras = musica.timed_process(img, cfg_var, "cuda", want_extras=True)
+    assert np.array_equal(t_out, var_out), "timed_process out_u8"
+    torch.testing.assert_close(torch.from_numpy(extras["clahe_graded"]), var_clahe,
+                               rtol=0, atol=0, equal_nan=True)
+    log("  timed_process (ms, host clock, one synchronize per phase): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    with tempfile.TemporaryDirectory() as tmp:
+        raw, bmp = os.path.join(tmp, "in.raw"), os.path.join(tmp, "out.bmp")
+        uio.save_raw(raw, img)
+        assert cli.main(["process", "--clahe", "--linear-gradation", "--timing",
+                         "--size", str(SIZE), raw, bmp]) == 0
+        cli_out = uio.load_bmp(bmp)
+    # the CLI loads the raw transposed, as the reference CLI does
+    want = musica.musica_forward(torch.from_numpy(np.ascontiguousarray(img.T)).to(dev),
+                                 cfg_var)["out_u8"].cpu().numpy()
+    assert np.array_equal(cli_out, want), "cli process --clahe --linear-gradation"
+    log("  CLI BMP equals musica_forward on the transposed raw")
 
     # ---- 5. a batch of 4 ---------------------------------------------------
     anatomies = ["thorax", "pelvis", "hand", "knee"][:BATCH]
@@ -256,11 +416,14 @@ def main() -> int:
     xb_dev = torch.from_numpy(imgs).to(dev)
     for _ in range(3):
         musica.musica_forward(x_dev, cfg)["out_u8"]
+        musica.musica_forward(x_dev, cfg_var)["out_u8"]
     singles = sorted(cuda_ms(lambda: musica.musica_forward(x_dev, cfg)["out_u8"], 10, 0)
                      for _ in range(5))
     batches = sorted(cuda_ms(lambda: musica.forward_batch(xb_dev, cfg), 2, 1) / BATCH
                      for _ in range(3))
-    single, batch = singles[2], batches[1]
+    variants = sorted(cuda_ms(lambda: musica.musica_forward(x_dev, cfg_var)["out_u8"], 10, 0)
+                      for _ in range(5))
+    single, batch, variant = singles[2], batches[1], variants[2]
     mpix = SIZE * SIZE / 1e6
     log(f"[6] timings on {card} (CUDA events, device-resident u16 input; "
         f"pipeline: host issue included; kernels: device time)")
@@ -268,6 +431,11 @@ def main() -> int:
         f"(5 windows of 10: {singles})")
     log(f"  batch of {BATCH}: median {batch} ms/img = {mpix / batch} GPix/s "
         f"(3 windows of 2 batches: {batches})")
+    log(f"  CLAHE + linear, single: median {variant} ms/img = {mpix / variant} GPix/s "
+        f"(5 windows of 10: {variants})")
+    v_px, v_py = clahe.clahe_curves(clahe.clahe_histograms(v_recon, v_rel, cfg_var), cfg_var)
+    v_joint, v_w = clahe.clahe_joint_bins(v_recon, v_rel, cfg_var)
+    nb = cfg_var.clahe_tiles ** 2 * cfg_var.clahe_bins
     cases = {
         "noise_hist": (lambda: fh.noise_hists(lv3072, cfg),
                        lambda: fh.noise_hists_plain(lv3072, cfg)),
@@ -277,20 +445,28 @@ def main() -> int:
                                lambda: fh.grad_hist_relevant_plain(recon, nrm, cnr, cfg)),
         "grad_hist": (lambda: fh.grad_hist(recon, relevant, cfg),
                       lambda: fh.grad_hist_plain(recon, relevant, cfg)),
+        "histogram": (lambda: k_hist.histogram(v_joint, v_w, nb),
+                      lambda: k_hist.histogram_plain(v_joint, v_w, nb)),
+        "clahe_apply": (lambda: k_clahe.clahe_apply(v_recon, v_px, v_py, cfg_var),
+                        lambda: k_clahe.clahe_apply_plain(v_recon, v_px, v_py, cfg_var)),
     }
+    from_run = {"noise_hist": (launches, "process"),
+                "hist_argmax": (launches, "process"),
+                "grad_hist_relevant": (launches, "process"),
+                "grad_hist": (launches_var, "process --clahe --linear-gradation "
+                              "(musica_forward, enable_clahe, grad_with_linear_image)"),
+                "histogram": (launches_var, "process --clahe --linear-gradation"),
+                "clahe_apply": (launches_var, "process --clahe --linear-gradation")}
     kernels = []
     for name, (kern, plain) in cases.items():
         k_ms = cuda_ms(kern, 20, 2, device_only=True)
         p_ms = cuda_ms(plain, 5, 1, device_only=True)
         log(f"  {name}: kernel {k_ms} ms, plain {p_ms} ms")
-        from_run = launches_dbg if name == "grad_hist" else launches
+        counts, path = from_run[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": from_run[name],
-            "launched_by": ("process --debug-dump (musica_forward, "
-                            "want_intermediates=True)" if name == "grad_hist"
-                            else "process"),
-            "max_abs_err": rec.err[name], "ms": k_ms,
+            "name": name, "route": "cuda", "source": f"{PKG}/csrc/{SOURCES[name]}",
+            "replaces": REPLACES[name], "launches": counts[name],
+            "launched_by": path, "max_abs_err": rec.err[name], "ms": k_ms,
             "plain_ms": p_ms})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -6,9 +6,12 @@ The module layout mirrors the JAX package so that each counterpart is easy
 to find:
 
 - ``ops``     : plain PyTorch ops (normalize, pyramid, stats, curves, noise,
-                gradation) and ``ops.cuda``, the hand-written CUDA kernels
-                with their wrappers, plain versions and launch counters;
-- ``models``  : ``musica_forward``, ``process`` and ``process_batch``;
+                gradation, clahe) and ``ops.cuda``, the hand-written CUDA
+                kernels with their wrappers, plain versions and launch
+                counters;
+- ``models``  : ``musica_forward``, ``process``, ``process_batch`` and
+                ``timed_process``, with the CLAHE and linear-gradation
+                variants;
 - ``csrc``    : the CUDA C++ sources, built with ``nvcc`` at first use;
 - ``cli``     : ``process`` and ``batch``.
 

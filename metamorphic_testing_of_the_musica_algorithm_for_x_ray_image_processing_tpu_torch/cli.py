@@ -7,6 +7,7 @@ in; a margin-10-cropped 8-bit BMP out.
 Usage:
     python -m metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.cli process in.raw out.bmp
     python -m ...cli process --size 3072 --device cpu --debug-dump dbg/ in.raw out.bmp
+    python -m ...cli process --clahe --linear-gradation --timing in.raw out.bmp
     python -m ...cli batch --size 3072 'raws/*.raw' outdir/
 """
 
@@ -45,10 +46,16 @@ def cmd_process(args) -> int:
     from . import MusicaConfig
     from .models import musica
 
-    cfg = MusicaConfig(image_size=args.size, quirks=not args.no_quirks)
+    cfg = MusicaConfig(image_size=args.size, quirks=not args.no_quirks,
+                       enable_clahe=args.clahe,
+                       grad_with_linear_image=args.linear_gradation)
     raw = uio.load_raw(args.input, args.size, transpose=not args.no_transpose)
     t0 = time.perf_counter()
-    if args.debug_dump:
+    if args.timing:
+        # MEASURE_PROCESS analogue: per-phase fenced timing
+        out, times = musica.timed_process(raw, cfg, args.device)
+        print(" \t ".join(f"{k}: {v:.2f}" for k, v in times.items()))
+    elif args.debug_dump:
         img = musica.to_device(raw, args.device)
         res = musica.musica_forward(img, cfg, want_intermediates=True)
         out = res["out_u8"].cpu().numpy()
@@ -104,6 +111,12 @@ def main(argv=None) -> int:
     p.add_argument("output")
     p.add_argument("--debug-dump", default=None,
                    help="directory for intermediate-image BMPs (debugProcess)")
+    p.add_argument("--timing", action="store_true",
+                   help="per-phase fenced timing (MEASURE_PROCESS analogue)")
+    p.add_argument("--clahe", action="store_true",
+                   help="enable the CLAHE gradation variant (ENABLE_CLAHE)")
+    p.add_argument("--linear-gradation", action="store_true",
+                   help="grade the squared image (GRAD_WITH_LINEAR_IMAGE)")
     p.set_defaults(fn=cmd_process)
 
     p = sub.add_parser("batch", help="process a glob of raw files")

@@ -1,9 +1,10 @@
 """The MUSICA pipeline on PyTorch.  Port of the JAX package's
-``models/musica.py`` (``musica_forward``, ``process``, a batch entry).
+``models/musica.py`` (``musica_forward``, ``process``, a batch entry,
+``timed_process``), with the CLAHE and linear-gradation variants.
 
 PyTorch runs eagerly, so the function below is the schedule: each stage is
-a handful of device ops, and the histograms go through the CUDA kernels of
-``ops/cuda/fused_hist.py`` when the image is on a CUDA device.  Histogram
+a handful of device ops, and the histograms and the CLAHE apply go through
+the CUDA kernels of ``ops/cuda`` when the image is on a CUDA device.  Histogram
 argmaxes, curve points and t0/ta/t1 stay on the device as small tensors:
 nothing in ``musica_forward`` waits for the host.  Each phase is a
 ``torch.profiler`` span named ``musica.<phase>`` (no cost without a
@@ -15,12 +16,15 @@ Phase map (reference -> here):
   4. image analysis   -> ops.stats (sdev, noise histograms + argmax) + curves
   5. apply            -> ops.curves (contrast gain), ops.noise (CNR, NR)
   6. pyramid expand   -> ops.pyramid
-  7. gradation        -> ops.gradation (relevance-weighted histogram, curve)
+  7. gradation        -> ops.gradation (relevance-weighted histogram, curve);
+                         ENABLE_CLAHE: ops.clahe (per-tile LUTs, blended apply)
   output              -> margin crop + x255 truncating u8 cast
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -28,15 +32,44 @@ import torch
 from torch.profiler import record_function
 
 from .. import MusicaConfig
-from ..ops import curves, gradation, noise, normalize, pyramid, stats
+from ..ops import clahe, curves, gradation, noise, normalize, pyramid, stats
 
 
 def _check_supported(cfg: MusicaConfig) -> None:
-    if cfg.storage != "float32" or cfg.enable_clahe or cfg.grad_with_linear_image:
+    if cfg.storage != "float32":
         raise NotImplementedError(
-            "the PyTorch port runs float32 storage without CLAHE or linear "
-            "gradation (storage=%r, enable_clahe=%r, grad_with_linear_image=%r)"
-            % (cfg.storage, cfg.enable_clahe, cfg.grad_with_linear_image))
+            "the PyTorch port runs float32 storage (storage=%r)" % cfg.storage)
+
+
+def _span(name: str):
+    """musica_forward's phase marker: a profiler span ``musica.<name>``."""
+    return record_function(f"musica.{name}")
+
+
+# timed_process's phase keys (the JAX package's, after the reference's
+# MEASURE_PROCESS summary); CLAHE and the tone map count as gradation
+_TIMED_KEYS = {"normalize": "norm", "reduce": "red", "analysis": "anly",
+               "apply": "aply", "expand": "exp", "gradation": "grad",
+               "clahe": "grad", "tonemap": "grad"}
+
+
+class _PhaseTimer:
+    """timed_process's phase marker: the host clock around each phase,
+    fenced at its end with ``torch.cuda.synchronize`` on a CUDA device (the
+    JAX package fences with a host transfer)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.times = {k: 0.0 for k in dict.fromkeys(_TIMED_KEYS.values())}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t0 = time.perf_counter()
+        with _span(name):
+            yield
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.times[_TIMED_KEYS[name]] += (time.perf_counter() - t0) * 1e3
 
 
 def musica_forward(img_u16: torch.Tensor, cfg: MusicaConfig,
@@ -44,8 +77,16 @@ def musica_forward(img_u16: torch.Tensor, cfg: MusicaConfig,
     """Full MUSICA pass on one [n, n] integer image, on the image's device.
 
     Returns ``graded`` ([n, n] f32), ``out_u8`` (margin-cropped uint8),
-    ``recon`` and ``cnr``; with ``want_intermediates`` also
-    ``intermediates``, every stage under the JAX package's names."""
+    ``recon`` and ``cnr``; with ``cfg.enable_clahe`` also ``clahe_graded``;
+    with ``want_intermediates`` also ``intermediates``, every stage under the
+    JAX package's names."""
+    return _forward(img_u16, cfg, want_intermediates, _span)
+
+
+def _forward(img_u16: torch.Tensor, cfg: MusicaConfig,
+             want_intermediates: bool, phase) -> Dict[str, object]:
+    """musica_forward's body; ``phase(name)`` is the context each phase
+    runs in."""
     _check_supported(cfg)
     n = cfg.image_size
     if tuple(img_u16.shape) != (n, n):
@@ -55,15 +96,15 @@ def musica_forward(img_u16: torch.Tensor, cfg: MusicaConfig,
     inter: Dict[str, object] = {}
 
     # ---- phase 2: normalize -------------------------------------------------
-    with record_function("musica.normalize"):
+    with phase("normalize"):
         normalized, vmax, vmin = normalize.normalize_from_u16(img_u16, cfg.quirks)
 
     # ---- phase 3: pyramid reduce -------------------------------------------
-    with record_function("musica.reduce"):
+    with phase("reduce"):
         bandpass, downs = pyramid.reduce_ladder(normalized, L)
 
     # ---- phase 4: analysis --------------------------------------------------
-    with record_function("musica.analysis"):
+    with phase("analysis"):
         sdevs = {i: stats.img_sdev(bandpass[i]) for i in cfg.analysis_levels}
         hists, max_bins = stats.analysis_noise_hists(sdevs, cfg)
         no_bin = torch.zeros((), dtype=torch.int32, device=dev)
@@ -71,7 +112,7 @@ def musica_forward(img_u16: torch.Tensor, cfg: MusicaConfig,
                       for i, (lcf, hcf) in enumerate(cfg.contrast_factors)]
 
     # ---- phase 5: apply -----------------------------------------------------
-    with record_function("musica.apply"):
+    with phase("apply"):
         cnr = noise.img_cnr(sdevs[cfg.cnr_level], max_bins[cfg.cnr_level], cfg)
         exp_bandpass = []
         for i in range(L):
@@ -91,7 +132,7 @@ def musica_forward(img_u16: torch.Tensor, cfg: MusicaConfig,
 
     # ---- phase 6: pyramid expand -------------------------------------------
     # only levels < cnr_level - 1 consume the noise-reduced bandpass
-    with record_function("musica.expand"):
+    with phase("expand"):
         recon = downs[L - 1]
         for i in range(L):
             lvl = L - 1 - i
@@ -102,22 +143,32 @@ def musica_forward(img_u16: torch.Tensor, cfg: MusicaConfig,
                 inter[f"exp_lowpass_{i}"] = low
 
     # ---- phase 7: gradation -------------------------------------------------
-    with record_function("musica.gradation"):
-        if want_intermediates:
-            # the relevance image itself is part of the dump
+    # GRAD_WITH_LINEAR_IMAGE (shaders/img_linear.comp): the gradation
+    # histogram and the tone map read the squared image
+    with phase("gradation"):
+        grad_input = recon * recon if cfg.grad_with_linear_image else recon
+        if cfg.enable_clahe or want_intermediates:
+            # the relevance image itself is needed downstream
             relevant = noise.img_relevant(normalized, cnr, cfg)
-            ghist = gradation.gradation_histogram(recon, relevant, cfg)
+            ghist = gradation.gradation_histogram(grad_input, relevant, cfg)
         else:
             ghist = gradation.gradation_histogram_fused_relevance(
-                recon, normalized, cnr, cfg)
+                grad_input, normalized, cnr, cfg)
         gpx, gpy, tvals = gradation.gradation_curve(ghist, cfg)
 
+    result: Dict[str, object] = {}
+    if cfg.enable_clahe:
+        # ENABLE_CLAHE grades the reconstruction itself, never the squared
+        # image, into an output of its own
+        with phase("clahe"):
+            result["clahe_graded"] = clahe.clahe_grade(recon, relevant, cfg)
+
     # the tone map is elementwise, so cropping the graded image commutes
-    with record_function("musica.tonemap"):
-        graded = curves.curve_get_y_general(gpx, gpy, recon)
+    with phase("tonemap"):
+        graded = curves.curve_get_y_general(gpx, gpy, grad_input)
         m = cfg.out_margin
         out_u8 = curves.curve_apply_u8(graded[m:n - m, m:n - m])
-    result = {"graded": graded, "out_u8": out_u8, "recon": recon, "cnr": cnr}
+    result.update({"graded": graded, "out_u8": out_u8, "recon": recon, "cnr": cnr})
     if want_intermediates:
         inter.update({
             "normalized": normalized,
@@ -126,6 +177,8 @@ def musica_forward(img_u16: torch.Tensor, cfg: MusicaConfig,
             "grad_curve": (gpx, gpy, tvals),
             "sqrt_max": vmax, "sqrt_min": vmin,
         })
+        if cfg.grad_with_linear_image:
+            inter["linear"] = grad_input
         for i in cfg.analysis_levels:
             inter[f"noise_hist_{i}"] = hists[i]
         for i, b in enumerate(bandpass):
@@ -173,3 +226,30 @@ def process_batch(imgs_u16, cfg: Optional[MusicaConfig], device) -> np.ndarray:
     imgs = to_device(imgs_u16, device)
     cfg = cfg or MusicaConfig(image_size=imgs.shape[-1])
     return forward_batch(imgs, cfg).cpu().numpy()
+
+
+def timed_process(img_u16, cfg: Optional[MusicaConfig], device,
+                  want_extras: bool = False):
+    """Per-phase timed execution, the analogue of the reference's
+    MEASURE_PROCESS (one fence per phase) and of the JAX package's
+    ``timed_process``: the configured variant runs, each phase ends in a
+    device synchronisation, so the timed run is slower than
+    ``musica_forward`` and its ``out_u8`` is the same.
+
+    Returns ``(out_u8, {norm, red, anly, aply, exp, grad, tot: ms})``; with
+    ``want_extras`` also a dict of variant outputs as numpy arrays
+    (``clahe_graded`` when ``cfg.enable_clahe``).  The input's copy to the
+    device is not timed; the output's copy back is part of ``grad``."""
+    img = to_device(img_u16, device)
+    cfg = cfg or MusicaConfig(image_size=img.shape[-1])
+    timer = _PhaseTimer(img.device)
+    res = _forward(img, cfg, False, timer)
+    with timer("tonemap"):
+        out = res["out_u8"].cpu().numpy()
+        extras = ({"clahe_graded": res["clahe_graded"].cpu().numpy()}
+                  if cfg.enable_clahe else {})
+    times = dict(timer.times)
+    times["tot"] = sum(times.values())
+    if want_extras:
+        return out, times, extras
+    return out, times

@@ -1,0 +1,68 @@
+"""What every kernel wrapper of ``ops.cuda`` shares: the launch counters,
+device and input checks, the current stream, and the launch itself.
+
+Dispatch rule of every wrapper: a CPU tensor runs the plain PyTorch version,
+a CUDA tensor launches the kernel or raises.  There is no fallback from one
+to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# launches of each CUDA kernel since the last reset (plain versions and CPU
+# calls do not count)
+LAUNCHES = {"noise_hist": 0, "hist_argmax": 0, "grad_hist_relevant": 0,
+            "grad_hist": 0, "histogram": 0, "clahe_apply": 0}
+
+MAX_SHARED_BINS = 12288  # static 48 KB of shared memory per block
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def device_of(tensors) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {t.device} vs {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def check_image(t: torch.Tensor, name: str, dtype=torch.float32) -> None:
+    """A contiguous square [n, n] image of ``dtype``."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.ndim != 2 or t.shape[0] != t.shape[1]:
+        raise ValueError(f"{name}: expected a square [n, n] image, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def check_bins(n_bins: int) -> None:
+    if not 1 <= n_bins <= MAX_SHARED_BINS:
+        raise ValueError(f"n_bins={n_bins} outside [1, {MAX_SHARED_BINS}]")
+
+
+def launch(lib, fn_name: str, counter: str, *args) -> None:
+    """Call a C entry point (it returns a cudaError_t) and count the launch
+    only if it was accepted."""
+    rc = getattr(lib, fn_name)(*args)
+    if rc != 0:
+        msg = lib.musica_error_string(rc).decode()
+        raise RuntimeError(f"{fn_name} failed: CUDA error {rc} ({msg})")
+    LAUNCHES[counter] += 1
+
+
+def stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def lib():
+    """The kernel library, built on first use."""
+    from .build import load_library
+    return load_library()

@@ -1,7 +1,8 @@
 """Local statistics + histograms: sdev (5x5 RMS), the noise histogram with
 the reference's per-tile-column ``break`` semantics, and histogram argmax.
 Port of the JAX package's ``ops/stats.py`` without its histogram-method zoo:
-the histograms go through ``ops/cuda/fused_hist.py``, which launches the
+the noise histograms go through ``ops/cuda/fused_hist.py`` and
+``fixed_histogram`` through ``ops/cuda/histogram.py``; each launches its
 CUDA kernel for a CUDA tensor and runs its plain version for a CPU tensor.
 
 The ``break`` quirk (shaders/noise_hist.comp:30-40): each GPU thread scans
@@ -86,6 +87,18 @@ def noise_bins(sdev: torch.Tensor, cfg):
         return z.to(torch.int32), z
     return noise_bins_view(v, cfg.noise_histogram_bins,
                            cfg.histogram_area_size, cfg.max_noise_value)
+
+
+def fixed_histogram(bins_idx: torch.Tensor, weights: torch.Tensor,
+                    n_bins: int) -> torch.Tensor:
+    """Weighted histogram of int32 ``bins_idx`` (any shape) into exact int32
+    counts [n_bins] (the GLSL histograms are uint32 atomics).  ``weights``
+    are integers, possibly as float32; out-of-range bins are dropped
+    atomics: their weights are zeroed and their bins clamped.  One kernel
+    launch on a CUDA device, the plain scatter-add on the CPU."""
+    from .cuda import histogram
+
+    return histogram.histogram(bins_idx, weights, n_bins)
 
 
 def analysis_noise_hists(sdevs: Dict[int, torch.Tensor], cfg):

@@ -2,6 +2,7 @@
 """Where the time goes in the PyTorch port's main path, on one CUDA GPU.
 
     python3 scripts/profile_torch.py [--size 3072] [--reps 5] [--out DIR]
+    python3 scripts/profile_torch.py --clahe --linear-gradation   # the variants
 
 Runs ``musica_forward`` on a device-resident synthetic radiograph under
 ``torch.profiler`` and prints, with the card's name and power limit:
@@ -33,6 +34,10 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--anatomy", default="thorax")
     ap.add_argument("--out", default=os.path.join(REPO, "build", "profile_torch"))
+    ap.add_argument("--clahe", action="store_true",
+                    help="the CLAHE gradation variant (ENABLE_CLAHE)")
+    ap.add_argument("--linear-gradation", action="store_true",
+                    help="grade the squared image (GRAD_WITH_LINEAR_IMAGE)")
     args = ap.parse_args()
 
     import torch
@@ -50,7 +55,8 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0]
-    cfg = MusicaConfig(image_size=args.size)
+    cfg = MusicaConfig(image_size=args.size, enable_clahe=args.clahe,
+                       grad_with_linear_image=args.linear_gradation)
     x = torch.from_numpy(synthetic_radiograph(args.size, args.anatomy)).cuda()
     for _ in range(3):  # warm-up: kernel build, allocator, cuBLAS-free path
         musica.musica_forward(x, cfg)["out_u8"]
@@ -71,7 +77,10 @@ def main() -> int:
     launches = sum(e.count for e in kernels) / args.reps
 
     print(f"card: {card}")
-    print(f"{args.size}^2 {args.anatomy}, {args.reps} reps under the profiler: "
+    variant = " + ".join(v for v, on in (("CLAHE", args.clahe),
+                                         ("linear gradation", args.linear_gradation)) if on)
+    print(f"{args.size}^2 {args.anatomy} ({variant or 'main path'}), "
+          f"{args.reps} reps under the profiler: "
           f"{wall:.3f} ms/img wall (CUDA events), {launches:.0f} kernels/img, "
           f"device busy {busy:.3f} ms/img = {100 * busy / wall:.1f} %")
     # a span has a host row (time spent issuing its ops) and a device row

@@ -16,8 +16,11 @@ import torch
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu.testing.phantoms import synthetic_radiograph
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
-from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import noise, normalize, pyramid, stats
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe, noise, normalize, pyramid, stats
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_apply as k_clahe
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import histogram as k_hist
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
 
 pytestmark = pytest.mark.gpu
 
@@ -111,9 +114,9 @@ def test_relevance_paths_agree_on_pipeline_data(dev):
 def test_pipeline_on_card_matches_cpu_and_launches_kernels(dev, size, anatomy):
     img = synthetic_radiograph(size, anatomy)
     cfg = MusicaConfig(image_size=size)
-    fh.reset_launch_counts()
+    launch.reset_launch_counts()
     out = musica.process(img, cfg, "cuda")
-    counts = dict(fh.LAUNCHES)
+    counts = dict(launch.LAUNCHES)
     assert counts["noise_hist"] == 1 and counts["hist_argmax"] == 1
     # 512 takes the in-kernel relevance; 600 is ragged (relevance image)
     key = "grad_hist_relevant" if size % 16 == 0 else "grad_hist"
@@ -134,12 +137,14 @@ def test_wrapper_rejects_bad_input(dev):
         fh.noise_hists([x, x.cpu()], cfg)     # mixed devices
 
 
-@pytest.mark.parametrize("size,want_intermediates", [(512, False), (600, False),
-                                                     (512, True)])
-def test_forward_never_waits_for_the_host(dev, size, want_intermediates):
+@pytest.mark.parametrize("size,want_intermediates,variant",
+                         [(512, False, {}), (600, False, {}), (512, True, {}),
+                          (512, False, dict(enable_clahe=True, grad_with_linear_image=True)),
+                          (600, True, dict(enable_clahe=True))])
+def test_forward_never_waits_for_the_host(dev, size, want_intermediates, variant):
     """No host synchronisation inside musica_forward: argmax bins, curve
-    points and t0/ta/t1 stay on the device."""
-    cfg = MusicaConfig(image_size=size)
+    points, t0/ta/t1 and the CLAHE LUTs stay on the device."""
+    cfg = MusicaConfig(image_size=size, **variant)
     x = torch.from_numpy(synthetic_radiograph(size, "knee")).to(dev)
     musica.musica_forward(x, cfg, want_intermediates)  # build the kernels first
     torch.cuda.synchronize()
@@ -148,3 +153,102 @@ def test_forward_never_waits_for_the_host(dev, size, want_intermediates):
         musica.musica_forward(x, cfg, want_intermediates)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# ----------------------------------------------------------------------
+# K6 (generic histogram) and K5 (CLAHE apply)
+# ----------------------------------------------------------------------
+
+def _clahe_inputs(seed, n, dev):
+    """recon in [-0.1, 1.1] with exact 1.0 pixels, a random relevance mask
+    that leaves tile (1, 2) empty (its LUT is NaN)."""
+    rng = np.random.default_rng(seed)
+    recon = rng.uniform(-0.1, 1.1, (n, n)).astype(np.float32)
+    recon[rng.uniform(size=(n, n)) < 0.01] = 1.0
+    relevant = (rng.uniform(size=(n, n)) < 0.6).astype(np.float32)
+    ts = n // 4
+    relevant[ts:2 * ts, 2 * ts:3 * ts] = 0.0
+    return torch.from_numpy(recon).to(dev), torch.from_numpy(relevant).to(dev)
+
+
+@pytest.mark.parametrize("n_bins,n", [(4096, 3072 * 3072), (256, 600 * 600),
+                                      (4096, 144 * 144), (256, 1)])
+def test_histogram_kernel_matches_plain(dev, n_bins, n):
+    rng = np.random.default_rng(n)
+    b = torch.from_numpy(rng.integers(-20, n_bins + 20, n).astype(np.int32)).to(dev)
+    w = torch.from_numpy(rng.integers(0, 3, n).astype(np.float32)).to(dev)
+    assert torch.equal(k_hist.histogram(b, w, n_bins),
+                       k_hist.histogram_plain(b, w, n_bins))
+
+
+@pytest.mark.parametrize("n", [3072, 600, 144])
+def test_clahe_histograms_kernel_matches_plain(dev, n):
+    cfg = MusicaConfig(image_size=n, enable_clahe=True)
+    recon, relevant = _clahe_inputs(n, n, dev)
+    launch.reset_launch_counts()
+    h = clahe.clahe_histograms(recon, relevant, cfg)
+    assert launch.LAUNCHES["histogram"] == 1
+    assert torch.equal(h.cpu(), clahe.clahe_histograms(recon.cpu(), relevant.cpu(), cfg))
+    assert int(h[1, 2].sum()) == 0
+
+
+@pytest.mark.parametrize("n", [3072, 600, 144])
+def test_clahe_apply_kernel_matches_plain_exactly(dev, n):
+    """Same LUTs on both sides, a NaN tile among them: equal NaN masks and
+    max |kernel - plain| = 0 on the finite pixels."""
+    cfg = MusicaConfig(image_size=n, enable_clahe=True)
+    recon, relevant = _clahe_inputs(n + 1, n, dev)
+    px, py = clahe.clahe_curves(clahe.clahe_histograms(recon, relevant, cfg), cfg)
+    assert bool(torch.isnan(py).any())
+    launch.reset_launch_counts()
+    got = k_clahe.clahe_apply(recon, px, py, cfg)
+    assert launch.LAUNCHES["clahe_apply"] == 1
+    want = k_clahe.clahe_apply_plain(recon, px, py, cfg)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    assert bool(torch.isnan(got).any()) and bool(torch.isfinite(got).any())
+
+
+def test_clahe_tile_coordinates_are_true_divisions(dev):
+    """i / 768 and i / 3072 on the card equal numpy's float32 division."""
+    cfg = MusicaConfig(image_size=3072, enable_clahe=True)
+    like = torch.zeros(1, device=dev)
+    base_i, nb_i, w_base, w_nb, zero = clahe.axis_attrs(3072, cfg, like)
+    cpu = clahe.axis_attrs(3072, cfg, like.cpu())
+    for a, b in zip((base_i, nb_i, w_base, w_nb, zero), cpu):
+        assert torch.equal(a.cpu(), b)
+    coord = np.arange(3072, dtype=np.float32) / np.float32(768)
+    np.testing.assert_array_equal(w_base.cpu().numpy(),
+                                  np.float32(1) - np.abs(np.floor(coord) + np.float32(0.5) - coord))
+
+
+@pytest.mark.parametrize("size,anatomy,variant", [
+    (512, "thorax", dict(enable_clahe=True, grad_with_linear_image=True)),
+    (600, "pelvis", dict(enable_clahe=True)),
+    (512, "knee", dict(grad_with_linear_image=True))])
+def test_variant_pipeline_on_card_matches_cpu(dev, size, anatomy, variant):
+    img = synthetic_radiograph(size, anatomy)
+    cfg = MusicaConfig(image_size=size, relevant_border=20, **variant)
+    launch.reset_launch_counts()
+    res = musica.musica_forward(torch.from_numpy(img).to(dev), cfg)
+    counts = dict(launch.LAUNCHES)
+    ref = musica.musica_forward(torch.from_numpy(img), cfg)
+    assert torch.equal(res["out_u8"].cpu(), ref["out_u8"])
+    assert torch.equal(res["recon"].cpu(), ref["recon"])
+    if cfg.enable_clahe:
+        assert counts["grad_hist"] == counts["histogram"] == counts["clahe_apply"] == 1
+        torch.testing.assert_close(res["clahe_graded"].cpu(), ref["clahe_graded"],
+                                   rtol=0, atol=0, equal_nan=True)
+    else:
+        assert counts["grad_hist_relevant"] == 1
+
+
+def test_timed_process_on_card_matches_forward(dev):
+    cfg = MusicaConfig(image_size=512, enable_clahe=True, grad_with_linear_image=True,
+                       relevant_border=20)
+    img = synthetic_radiograph(512, "hand")
+    out, times, extras = musica.timed_process(img, cfg, "cuda", want_extras=True)
+    res = musica.musica_forward(torch.from_numpy(img).to(dev), cfg)
+    np.testing.assert_array_equal(out, res["out_u8"].cpu().numpy())
+    torch.testing.assert_close(torch.from_numpy(extras["clahe_graded"]),
+                               res["clahe_graded"].cpu(), rtol=0, atol=0, equal_nan=True)
+    assert list(times) == ["norm", "red", "anly", "aply", "exp", "grad", "tot"]

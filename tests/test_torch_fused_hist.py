@@ -23,6 +23,7 @@ from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu.
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import gradation, noise, stats
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import build
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
 
 torch.set_num_threads(2)
 
@@ -233,12 +234,12 @@ def test_relevance_weight_plane_equals_relevance_image():
 
 def test_cpu_calls_run_plain_versions_and_count_no_launch():
     cfg = MusicaConfig(image_size=512)
-    fh.reset_launch_counts()
+    launch.reset_launch_counts()
     x = torch.rand((512, 512))
     fh.noise_hist_levels([x, x[:256, :256].contiguous()], cfg)
     fh.grad_hist(x, x, cfg)
     fh.grad_hist_relevant(x, x, torch.rand((64, 64)), cfg)
-    assert fh.LAUNCHES == {k: 0 for k in fh.LAUNCHES}
+    assert launch.LAUNCHES == {k: 0 for k in launch.LAUNCHES}
     with pytest.raises(ValueError):
         fh.grad_hist(x, x.to("meta"), cfg)  # mixed devices
 
@@ -253,10 +254,10 @@ def test_failed_launch_raises_and_is_not_counted():
         def musica_error_string(code):
             return b"an illegal memory access was encountered"
 
-    fh.reset_launch_counts()
+    launch.reset_launch_counts()
     with pytest.raises(RuntimeError, match="CUDA error 700"):
-        fh._launch(FakeLib, "musica_grad_hist", "grad_hist")
-    assert fh.LAUNCHES["grad_hist"] == 0
+        launch.launch(FakeLib, "musica_grad_hist", "grad_hist")
+    assert launch.LAUNCHES["grad_hist"] == 0
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

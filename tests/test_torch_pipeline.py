@@ -1,6 +1,8 @@
-"""The PyTorch port's main path end to end on the CPU, against the JAX
-package's ``musica_forward`` (hist_method="fact") and the golden model, and
-its host surface (``process``, ``process_batch``, the CLI).
+"""The PyTorch port's main path and its CLAHE and linear-gradation variants
+end to end on the CPU, against the JAX package's ``musica_forward``
+(hist_method="fact") and the golden model, the JAX package's config sweep
+(tests/test_config_fuzz.py), and the host surface (``process``,
+``process_batch``, ``timed_process``, the CLI).
 
 The bar is the one docs/PARITY.md sets for the JAX package against golden:
 noise argmax bins, curve points and t0/ta/t1 exactly equal; u8 output at
@@ -24,6 +26,9 @@ from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu.
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu.utils import io as uio
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import cli
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe
+
+from test_config_fuzz import CASES as FUZZ_CASES, _psnr
 
 torch.set_num_threads(2)
 
@@ -105,12 +110,168 @@ def test_process_and_batch_entry_points():
         musica.musica_forward(torch.from_numpy(imgs[0]), MusicaConfig(image_size=256))
 
 
-@pytest.mark.parametrize("kw", [dict(enable_clahe=True), dict(storage="bfloat16"),
-                                dict(grad_with_linear_image=True)])
+@pytest.mark.parametrize("kw", [dict(storage="bfloat16")])
 def test_variants_not_ported_raise(kw):
     cfg = MusicaConfig(image_size=64, **kw)
     with pytest.raises(NotImplementedError):
         musica.musica_forward(torch.zeros((64, 64), dtype=torch.uint16), cfg)
+
+
+VARIANTS = {"clahe": dict(enable_clahe=True),
+            "linear": dict(grad_with_linear_image=True),
+            "clahe+linear": dict(enable_clahe=True, grad_with_linear_image=True)}
+
+
+def assert_clahe_close(got, want, atol, what):
+    """Equal NaN masks (tiles without relevant pixels), ``atol`` elsewhere."""
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want), what)
+    finite = np.isfinite(want)
+    np.testing.assert_allclose(got[finite], want[finite], rtol=0, atol=atol,
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("size,anatomy,border", [(256, "thorax", 100),
+                                                 (144, "pelvis", 10)])
+def test_variants_match_jax_and_golden(size, anatomy, border, variant):
+    """CLAHE, linear gradation and both at 256 (the reference's 100-px
+    relevance border) and at 144 with the config sweep's border of 10."""
+    cfg = MusicaConfig(image_size=size, relevant_border=border, **VARIANTS[variant])
+    img = synthetic_radiograph(size, anatomy)
+    res = musica.musica_forward(torch.from_numpy(img), cfg, want_intermediates=True)
+    jres = jax.jit(lambda im: j_musica.musica_forward(
+        im, cfg, "fact", want_intermediates=True))(jnp.asarray(img))
+    g_out, gi = golden.process(img, cfg, return_intermediates=True)
+
+    assert set(res["intermediates"]) == set(jres["intermediates"])
+    assert ("linear" in res["intermediates"]) == cfg.grad_with_linear_image
+    assert ("clahe_graded" in res) == cfg.enable_clahe == ("clahe_graded" in jres)
+    out = res["out_u8"].numpy()
+    assert out.shape == (size - 20, size - 20) and out.dtype == np.uint8
+    assert_u8_parity(out, np.asarray(jres["out_u8"]), "vs JAX")
+    assert_u8_parity(out, g_out, "vs golden")
+    tv = tuple(float(t) for t in res["intermediates"]["grad_curve"][2])
+    assert tv == gi["grad_curve"][2]
+    if cfg.grad_with_linear_image:
+        recon = res["recon"]
+        assert torch.equal(res["intermediates"]["linear"], recon * recon)
+    if cfg.enable_clahe:
+        cg = res["clahe_graded"].numpy()
+        assert cg.shape == (size, size) and cg.dtype == np.float32
+        assert_clahe_close(cg, gi["clahe_graded"], 1e-4, "clahe_graded vs golden")
+        assert_clahe_close(cg, np.asarray(jres["clahe_graded"]), 1e-4,
+                           "clahe_graded vs JAX")
+    # the main path (no intermediates) gives the same outputs
+    fast = musica.musica_forward(torch.from_numpy(img), cfg)
+    assert torch.equal(fast["out_u8"], res["out_u8"])
+    if cfg.enable_clahe:
+        torch.testing.assert_close(fast["clahe_graded"], res["clahe_graded"],
+                                   rtol=0, atol=0, equal_nan=True)
+
+
+def test_clahe_with_linear_gradation_interaction():
+    """As tests/test_clahe.py's interaction test: CLAHE grades the
+    reconstruction, the gradation histograms and maps its square, and the
+    two do not leak into each other.  A random relevance image gives every
+    CLAHE tile relevant pixels."""
+    cfg = MusicaConfig(image_size=256, enable_clahe=True, grad_with_linear_image=True,
+                       relevant_border=10)
+    x = torch.from_numpy(synthetic_radiograph(256, "knee"))
+    res = musica.musica_forward(x, cfg, want_intermediates=True)
+    recon, relevant = res["recon"], res["intermediates"]["relevant"]
+    # (a) clahe_graded is clahe_grade(recon, relevant), not of recon^2
+    expected = clahe.clahe_grade(recon, relevant, cfg)
+    torch.testing.assert_close(res["clahe_graded"], expected, rtol=0, atol=0,
+                               equal_nan=True)
+    assert not torch.equal(res["clahe_graded"].nan_to_num(),
+                           clahe.clahe_grade(recon * recon, relevant, cfg).nan_to_num())
+    assert bool(torch.isfinite(res["clahe_graded"]).any())
+    # (b) the tone-mapped output does not depend on CLAHE
+    base = musica.musica_forward(x, cfg.with_(enable_clahe=False))
+    assert torch.equal(res["out_u8"], base["out_u8"])
+    assert "clahe_graded" not in base
+    # (c) and it is the linear-domain gradation
+    nonlin = musica.musica_forward(x, cfg.with_(enable_clahe=False,
+                                                grad_with_linear_image=False))
+    assert not torch.equal(res["out_u8"], nonlin["out_u8"])
+
+
+def _sweep_cases():
+    """tests/test_config_fuzz.py's 8 cases as given, and each once more with
+    quirks=False (case 4 is clean-math already)."""
+    cases = []
+    for i, kw in enumerate(FUZZ_CASES):
+        cases.append(pytest.param(kw, id=f"case{i}"))
+        if kw.get("quirks", True):
+            cases.append(pytest.param(dict(kw, quirks=False), id=f"case{i}-noquirks"))
+    return cases
+
+
+@pytest.mark.parametrize("kw", _sweep_cases())
+def test_config_sweep_matches_golden(kw):
+    """The port on the JAX package's config sweep, against golden at its
+    thresholds (PSNR > 55 dB, > 98 % of u8 pixels equal, clahe_graded to
+    1e-5 with equal NaN masks)."""
+    cfg = MusicaConfig(**kw)
+    img = synthetic_radiograph(cfg.image_size, "pelvis")
+    res = musica.musica_forward(torch.from_numpy(img), cfg)
+    g_out, gi = golden.process(img, cfg, return_intermediates=True)
+    out = res["out_u8"].numpy()
+    m = cfg.out_margin
+    assert out.shape == g_out.shape == (cfg.image_size - 2 * m,) * 2
+    assert _psnr(out, g_out) > 55.0, kw
+    assert np.mean(out == g_out) > 0.98, kw
+    if cfg.enable_clahe:
+        assert_clahe_close(res["clahe_graded"].numpy(), gi["clahe_graded"], 1e-5,
+                           "clahe_graded vs golden")
+
+
+@pytest.mark.parametrize("variant", ["default", "clahe+linear"])
+def test_timed_process_matches_forward(variant):
+    cfg = MusicaConfig(image_size=128, **VARIANTS.get(variant, {}))
+    img = synthetic_radiograph(128, "hand")
+    out, times, extras = musica.timed_process(img, cfg, "cpu", want_extras=True)
+    res = musica.musica_forward(torch.from_numpy(img), cfg)
+    np.testing.assert_array_equal(out, res["out_u8"].numpy())
+    assert list(times) == ["norm", "red", "anly", "aply", "exp", "grad", "tot"]
+    assert all(v >= 0.0 for v in times.values())
+    assert times["tot"] == pytest.approx(sum(v for k, v in times.items() if k != "tot"))
+    if cfg.enable_clahe:
+        np.testing.assert_array_equal(extras["clahe_graded"], res["clahe_graded"].numpy())
+    else:
+        assert extras == {}
+    out2, times2 = musica.timed_process(img, cfg, "cpu")
+    np.testing.assert_array_equal(out2, out)
+
+
+@pytest.mark.parametrize("flags", [["--clahe", "--linear-gradation"],
+                                   ["--clahe", "--linear-gradation", "--timing"]])
+def test_cli_process_variants_match_jax_cli(tmp_path, flags, capsys):
+    """`cli process --clahe --linear-gradation [--timing] --device cpu`
+    against the JAX package's CLI with the same flags; --debug-dump carries
+    the `linear` intermediate, as the JAX package's dump does."""
+    raw = tmp_path / "in.raw"
+    uio.save_raw(raw, synthetic_radiograph(192, "pelvis"))
+    common = ["process", "--size", "192", *flags]
+    assert j_cli.main(common + [str(raw), str(tmp_path / "jax.bmp")]) == 0
+    assert cli.main(common + ["--device", "cpu", str(raw), str(tmp_path / "torch.bmp")]) == 0
+    printed = capsys.readouterr().out
+    assert ("norm:" in printed) == ("--timing" in flags)
+    got = uio.load_bmp(tmp_path / "torch.bmp")
+    assert got.shape == (172, 172)
+    assert_u8_parity(got, uio.load_bmp(tmp_path / "jax.bmp"), "CLI vs JAX CLI")
+    if "--timing" in flags:
+        return
+    j_dump, t_dump = tmp_path / "dump_jax", tmp_path / "dump_torch"
+    assert j_cli.main(common + ["--debug-dump", str(j_dump), str(raw),
+                                str(tmp_path / "jax_dbg.bmp")]) == 0
+    assert cli.main(common + ["--device", "cpu", "--debug-dump", str(t_dump), str(raw),
+                              str(tmp_path / "torch_dbg.bmp")]) == 0
+    np.testing.assert_array_equal(uio.load_bmp(tmp_path / "torch_dbg.bmp"), got)
+    names = sorted(p.name for p in t_dump.iterdir())
+    assert names == sorted(p.name for p in j_dump.iterdir())
+    assert "linear.bmp" in names
 
 
 def test_cli_process_cpu_matches_jax_cli(tmp_path):
