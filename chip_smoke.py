@@ -5,14 +5,18 @@
 
 Builds the CUDA kernels from ``..._tpu_torch/csrc`` with nvcc, holds every
 kernel against its plain PyTorch version at the paths' 3072^2 shapes
-(integer histograms and argmaxes exactly equal; the CLAHE apply exactly
-equal with equal NaN masks), drives the port's main path (``process`` on a
-3072^2 uint16 radiograph, then the intermediates path of ``process
---debug-dump``) and the CLAHE + linear-gradation variant path
-(``musica_forward`` as ``process --clahe --linear-gradation`` runs it) and
-checks that each went through its kernels and agrees with the port's CPU
-path, runs a batch of 4 through ``process_batch``, and times the pipeline,
-the variant path and each kernel beside its plain version with CUDA
+(integer histograms and argmaxes exactly equal; the CLAHE apply and the
+sdev exactly equal with equal NaN masks), drives the port's main path
+(``process`` on a 3072^2 uint16 radiograph, then the intermediates path of
+``process --debug-dump``), the CLAHE + linear-gradation variant path
+(``musica_forward`` as ``process --clahe --linear-gradation`` runs it), the
+fused-sdev analysis path (``musica_forward(fused_sdev=True)``, ``process``,
+``timed_process``) and bf16 band storage (``process --bf16``) and checks
+that each went through its kernels and agrees with the port's CPU path (or,
+for fused-sdev, with the default path bit for bit; for bf16 also with the
+float32 output to tests/test_bf16.py's contract), runs a batch of 4 through
+``process_batch`` in float32 and in bf16, and times the pipeline paths in
+interleaved windows and each kernel beside its plain version with CUDA
 events.
 
 Every phase prints one line; any failure raises and exits non-zero.  The
@@ -34,13 +38,15 @@ import numpy as np
 
 SIZE = 3072
 BATCH = 4
+ROUNDS = 7  # interleaved timing windows per single-image path
 PKG = "metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch"
 PALLAS_DIR = ("metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_"
               "processing_tpu/ops/pallas")
 PALLAS = f"{PALLAS_DIR}/fused_hist.py"
 SOURCES = {"noise_hist": "fused_hist.cu", "hist_argmax": "fused_hist.cu",
            "grad_hist_relevant": "fused_hist.cu", "grad_hist": "fused_hist.cu",
-           "histogram": "histogram.cu", "clahe_apply": "clahe_apply.cu"}
+           "histogram": "histogram.cu", "clahe_apply": "clahe_apply.cu",
+           "sdev_noise_hist": "sdev_noise.cu"}
 REPLACES = {
     "noise_hist": f"{PALLAS}:139 (_noise_kernel of noise_hist_fused; also the "
                   f"histogram of _noise_multi_kernel, :181)",
@@ -53,6 +59,8 @@ REPLACES = {
                  f"factorized_histogram_pallas, pallas_call :148)",
     "clahe_apply": f"{PALLAS_DIR}/clahe_apply.py:80 (_kernel of "
                    f"clahe_apply_fused, pallas_call :188)",
+    "sdev_noise_hist": f"{PALLAS}:262 (_sdev_noise_kernel of "
+                       f"sdev_noise_hist_fused, pallas_call :334)",
 }
 # clahe_graded against the port's CPU path: the LUTs are order-stable sums
 # and the apply is exact, so only a recon that differs could move it; the
@@ -60,6 +68,10 @@ REPLACES = {
 CLAHE_ATOL = 1e-4
 # u8 parity bar against the port's own CPU path (docs/PARITY.md)
 MIN_PSNR, MIN_EXACT, MAX_DIFF = 90.0, 0.9999, 1
+# bf16 against float32 storage from 512 px (tests/test_bf16.py::
+# test_bf16_contract_512): knife-edge flips (> 32) at most 3e-4 of the
+# pixels, every other pixel within 16, PSNR over those >= 38 dB
+BF16_KNIFE, BF16_MAX_INLIER, BF16_MIN_PSNR = 3e-4, 16, 38.0
 
 
 def log(msg: str) -> None:
@@ -79,6 +91,20 @@ def check_parity(name: str, got: np.ndarray, want: np.ndarray) -> None:
     log(f"  {name}: PSNR {psnr:.2f} dB, bit-exact {exact * 100:.5f} %, "
         f"max |du8| {dmax}")
     assert psnr >= MIN_PSNR and exact > MIN_EXACT and dmax <= MAX_DIFF, name
+
+
+def check_bf16_contract(name: str, o16: np.ndarray, o32: np.ndarray) -> None:
+    d = np.abs(o16.astype(np.int64) - o32.astype(np.int64))
+    knife = d > 32
+    inlier = d[~knife].astype(np.float64)
+    mse = float(np.mean(inlier ** 2))
+    psnr = float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+    log(f"  {name}: {float(np.mean(d > 0)) * 100:.5f} % of px differ, knife-edge "
+        f"flips {float(knife.mean())} (bound {BF16_KNIFE}), max inlier |du8| "
+        f"{int(inlier.max())} (bound {BF16_MAX_INLIER}), inlier PSNR {psnr:.2f} dB "
+        f"(bound {BF16_MIN_PSNR})")
+    assert (float(knife.mean()) <= BF16_KNIFE and inlier.max() <= BF16_MAX_INLIER
+            and psnr >= BF16_MIN_PSNR), name
 
 
 class KernelRecord:
@@ -125,15 +151,37 @@ def random_levels(rng, sizes, dev):
     return out
 
 
-def analysis_levels(img, cfg, dev):
-    """The sdev images of the analysis levels, as the main path makes them."""
+def random_bands(rng, sizes, dev):
+    """sdev-kernel inputs whose sdev has every break kind: 8x8 patches
+    scaled to zero (sdev 0.0), to ~1e-6 (bin 0) and by 6 (above 0.1)."""
+    import torch
+    out = []
+    for n in sizes:
+        b = rng.normal(0.0, 0.03, (n, n)).astype(np.float32)
+        nb = -(-n // 8)
+        scale = rng.choice(np.float32([0.0, 1e-4, 6.0, 1.0]), size=(nb, nb),
+                           p=[0.1, 0.1, 0.1, 0.7])
+        b *= np.kron(scale, np.ones((8, 8), np.float32))[:n, :n]
+        out.append(torch.from_numpy(b).to(dev))
+    return out
+
+
+def analysis_bands(img, cfg, dev):
+    """The bandpass images of the analysis levels, as the main path makes
+    them."""
     import torch
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import (
-        normalize, pyramid, stats)
+        normalize, pyramid)
     x = torch.from_numpy(img).to(dev)
     nrm, _, _ = normalize.normalize_from_u16(x, cfg.quirks)
     bands, _ = pyramid.reduce_ladder(nrm, cfg.pyramid_levels)
-    return [stats.img_sdev(bands[i]) for i in cfg.analysis_levels]
+    return [bands[i] for i in cfg.analysis_levels]
+
+
+def analysis_levels(img, cfg, dev):
+    """The sdev images of the analysis levels, as the main path makes them."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import stats
+    return [stats.img_sdev(b) for b in analysis_bands(img, cfg, dev)]
 
 
 def check_noise(rec, cfg, levels, case):
@@ -141,6 +189,20 @@ def check_noise(rec, cfg, levels, case):
     h = fh.noise_hists(levels, cfg)
     rec.equal("noise_hist", case, h, fh.noise_hists_plain(levels, cfg))
     rec.equal("hist_argmax", case, fh.hist_argmax(h), fh.hist_argmax_plain(h))
+
+
+def check_sdev_noise(rec, cfg, bands, case):
+    """K7: every level's sdev (concatenated) and the histograms against the
+    plain version on the same bands."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
+    sds, h = fh.sdev_noise_hists(bands, cfg)
+    p_sds, p_h = fh.sdev_noise_hists_plain(bands, cfg)
+    sizes = "/".join(str(b.shape[-1]) for b in bands)
+    rec.equal_float("sdev_noise_hist", f"{case} ({sizes}), sdev",
+                    torch.cat([s.flatten() for s in sds]),
+                    torch.cat([s.flatten() for s in p_sds]))
+    rec.equal("sdev_noise_hist", f"{case}, histograms ({int(h.sum())} counts)", h, p_h)
 
 
 def random_clahe(rng, n, dev):
@@ -207,7 +269,7 @@ def main() -> int:
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu.utils import io as uio
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig, cli
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
-    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe, noise
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe, noise, stats
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import build, launch
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_apply as k_clahe
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
@@ -314,6 +376,25 @@ def main() -> int:
         f"(tensor / python float) differs at {int((recip != coord).sum())} of {SIZE} "
         f"coordinates i/{SIZE // 4}")
 
+    log("[3d] K7 (sdev + noise histogram) vs its plain version (sdev and histograms "
+        "exactly equal)")
+    b3072 = analysis_bands(img, cfg, dev)
+    check_sdev_noise(rec, cfg, b3072, "3072 thorax bands, levels 0-3")
+    check_sdev_noise(rec, cfg, random_bands(rng, [b.shape[-1] for b in b3072], dev),
+                     "3072 random bands")
+    check_sdev_noise(rec, cfg512, analysis_bands(synthetic_radiograph(512, "thorax"), cfg512, dev),
+                     "512 thorax stack")
+    # 600: level 0's coverage cropped to 512, coarser levels padded; 144 in
+    # clean-math mode: every level but the first padded, levels down to 18 px
+    for cfg_n, anatomy in ((MusicaConfig(image_size=600), "pelvis"),
+                           (MusicaConfig(image_size=144, quirks=False), "hand")):
+        n = cfg_n.image_size
+        bands_n = analysis_bands(synthetic_radiograph(n, anatomy), cfg_n, dev)
+        covs = [stats.coverage(b.shape[-1], cfg_n) for b in bands_n]
+        check_sdev_noise(rec, cfg_n, bands_n, f"{n} {anatomy} stack, coverage {covs}")
+        check_sdev_noise(rec, cfg_n, random_bands(rng, [b.shape[-1] for b in bands_n], dev),
+                         f"{n} random stack")
+
     # ---- 4. the main path at 3072^2 ----------------------------------------
     log(f"[4] main path: process() on a {SIZE}^2 thorax phantom")
     launch.reset_launch_counts()
@@ -323,6 +404,7 @@ def main() -> int:
     log(f"  launches: {launches}")
     for k in ("noise_hist", "hist_argmax", "grad_hist_relevant"):
         assert launches[k] > 0, f"the main path did not launch {k}"
+    assert launches["sdev_noise_hist"] == 0, "the default analysis launched K7"
     m = cfg.out_margin
     assert out_gpu.shape == (SIZE - 2 * m, SIZE - 2 * m) and out_gpu.dtype == np.uint8
     assert 0 < int(out_gpu.max()) and int(out_gpu.min()) < 255, "degenerate output"
@@ -402,37 +484,98 @@ def main() -> int:
     assert np.array_equal(cli_out, want), "cli process --clahe --linear-gradation"
     log("  CLI BMP equals musica_forward on the transposed raw")
 
+    log(f"[4e] fused-sdev path: musica_forward(fused_sdev=True) (hist_method="
+        f"\"fused_sdev\") on the {SIZE}^2 thorax phantom")
+    launch.reset_launch_counts()
+    fused = musica.musica_forward(x_dev, cfg, fused_sdev=True)
+    fused_out = fused["out_u8"].cpu().numpy()
+    torch.cuda.synchronize()
+    launches_fused = dict(launch.LAUNCHES)
+    log(f"  launches: {launches_fused}")
+    for k in ("sdev_noise_hist", "hist_argmax", "grad_hist_relevant"):
+        assert launches_fused[k] > 0, f"the fused-sdev path did not launch {k}"
+    assert launches_fused["noise_hist"] == 0, "the fused-sdev path launched K1"
+    assert np.array_equal(fused_out, out_gpu), "fused-sdev out_u8 differs from the default path"
+    assert torch.equal(fused["recon"], inter["recon"]) and torch.equal(fused["cnr"], inter["cnr"])
+    assert np.array_equal(musica.process(img, cfg, "cuda", fused_sdev=True), out_gpu)
+    f_out, f_times = musica.timed_process(img, cfg, "cuda", fused_sdev=True)
+    assert np.array_equal(f_out, out_gpu), "timed_process(fused_sdev=True) out_u8"
+    log("  out_u8, recon and cnr equal the default path's on the card bit for bit; "
+        "process and timed_process (fused_sdev=True) give the same out_u8")
+    log("  timed_process (ms, host clock, one synchronize per phase): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in f_times.items()))
+
+    log(f"[4f] bf16 band storage: process --bf16 (storage=\"bfloat16\") on the {SIZE}^2 "
+        f"thorax phantom")
+    cfg16 = cfg.with_(storage="bfloat16")
+    launch.reset_launch_counts()
+    out16 = musica.process(img, cfg16, "cuda")
+    torch.cuda.synchronize()
+    launches_bf16 = dict(launch.LAUNCHES)
+    log(f"  launches: {launches_bf16}")
+    for k in ("noise_hist", "hist_argmax", "grad_hist_relevant"):
+        assert launches_bf16[k] > 0, f"the bf16 path did not launch {k}"
+    assert out16.shape == out_gpu.shape and out16.dtype == np.uint8
+    t0 = time.perf_counter()
+    out16_cpu = musica.process(img, cfg16, "cpu")
+    log(f"  CPU path: {time.perf_counter() - t0:.1f} s")
+    check_parity("bf16, GPU vs the port's CPU path", out16, out16_cpu)
+    check_bf16_contract("bf16 vs float32 storage on the card", out16, out_gpu)
+    dbg16 = musica.musica_forward(x_dev, cfg16, want_intermediates=True)
+    bf16_keys = sorted(k for k, v in dbg16["intermediates"].items()
+                       if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16)
+    assert bf16_keys and all(k.split("_")[0] in ("red", "contrast", "nr") for k in bf16_keys)
+    assert dbg16["recon"].dtype == dbg16["cnr"].dtype == torch.float32
+    log(f"  {len(bf16_keys)} bf16 intermediates, all bands (red_/contrast_/nr_bandpass_*); "
+        f"recon, cnr, sdev float32")
+    assert np.array_equal(musica.process(img, cfg16, "cuda", fused_sdev=True), out16)
+    t16, times16 = musica.timed_process(img, cfg16, "cuda")
+    assert np.array_equal(t16, out16), "bf16 timed_process out_u8"
+    log("  fused_sdev=True and timed_process give the same bf16 out_u8; timed_process ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times16.items()))
+
     # ---- 5. a batch of 4 ---------------------------------------------------
     anatomies = ["thorax", "pelvis", "hand", "knee"][:BATCH]
     imgs = np.stack([synthetic_radiograph(SIZE, a) for a in anatomies])
-    outs = musica.process_batch(imgs, cfg, "cuda")
-    assert outs.shape == (BATCH,) + out_gpu.shape
-    for a, im, o in zip(anatomies, imgs, outs):
-        assert np.array_equal(o, musica.process(im, cfg, "cuda")), a
+    for c in (cfg, cfg16):
+        outs = musica.process_batch(imgs, c, "cuda")
+        assert outs.shape == (BATCH,) + out_gpu.shape
+        for a, im, o in zip(anatomies, imgs, outs):
+            assert np.array_equal(o, musica.process(im, c, "cuda")), (a, c.storage)
     log(f"[5] process_batch: {BATCH} x {SIZE}^2 ({', '.join(anatomies)}) "
-        f"equal to single-image runs")
+        f"equal to single-image runs, in float32 and in bf16 storage")
 
     # ---- 6. timings ----------------------------------------------------------
+    # the single-image paths run in interleaved windows (default, fused-sdev,
+    # bf16, CLAHE + linear, default, ...), so the host's drift falls on all
     xb_dev = torch.from_numpy(imgs).to(dev)
+    paths = {"default": lambda: musica.musica_forward(x_dev, cfg)["out_u8"],
+             "fused_sdev": lambda: musica.musica_forward(x_dev, cfg, fused_sdev=True)["out_u8"],
+             "bf16": lambda: musica.musica_forward(x_dev, cfg16)["out_u8"],
+             "CLAHE + linear": lambda: musica.musica_forward(x_dev, cfg_var)["out_u8"]}
     for _ in range(3):
-        musica.musica_forward(x_dev, cfg)["out_u8"]
-        musica.musica_forward(x_dev, cfg_var)["out_u8"]
-    singles = sorted(cuda_ms(lambda: musica.musica_forward(x_dev, cfg)["out_u8"], 10, 0)
-                     for _ in range(5))
+        for fn in paths.values():
+            fn()
+    windows = {k: [] for k in paths}
+    for _ in range(ROUNDS):
+        for k, fn in paths.items():
+            windows[k].append(cuda_ms(fn, 10, 0))
     batches = sorted(cuda_ms(lambda: musica.forward_batch(xb_dev, cfg), 2, 1) / BATCH
                      for _ in range(3))
-    variants = sorted(cuda_ms(lambda: musica.musica_forward(x_dev, cfg_var)["out_u8"], 10, 0)
-                      for _ in range(5))
-    single, batch, variant = singles[2], batches[1], variants[2]
+    batch = batches[1]
     mpix = SIZE * SIZE / 1e6
     log(f"[6] timings on {card} (CUDA events, device-resident u16 input; "
         f"pipeline: host issue included; kernels: device time)")
-    log(f"  single: median {single} ms/img = {mpix / single} GPix/s "
-        f"(5 windows of 10: {singles})")
+    for k, w in windows.items():
+        med = sorted(w)[ROUNDS // 2]
+        log(f"  single, {k}: median {med} ms/img = {mpix / med} GPix/s "
+            f"({ROUNDS} interleaved windows of 10, in run order: {w})")
+    for k in ("fused_sdev", "bf16"):
+        diffs = [a - b for a, b in zip(windows[k], windows["default"])]
+        log(f"  {k} - default, per round: {diffs} ms/img (median "
+            f"{sorted(diffs)[ROUNDS // 2]}, {sum(d < 0 for d in diffs)} of {ROUNDS} below 0)")
     log(f"  batch of {BATCH}: median {batch} ms/img = {mpix / batch} GPix/s "
         f"(3 windows of 2 batches: {batches})")
-    log(f"  CLAHE + linear, single: median {variant} ms/img = {mpix / variant} GPix/s "
-        f"(5 windows of 10: {variants})")
     v_px, v_py = clahe.clahe_curves(clahe.clahe_histograms(v_recon, v_rel, cfg_var), cfg_var)
     v_joint, v_w = clahe.clahe_joint_bins(v_recon, v_rel, cfg_var)
     nb = cfg_var.clahe_tiles ** 2 * cfg_var.clahe_bins
@@ -449,6 +592,8 @@ def main() -> int:
                       lambda: k_hist.histogram_plain(v_joint, v_w, nb)),
         "clahe_apply": (lambda: k_clahe.clahe_apply(v_recon, v_px, v_py, cfg_var),
                         lambda: k_clahe.clahe_apply_plain(v_recon, v_px, v_py, cfg_var)),
+        "sdev_noise_hist": (lambda: fh.sdev_noise_hists(b3072, cfg),
+                            lambda: fh.sdev_noise_hists_plain(b3072, cfg)),
     }
     from_run = {"noise_hist": (launches, "process"),
                 "hist_argmax": (launches, "process"),
@@ -456,7 +601,9 @@ def main() -> int:
                 "grad_hist": (launches_var, "process --clahe --linear-gradation "
                               "(musica_forward, enable_clahe, grad_with_linear_image)"),
                 "histogram": (launches_var, "process --clahe --linear-gradation"),
-                "clahe_apply": (launches_var, "process --clahe --linear-gradation")}
+                "clahe_apply": (launches_var, "process --clahe --linear-gradation"),
+                "sdev_noise_hist": (launches_fused, "musica_forward(fused_sdev=True) "
+                                    "(the JAX package's hist_method=\"fused_sdev\")")}
     kernels = []
     for name, (kern, plain) in cases.items():
         k_ms = cuda_ms(kern, 20, 2, device_only=True)

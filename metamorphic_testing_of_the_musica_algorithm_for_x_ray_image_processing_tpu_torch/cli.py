@@ -8,6 +8,7 @@ Usage:
     python -m metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.cli process in.raw out.bmp
     python -m ...cli process --size 3072 --device cpu --debug-dump dbg/ in.raw out.bmp
     python -m ...cli process --clahe --linear-gradation --timing in.raw out.bmp
+    python -m ...cli process --bf16 in.raw out.bmp
     python -m ...cli batch --size 3072 'raws/*.raw' outdir/
 """
 
@@ -32,10 +33,14 @@ def _add_common(p):
 
 
 def _numpy_tree(v):
-    """Intermediates as numpy arrays (tuples kept as tuples)."""
+    """Intermediates as numpy arrays (tuples kept as tuples); numpy has no
+    bf16, so bf16 bands are upcast to float32 (exact), as the JAX package's
+    dump upcasts its bf16 arrays."""
+    import torch
+
     if isinstance(v, tuple):
         return tuple(_numpy_tree(x) for x in v)
-    return v.cpu().numpy()
+    return (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
 
 
 def cmd_process(args) -> int:
@@ -48,7 +53,8 @@ def cmd_process(args) -> int:
 
     cfg = MusicaConfig(image_size=args.size, quirks=not args.no_quirks,
                        enable_clahe=args.clahe,
-                       grad_with_linear_image=args.linear_gradation)
+                       grad_with_linear_image=args.linear_gradation,
+                       storage="bfloat16" if args.bf16 else "float32")
     raw = uio.load_raw(args.input, args.size, transpose=not args.no_transpose)
     t0 = time.perf_counter()
     if args.timing:
@@ -83,7 +89,8 @@ def cmd_batch(args) -> int:
     if not files:
         print(f"no files match {args.pattern}", file=sys.stderr)
         return 1
-    cfg = MusicaConfig(image_size=args.size, quirks=not args.no_quirks)
+    cfg = MusicaConfig(image_size=args.size, quirks=not args.no_quirks,
+                       storage="bfloat16" if args.bf16 else "float32")
     os.makedirs(args.out_dir, exist_ok=True)
     B = max(1, args.batch)
     t0 = time.perf_counter()
@@ -117,6 +124,14 @@ def main(argv=None) -> int:
                    help="enable the CLAHE gradation variant (ENABLE_CLAHE)")
     p.add_argument("--linear-gradation", action="store_true",
                    help="grade the squared image (GRAD_WITH_LINEAR_IMAGE)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 storage for the pyramid band streams (fast "
+                        "mode, config.py storage=\"bfloat16\"; level inputs "
+                        "and the analysis path stay f32 -- output tracks "
+                        "the parity mode within ~1 LSB on most pixels, up "
+                        "to ~a dozen LSB where the data-dependent tone "
+                        "curve's knots shift a bin; intended for images "
+                        ">= 512 px, see tests/test_bf16.py)")
     p.set_defaults(fn=cmd_process)
 
     p = sub.add_parser("batch", help="process a glob of raw files")
@@ -125,6 +140,9 @@ def main(argv=None) -> int:
     p.add_argument("out_dir")
     p.add_argument("--batch", type=int, default=4,
                    help="images per process_batch call")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 storage for the pyramid band streams (fast "
+                        "mode; see `process --bf16`)")
     p.set_defaults(fn=cmd_batch)
 
     args = ap.parse_args(argv)

@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 
+#include "noise_scan.cuh"
+
 #define MUSICA_MAX_LEVELS 16
 
 namespace {
@@ -46,9 +48,9 @@ struct NoiseLevels {
 
 // Noise histogram of one level per blockIdx.y (shaders/noise_hist.comp).
 // One thread handles one (row, 16-pixel group) of the coverage view and
-// stops at the first pixel that is 0.0, maps above 0.1 or maps to bin 0.
-// Pixels past the level's edge (coverage padding) read as 0.0 and break at
-// once, so the view is never materialised.
+// stops at the first pixel that is 0.0, maps above 0.1 or maps to bin 0
+// (noise_scan_group).  Pixels past the level's edge (coverage padding) read
+// as 0.0 and break at once, so the view is never materialised.
 __global__ void noise_hist_kernel(NoiseLevels lv, int* __restrict__ hists,
                                   int n_bins, int tile, float max_noise) {
   extern __shared__ int sh[];
@@ -68,16 +70,12 @@ __global__ void noise_hist_kernel(NoiseLevels lv, int* __restrict__ hists,
     const int r = (int)(t / groups);
     const int c0 = (int)(t - (long long)r * groups) * tile;
     const float* __restrict__ row = src + (long long)r * stride;
-    for (int k = 0; k < tile; ++k) {
-      const int c = c0 + k;
-      const float v = c < n ? row[c] : 0.0f;
-      if (v == 0.0f) break;
-      const float adjusted = __fdiv_rn(v, max_noise);
-      if (adjusted > 1.0f) break;
-      const int bin = __float2int_rz(__fadd_rn(__fmul_rn(adjusted, fbins), 0.5f));
-      if (bin == 0) break;
-      if (bin > 0 && bin < n_bins) atomicAdd(&sh[bin], 1);  // n_bins: OOB, dropped
-    }
+    noise_scan_group(
+        [&](int k) {
+          const int c = c0 + k;
+          return c < n ? row[c] : 0.0f;
+        },
+        tile, n_bins, fbins, max_noise, sh);
   }
   __syncthreads();
   int* out = hists + (long long)level * n_bins;

@@ -1,6 +1,7 @@
 """The MUSICA pipeline on PyTorch.  Port of the JAX package's
 ``models/musica.py`` (``musica_forward``, ``process``, a batch entry,
-``timed_process``), with the CLAHE and linear-gradation variants.
+``timed_process``), with the CLAHE and linear-gradation variants, bf16 band
+storage (``cfg.storage``) and the opt-in fused-sdev analysis.
 
 PyTorch runs eagerly, so the function below is the schedule: each stage is
 a handful of device ops, and the histograms and the CLAHE apply go through
@@ -13,7 +14,8 @@ profiler; scripts/profile_torch.py reads them).
 Phase map (reference -> here):
   2. normalize        -> ops.normalize (sqrt + quirk-exact global max/min)
   3. pyramid reduce   -> ops.pyramid (fused smooth+decimate; polyphase expand)
-  4. image analysis   -> ops.stats (sdev, noise histograms + argmax) + curves
+  4. image analysis   -> ops.stats (sdev, noise histograms + argmax; with
+                         fused_sdev one kernel for sdev + histograms) + curves
   5. apply            -> ops.curves (contrast gain), ops.noise (CNR, NR)
   6. pyramid expand   -> ops.pyramid
   7. gradation        -> ops.gradation (relevance-weighted histogram, curve);
@@ -35,10 +37,21 @@ from .. import MusicaConfig
 from ..ops import clahe, curves, gradation, noise, normalize, pyramid, stats
 
 
-def _check_supported(cfg: MusicaConfig) -> None:
-    if cfg.storage != "float32":
+# dtype of the band streams per cfg.storage: in "bfloat16" the bandpasses,
+# the contrast-applied and the noise-reduced bandpasses are stored bf16 and
+# every consumer upcasts them to float32 explicitly (PyTorch keeps a bf16
+# tensor times a float32 scalar in bf16, where JAX computes in float32);
+# normalized, downs, recon, sdev and cnr stay float32, as in the JAX package
+# (its musica.py explains why only the bands)
+_BAND_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _band_dtype(cfg: MusicaConfig) -> torch.dtype:
+    if cfg.storage not in _BAND_DTYPES:
         raise NotImplementedError(
-            "the PyTorch port runs float32 storage (storage=%r)" % cfg.storage)
+            f"storage={cfg.storage!r}: the port stores bands as one of "
+            f"{sorted(_BAND_DTYPES)}")
+    return _BAND_DTYPES[cfg.storage]
 
 
 def _span(name: str):
@@ -73,21 +86,30 @@ class _PhaseTimer:
 
 
 def musica_forward(img_u16: torch.Tensor, cfg: MusicaConfig,
-                   want_intermediates: bool = False) -> Dict[str, object]:
+                   want_intermediates: bool = False,
+                   fused_sdev: bool = False) -> Dict[str, object]:
     """Full MUSICA pass on one [n, n] integer image, on the image's device.
 
     Returns ``graded`` ([n, n] f32), ``out_u8`` (margin-cropped uint8),
     ``recon`` and ``cnr``; with ``cfg.enable_clahe`` also ``clahe_graded``;
     with ``want_intermediates`` also ``intermediates``, every stage under the
-    JAX package's names."""
-    return _forward(img_u16, cfg, want_intermediates, _span)
+    JAX package's names.
+
+    ``fused_sdev`` is the JAX package's ``hist_method="fused_sdev"``: the
+    analysis computes each level's sdev and noise histogram in one kernel
+    (``stats.sdev_and_noise_histograms``) instead of ``img_sdev`` and a
+    histogram kernel.  Its outputs equal the default path's bit for bit.
+    The JAX package's other ``hist_method`` values choose between TPU and
+    CPU implementations, which the port decides from the tensor's device;
+    only this one selects different work, so it is the only one ported."""
+    return _forward(img_u16, cfg, want_intermediates, _span, fused_sdev)
 
 
-def _forward(img_u16: torch.Tensor, cfg: MusicaConfig,
-             want_intermediates: bool, phase) -> Dict[str, object]:
+def _forward(img_u16: torch.Tensor, cfg: MusicaConfig, want_intermediates: bool,
+             phase, fused_sdev: bool) -> Dict[str, object]:
     """musica_forward's body; ``phase(name)`` is the context each phase
     runs in."""
-    _check_supported(cfg)
+    sd = _band_dtype(cfg)
     n = cfg.image_size
     if tuple(img_u16.shape) != (n, n):
         raise ValueError(f"image {tuple(img_u16.shape)} != cfg.image_size {n}")
@@ -102,11 +124,16 @@ def _forward(img_u16: torch.Tensor, cfg: MusicaConfig,
     # ---- phase 3: pyramid reduce -------------------------------------------
     with phase("reduce"):
         bandpass, downs = pyramid.reduce_ladder(normalized, L)
+        bandpass = [b.to(sd) for b in bandpass]
 
     # ---- phase 4: analysis --------------------------------------------------
     with phase("analysis"):
-        sdevs = {i: stats.img_sdev(bandpass[i]) for i in cfg.analysis_levels}
-        hists, max_bins = stats.analysis_noise_hists(sdevs, cfg)
+        bands = {i: bandpass[i].float() for i in cfg.analysis_levels}
+        if fused_sdev:
+            sdevs, hists, max_bins = stats.sdev_and_noise_histograms(bands, cfg)
+        else:
+            sdevs = {i: stats.img_sdev(b) for i, b in bands.items()}
+            hists, max_bins = stats.analysis_noise_hists(sdevs, cfg)
         no_bin = torch.zeros((), dtype=torch.int32, device=dev)
         curve_list = [curves.contrast_curve(max_bins.get(i, no_bin), lcf, hcf, cfg)
                       for i, (lcf, hcf) in enumerate(cfg.contrast_factors)]
@@ -118,17 +145,17 @@ def _forward(img_u16: torch.Tensor, cfg: MusicaConfig,
         for i in range(L):
             px, py = curve_list[i]
             if i in sdevs:
-                exp_bandpass.append(
-                    curves.contrast_curve_apply(bandpass[i], sdevs[i], px, py))
+                eb = curves.contrast_curve_apply(bands[i], sdevs[i], px, py)
             else:
                 # sdev is never computed for these levels in the reference;
                 # the flat 2-point curve gives a constant hcf gain
-                exp_bandpass.append(bandpass[i] * cfg.contrast_factors[i][1])
+                eb = bandpass[i].float() * cfg.contrast_factors[i][1]
+            exp_bandpass.append(eb.to(sd))
         nr_bandpass: Dict[int, torch.Tensor] = {}
         for lvl in range(cfg.cnr_level):
             lo_c, lo_f, hi_c, hi_f = cfg.noise_reduction_params[lvl]
             nr_bandpass[lvl] = noise.noise_reduction(
-                exp_bandpass[lvl], cnr, lo_c, lo_f, hi_c, hi_f, cfg)
+                exp_bandpass[lvl].float(), cnr, lo_c, lo_f, hi_c, hi_f, cfg).to(sd)
 
     # ---- phase 6: pyramid expand -------------------------------------------
     # only levels < cnr_level - 1 consume the noise-reduced bandpass
@@ -138,7 +165,7 @@ def _forward(img_u16: torch.Tensor, cfg: MusicaConfig,
             lvl = L - 1 - i
             low = pyramid.upsample_smooth(recon, bandpass[lvl].shape[-1])
             band = nr_bandpass[lvl] if lvl < cfg.cnr_level - 1 else exp_bandpass[lvl]
-            recon = low + band
+            recon = low + band.float()
             if want_intermediates:
                 inter[f"exp_lowpass_{i}"] = low
 
@@ -199,10 +226,12 @@ def _forward(img_u16: torch.Tensor, cfg: MusicaConfig,
     return result
 
 
-def forward_batch(imgs_u16: torch.Tensor, cfg: MusicaConfig) -> torch.Tensor:
+def forward_batch(imgs_u16: torch.Tensor, cfg: MusicaConfig,
+                  fused_sdev: bool = False) -> torch.Tensor:
     """[B, n, n] integer images -> [B, n-2m, n-2m] uint8, on their device,
     one image after another."""
-    return torch.stack([musica_forward(im, cfg)["out_u8"] for im in imgs_u16])
+    return torch.stack([musica_forward(im, cfg, fused_sdev=fused_sdev)["out_u8"]
+                        for im in imgs_u16])
 
 
 def to_device(imgs, device) -> torch.Tensor:
@@ -213,28 +242,31 @@ def to_device(imgs, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(imgs)).to(dev)
 
 
-def process(img_u16, cfg: Optional[MusicaConfig], device) -> np.ndarray:
+def process(img_u16, cfg: Optional[MusicaConfig], device,
+            fused_sdev: bool = False) -> np.ndarray:
     """Host API mirroring the golden model's: one [n, n] uint16 array in,
     the cropped uint8 array out, computed on ``device``."""
     img = to_device(img_u16, device)
     cfg = cfg or MusicaConfig(image_size=img.shape[-1])
-    return musica_forward(img, cfg)["out_u8"].cpu().numpy()
+    return musica_forward(img, cfg, fused_sdev=fused_sdev)["out_u8"].cpu().numpy()
 
 
-def process_batch(imgs_u16, cfg: Optional[MusicaConfig], device) -> np.ndarray:
+def process_batch(imgs_u16, cfg: Optional[MusicaConfig], device,
+                  fused_sdev: bool = False) -> np.ndarray:
     """[B, n, n] uint16 array in, [B, n-2m, n-2m] uint8 out, on ``device``."""
     imgs = to_device(imgs_u16, device)
     cfg = cfg or MusicaConfig(image_size=imgs.shape[-1])
-    return forward_batch(imgs, cfg).cpu().numpy()
+    return forward_batch(imgs, cfg, fused_sdev).cpu().numpy()
 
 
 def timed_process(img_u16, cfg: Optional[MusicaConfig], device,
-                  want_extras: bool = False):
+                  want_extras: bool = False, fused_sdev: bool = False):
     """Per-phase timed execution, the analogue of the reference's
     MEASURE_PROCESS (one fence per phase) and of the JAX package's
-    ``timed_process``: the configured variant runs, each phase ends in a
-    device synchronisation, so the timed run is slower than
-    ``musica_forward`` and its ``out_u8`` is the same.
+    ``timed_process``: the configured variant runs (``fused_sdev`` as in
+    ``musica_forward``), each phase ends in a device synchronisation, so the
+    timed run is slower than ``musica_forward`` and its ``out_u8`` is the
+    same.
 
     Returns ``(out_u8, {norm, red, anly, aply, exp, grad, tot: ms})``; with
     ``want_extras`` also a dict of variant outputs as numpy arrays
@@ -243,7 +275,7 @@ def timed_process(img_u16, cfg: Optional[MusicaConfig], device,
     img = to_device(img_u16, device)
     cfg = cfg or MusicaConfig(image_size=img.shape[-1])
     timer = _PhaseTimer(img.device)
-    res = _forward(img, cfg, False, timer)
+    res = _forward(img, cfg, False, timer, fused_sdev)
     with timer("tonemap"):
         out = res["out_u8"].cpu().numpy()
         extras = ({"clahe_graded": res["clahe_graded"].cpu().numpy()}

@@ -1,11 +1,12 @@
 """Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 At first use every ``*.cu`` file under the package's ``csrc/`` is compiled
-into one shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds).  The library lands in ``build/kernels/`` at the root of
-the checkout, named by a hash of the sources and flags, so an edited source
-is rebuilt and an unchanged one is loaded as it is.  Nothing is built or
-imported when this module is imported.
+(one ``nvcc`` per source, all started together) and linked into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds).  The library lands in ``build/kernels/`` at the root of the
+checkout, named by a hash of the sources, the headers beside them and the
+flags, so an edited file is rebuilt and an unchanged one is loaded as it is.
+Nothing is built or imported when this module is imported.
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 # -fmad=false: no FMA contraction anywhere in the kernels (bin decisions,
 # QUIRKS #29); never --use_fast_math (the /0.1 division must be correctly
 # rounded, QUIRKS #7).  -Xptxas=-v reports registers and shared memory.
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas=-v"]
 
 _VP = ctypes.c_void_p
@@ -42,6 +43,9 @@ _SIGNATURES = {
                                    ctypes.c_float, _VP, _I, _I, _VP], _I),
     "musica_histogram": ([_VP, _VP, ctypes.c_longlong, _VP, _I, _VP], _I),
     "musica_clahe_apply": ([_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP], _I),
+    "musica_sdev_noise_hist": ([ctypes.POINTER(_VP), ctypes.POINTER(_VP),
+                                ctypes.POINTER(_I), ctypes.POINTER(_I), _I, _VP,
+                                _I, _I, ctypes.c_float, _VP], _I),
 }
 
 _LIB = None  # the loaded library handle
@@ -49,6 +53,10 @@ _LIB = None  # the loaded library handle
 
 def sources():
     return sorted(SRC_DIR.glob("*.cu"))
+
+
+def headers():
+    return sorted(SRC_DIR.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -64,10 +72,19 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmusica_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds):
+    """Start every command at once, wait for all of them; returns
+    ``[(cmd, returncode, output)]``."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    outputs = [p.communicate()[0] for p in procs]
+    return [(cmd, p.returncode, text) for cmd, p, text in zip(cmds, procs, outputs)]
 
 
 def build() -> Path:
@@ -80,16 +97,20 @@ def build() -> Path:
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    Path(str(out) + ".log").write_text(log)
-    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = sources()
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in srcs]
+        lib = str(Path(tmp) / out.name)
+        log = ""
+        for cmds in ([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                      for obj, src in zip(objs, srcs)],
+                     [[nvcc, *ARCH, "-shared", "-o", lib, *objs]]):
+            for cmd, rc, text in _run_all(cmds):
+                log += text
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{text}")
+        Path(str(out) + ".log").write_text(log)
+        os.replace(lib, out)  # atomic: a concurrent build never sees a partial file
     return out
 
 

@@ -1,5 +1,6 @@
-"""Wrappers of the histogram kernels in ``csrc/fused_hist.cu``, each beside
-its plain PyTorch version (launch counters: ``launch.LAUNCHES``).
+"""Wrappers of the histogram kernels in ``csrc/fused_hist.cu`` and
+``csrc/sdev_noise.cu``, each beside its plain PyTorch version (launch
+counters: ``launch.LAUNCHES``).
 
 =========================  ==================================================
 wrapper                    replaces (JAX package, ops/pallas/fused_hist.py)
@@ -10,17 +11,23 @@ wrapper                    replaces (JAX package, ops/pallas/fused_hist.py)
                            analysis levels, at every size
 ``hist_argmax``            the in-kernel first-max argmax of
                            ``_noise_multi_kernel``
+``sdev_noise_hists``       ``sdev_noise_hist_fused`` (``_sdev_noise_kernel``):
+                           the sdev images and their noise histograms from
+                           the bandpass levels, one launch over all levels,
+                           at every size (the JAX package falls back to two
+                           steps where cov != n)
 ``grad_hist_relevant``     ``grad_hist_relevant_fused``
                            (``_grad_relevant_kernel``)
 ``grad_hist``              ``grad_hist_fused`` (``_grad_kernel``)
 =========================  ==================================================
 
-Each kernel is bound by one read of its images (4 bytes/px for the noise
-histogram; 8 for the gradation histograms: recon + the relevance image, or
-recon + normalized with the relevance computed in the kernel) and by
-shared-memory atomic contention on the peak bins.  The histograms are
-privatised per block in shared memory for now, with one global atomic per
-non-zero bin at the end of the block.
+Each histogram kernel is bound by one read of its images (4 bytes/px for
+the noise histogram; 8 for the gradation histograms: recon + the relevance
+image, or recon + normalized with the relevance computed in the kernel; 8
+for the sdev kernel: the band in, the sdev out) and by shared-memory atomic
+contention on the peak bins.  The histograms are privatised per block in
+shared memory for now, with one global atomic per non-zero bin at the end
+of the block.
 
 Dispatch (``launch.py``): a CUDA tensor launches the kernel or raises; a
 CPU tensor runs the plain version.  There is no fallback from one to the
@@ -111,6 +118,46 @@ def noise_hist_levels(levels, cfg):
     analysis levels: two launches on a CUDA device, whatever the sizes."""
     hists = noise_hists(levels, cfg)
     return hists, hist_argmax(hists)
+
+
+# ----------------------------------------------------------------------
+# sdev + noise histogram in one pass (kernel 7 of the JAX package)
+# ----------------------------------------------------------------------
+
+def sdev_noise_hists_plain(bands, cfg):
+    """Plain version: ``stats.img_sdev`` per level, then
+    ``noise_hists_plain``."""
+    sdevs = [stats.img_sdev(b) for b in bands]
+    return sdevs, noise_hists_plain(sdevs, cfg)
+
+
+def sdev_noise_hists(bands, cfg):
+    """(sdev images, list of float32 [n_i, n_i]; noise histograms, int32
+    [L, n_bins]) of a list of [n_i, n_i] float32 bandpass levels, each
+    histogram scanned over its level's coverage (``stats.coverage``), in one
+    launch."""
+    dev = launch.device_of(bands)
+    if dev.type == "cpu":
+        return sdev_noise_hists_plain(bands, cfg)
+    nb, tile = cfg.noise_histogram_bins, cfg.histogram_area_size
+    launch.check_bins(nb)
+    if not 1 <= len(bands) <= _MAX_LEVELS:
+        raise ValueError(f"{len(bands)} levels, at most {_MAX_LEVELS}")
+    for i, b in enumerate(bands):
+        launch.check_image(b, f"band {i}")
+    L = len(bands)
+    lib = launch.lib()
+    sdevs = [torch.empty_like(b) for b in bands]
+    hists = torch.zeros((L, nb), dtype=torch.int32, device=dev)
+    src = (ctypes.c_void_p * L)(*[b.data_ptr() for b in bands])
+    dst = (ctypes.c_void_p * L)(*[s.data_ptr() for s in sdevs])
+    ns = (ctypes.c_int * L)(*[b.shape[-1] for b in bands])
+    covs = (ctypes.c_int * L)(*[stats.coverage(b.shape[-1], cfg) for b in bands])
+    with torch.cuda.device(dev):
+        launch.launch(lib, "musica_sdev_noise_hist", "sdev_noise_hist", src, dst,
+                      ns, covs, L, hists.data_ptr(), nb, tile,
+                      float(cfg.max_noise_value), launch.stream(dev))
+    return sdevs, hists
 
 
 # ----------------------------------------------------------------------

@@ -13,7 +13,8 @@ import torch
 # launches of each CUDA kernel since the last reset (plain versions and CPU
 # calls do not count)
 LAUNCHES = {"noise_hist": 0, "hist_argmax": 0, "grad_hist_relevant": 0,
-            "grad_hist": 0, "histogram": 0, "clahe_apply": 0}
+            "grad_hist": 0, "histogram": 0, "clahe_apply": 0,
+            "sdev_noise_hist": 0}
 
 MAX_SHARED_BINS = 12288  # static 48 KB of shared memory per block
 

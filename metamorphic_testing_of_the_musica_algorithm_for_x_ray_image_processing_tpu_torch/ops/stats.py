@@ -1,9 +1,10 @@
 """Local statistics + histograms: sdev (5x5 RMS), the noise histogram with
 the reference's per-tile-column ``break`` semantics, and histogram argmax.
 Port of the JAX package's ``ops/stats.py`` without its histogram-method zoo:
-the noise histograms go through ``ops/cuda/fused_hist.py`` and
-``fixed_histogram`` through ``ops/cuda/histogram.py``; each launches its
-CUDA kernel for a CUDA tensor and runs its plain version for a CPU tensor.
+the noise histograms (and, on the fused-sdev path, the sdev with them) go
+through ``ops/cuda/fused_hist.py`` and ``fixed_histogram`` through
+``ops/cuda/histogram.py``; each launches its CUDA kernel for a CUDA tensor
+and runs its plain version for a CPU tensor.
 
 The ``break`` quirk (shaders/noise_hist.comp:30-40): each GPU thread scans
 16-pixel groups along axis -1 ("tile columns"); the first pixel of a group
@@ -112,6 +113,27 @@ def analysis_noise_hists(sdevs: Dict[int, torch.Tensor], cfg):
     levels = list(cfg.analysis_levels)
     hs, mbs = fused_hist.noise_hist_levels([sdevs[i] for i in levels], cfg)
     return ({i: hs[j] for j, i in enumerate(levels)},
+            {i: mbs[j] for j, i in enumerate(levels)})
+
+
+def sdev_and_noise_histograms(bands, cfg):
+    """sdev, noise histogram and first-max argmax of every analysis level
+    from its float32 bandpass image (``bands[i]`` for each level ``i``):
+    the counterpart of the JAX package's ``sdev_and_noise_histogram`` plus
+    ``histogram_max``, its ``hist_method="fused_sdev"`` path.
+
+    Returns ``(sdevs, hists, max_bins)`` dicts keyed by level.  One kernel
+    launch computes every level's sdev and histogram, at every size (the JAX
+    package's kernel needs full coverage and falls back to two steps
+    elsewhere; this one needs no fallback), and one more takes the argmaxes.
+    The results equal ``img_sdev`` + ``analysis_noise_hists`` exactly."""
+    from .cuda import fused_hist
+
+    levels = list(cfg.analysis_levels)
+    sds, hs = fused_hist.sdev_noise_hists([bands[i] for i in levels], cfg)
+    mbs = fused_hist.hist_argmax(hs)
+    return ({i: sds[j] for j, i in enumerate(levels)},
+            {i: hs[j] for j, i in enumerate(levels)},
             {i: mbs[j] for j, i in enumerate(levels)})
 
 

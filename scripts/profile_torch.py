@@ -3,6 +3,8 @@
 
     python3 scripts/profile_torch.py [--size 3072] [--reps 5] [--out DIR]
     python3 scripts/profile_torch.py --clahe --linear-gradation   # the variants
+    python3 scripts/profile_torch.py --fused-sdev    # sdev + noise histograms in one kernel
+    python3 scripts/profile_torch.py --bf16          # bf16 band storage
 
 Runs ``musica_forward`` on a device-resident synthetic radiograph under
 ``torch.profiler`` and prints, with the card's name and power limit:
@@ -38,6 +40,10 @@ def main() -> int:
                     help="the CLAHE gradation variant (ENABLE_CLAHE)")
     ap.add_argument("--linear-gradation", action="store_true",
                     help="grade the squared image (GRAD_WITH_LINEAR_IMAGE)")
+    ap.add_argument("--fused-sdev", action="store_true",
+                    help="the fused-sdev analysis (musica_forward(fused_sdev=True))")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bf16 storage for the pyramid band streams")
     args = ap.parse_args()
 
     import torch
@@ -56,17 +62,18 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0]
     cfg = MusicaConfig(image_size=args.size, enable_clahe=args.clahe,
-                       grad_with_linear_image=args.linear_gradation)
+                       grad_with_linear_image=args.linear_gradation,
+                       storage="bfloat16" if args.bf16 else "float32")
     x = torch.from_numpy(synthetic_radiograph(args.size, args.anatomy)).cuda()
     for _ in range(3):  # warm-up: kernel build, allocator, cuBLAS-free path
-        musica.musica_forward(x, cfg)["out_u8"]
+        musica.musica_forward(x, cfg, fused_sdev=args.fused_sdev)["out_u8"]
     torch.cuda.synchronize()
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
         for _ in range(args.reps):
-            musica.musica_forward(x, cfg)["out_u8"]
+            musica.musica_forward(x, cfg, fused_sdev=args.fused_sdev)["out_u8"]
         end.record()
         torch.cuda.synchronize()
     wall = start.elapsed_time(end) / args.reps
@@ -78,7 +85,9 @@ def main() -> int:
 
     print(f"card: {card}")
     variant = " + ".join(v for v, on in (("CLAHE", args.clahe),
-                                         ("linear gradation", args.linear_gradation)) if on)
+                                         ("linear gradation", args.linear_gradation),
+                                         ("fused sdev", args.fused_sdev),
+                                         ("bf16 bands", args.bf16)) if on)
     print(f"{args.size}^2 {args.anatomy} ({variant or 'main path'}), "
           f"{args.reps} reps under the profiler: "
           f"{wall:.3f} ms/img wall (CUDA events), {launches:.0f} kernels/img, "

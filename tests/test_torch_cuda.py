@@ -252,3 +252,122 @@ def test_timed_process_on_card_matches_forward(dev):
     torch.testing.assert_close(torch.from_numpy(extras["clahe_graded"]),
                                res["clahe_graded"].cpu(), rtol=0, atol=0, equal_nan=True)
     assert list(times) == ["norm", "red", "anly", "aply", "exp", "grad", "tot"]
+
+
+# ----------------------------------------------------------------------
+# K7 (sdev + noise histogram), the fused-sdev path and bf16 storage
+# ----------------------------------------------------------------------
+
+def _bands(img, cfg, dev):
+    x = torch.from_numpy(img).to(dev)
+    nrm, _, _ = normalize.normalize_from_u16(x, cfg.quirks)
+    bands, _ = pyramid.reduce_ladder(nrm, cfg.pyramid_levels)
+    return [bands[i] for i in cfg.analysis_levels]
+
+
+def _random_bands(seed, sizes, dev):
+    """Bands whose sdev has every break kind: 8x8 patches scaled to zero
+    (sdev 0.0), to ~1e-6 (bin 0) and by 6 (sdev above 0.1)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in sizes:
+        b = rng.normal(0.0, 0.03, (n, n)).astype(np.float32)
+        nb = -(-n // 8)
+        scale = rng.choice(np.float32([0.0, 1e-4, 6.0, 1.0]), size=(nb, nb), p=[0.1, 0.1, 0.1, 0.7])
+        b *= np.kron(scale, np.ones((8, 8), np.float32))[:n, :n]
+        out.append(torch.from_numpy(b).to(dev))
+    return out
+
+
+@pytest.mark.parametrize("size,source", [(512, "thorax"), (600, "pelvis"), (144, "hand"),
+                                         (1024, "random"), (600, "random")])
+def test_sdev_noise_kernel_matches_plain(dev, size, source):
+    """One launch over all analysis levels: every level's sdev and histogram
+    equal the plain version bit for bit (600: cropped coverage and padded
+    levels; 144: levels down to 18 px, smaller than one block)."""
+    cfg = MusicaConfig(image_size=size)
+    if source == "random":
+        bands = _random_bands(size, [-(-size // 2 ** i) for i in cfg.analysis_levels], dev)
+    else:
+        bands = _bands(synthetic_radiograph(size, source), cfg, dev)
+    launch.reset_launch_counts()
+    sds, h = fh.sdev_noise_hists(bands, cfg)
+    assert launch.LAUNCHES["sdev_noise_hist"] == 1
+    want_sd, want_h = fh.sdev_noise_hists_plain(bands, cfg)
+    for got, want in zip(sds, want_sd):
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert torch.equal(h, want_h)
+    assert (int(h.sum()) > 0) == (size >= 512)
+
+
+@pytest.mark.parametrize("sizes", [[40], [75, 38, 19, 10], [1, 2, 3, 5, 17, 33]])
+def test_sdev_noise_kernel_ragged_levels(dev, sizes):
+    """Padded coverage (cov > n) and levels far smaller than a block, with
+    every row and column at a level's edge."""
+    cfg = MusicaConfig(image_size=512)
+    bands = _random_bands(sum(sizes), sizes, dev)
+    sds, h = fh.sdev_noise_hists(bands, cfg)
+    want_sd, want_h = fh.sdev_noise_hists_plain(bands, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(sds, want_sd))
+    assert torch.equal(h, want_h)
+
+
+@pytest.mark.parametrize("size,anatomy,storage", [(512, "thorax", "float32"),
+                                                  (600, "pelvis", "float32"),
+                                                  (512, "knee", "bfloat16")])
+def test_fused_sdev_pipeline_on_card(dev, size, anatomy, storage):
+    """The fused-sdev path launches K7 and the argmax instead of K1, and its
+    output equals the default path on the card and the CPU path."""
+    img = synthetic_radiograph(size, anatomy)
+    cfg = MusicaConfig(image_size=size, storage=storage)
+    x = torch.from_numpy(img).to(dev)
+    launch.reset_launch_counts()
+    res = musica.musica_forward(x, cfg, fused_sdev=True)
+    counts = dict(launch.LAUNCHES)
+    assert counts["sdev_noise_hist"] == 1 and counts["hist_argmax"] == 1
+    assert counts["noise_hist"] == 0
+    assert torch.equal(res["out_u8"], musica.musica_forward(x, cfg)["out_u8"])
+    assert torch.equal(res["out_u8"].cpu(),
+                       musica.musica_forward(torch.from_numpy(img), cfg, fused_sdev=True)["out_u8"])
+
+
+@pytest.mark.parametrize("size,anatomy", [(512, "thorax"), (600, "pelvis")])
+def test_bf16_pipeline_on_card_matches_cpu(dev, size, anatomy):
+    """bf16 rounding is round-to-nearest-even on both devices and every
+    consumer upcasts explicitly, so the card reproduces the CPU path."""
+    img = synthetic_radiograph(size, anatomy)
+    cfg = MusicaConfig(image_size=size, storage="bfloat16")
+    res = musica.musica_forward(torch.from_numpy(img).to(dev), cfg, want_intermediates=True)
+    ref = musica.musica_forward(torch.from_numpy(img), cfg, want_intermediates=True)
+    assert torch.equal(res["out_u8"].cpu(), ref["out_u8"])
+    assert torch.equal(res["recon"].cpu(), ref["recon"])
+    for k in ("red_bandpass_0", "contrast_bandpass_1", "nr_bandpass_2"):
+        assert res["intermediates"][k].dtype == torch.bfloat16
+        assert torch.equal(res["intermediates"][k].cpu(), ref["intermediates"][k]), k
+    np.testing.assert_array_equal(musica.process_batch(np.stack([img] * 2), cfg, "cuda"),
+                                  np.stack([ref["out_u8"].numpy()] * 2))
+
+
+@pytest.mark.parametrize("size,want_intermediates,storage,fused_sdev",
+                         [(512, False, "float32", True), (600, True, "float32", True),
+                          (512, False, "bfloat16", False), (512, True, "bfloat16", True)])
+def test_fused_sdev_and_bf16_never_wait_for_the_host(dev, size, want_intermediates, storage,
+                                                     fused_sdev):
+    cfg = MusicaConfig(image_size=size, storage=storage)
+    x = torch.from_numpy(synthetic_radiograph(size, "knee")).to(dev)
+    musica.musica_forward(x, cfg, want_intermediates, fused_sdev)  # build the kernels first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        musica.musica_forward(x, cfg, want_intermediates, fused_sdev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_timed_process_on_card_fused_sdev_bf16(dev):
+    cfg = MusicaConfig(image_size=512, storage="bfloat16")
+    img = synthetic_radiograph(512, "hand")
+    out, times = musica.timed_process(img, cfg, "cuda", fused_sdev=True)
+    res = musica.musica_forward(torch.from_numpy(img).to(dev), cfg)
+    np.testing.assert_array_equal(out, res["out_u8"].cpu().numpy())
+    assert list(times) == ["norm", "red", "anly", "aply", "exp", "grad", "tot"]

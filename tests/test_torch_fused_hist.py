@@ -10,6 +10,8 @@ decision value differently (QUIRKS #29), and these tests target the kernel
 logic -- break/return semantics, coverage, weights -- not that rounding.
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -273,12 +275,56 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_library_name_follows_source_hash(monkeypatch, tmp_path):
-    """An edited source gets a new library name, so it is rebuilt."""
+    """An edited source or header gets a new library name, so it is
+    rebuilt."""
     src = tmp_path / "csrc"
     src.mkdir()
     (src / "a.cu").write_text("// one\n")
+    (src / "a.cuh").write_text("// one\n")
     monkeypatch.setattr(build, "SRC_DIR", src)
     first = build.library_path()
     (src / "a.cu").write_text("// two\n")
-    assert build.library_path() != first
+    second = build.library_path()
+    assert second != first
+    (src / "a.cuh").write_text("// two\n")
+    assert build.library_path() not in (first, second)
     assert build.library_path().parent == build.BUILD_DIR
+
+
+@pytest.mark.parametrize("fail", [None, "b.cu"])
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path, fail):
+    """One nvcc per source (objects), then one link into the library; a
+    failing compile raises with the compiler's output and leaves no
+    library.  The compiler is a stand-in script that records its calls."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for name in ("a.cu", "b.cu", "h.cuh"):
+        (src / name).write_text("// source\n")
+    calls = tmp_path / "calls.txt"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "args = sys.argv[1:]\n"
+        f"open({str(calls)!r}, 'a').write(' '.join(args) + '\\n')\n"
+        f"if {fail!r} and args[-1].endswith(str({fail!r})):\n"
+        "    print('error: stand-in failure')\n"
+        "    sys.exit(2)\n"
+        "open(args[args.index('-o') + 1], 'w').write('built')\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "SRC_DIR", src)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
+    if fail:
+        with pytest.raises(RuntimeError, match="stand-in failure"):
+            build.build()
+        assert not build.library_path().exists()
+        assert all("-shared" not in c.split() for c in calls.read_text().splitlines())
+        return
+    out = build.build()
+    assert out == build.library_path() and out.read_text() == "built"
+    compiles, link = calls.read_text().splitlines()[:2], calls.read_text().splitlines()[2:]
+    assert sorted(c.split()[-1].rsplit("/", 1)[-1] for c in compiles) == ["a.cu", "b.cu"]
+    assert all("-c" in c.split() and "-fmad=false" in c.split() for c in compiles)
+    assert len(link) == 1 and "-shared" in link[0].split()
+    assert build.build() == out and len(calls.read_text().splitlines()) == 3  # cached

@@ -25,6 +25,7 @@ def test_port_imports_no_jax():
         "import sys\n"
         f"import {PKG}, {PKG}.models.musica, {PKG}.cli, {PKG}.ops.cuda.fused_hist\n"
         f"import {PKG}.ops.clahe, {PKG}.ops.cuda.histogram, {PKG}.ops.cuda.clahe_apply\n"
+        f"import {PKG}.ops.stats, {PKG}.ops.cuda.launch\n"
         f"from {PKG}.ops.cuda import build\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert build._LIB is None\n"
