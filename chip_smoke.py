@@ -6,7 +6,8 @@
 Builds the CUDA kernels from ``..._tpu_torch/csrc`` with nvcc, holds every
 kernel against its plain PyTorch version at the paths' 3072^2 shapes
 (integer histograms and argmaxes exactly equal; the CLAHE apply and the
-sdev exactly equal with equal NaN masks), drives the port's main path
+sdev exactly equal with equal NaN masks) and the histogram scans K1, K3 and
+K4 also on adversarial inputs at 3072, 600 and 144 ([3a]), drives the port's main path
 (``process`` on a 3072^2 uint16 radiograph, then the intermediates path of
 ``process --debug-dump``), the CLAHE + linear-gradation variant path
 (``musica_forward`` as ``process --clahe --linear-gradation`` runs it), the
@@ -16,8 +17,11 @@ that each went through its kernels and agrees with the port's CPU path (or,
 for fused-sdev, with the default path bit for bit; for bf16 also with the
 float32 output to tests/test_bf16.py's contract), runs a batch of 4 through
 ``process_batch`` in float32 and in bf16, and times the pipeline paths in
-interleaved windows and each kernel beside its plain version with CUDA
-events.
+interleaved windows and each kernel beside its plain version, its bound
+(bytes over the HBM rate, operations over the peak rate, at this run's
+inputs) and, where one exists, the one PyTorch call that computes the same
+function (``torch.argmax`` for the argmax, ``torch.bincount`` for the
+generic histogram), with CUDA events.
 
 Every phase prints one line; any failure raises and exits non-zero.  The
 line before the last is a JSON object with one entry per kernel; the last
@@ -72,6 +76,12 @@ MIN_PSNR, MIN_EXACT, MAX_DIFF = 90.0, 0.9999, 1
 # test_bf16_contract_512): knife-edge flips (> 32) at most 3e-4 of the
 # pixels, every other pixel within 16, PSNR over those >= 38 dB
 BF16_KNIFE, BF16_MAX_INLIER, BF16_MIN_PSNR = 3e-4, 16, 38.0
+# the least time of a kernel's work: bytes over the H100 SXM's HBM3 rate and
+# float32 operations over its rate outside the tensor cores, float64 at
+# 34 TFLOP/s (NVIDIA's H100 SXM data sheet).  Integer operations are not
+# counted.
+HBM_BYTES_PER_S, FP32_PER_S, FP64_PER_S = 3.35e12, 67e12, 34e12
+SECTOR_PX = 8  # float32 pixels of a 32-byte DRAM sector
 
 
 def log(msg: str) -> None:
@@ -237,6 +247,162 @@ def check_clahe(rec, cfg, recon, relevant, case):
     return nan_tiles
 
 
+def check_adversarial(rec, rng, dev):
+    """K1, K3 and K4 against their plain versions on adversarial inputs
+    (``testing/hist_cases.py``: a 0.0 at a tile's or group's first and last
+    pixel and at the scans' lane and step boundaries, values out of range,
+    negative values, bin == n_bins, bin 0) at 3072, 600 (ragged: pixels past
+    n, cropped noise coverage) and 144 (clean math: padded noise levels down
+    to 18 px), and on constant images (one bin everywhere: every lane's
+    shared atomic on one address)."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import hist_cases
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    for cfg, grad_kernels in ((MusicaConfig(image_size=3072), ("K3", "K4")),
+                              (MusicaConfig(image_size=600), ("K4",)),
+                              (MusicaConfig(image_size=144, quirks=False), ("K3", "K4"))):
+        n = cfg.image_size
+        sizes = [-(-n // 2 ** i) for i in cfg.analysis_levels]
+        levels = [t(a) for a in hist_cases.noise_levels(rng, sizes)]
+        check_noise(rec, cfg, levels, f"{n} adversarial levels {sizes}")
+        check_noise(rec, cfg, [torch.full((m, m), 0.05, device=dev) for m in sizes],
+                    f"{n} constant levels")
+        recon = t(hist_cases.gradation_image(rng, n))
+        flat = torch.full((n, n), 0.5, device=dev)
+        rel = t(rng.uniform(0.0, 1.0, (n, n)).astype(np.float32))
+        nrm = t(rng.uniform(0.0, 1.01, (n, n)).astype(np.float32))
+        cnr = t(rng.uniform(0.0, 0.1, (n // 8, n // 8)).astype(np.float32))
+        for case, r in (("adversarial", recon), ("constant", flat)):
+            if "K4" in grad_kernels:
+                rec.equal("grad_hist", f"{n} {case}", fh.grad_hist(r, rel, cfg),
+                          fh.grad_hist_plain(r, rel, cfg))
+            if "K3" in grad_kernels:
+                rec.equal("grad_hist_relevant", f"{n} {case}",
+                          fh.grad_hist_relevant(r, nrm, cnr, cfg),
+                          fh.grad_hist_relevant_plain(r, nrm, cnr, cfg))
+
+
+def bound(n_bytes: float, flops: float = 0.0, rate: float = FP32_PER_S):
+    """(ms, "bytes" or "operations"): the least time for the work."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sector_bytes(mask) -> int:
+    """Bytes of the 32-byte sectors of a contiguous float32 [n, n] image that
+    hold a pixel of the boolean ``mask``: the least a read of those pixels
+    moves from memory."""
+    import torch
+    import torch.nn.functional as F
+    flat = mask.reshape(-1).to(torch.uint8)
+    flat = F.pad(flat, (0, -flat.numel() % SECTOR_PX))
+    return 4 * SECTOR_PX * int(flat.reshape(-1, SECTOR_PX).amax(-1).sum())
+
+
+def noise_scan(sd, cfg):
+    """(read, groups, broken, short) of a noise histogram's scan of the
+    level ``sd`` [n, n]: the boolean mask of the pixels read (each 16-px
+    group of the coverage up to and including its first break: 0.0,
+    adjusted > 1 or bin 0; pixels past n are not in memory), and, over the
+    groups that start in memory, their number, the number that break and
+    the number that break in their first 8 px (their second sector is not
+    needed)."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import (
+        f32, stats)
+    n, tile = sd.shape[-1], cfg.histogram_area_size
+    read = torch.zeros((n, n), dtype=torch.bool, device=sd.device)
+    v = stats.coverage_view(sd, cfg)
+    if v is None:
+        return read, 0, 0, 0
+    cov = v.shape[-1]
+    adjusted = v / f32(cfg.max_noise_value, v)
+    bins = (adjusted * float(cfg.noise_histogram_bins) + 0.5).to(torch.int32)
+    brk = ((v == 0.0) | (adjusted > 1.0) | (bins == 0)).to(torch.int32)
+    brk = brk.reshape(cov, cov // tile, tile)
+    before = torch.cumsum(brk, -1) - brk
+    m = min(n, cov)
+    read[:m, :m] = (before == 0).reshape(cov, cov)[:m, :m]
+    live = brk[:m, :-(-m // tile)]
+    broken = live.amax(-1)
+    short = live[..., :SECTOR_PX].amax(-1)
+    return read, broken.numel(), int(broken.sum()), int(short.sum())
+
+
+def grad_scan(recon, cfg):
+    """(loaded, counted) boolean [n, n] masks of a gradation histogram's scan
+    of ``recon``: the pixels read (each 16x16 tile in the GLSL order up to
+    and including its first 0.0; pixels past n are not in memory) and those
+    added (before the first 0.0, bin in range)."""
+    import torch
+    import torch.nn.functional as F
+    n, tile = recon.shape[-1], cfg.histogram_area_size
+    cov = -(-n // tile) * tile
+    t = cov // tile
+    v = F.pad(recon, (0, cov - n, 0, cov - n))
+    z = (v == 0.0).reshape(t, tile, t, tile).permute(0, 2, 1, 3).reshape(t, t, -1).to(torch.int32)
+    before = torch.cumsum(z, -1) - z
+
+    def back(m):
+        return m.reshape(t, t, tile, tile).permute(0, 2, 1, 3).reshape(cov, cov)[:n, :n]
+
+    loaded = back(before == 0)
+    b = (recon * float(cfg.grad_histogram_bins)).to(torch.int32)
+    counted = loaded & (recon != 0.0) & (b >= 0) & (b < cfg.grad_histogram_bins)
+    return loaded, counted
+
+
+def kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b3072):
+    """Per kernel (ms, "bytes" or "operations"): the bound at this run's
+    main-path inputs.  Where a scan stops early (K1, K3, K4) only the
+    32-byte sectors holding a pixel that the reference's scan reaches
+    count."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
+    L, nbn, gb = len(lv3072), cfg.noise_histogram_bins, cfg.grad_histogram_bins
+    out = {}
+    # K1: each level's pixels up to and including each group's first break
+    # (a division, a product and a sum each), the histograms written
+    scans = [noise_scan(s, cfg) for s in lv3072]
+    px = sum(int(r.sum()) for r, *_ in scans)
+    out["noise_hist"] = bound(sum(sector_bytes(r) for r, *_ in scans) + 4 * L * nbn, 3 * px)
+    groups, broken, short = (sum(s[i] for s in scans) for i in (1, 2, 3))
+    log(f"  K1's scan of the main path's levels: {broken} of {groups} 16-px groups "
+        f"break, {short} in their first {SECTOR_PX} px; {px} of "
+        f"{sum(s.numel() for s in lv3072)} px read")
+    out["hist_argmax"] = bound(4 * L * nbn + 4 * L)
+    # K3: recon up to each tile's first 0.0, normalized where a counted pixel
+    # lies in a solid block inside the border, the CNR map, the histogram
+    n = recon.shape[-1]
+    loaded, counted = grad_scan(recon, cfg)
+    scale = -(-n // cnr.shape[-1])
+    wp = fh.relevance_weight_plane(cnr, cfg).repeat_interleave(scale, 0) \
+        .repeat_interleave(scale, 1)[:n, :n]
+    xs = torch.arange(n, device=recon.device)
+    inner = (xs > cfg.relevant_border) & (xs < n - cfg.relevant_border)
+    need_norm = counted & (wp == -1) & inner[:, None] & inner[None, :]
+    out["grad_hist_relevant"] = bound(sector_bytes(loaded) + sector_bytes(need_norm)
+                                      + 4 * cnr.numel() + 4 * gb)
+    # K4 (the CLAHE + linear path's squared image): recon up to each tile's
+    # first 0.0, the relevance image where a pixel is counted
+    loaded, counted = grad_scan(linear, cfg)
+    out["grad_hist"] = bound(sector_bytes(loaded) + sector_bytes(counted) + 4 * gb)
+    # K6: the int32 (bin, weight) pairs; K5: recon in, the graded image out,
+    # the LUTs, ~20 float32 operations a pixel; K7: the bands in, the sdev
+    # out, ~12 float64 operations a pixel
+    out["histogram"] = bound(8 * v_joint.numel() + 4 * nb)
+    m = v_recon.numel()
+    out["clahe_apply"] = bound(8 * m + 2 * 4 * v_px.numel(), 20 * m)
+    px7 = sum(b.numel() for b in b3072)
+    out["sdev_noise_hist"] = bound(8 * px7 + 4 * L * nbn, 12 * px7, FP64_PER_S)
+    return out
+
+
 def cuda_ms(fn, reps: int, warmup: int = 1, device_only: bool = False) -> float:
     """ms per call of ``fn`` between two CUDA events.  With ``device_only``
     the GPU sleeps while the host queues every call, so the events bracket
@@ -264,9 +430,6 @@ def main() -> int:
               "needs a CUDA GPU", file=sys.stderr)
         return 1
 
-    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu.testing.phantoms import (
-        synthetic_radiograph)
-    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu.utils import io as uio
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig, cli
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe, noise, stats
@@ -274,6 +437,9 @@ def main() -> int:
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_apply as k_clahe
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import histogram as k_hist
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import (
+        synthetic_radiograph)
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.utils import io as uio
 
     # ---- 1. device -------------------------------------------------------
     dev = torch.device("cuda:0")
@@ -294,7 +460,7 @@ def main() -> int:
     log(f"[2] build: {time.perf_counter() - t0:.2f} s -> {build.library_path().name} "
         f"({', '.join(p.name for p in build.sources())})")
     for line in build.build_log().splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
     # ---- 3. kernels against their plain versions -------------------------
@@ -341,6 +507,11 @@ def main() -> int:
     r_rel = noise.img_relevant(r_nrm, r_cnr, cfg)
     rec.equal("grad_hist", "3072 random", fh.grad_hist(r_recon, r_rel, cfg),
               fh.grad_hist_plain(r_recon, r_rel, cfg))
+
+    log("[3a] K1, K3, K4 vs plain versions on adversarial inputs: 0.0 at a tile's or "
+        "group's first and last pixel and at the scans' lane and step boundaries, "
+        "constant images, values out of range, negative values, bin == n_bins, bin 0")
+    check_adversarial(rec, rng, dev)
 
     log("[3b] CLAHE kernels vs plain versions at 3072 (histogram exact; apply "
         "exact with equal NaN masks)")
@@ -579,15 +750,17 @@ def main() -> int:
     v_px, v_py = clahe.clahe_curves(clahe.clahe_histograms(v_recon, v_rel, cfg_var), cfg_var)
     v_joint, v_w = clahe.clahe_joint_bins(v_recon, v_rel, cfg_var)
     nb = cfg_var.clahe_tiles ** 2 * cfg_var.clahe_bins
+    linear = var_inter["intermediates"]["linear"]
+    h3072 = fh.noise_hists(lv3072, cfg)
+    wplane = fh.relevance_weight_plane(cnr, cfg).contiguous()
     cases = {
         "noise_hist": (lambda: fh.noise_hists(lv3072, cfg),
                        lambda: fh.noise_hists_plain(lv3072, cfg)),
-        "hist_argmax": (lambda h=fh.noise_hists(lv3072, cfg): fh.hist_argmax(h),
-                        lambda h=fh.noise_hists(lv3072, cfg): fh.hist_argmax_plain(h)),
+        "hist_argmax": (lambda: fh.hist_argmax(h3072), lambda: fh.hist_argmax_plain(h3072)),
         "grad_hist_relevant": (lambda: fh.grad_hist_relevant(recon, nrm, cnr, cfg),
                                lambda: fh.grad_hist_relevant_plain(recon, nrm, cnr, cfg)),
-        "grad_hist": (lambda: fh.grad_hist(recon, relevant, cfg),
-                      lambda: fh.grad_hist_plain(recon, relevant, cfg)),
+        "grad_hist": (lambda: fh.grad_hist(linear, v_rel, cfg_var),
+                      lambda: fh.grad_hist_plain(linear, v_rel, cfg_var)),
         "histogram": (lambda: k_hist.histogram(v_joint, v_w, nb),
                       lambda: k_hist.histogram_plain(v_joint, v_w, nb)),
         "clahe_apply": (lambda: k_clahe.clahe_apply(v_recon, v_px, v_py, cfg_var),
@@ -595,6 +768,19 @@ def main() -> int:
         "sdev_noise_hist": (lambda: fh.sdev_noise_hists(b3072, cfg),
                             lambda: fh.sdev_noise_hists_plain(b3072, cfg)),
     }
+    # one PyTorch call computing the same function, where there is one
+    # (timed as a yardstick only; the port never calls it)
+    joint_flat, w_flat = v_joint.reshape(-1), v_w.reshape(-1)
+    assert int(joint_flat.min()) >= 0 and int(joint_flat.max()) < nb
+    assert torch.equal(torch.bincount(joint_flat, weights=w_flat, minlength=nb).to(torch.int32),
+                       k_hist.histogram(v_joint, v_w, nb))
+    assert torch.equal(torch.argmax(h3072, dim=1).to(torch.int32), fh.hist_argmax(h3072))
+    library = {"hist_argmax": lambda: torch.argmax(h3072, dim=1),
+               "histogram": lambda: torch.bincount(joint_flat, weights=w_flat, minlength=nb)}
+    # K3's kernel alone and its wrapper's weight-plane ops alone
+    k3_parts = {"kernel_ms": lambda: fh._launch_grad_hist_relevant(recon, nrm, wplane, cfg),
+                "weight_plane_ms": lambda: fh.relevance_weight_plane(cnr, cfg)}
+    bounds = kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b3072)
     from_run = {"noise_hist": (launches, "process"),
                 "hist_argmax": (launches, "process"),
                 "grad_hist_relevant": (launches, "process"),
@@ -608,13 +794,19 @@ def main() -> int:
     for name, (kern, plain) in cases.items():
         k_ms = cuda_ms(kern, 20, 2, device_only=True)
         p_ms = cuda_ms(plain, 5, 1, device_only=True)
-        log(f"  {name}: kernel {k_ms} ms, plain {p_ms} ms")
+        lib_ms = cuda_ms(library[name], 20, 2, device_only=True) if name in library else None
+        b_ms, b_by = bounds[name]
         counts, path = from_run[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": f"{PKG}/csrc/{SOURCES[name]}",
-            "replaces": REPLACES[name], "launches": counts[name],
-            "launched_by": path, "max_abs_err": rec.err[name], "ms": k_ms,
-            "plain_ms": p_ms})
+        row = {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{SOURCES[name]}",
+               "replaces": REPLACES[name], "launches": counts[name], "launched_by": path,
+               "max_abs_err": rec.err[name], "ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        if name == "grad_hist_relevant":
+            row.update({k: cuda_ms(fn, 20, 2, device_only=True) for k, fn in k3_parts.items()})
+        extra = ", ".join(f"{k} {row[k]}" for k in ("kernel_ms", "weight_plane_ms") if k in row)
+        log(f"  {name}: kernel {k_ms} ms, plain {p_ms} ms, bound {b_ms} ms ({b_by}), "
+            f"one PyTorch call {lib_ms} ms" + (f"; {extra}" if extra else ""))
+        kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -13,17 +13,20 @@ to find:
                 ``timed_process``, with the CLAHE and linear-gradation
                 variants;
 - ``csrc``    : the CUDA C++ sources, built with ``nvcc`` at first use;
-- ``cli``     : ``process`` and ``batch``.
+- ``cli``     : ``process`` and ``batch``;
+- ``config``  : ``MusicaConfig``;
+- ``utils``   : raw/BMP IO and the debug dump with its renders;
+- ``testing`` : synthetic radiographs.
 
 Every entry point takes an explicit device.  A kernel runs when its input
 lies on a CUDA device; on the CPU its plain PyTorch version runs instead.
 
-The configuration is the JAX package's frozen ``MusicaConfig`` itself (a
-pure-Python module), so one ``cfg`` object drives both packages.
+The port imports nothing of the JAX package: ``config``, ``utils`` and
+``testing`` are its own copies of that package's NumPy modules, held equal
+to them by the tests.  Every function reads ``cfg`` by attribute, so the
+JAX package's ``MusicaConfig`` drives the port as well.
 """
 
-from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu.config import (  # noqa: F401
-    MusicaConfig,
-)
+from .config import MusicaConfig  # noqa: F401
 
 __version__ = "0.1.0"

@@ -45,11 +45,10 @@ def _numpy_tree(v):
 
 def cmd_process(args) -> int:
     import torch
-    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu.utils import io as uio
-    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu.utils.debug import dump_intermediates
-
     from . import MusicaConfig
     from .models import musica
+    from .utils import io as uio
+    from .utils.debug import dump_intermediates
 
     cfg = MusicaConfig(image_size=args.size, quirks=not args.no_quirks,
                        enable_clahe=args.clahe,
@@ -80,10 +79,10 @@ def cmd_process(args) -> int:
 
 def cmd_batch(args) -> int:
     import numpy as np
-    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu.utils import io as uio
 
     from . import MusicaConfig
     from .models import musica
+    from .utils import io as uio
 
     files = sorted(glob.glob(args.pattern))
     if not files:

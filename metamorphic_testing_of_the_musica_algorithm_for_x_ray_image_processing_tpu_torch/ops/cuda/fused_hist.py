@@ -24,10 +24,14 @@ wrapper                    replaces (JAX package, ops/pallas/fused_hist.py)
 Each histogram kernel is bound by one read of its images (4 bytes/px for
 the noise histogram; 8 for the gradation histograms: recon + the relevance
 image, or recon + normalized with the relevance computed in the kernel; 8
-for the sdev kernel: the band in, the sdev out) and by shared-memory atomic
-contention on the peak bins.  The histograms are privatised per block in
-shared memory for now, with one global atomic per non-zero bin at the end
-of the block.
+for the sdev kernel: the band in, the sdev out).  The histograms are
+privatised per block in shared memory, with one global atomic per non-zero
+bin at the end of the block.  The noise and gradation kernels read
+neighbouring pixels across a warp's lanes and find the reference's scan
+breaks with ballots and shuffles; each counted pixel costs one shared
+atomic (``hist_add`` in ``csrc/fused_hist.cu``).  Both take the shaders'
+16-px histogram tile only (``histogram_area_size``); another tile runs on
+the CPU only.
 
 Dispatch (``launch.py``): a CUDA tensor launches the kernel or raises; a
 CPU tensor runs the plain version.  There is no fallback from one to the
@@ -46,6 +50,13 @@ from . import launch
 from .histogram import histogram_plain
 
 _MAX_LEVELS = 16  # MUSICA_MAX_LEVELS in fused_hist.cu
+_TILE = 16  # kTile in fused_hist.cu: the shaders' histogram tile
+
+
+def _check_tile(tile: int) -> None:
+    if tile != _TILE:
+        raise ValueError(f"histogram_area_size={tile}: the CUDA histogram kernels "
+                         f"take the shaders' {_TILE}-px tile only")
 
 
 # ----------------------------------------------------------------------
@@ -72,6 +83,7 @@ def noise_hists(levels, cfg) -> torch.Tensor:
         return noise_hists_plain(levels, cfg)
     nb, tile = cfg.noise_histogram_bins, cfg.histogram_area_size
     launch.check_bins(nb)
+    _check_tile(tile)
     if not 1 <= len(levels) <= _MAX_LEVELS:
         raise ValueError(f"{len(levels)} levels, at most {_MAX_LEVELS}")
     for i, sd in enumerate(levels):
@@ -178,6 +190,7 @@ def grad_hist(recon: torch.Tensor, relevant: torch.Tensor, cfg) -> torch.Tensor:
         return grad_hist_plain(recon, relevant, cfg)
     nb, tile = cfg.grad_histogram_bins, cfg.histogram_area_size
     launch.check_bins(nb)
+    _check_tile(tile)
     launch.check_image(recon, "recon")
     launch.check_image(relevant, "relevant")
     if relevant.shape != recon.shape:
@@ -217,12 +230,15 @@ def grad_hist_relevant(recon: torch.Tensor, normalized: torch.Tensor,
                        cnr: torch.Tensor, cfg) -> torch.Tensor:
     """Gradation histogram (int32 [n_bins]) with the relevance weight
     computed in the kernel from the small CNR map and the normalized image
-    (no full-size relevance image)."""
+    (no full-size relevance image).  On a CUDA device the CNR scale must
+    divide the 16-px tile, where ``gradation_histogram_fused_relevance``
+    takes this path."""
     dev = launch.device_of([recon, normalized, cnr])
     if dev.type == "cpu":
         return grad_hist_relevant_plain(recon, normalized, cnr, cfg)
     nb, tile = cfg.grad_histogram_bins, cfg.histogram_area_size
     launch.check_bins(nb)
+    _check_tile(tile)
     launch.check_image(recon, "recon")
     launch.check_image(normalized, "normalized")
     launch.check_image(cnr, "cnr")
@@ -230,13 +246,25 @@ def grad_hist_relevant(recon: torch.Tensor, normalized: torch.Tensor,
         raise ValueError(f"normalized {tuple(normalized.shape)} != recon {tuple(recon.shape)}")
     n = recon.shape[-1]
     scale = int(math.ceil(n / cnr.shape[-1]))
-    wplane = relevance_weight_plane(cnr, cfg).contiguous()
+    if tile % scale:
+        raise ValueError(f"CNR scale {scale} ({n} px over a {cnr.shape[-1]}-px CNR map) "
+                         f"does not divide the {tile}-px tile")
+    return _launch_grad_hist_relevant(recon, normalized,
+                                      relevance_weight_plane(cnr, cfg).contiguous(), cfg)
+
+
+def _launch_grad_hist_relevant(recon, normalized, wplane, cfg) -> torch.Tensor:
+    """The kernel of ``grad_hist_relevant`` alone, on CUDA tensors the
+    wrapper has checked, given the block weight plane
+    (``relevance_weight_plane``); ``chip_smoke.py`` times it so."""
+    dev = recon.device
+    nb, n, ws = cfg.grad_histogram_bins, recon.shape[-1], wplane.shape[-1]
     lib = launch.lib()
     hist = torch.zeros(nb, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         launch.launch(lib, "musica_grad_hist_relevant", "grad_hist_relevant",
                       recon.data_ptr(), normalized.data_ptr(), n, n,
-                      wplane.data_ptr(), cnr.shape[-1], scale,
+                      wplane.data_ptr(), ws, int(math.ceil(n / ws)),
                       cfg.relevant_border, float(cfg.relevant_max_pixel),
-                      hist.data_ptr(), nb, tile, launch.stream(dev))
+                      hist.data_ptr(), nb, cfg.histogram_area_size, launch.stream(dev))
     return hist

@@ -1,0 +1,112 @@
+"""Raw / BMP image IO of the PyTorch port.
+
+The port's own copy of the JAX package's ``utils/io.py``, its NumPy paths
+only (the port does not load the optional C++ codec under ``native/``, whose
+files are byte-identical to these).  The tests hold both writers to
+byte-identical files and both readers to equal arrays
+(``tests/test_torch_standalone.py``).
+
+Formats, as the reference writes and reads them:
+
+* **Raw radiograph**: 256-byte header + ``size*size`` little-endian uint16
+  (``test/standalone/main.cpp:57-75``, ``test/metamorphic_test/script.py:26-47``).
+  The standalone CLI loads the row-major file into ``pixels[x*size + y]``,
+  i.e. it processes the *transpose* of the file layout; ``load_raw`` exposes
+  that via ``transpose=True`` (the CLI parity default).
+
+* **8-bit single-channel BMP** output (written by stb_image_write in the
+  reference, ``src/vk_processing.cpp:2636``), expanded to 24-bit BGR as stb
+  does.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+from pathlib import Path
+
+import numpy as np
+
+RAW_HEADER_BYTES = 256
+
+
+def load_raw(path: str | os.PathLike, size: int = 3072,
+             transpose: bool = True) -> np.ndarray:
+    """Load a 256-byte-header little-endian uint16 raw radiograph.
+
+    ``transpose=True`` reproduces the standalone CLI's de-interleave
+    (``test/standalone/main.cpp:67-75``: ``pixels[x*size+y]`` from a row-major
+    scan), so the returned array's axis 0 is the shader's ``x``.
+    """
+    data = np.fromfile(path, dtype=np.uint8)
+    expected = RAW_HEADER_BYTES + size * size * 2
+    if data.size != expected:
+        raise ValueError(
+            f"raw file {path}: {data.size} bytes, expected {expected} "
+            f"(256-byte header + {size}x{size} uint16)")
+    img = data[RAW_HEADER_BYTES:].view("<u2").reshape(size, size)
+    return img.T.copy() if transpose else img.copy()
+
+
+def load_raw_batch(paths, size: int = 3072, transpose: bool = True) -> np.ndarray:
+    """Load many raws into one [B, size, size] array."""
+    return np.stack([load_raw(p, size, transpose) for p in paths])
+
+
+def save_raw(path: str | os.PathLike, img_u16: np.ndarray,
+             transpose: bool = False) -> None:
+    """Write the 256-byte-header raw format (header zero-filled, matching the
+    harness's ``save_image``, ``test/metamorphic_test/script.py:38-47``)."""
+    img = np.asarray(img_u16, dtype="<u2")
+    if transpose:
+        img = img.T
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"\x00" * RAW_HEADER_BYTES)
+        f.write(np.ascontiguousarray(img).tobytes())
+
+
+def save_bmp8(path: str | os.PathLike, img_u8: np.ndarray) -> None:
+    """Write a single-channel uint8 image as BMP.
+
+    stb_image_write expands 1-channel data to 24-bit BGR; so does this, so
+    outputs are byte-compatible with the reference's BMPs when pixel values
+    match.  ``img_u8`` is indexed [x, y] (shader convention); BMP rows are
+    written bottom-up with y as the row, x as the column.
+    """
+    img = np.asarray(img_u8, dtype=np.uint8)
+    _write_bmp24(path, np.repeat(img[..., None], 3, axis=-1))
+
+
+def save_bmp_rgb(path: str | os.PathLike, img_rgb: np.ndarray) -> None:
+    """Write an [h, w, 3] uint8 RGB image as 24-bit BMP (the histogram and
+    curve debug renders)."""
+    _write_bmp24(path, np.asarray(img_rgb, np.uint8))
+
+
+def _write_bmp24(path, rgb: np.ndarray) -> None:
+    h, w = rgb.shape[:2]
+    row_bytes = w * 3
+    pad = (-row_bytes) % 4
+    data_size = (row_bytes + pad) * h
+    header = struct.pack(
+        "<2sIHHIIiiHHIIiiII",
+        b"BM", 14 + 40 + data_size, 0, 0, 14 + 40,
+        40, w, h, 1, 24, 0, data_size, 0, 0, 0, 0)
+    body = bytearray()
+    padding = b"\x00" * pad
+    for row in range(h - 1, -1, -1):
+        bgr = rgb[row][:, ::-1]  # BMP stores BGR
+        body += np.ascontiguousarray(bgr).tobytes() + padding
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(header)
+        f.write(bytes(body))
+
+
+def load_bmp(path: str | os.PathLike) -> np.ndarray:
+    """Read a BMP back as a uint8 grayscale array [rows, cols] (uses PIL)."""
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.array(im.convert("L"), dtype=np.uint8)

@@ -13,6 +13,7 @@ Runs ``musica_forward`` on a device-resident synthetic radiograph under
   the device's busy share (sum of kernel times over wall time);
 * per ``musica.<phase>`` span, the host time spent issuing its ops and its
   span on the device timeline;
+* the device time and launches of each hand-written kernel (K1-K7);
 * the kernels with the most device time.
 
 A Chrome trace of the run goes to ``DIR/trace.json`` (default
@@ -23,11 +24,23 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+
+# the hand-written kernels by their names in the trace (csrc/*.cu)
+HAND_WRITTEN = {
+    "K1 noise_hist_kernel": r"(?<![A-Za-z_])noise_hist_kernel\b",
+    "K2 hist_argmax_kernel": r"hist_argmax_kernel\b",
+    "K3 grad_hist_kernel<true>": r"grad_hist_kernel<true>",
+    "K4 grad_hist_kernel<false>": r"grad_hist_kernel<false>",
+    "K5 clahe_apply_kernel": r"clahe_apply_kernel\b",
+    "K6 histogram_kernel": r"(?<![A-Za-z_])histogram_kernel\b",
+    "K7 sdev_noise_hist_kernel": r"sdev_noise_hist_kernel\b",
+}
 
 
 def main() -> int:
@@ -53,10 +66,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA GPU", file=sys.stderr)
         return 1
-    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu.testing.phantoms import (
-        synthetic_radiograph)
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import (
+        synthetic_radiograph)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -101,6 +114,11 @@ def main() -> int:
     for k in sorted(host, key=lambda k: -host[k]):
         print(f"  {k:20s} {host[k] / 1e3 / args.reps:12.3f} "
               f"{span.get(k, 0.0) / 1e3 / args.reps:13.3f}")
+    print("hand-written kernels (ms/img, launches/img):")
+    for label, pattern in HAND_WRITTEN.items():
+        hits = [e for e in kernels if re.search(pattern, e.key)]
+        ms = sum(e.self_device_time_total for e in hits) / 1e3 / args.reps
+        print(f"  {ms:9.3f} {sum(e.count for e in hits) / args.reps:7.1f}  {label}")
     print("top kernels by device time (ms/img, launches/img):")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3 / args.reps:9.3f} "

@@ -13,7 +13,6 @@ import numpy as np
 import pytest
 import torch
 
-from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu.testing.phantoms import synthetic_radiograph
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe, noise, normalize, pyramid, stats
@@ -21,6 +20,8 @@ from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import histogram as k_hist
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import hist_cases
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import synthetic_radiograph
 
 pytestmark = pytest.mark.gpu
 
@@ -95,6 +96,68 @@ def test_grad_kernel_matches_plain(dev, n):
     rel = (rng.uniform(0, 1, (n, n)) ** 2).astype(np.float32)
     r, w = torch.from_numpy(recon).to(dev), torch.from_numpy(rel).to(dev)
     assert torch.equal(fh.grad_hist(r, w, cfg), fh.grad_hist_plain(r, w, cfg))
+
+
+@pytest.mark.parametrize("size,quirks", [(144, False), (600, True), (512, True), (1024, True)])
+def test_noise_kernel_adversarial_and_constant_levels(dev, size, quirks):
+    """K1 on adversarial levels (breaks at a group's first and last pixel and
+    at the lane boundary, adjusted == 1, bin 0, values above 0.1, negative
+    values) and on constant levels (one bin: the warp's single atomic)."""
+    cfg = MusicaConfig(image_size=size, quirks=quirks)
+    sizes = [-(-size // 2 ** i) for i in cfg.analysis_levels]
+    rng = np.random.default_rng(size)
+    for levels in ([torch.from_numpy(a).to(dev) for a in hist_cases.noise_levels(rng, sizes)],
+                   [torch.full((m, m), 0.05, device=dev) for m in sizes]):
+        launch.reset_launch_counts()
+        h = fh.noise_hists(levels, cfg)
+        assert launch.LAUNCHES["noise_hist"] == 1
+        assert torch.equal(h, fh.noise_hists_plain(levels, cfg))
+        assert int(h.sum()) > 0
+
+
+@pytest.mark.parametrize("n", [144, 600, 75, 256])
+def test_grad_kernels_adversarial_and_constant(dev, n):
+    """K4 (every n) and K3 (n a multiple of 16) on an adversarial recon
+    (the tile return at its first and last pixel, at row 1 col 0 and row 2
+    col 0, bin 1024, values >= 1, negative values, bin 0) and on a constant
+    one (one bin everywhere)."""
+    rng = np.random.default_rng(n + 1)
+    cfg = MusicaConfig(image_size=n, relevant_border=min(100, n // 8))
+    rel = torch.from_numpy(rng.uniform(0, 1, (n, n)).astype(np.float32)).to(dev)
+    nrm = torch.from_numpy(rng.uniform(0, 1.01, (n, n)).astype(np.float32)).to(dev)
+    cnr = torch.from_numpy(rng.uniform(0, 0.1, (-(-n // 8),) * 2).astype(np.float32)).to(dev)
+    for recon in (torch.from_numpy(hist_cases.gradation_image(rng, n)).to(dev),
+                  torch.full((n, n), 0.5, device=dev)):
+        assert torch.equal(fh.grad_hist(recon, rel, cfg), fh.grad_hist_plain(recon, rel, cfg))
+        if n % 16 == 0:
+            assert torch.equal(fh.grad_hist_relevant(recon, nrm, cnr, cfg),
+                               fh.grad_hist_relevant_plain(recon, nrm, cnr, cfg))
+
+
+def test_sdev_noise_kernel_exact_on_adversarial_bands(dev):
+    """K7 shares K1's per-pixel bin decision (csrc/noise_scan.cuh): still
+    exact on bands whose sdev has zeros, constant tiles and values above
+    0.1."""
+    cfg = MusicaConfig(image_size=600)
+    rng = np.random.default_rng(9)
+    bands = [torch.from_numpy(a).to(dev) for a in hist_cases.noise_levels(rng, [600, 300, 150, 75])]
+    sds, h = fh.sdev_noise_hists(bands, cfg)
+    want_sd, want_h = fh.sdev_noise_hists_plain(bands, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(sds, want_sd))
+    assert torch.equal(h, want_h) and int(h.sum()) > 0
+
+
+def test_histogram_wrappers_reject_what_the_kernels_do_not_take(dev):
+    """The kernels take the shaders' 16-px tile only, and K3 a CNR scale
+    that divides it."""
+    cfg = MusicaConfig(image_size=96)
+    x = torch.rand((96, 96), device=dev)
+    with pytest.raises(ValueError, match="tile"):
+        fh.grad_hist(x, x, cfg.with_(histogram_area_size=8))
+    with pytest.raises(ValueError, match="tile"):
+        fh.noise_hists([x], cfg.with_(histogram_area_size=8))
+    with pytest.raises(ValueError, match="CNR scale"):
+        fh.grad_hist_relevant(x, x, torch.rand((32, 32), device=dev), cfg)  # scale 3
 
 
 def test_relevance_paths_agree_on_pipeline_data(dev):

@@ -26,6 +26,7 @@ from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import build
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import hist_cases
 
 torch.set_num_threads(2)
 
@@ -205,6 +206,58 @@ def test_grad_hist_relevant_matches_pallas_interpret(n, cnr_n, border):
     rel = golden.img_relevant(normalized, cnr, cfg)
     np.testing.assert_array_equal(got.numpy().astype(np.int64),
                                   golden.gradation_histogram(recon, rel, cfg))
+
+
+# ----------------------------------------------------------------------
+# adversarial inputs (testing/hist_cases.py; the CUDA kernels are held to
+# these plain versions on the same cases on the card)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("image_size,quirks", [(144, False), (600, True), (512, True)])
+def test_noise_plain_matches_golden_on_adversarial_levels(image_size, quirks):
+    """Breaks at a group's first and last pixel and at the lane boundary,
+    adjusted == 1 (bin n_bins, dropped), bin 0, values above 0.1, constant
+    tiles, at every analysis level (144 clean math: levels down to 18 px,
+    padded; 600: level 0 cropped to 512).  The sdev is never negative, and
+    golden indexes a negative bin from the end, so the negative tiles are
+    folded to positive values here; the card holds the kernel to the plain
+    version on them as they are."""
+    cfg = MusicaConfig(image_size=image_size, quirks=quirks)
+    sizes = [-(-image_size // 2 ** i) for i in cfg.analysis_levels]
+    levels = [np.abs(sd) for sd in hist_cases.noise_levels(np.random.default_rng(image_size), sizes)]
+    hs = fh.noise_hists_plain([T(sd) for sd in levels], cfg)
+    for sd, h in zip(levels, hs):
+        np.testing.assert_array_equal(h.numpy().astype(np.int64), golden.noise_histogram(sd, cfg))
+    assert int(hs.sum()) > 0
+
+
+@pytest.mark.parametrize("n", [144, 75, 256])
+def test_grad_plain_matches_golden_on_adversarial_image(n):
+    """The whole-tile return at a tile's first and last pixel, at row 1
+    col 0 and at row 2 col 0, bin 1024 (dropped), values >= 1 and negative
+    values (dropped, the scan goes on), bin 0, constant tiles; 75 is ragged
+    (pixels past n read as 0.0 and end their tile)."""
+    rng = np.random.default_rng(n)
+    cfg = MusicaConfig(image_size=n)
+    recon = hist_cases.gradation_image(rng, n)
+    relevant = _snap_weights(rng.uniform(0, 1, (n, n)).astype(F32))
+    got = fh.grad_hist_plain(T(recon), T(relevant), cfg)
+    np.testing.assert_array_equal(got.numpy().astype(np.int64),
+                                  golden.gradation_histogram(recon, relevant, cfg))
+    assert int(got.sum()) > 0
+
+
+def test_adversarial_image_has_every_case():
+    """Every tile pattern occurs at 144 px, with its 0.0 where it is meant
+    to be."""
+    img = hist_cases.gradation_image(np.random.default_rng(0), 144)
+    tiles = img.reshape(9, 16, 9, 16).transpose(0, 2, 1, 3).reshape(81, 16, 16)
+    zero_at = {tuple(np.argwhere(t == 0.0)[0]) for t in tiles if (t == 0.0).sum() == 1}
+    assert zero_at == set(hist_cases.ZERO_AT)
+    assert any((t == t[0, 0]).all() for t in tiles)          # a constant tile
+    assert any((t >= 1.0).all() for t in tiles)               # out of range
+    assert any((t < 0.0).all() for t in tiles)                # negative
+    assert (img == F32(1.0)).sum() > 0 and (img == F32(1e-6)).sum() > 0
 
 
 def test_relevance_weight_plane_equals_relevance_image():
