@@ -7,7 +7,10 @@ Builds the CUDA kernels from ``..._tpu_torch/csrc`` with nvcc, holds every
 kernel against its plain PyTorch version at the paths' 3072^2 shapes
 (integer histograms and argmaxes exactly equal; the CLAHE apply and the
 sdev exactly equal with equal NaN masks) and the histogram scans K1, K3 and
-K4 also on adversarial inputs at 3072, 600 and 144 ([3a]), drives the port's main path
+K4 also on adversarial inputs at 3072, 600 and 144 and at histogram tiles 8,
+12 and 32 ([3a]), K5 and K6 also at 8x8 CLAHE tiles and K5 on random LUTs
+with x at the segment edges ([3b]), K7 also with block ranges that cross
+levels ([3d]), drives the port's main path
 (``process`` on a 3072^2 uint16 radiograph, then the intermediates path of
 ``process --debug-dump``), the CLAHE + linear-gradation variant path
 (``musica_forward`` as ``process --clahe --linear-gradation`` runs it), the
@@ -15,7 +18,9 @@ fused-sdev analysis path (``musica_forward(fused_sdev=True)``, ``process``,
 ``timed_process``) and bf16 band storage (``process --bf16``) and checks
 that each went through its kernels and agrees with the port's CPU path (or,
 for fused-sdev, with the default path bit for bit; for bf16 also with the
-float32 output to tests/test_bf16.py's contract), runs a batch of 4 through
+float32 output to tests/test_bf16.py's contract), runs ``process`` at
+histogram tiles 8, 12 and 32 and with 8x8 CLAHE tiles through the kernels
+([4g]), runs a batch of 4 through
 ``process_batch`` in float32 and in bf16, and times the pipeline paths in
 interleaved windows and each kernel beside its plain version, its bound
 (bytes over the HBM rate, operations over the peak rate, at this run's
@@ -77,10 +82,11 @@ MIN_PSNR, MIN_EXACT, MAX_DIFF = 90.0, 0.9999, 1
 # pixels, every other pixel within 16, PSNR over those >= 38 dB
 BF16_KNIFE, BF16_MAX_INLIER, BF16_MIN_PSNR = 3e-4, 16, 38.0
 # the least time of a kernel's work: bytes over the H100 SXM's HBM3 rate and
-# float32 operations over its rate outside the tensor cores, float64 at
-# 34 TFLOP/s (NVIDIA's H100 SXM data sheet).  Integer operations are not
-# counted.
-HBM_BYTES_PER_S, FP32_PER_S, FP64_PER_S = 3.35e12, 67e12, 34e12
+# float32 operations over its rate outside the tensor cores (NVIDIA's H100
+# SXM data sheet); float64 instructions at 64 per SM per clock (the Hopper
+# architecture white paper), at the card's SM count and its largest SM clock
+# (nvidia-smi).  Integer operations are not counted.
+HBM_BYTES_PER_S, FP32_PER_S, FP64_PER_SM_CLOCK = 3.35e12, 67e12, 64
 SECTOR_PX = 8  # float32 pixels of a 32-byte DRAM sector
 
 
@@ -201,12 +207,13 @@ def check_noise(rec, cfg, levels, case):
     rec.equal("hist_argmax", case, fh.hist_argmax(h), fh.hist_argmax_plain(h))
 
 
-def check_sdev_noise(rec, cfg, bands, case):
+def check_sdev_noise(rec, cfg, bands, case, grid=0):
     """K7: every level's sdev (concatenated) and the histograms against the
-    plain version on the same bands."""
+    plain version on the same bands (``grid`` > 0: at most that many blocks,
+    so that block ranges cross levels)."""
     import torch
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
-    sds, h = fh.sdev_noise_hists(bands, cfg)
+    sds, h = fh.sdev_noise_hists(bands, cfg, grid=grid)
     p_sds, p_h = fh.sdev_noise_hists_plain(bands, cfg)
     sizes = "/".join(str(b.shape[-1]) for b in bands)
     rec.equal_float("sdev_noise_hist", f"{case} ({sizes}), sdev",
@@ -247,6 +254,27 @@ def check_clahe(rec, cfg, recon, relevant, case):
     return nan_tiles
 
 
+def check_clahe_edges(rec, rng, n, dev, t=4, bins=256):
+    """K5 on random sorted LUTs with a NaN tile and x at every segment edge
+    i / bins and the next float up, 1.0, +-0.0, out of [0, 1] and denormal."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_apply as k_clahe
+    cfg = MusicaConfig(image_size=n, enable_clahe=True, clahe_tiles=t, clahe_bins=bins)
+    py = np.sort(rng.uniform(0, 1, (t, t, bins)).astype(np.float32), axis=-1)
+    py[t - 1, 0] = np.nan
+    edges = np.arange(bins + 1, dtype=np.float32) / np.float32(bins)
+    special = np.float32([1.0, -0.0, 0.0, -1e-3, 1.001, 1e-40, -1e-40, 1e-45, 2.0])
+    pool = np.concatenate([edges, np.nextafter(edges, np.float32(2)), special])
+    x = rng.uniform(-0.05, 1.05, (n, n)).astype(np.float32)
+    pick = rng.uniform(size=(n, n)) < 0.5
+    x[pick] = rng.choice(pool, int(pick.sum()))
+    recon, py = torch.from_numpy(x).to(dev), torch.from_numpy(py).to(dev)
+    rec.equal_float("clahe_apply", f"{n} random LUTs, {t}x{t} tiles, x at segment edges",
+                    k_clahe.clahe_apply(recon, None, py, cfg),
+                    k_clahe.clahe_apply_plain(recon, None, py, cfg))
+
+
 def check_adversarial(rec, rng, dev):
     """K1, K3 and K4 against their plain versions on adversarial inputs
     (``testing/hist_cases.py``: a 0.0 at a tile's or group's first and last
@@ -285,6 +313,27 @@ def check_adversarial(rec, rng, dev):
                 rec.equal("grad_hist_relevant", f"{n} {case}",
                           fh.grad_hist_relevant(r, nrm, cnr, cfg),
                           fh.grad_hist_relevant_plain(r, nrm, cnr, cfg))
+    # histogram tiles other than 16: the warp layouts at 8 and 32 px, the
+    # serial kernels at 12 (K1, K4, K7; K3 where the CNR scale 8 divides the
+    # tile and the tile divides n)
+    for tile in (8, 12, 32):
+        for cfg in (MusicaConfig(image_size=600, histogram_area_size=tile),
+                    MusicaConfig(image_size=144, quirks=False, histogram_area_size=tile)):
+            n = cfg.image_size
+            sizes = [-(-n // 2 ** i) for i in cfg.analysis_levels]
+            levels = [t(a) for a in hist_cases.noise_levels(rng, sizes)]
+            check_noise(rec, cfg, levels, f"{n} adversarial levels, tile {tile}")
+            check_sdev_noise(rec, cfg, levels, f"{n} adversarial bands, tile {tile}")
+            recon = t(hist_cases.gradation_image(rng, n))
+            rel = t(rng.uniform(0.0, 1.0, (n, n)).astype(np.float32))
+            rec.equal("grad_hist", f"{n} adversarial, tile {tile}", fh.grad_hist(recon, rel, cfg),
+                      fh.grad_hist_plain(recon, rel, cfg))
+            if tile % 8 == 0 and n % tile == 0:
+                nrm = t(rng.uniform(0.0, 1.01, (n, n)).astype(np.float32))
+                cnr = t(rng.uniform(0.0, 0.1, (n // 8, n // 8)).astype(np.float32))
+                rec.equal("grad_hist_relevant", f"{n} adversarial, tile {tile}",
+                          fh.grad_hist_relevant(recon, nrm, cnr, cfg),
+                          fh.grad_hist_relevant_plain(recon, nrm, cnr, cfg))
 
 
 def bound(n_bytes: float, flops: float = 0.0, rate: float = FP32_PER_S):
@@ -357,6 +406,47 @@ def grad_scan(recon, cfg):
     return loaded, counted
 
 
+def fp64_sass_lengths():
+    """FP64 instructions of ``__ddiv_rn(x, 25.0)`` and ``__dsqrt_rn(x)`` as
+    this toolkit compiles them for sm_90a: one probe kernel each, built with
+    the kernels' flags, ``cuobjdump -sass``, counting the float64
+    instructions (D*, MUFU.*64H, F2F to or from F64) from the function's
+    start to its first EXIT (the fast path; the slow-path subroutine placed
+    after it runs only for special operands)."""
+    import re
+    from pathlib import Path
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import build
+    src = ('extern "C" __global__ void probe_ddiv(const double* a, double* o) '
+           '{ o[threadIdx.x] = __ddiv_rn(a[threadIdx.x], 25.0); }\n'
+           'extern "C" __global__ void probe_dsqrt(const double* a, double* o) '
+           '{ o[threadIdx.x] = __dsqrt_rn(a[threadIdx.x]); }\n')
+    nvcc = build._nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        cu, cubin = os.path.join(tmp, "probe.cu"), os.path.join(tmp, "probe.cubin")
+        with open(cu, "w") as f:
+            f.write(src)
+        subprocess.run([nvcc, *build.ARCH, "-O3", "-fmad=false", "-cubin", "-o", cubin, cu],
+                       check=True, capture_output=True, timeout=120)
+        sass = subprocess.run([str(Path(nvcc).with_name("cuobjdump")), "-sass", cubin],
+                              check=True, capture_output=True, text=True, timeout=60).stdout
+    fp64 = re.compile(r"^(?!DEPBAR)(D[A-Z]+|MUFU\.\w*64H|F2F\.F64\.\w+|F2F\.\w+\.F64)")
+    out, name, done = {}, None, False
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name, done = m.group(1), False
+            out[name] = 0
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if name is None or done or not m:
+            continue
+        if m.group(1) == "EXIT":
+            done = True
+        elif fp64.match(m.group(1)):
+            out[name] += 1
+    return out["probe_ddiv"], out["probe_dsqrt"]
+
+
 def kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b3072):
     """Per kernel (ms, "bytes" or "operations"): the bound at this run's
     main-path inputs.  Where a scan stops early (K1, K3, K4) only the
@@ -393,13 +483,28 @@ def kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b
     loaded, counted = grad_scan(linear, cfg)
     out["grad_hist"] = bound(sector_bytes(loaded) + sector_bytes(counted) + 4 * gb)
     # K6: the int32 (bin, weight) pairs; K5: recon in, the graded image out,
-    # the LUTs, ~20 float32 operations a pixel; K7: the bands in, the sdev
-    # out, ~12 float64 operations a pixel
+    # the LUTs, ~20 float32 operations a pixel
     out["histogram"] = bound(8 * v_joint.numel() + 4 * nb)
     m = v_recon.numel()
     out["clahe_apply"] = bound(8 * m + 2 * 4 * v_px.numel(), 20 * m)
+    # K7: the bands in, the sdev out; per pixel 8 float64 additions, the
+    # square's conversion to float64 and the sdev's back, a division and a
+    # square root, each as long as its SASS, at 64 float64 instructions per
+    # SM per clock
     px7 = sum(b.numel() for b in b3072)
-    out["sdev_noise_hist"] = bound(8 * px7 + 4 * L * nbn, 12 * px7, FP64_PER_S)
+    n_div, n_sqrt = fp64_sass_lengths()
+    per_px = 8 + 2 + n_div + n_sqrt
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_bytes = (8 * px7 + 4 * L * nbn) / HBM_BYTES_PER_S * 1e3
+    t_fp64 = px7 * per_px / (FP64_PER_SM_CLOCK * sms * mhz * 1e6) * 1e3
+    log(f"  K7's bound: bytes {t_bytes} ms ({8 * px7 + 4 * L * nbn} B); float64 issue {t_fp64} "
+        f"ms ({per_px} FP64 instructions a pixel: 8 additions, 2 conversions, __ddiv_rn "
+        f"{n_div}, __dsqrt_rn {n_sqrt} in their SASS; {px7} px at 64 a clock on {sms} SMs "
+        f"at {mhz:.0f} MHz)")
+    out["sdev_noise_hist"] = (max(t_bytes, t_fp64), "bytes" if t_bytes >= t_fp64 else "operations")
     return out
 
 
@@ -510,11 +615,12 @@ def main() -> int:
 
     log("[3a] K1, K3, K4 vs plain versions on adversarial inputs: 0.0 at a tile's or "
         "group's first and last pixel and at the scans' lane and step boundaries, "
-        "constant images, values out of range, negative values, bin == n_bins, bin 0")
+        "constant images, values out of range, negative values, bin == n_bins, bin 0; "
+        "and K1, K3, K4, K7 at histogram tiles 8, 12 and 32")
     check_adversarial(rec, rng, dev)
 
     log("[3b] CLAHE kernels vs plain versions at 3072 (histogram exact; apply "
-        "exact with equal NaN masks)")
+        "exact with equal NaN masks), also at 8x8 tiles and with x at segment edges")
     var_inter = musica.musica_forward(x_dev, cfg_var, want_intermediates=True)
     v_recon, v_rel = var_inter["recon"], var_inter["intermediates"]["relevant"]
     rec.equal("grad_hist", "3072 thorax, squared image (CLAHE + linear path)",
@@ -531,6 +637,14 @@ def main() -> int:
     for n in (600, 144):
         cfg_n = MusicaConfig(image_size=n, enable_clahe=True)
         check_clahe(rec, cfg_n, *random_clahe(rng, n, dev), f"{n} random LUTs")
+    # 8x8 tiles: 16,384 joint bins (64 KB) and 128 KB of K5 tables, past the
+    # 48 KB a block has without the shared-memory opt-in
+    cfg_c8 = cfg_var.with_(clahe_tiles=8)
+    check_clahe(rec, cfg_c8, v_recon, v_rel, "3072 thorax LUTs, 8x8 tiles")
+    assert check_clahe(rec, cfg_c8, c_recon, c_rel, "3072 random LUTs, 8x8 tiles") >= 1
+    for n in (17, 600, SIZE):
+        check_clahe_edges(rec, rng, n, dev)
+    check_clahe_edges(rec, rng, 600, dev, t=8, bins=64)
 
     log("[3c] CLAHE coordinates on the card vs numpy's true float32 division")
     like = torch.zeros(1, device=dev)
@@ -553,6 +667,8 @@ def main() -> int:
     check_sdev_noise(rec, cfg, b3072, "3072 thorax bands, levels 0-3")
     check_sdev_noise(rec, cfg, random_bands(rng, [b.shape[-1] for b in b3072], dev),
                      "3072 random bands")
+    # a grid of a few blocks: each block's range of tasks crosses levels
+    check_sdev_noise(rec, cfg, b3072, "3072 thorax bands, 7 blocks", grid=7)
     check_sdev_noise(rec, cfg512, analysis_bands(synthetic_radiograph(512, "thorax"), cfg512, dev),
                      "512 thorax stack")
     # 600: level 0's coverage cropped to 512, coarser levels padded; 144 in
@@ -565,6 +681,7 @@ def main() -> int:
         check_sdev_noise(rec, cfg_n, bands_n, f"{n} {anatomy} stack, coverage {covs}")
         check_sdev_noise(rec, cfg_n, random_bands(rng, [b.shape[-1] for b in bands_n], dev),
                          f"{n} random stack")
+        check_sdev_noise(rec, cfg_n, bands_n, f"{n} {anatomy} stack, 3 blocks", grid=3)
 
     # ---- 4. the main path at 3072^2 ----------------------------------------
     log(f"[4] main path: process() on a {SIZE}^2 thorax phantom")
@@ -704,6 +821,49 @@ def main() -> int:
     assert np.array_equal(t16, out16), "bf16 timed_process out_u8"
     log("  fused_sdev=True and timed_process give the same bf16 out_u8; timed_process ms: "
         + ", ".join(f"{k} {v:.3f}" for k, v in times16.items()))
+
+    log(f"[4g] configurations the JAX package's kernels take beyond the defaults: "
+        f"process() at histogram_area_size 8, 12 and 32 and with 8x8 CLAHE tiles on the "
+        f"{SIZE}^2 thorax phantom, each kernel vs its plain version on that run's inputs")
+    for tile in (8, 12, 32):
+        cfg_t = cfg.with_(histogram_area_size=tile)
+        launch.reset_launch_counts()
+        out_t = musica.process(img, cfg_t, "cuda")
+        torch.cuda.synchronize()
+        launches_t = dict(launch.LAUNCHES)
+        # the CNR scale (8 at 3072) divides 8 and 32: K3; not 12: K4
+        k_grad = "grad_hist_relevant" if tile % 8 == 0 else "grad_hist"
+        assert launches_t["noise_hist"] == launches_t["hist_argmax"] == launches_t[k_grad] == 1, \
+            (tile, launches_t)
+        inter_t = musica.musica_forward(x_dev, cfg_t, want_intermediates=True)
+        assert np.array_equal(inter_t["out_u8"].cpu().numpy(), out_t)
+        assert np.array_equal(musica.process(img, cfg_t, "cuda", fused_sdev=True), out_t)
+        check_noise(rec, cfg_t, lv3072, f"3072 thorax levels, tile {tile}")
+        check_sdev_noise(rec, cfg_t, b3072, f"3072 thorax bands, tile {tile}")
+        r_t, n_t, c_t = (inter_t["recon"], inter_t["intermediates"]["normalized"],
+                         inter_t["cnr"])
+        rel_t = inter_t["intermediates"]["relevant"]
+        rec.equal("grad_hist", f"3072 thorax, tile {tile}", fh.grad_hist(r_t, rel_t, cfg_t),
+                  fh.grad_hist_plain(r_t, rel_t, cfg_t))
+        if tile % 8 == 0:
+            rec.equal("grad_hist_relevant", f"3072 thorax, tile {tile}",
+                      fh.grad_hist_relevant(r_t, n_t, c_t, cfg_t),
+                      fh.grad_hist_relevant_plain(r_t, n_t, c_t, cfg_t))
+        d = np.abs(out_t.astype(np.int64) - out_gpu.astype(np.int64))
+        log(f"  tile {tile}: launches {launches_t}; out_u8 differs from the 16-px tile's at "
+            f"{int((d > 0).sum())} px (max {int(d.max())}); fused_sdev gives the same out_u8")
+    cfg_c8 = cfg.with_(enable_clahe=True, clahe_tiles=8)
+    launch.reset_launch_counts()
+    res_c8 = musica.musica_forward(x_dev, cfg_c8, want_intermediates=True)
+    torch.cuda.synchronize()
+    launches_c8 = dict(launch.LAUNCHES)
+    assert launches_c8["histogram"] == launches_c8["clahe_apply"] == 1, launches_c8
+    assert np.array_equal(res_c8["out_u8"].cpu().numpy(), out_gpu)
+    nan_tiles = check_clahe(rec, cfg_c8, res_c8["recon"], res_c8["intermediates"]["relevant"],
+                            "3072 thorax, 8x8 tiles, the run's LUTs")
+    assert np.array_equal(musica.process(img, cfg_c8, "cuda"), out_gpu)
+    log(f"  8x8 CLAHE tiles: launches {launches_c8}; {nan_tiles} NaN tile(s); out_u8 equals "
+        f"the main path's (CLAHE leaves the tone map alone)")
 
     # ---- 5. a batch of 4 ---------------------------------------------------
     anatomies = ["thorax", "pelvis", "hand", "knee"][:BATCH]

@@ -8,17 +8,25 @@
 //                          (noise_hist_argmax_multi)
 //   hist_argmax_kernel  <- the in-kernel first-max argmax of
 //                          _noise_multi_kernel
-//   grad_hist_kernel<true>  <- _grad_relevant_kernel (grad_hist_relevant_fused)
-//   grad_hist_kernel<false> <- _grad_kernel (grad_hist_fused)
+//   grad_hist_kernel<tile, true>  <- _grad_relevant_kernel (grad_hist_relevant_fused)
+//   grad_hist_kernel<tile, false> <- _grad_kernel (grad_hist_fused)
 //
 // The TPU kernels build each histogram as factorised one-hot matrix products
 // and encode the scan aborts with masked lane-roll prefix ORs, because the
 // TPU has no scatter.  Here the lanes of a warp read neighbouring pixels in
-// one coalesced load, a ballot (or two shuffles) finds the first break of the
-// reference's serial scan, and the pixels before it are added into a
+// one coalesced load, a ballot (or a few shuffles) finds the first break of
+// the reference's serial scan, and the pixels before it are added into a
 // histogram privatised in shared memory, one atomic per pixel (hist_add).
-// A block flushes its histogram with one atomicAdd per non-zero bin.  Integer atomics give the same counts in every
-// order, so the result equals the plain PyTorch version exactly.
+// A block flushes its histogram with one atomicAdd per non-zero bin.  Integer
+// atomics give the same counts in every order, so the result equals the
+// plain PyTorch version exactly.
+//
+// The histogram tile (histogram_area_size, 16 in the shaders) is a template
+// parameter where a warp step holds whole tile rows or a tile row whole
+// steps: 4, 8, 16 and 32 for the noise histogram, 8, 16 and 32 for the
+// gradation histograms (a 4x4 tile is smaller than a warp step).  Any other
+// tile takes the *_serial kernels: one thread walks a group or a tile in
+// the reference's order, as exact and slower.
 //
 // Bound: one read of the images (4 bytes/px for the noise histogram, every
 // pixel of the scanned coverage; for the gradation histograms the pixels of
@@ -36,6 +44,7 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 
+#include "grid.cuh"
 #include "noise_scan.cuh"
 
 #define MUSICA_MAX_LEVELS 16
@@ -43,7 +52,6 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kTile = 16;  // the shaders' histogram tile (histogram_area_size)
 
 // Adds w into sh[bin] where bin >= 0 (-1: nothing); every lane of the warp
 // calls it.  Lanes that hit one bin are not merged first: on the H100 the
@@ -69,9 +77,6 @@ __device__ __forceinline__ void flush(const int* sh, int* out, int n_bins) {
 // ---------------------------------------------------------------------------
 
 constexpr int kNoiseThreads = 256;
-constexpr int kLanePx = 8;                       // pixels of a lane in a task, float4s
-constexpr int kGroupLanes = kTile / kLanePx;     // lanes of a 16-px group
-constexpr int kTaskGroups = 32 / kGroupLanes;    // groups of a warp task
 constexpr int kNoiseWarps = kNoiseThreads / 32;
 
 struct NoiseLevels {
@@ -98,16 +103,32 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ row, int c, in
   return p;
 }
 
+// The warp layout of a noise-histogram group of kTile px: a lane holds
+// kLanePx consecutive pixels (float4s), kGroupLanes lanes a group, and a
+// warp task is kTaskGroups groups of one row (sdev_noise.cu scans its sdev
+// values in the same layout at 8, 16 and 32 px).
+template <int kTile>
+struct NoiseLayout {
+  static_assert(kTile == 4 || kTile == 8 || kTile == 16 || kTile == 32,
+                "a warp layout holds tiles of 4, 8, 16 or 32 px");
+  static constexpr int kLanePx = kTile < 8 ? kTile : 8;
+  static constexpr int kGroupLanes = kTile / kLanePx;
+  static constexpr int kTaskGroups = 32 / kGroupLanes;
+};
+
 // The blocks of all levels are numbered in one grid; a block finds its level
 // in the prefix table and scans kNoiseWarps * tasks_per_warp consecutive
-// tasks of it, sized so that the grid is one wave over the SMs.  A warp task is
-// 32 * kLanePx px of a scanned row: kTaskGroups groups of 16 px, kGroupLanes
-// lanes per group, kLanePx / 4 float4s per lane.  Each lane classifies its
-// pixels (noise_bin), shuffles within the group give its 16-bit break mask,
-// and a pixel is counted if it comes before the group's first break.
+// tasks of it, sized so that the grid is one wave over the SMs.  A warp task
+// is 32 * kLanePx px of a scanned row.  Each lane classifies its pixels
+// (noise_bin), shuffles within the group give its kTile-bit break mask, and
+// a pixel is counted if it comes before the group's first break.
+template <int kTile>
 __global__ void __launch_bounds__(kNoiseThreads)
 noise_hist_kernel(NoiseLevels lv, int levels, int* __restrict__ hists, int n_bins,
                   float max_noise) {
+  constexpr int kLanePx = NoiseLayout<kTile>::kLanePx;
+  constexpr int kGroupLanes = NoiseLayout<kTile>::kGroupLanes;
+  constexpr int kTaskGroups = NoiseLayout<kTile>::kTaskGroups;
   extern __shared__ int sh[];
   for (int b = threadIdx.x; b < n_bins; b += blockDim.x) sh[b] = 0;
   __syncthreads();
@@ -165,6 +186,91 @@ noise_hist_kernel(NoiseLevels lv, int levels, int* __restrict__ hists, int n_bin
   flush(sh, hists + (long long)level * n_bins, n_bins);
 }
 
+// Any other tile: one thread walks one (row, group) of a level's coverage
+// (noise_scan_group); blockIdx.y is the level.
+__global__ void __launch_bounds__(kNoiseThreads)
+noise_hist_serial_kernel(NoiseLevels lv, int* __restrict__ hists, int n_bins, int tile,
+                         float max_noise) {
+  extern __shared__ int sh[];
+  for (int b = threadIdx.x; b < n_bins; b += blockDim.x) sh[b] = 0;
+  __syncthreads();
+
+  const int level = blockIdx.y;
+  const float* __restrict__ src = lv.ptr[level];
+  const int n = lv.n[level];
+  const int cov = lv.cov[level];
+  const int groups = cov / tile;
+  const long long work = (long long)min(cov, n) * groups;
+  const float fbins = (float)n_bins;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < work;
+       t += (long long)gridDim.x * blockDim.x) {
+    const int r = (int)(t / groups);
+    const int c0 = (int)(t - (long long)r * groups) * tile;
+    const float* __restrict__ row = src + (long long)r * lv.stride[level];
+    noise_scan_group([&](int k) { return c0 + k < n ? row[c0 + k] : 0.0f; }, tile, n_bins,
+                     fbins, max_noise, sh);
+  }
+  __syncthreads();
+  flush(sh, hists + (long long)level * n_bins, n_bins);
+}
+
+template <int kTile>
+int launch_noise(NoiseLevels lv, int levels, int* hists, int n_bins, float max_noise,
+                 cudaStream_t stream) {
+  constexpr int kTaskGroups = NoiseLayout<kTile>::kTaskGroups;
+  long long total = 0;
+  long long tasks[MUSICA_MAX_LEVELS];
+  for (int l = 0; l < levels; ++l) {
+    lv.tasks_per_row[l] = (lv.cov[l] / kTile + kTaskGroups - 1) / kTaskGroups;
+    tasks[l] = (long long)(lv.cov[l] < lv.n[l] ? lv.cov[l] : lv.n[l]) * lv.tasks_per_row[l];
+    if (tasks[l] > 0x3fffffffLL) return (int)cudaErrorInvalidValue;
+    total += tasks[l];
+  }
+  // one wave: at most (blocks that fit on all SMs) - levels blocks' worth of
+  // tasks per block, so that the levels' rounded-up block counts still fit
+  const size_t smem = n_bins * sizeof(int);
+  long long wave = 0;
+  const int e = wave_blocks(noise_hist_kernel<kTile>, kNoiseThreads, smem, &wave);
+  if (e != (int)cudaSuccess) return e;
+  wave -= levels;
+  if (wave < 1) wave = 1;
+  const long long per_block = (total + wave - 1) / wave;
+  long long per_warp = (per_block + kNoiseWarps - 1) / kNoiseWarps;
+  if (per_warp < 1) per_warp = 1;
+  lv.tasks_per_warp = (int)per_warp;
+  long long blocks = 0;
+  for (int l = 0; l < levels; ++l) {
+    lv.first_block[l] = (int)blocks;
+    blocks += (tasks[l] + per_warp * kNoiseWarps - 1) / (per_warp * kNoiseWarps);
+  }
+  lv.first_block[levels] = (int)blocks;
+  // nothing covered (e.g. quirks coverage 0 below 512 px): one block that
+  // scans nothing, so every call is one launch
+  if (blocks == 0) blocks = 1;
+  noise_hist_kernel<kTile><<<(unsigned)blocks, kNoiseThreads, smem, stream>>>(
+      lv, levels, hists, n_bins, max_noise);
+  return (int)cudaGetLastError();
+}
+
+int launch_noise_serial(const NoiseLevels& lv, int levels, int* hists, int n_bins, int tile,
+                        float max_noise, cudaStream_t stream) {
+  long long work = 0;
+  for (int l = 0; l < levels; ++l) {
+    const long long w = (long long)(lv.cov[l] < lv.n[l] ? lv.cov[l] : lv.n[l]) * (lv.cov[l] / tile);
+    if (w > work) work = w;
+  }
+  const size_t smem = n_bins * sizeof(int);
+  long long wave = 0;
+  const int e = wave_blocks(noise_hist_serial_kernel, kNoiseThreads, smem, &wave);
+  if (e != (int)cudaSuccess) return e;
+  long long bx = (work + kNoiseThreads - 1) / kNoiseThreads;
+  if (bx > wave) bx = wave;
+  if (bx < 1) bx = 1;
+  noise_hist_serial_kernel<<<dim3((unsigned)bx, levels), kNoiseThreads, smem, stream>>>(
+      lv, hists, n_bins, tile, max_noise);
+  return (int)cudaGetLastError();
+}
+
 // First-max argmax of each histogram row (shaders/img_histogram_max.comp:
 // strict >, so the first maximum wins and an all-zero row gives bin 0).
 constexpr int kArgmaxThreads = 256;
@@ -201,9 +307,7 @@ __global__ void hist_argmax_kernel(const int* __restrict__ hists, int n_bins,
 // ---------------------------------------------------------------------------
 
 constexpr int kGradThreads = 256;
-constexpr int kStepRows = 32 / kTile;           // tile rows a warp reads per step
-constexpr int kSteps = kTile * kTile / 32;      // warp steps per tile
-constexpr int kSlots = 4;                       // tiles a warp scans side by side
+constexpr int kSlots = 4;  // tiles a warp scans side by side
 // at most 51 registers a thread, so that 5 blocks (40 warps) fit on an SM:
 // the step chain's latency is hidden by the warps in flight
 constexpr int kGradBlocksPerSM = 5;
@@ -217,31 +321,37 @@ struct GradArgs {
   const int* wplane;    // [ws, ws] block weights on the CNR grid: >= 0 the
                         // weight, -1 a solid block (weight from the pixel test)
   int ws;
-  int scale_shift;      // log2 of the CNR nearest-upsample scale (1 .. 16)
+  int scale;            // the CNR nearest-upsample scale; it divides the tile
+  int scale_shift;      // its log2 where the tile is a power of two
   int border;
   float max_pixel;
 };
 
-// One warp scans a 16x16 tile in 8 steps.  In step s lane l reads tile row
-// 2s + l/16, column l%16, so the GLSL order index m*16 + k
-// (gradation_histogram.comp:20-33: tile rows outer, 16 px along the row
-// inner) is 32s + l and each half-warp reads 64 contiguous bytes.  A ballot
-// of v == 0.0 finds the step's first 0.0: the lanes before it count, and the
-// warp reads no further step of that tile (the shader's `return`).  Pixels
-// past n read as 0.0.  Because each step waits for the one before, a warp
-// scans kSlots consecutive tiles of its range side by side, in lockstep: a
-// tile that returns early leaves its slot idle until the group's last step.
-// The grid is persistent (a full wave of blocks over the SMs) and each warp
-// owns a contiguous range of tiles, so each block flushes its shared
-// histogram once.
+// One warp scans a kTile x kTile tile in kSteps steps.  In step s lane l
+// reads tile row kStepRows * s + l / kTile, column l % kTile, so the GLSL
+// order index m * kTile + k (gradation_histogram.comp:20-33: tile rows
+// outer, the row's pixels inner) is 32s + l and the lanes read whole rows.
+// A ballot of v == 0.0 finds the step's first 0.0: the lanes before it
+// count, and the warp reads no further step of that tile (the shader's
+// `return`).  Pixels past n read as 0.0.  Because each step waits for the
+// one before, a warp scans kSlots consecutive tiles of its range side by
+// side, in lockstep: a tile that returns early leaves its slot idle until
+// the group's last step.  The grid is persistent (a full wave of blocks over
+// the SMs) and each warp owns a contiguous range of tiles, so each block
+// flushes its shared histogram once.
 //
 // kRelevance: the weight-plane entry of a tile's next step is read one step
 // ahead (the plane is a few hundred KB and stays in cache), so the
 // normalized image is read beside recon, and only where the block is solid
-// (-1).
-template <bool kRelevance>
+// (-1).  The CNR scale divides the tile, a power of two here, so it is one
+// too and the CNR coordinate is a shift.
+template <int kTile, bool kRelevance>
 __global__ void __launch_bounds__(kGradThreads, kGradBlocksPerSM)
 grad_hist_kernel(GradArgs a, int* __restrict__ hist, int n_bins) {
+  static_assert(kTile == 8 || kTile == 16 || kTile == 32,
+                "a warp step holds whole rows of tiles of 8, 16 or 32 px");
+  constexpr int kStepRows = 32 / kTile;       // tile rows a warp reads per step
+  constexpr int kSteps = kTile * kTile / 32;  // warp steps per tile
   extern __shared__ int sh[];
   for (int b = threadIdx.x; b < n_bins; b += blockDim.x) sh[b] = 0;
   __syncthreads();
@@ -333,40 +443,85 @@ grad_hist_kernel(GradArgs a, int* __restrict__ hist, int n_bins) {
   flush(sh, hist, n_bins);
 }
 
-// The current device's SM count, read once per device.
-int sm_count(int* sms) {
-  constexpr int kDevices = 64;
-  static int per_device[kDevices];  // 0: not read yet
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= kDevices) return (int)cudaErrorInvalidDevice;
-  if (per_device[dev] == 0) {
-    e = cudaDeviceGetAttribute(&per_device[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
+// Any other tile: one thread scans one tile in the GLSL order (tile rows
+// outer, the row's pixels inner) and returns at its first 0.0.
+template <bool kRelevance>
+__global__ void __launch_bounds__(kGradThreads)
+grad_hist_serial_kernel(GradArgs a, int* __restrict__ hist, int n_bins, int tile) {
+  extern __shared__ int sh[];
+  for (int b = threadIdx.x; b < n_bins; b += blockDim.x) sh[b] = 0;
+  __syncthreads();
+  const int tiles = (a.n + tile - 1) / tile;
+  const long long work = (long long)tiles * tiles;
+  const float fbins = (float)n_bins;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < work;
+       t += (long long)gridDim.x * blockDim.x) {
+    const int tx = (int)(t / tiles);
+    const int ty = (int)(t - (long long)tx * tiles);
+    for (int m = 0; m < tile; ++m) {
+      const int x = tx * tile + m;
+      bool stop = false;
+      for (int k = 0; k < tile; ++k) {
+        const int y = ty * tile + k;
+        const int off = x * a.stride + y;
+        const float v = x < a.n && y < a.n ? a.recon[off] : 0.0f;
+        if (v == 0.0f) {
+          stop = true;
+          break;
+        }
+        const int bin = __float2int_rz(__fmul_rn(v, fbins));
+        if (bin < 0 || bin >= n_bins) continue;  // OOB atomic, dropped
+        int w;
+        if (kRelevance) {
+          if (!(x > a.border && x < a.n - a.border && y > a.border && y < a.n - a.border))
+            continue;
+          const int wp = __ldg(a.wplane + (x / a.scale) * a.ws + y / a.scale);
+          w = wp >= 0 ? wp : (a.norm[off] <= a.max_pixel ? 100 : 0);
+        } else {
+          w = __float2int_rz(__fmul_rn(a.rel[off], 100.0f));
+        }
+        if (w != 0) atomicAdd(&sh[bin], w);
+      }
+      if (stop) break;
+    }
   }
-  *sms = per_device[dev];
-  return (int)cudaSuccess;
+  __syncthreads();
+  flush(sh, hist, n_bins);
 }
 
 // A persistent grid: as many blocks as fit on all SMs at once, but no more
 // than the tiles fill (kSlots tiles per warp).
-template <bool kRelevance>
-int launch_grad(const GradArgs& a, int* hist, int n_bins, void* stream) {
+template <int kTile, bool kRelevance>
+int launch_grad(const GradArgs& a, int* hist, int n_bins, cudaStream_t stream) {
   const size_t smem = n_bins * sizeof(int);
-  int sms = 0, per_sm = 0;
-  int e = sm_count(&sms);
-  if (e != (int)cudaSuccess) return e;
-  e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, grad_hist_kernel<kRelevance>, kGradThreads, smem);
+  long long wave = 0;
+  const int e = wave_blocks(grad_hist_kernel<kTile, kRelevance>, kGradThreads, smem, &wave);
   if (e != (int)cudaSuccess) return e;
   const long long tiles = (a.n + kTile - 1) / kTile;
   const long long per_block = (long long)kGradThreads / 32 * kSlots;
   const long long fill = (tiles * tiles + per_block - 1) / per_block;
-  const long long wave = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const int blocks = (int)(wave < fill ? wave : fill);
-  grad_hist_kernel<kRelevance><<<blocks, kGradThreads, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(a, hist, n_bins);
+  grad_hist_kernel<kTile, kRelevance><<<blocks, kGradThreads, smem, stream>>>(a, hist, n_bins);
+  return (int)cudaGetLastError();
+}
+
+template <bool kRelevance>
+int launch_grad_tile(const GradArgs& a, int* hist, int n_bins, int tile, cudaStream_t stream) {
+  switch (tile) {
+    case 8: return launch_grad<8, kRelevance>(a, hist, n_bins, stream);
+    case 16: return launch_grad<16, kRelevance>(a, hist, n_bins, stream);
+    case 32: return launch_grad<32, kRelevance>(a, hist, n_bins, stream);
+    default: break;
+  }
+  const size_t smem = n_bins * sizeof(int);
+  long long wave = 0;
+  const int e = wave_blocks(grad_hist_serial_kernel<kRelevance>, kGradThreads, smem, &wave);
+  if (e != (int)cudaSuccess) return e;
+  const long long tiles = (a.n + tile - 1) / tile;
+  long long blocks = (tiles * tiles + kGradThreads - 1) / kGradThreads;
+  if (blocks > wave) blocks = wave;
+  grad_hist_serial_kernel<kRelevance><<<(int)blocks, kGradThreads, smem, stream>>>(
+      a, hist, n_bins, tile);
   return (int)cudaGetLastError();
 }
 
@@ -382,51 +537,26 @@ const char* musica_error_string(int code) {
 int musica_noise_hist(const void* const* ptrs, const int* ns, const int* covs,
                       const int* strides, int levels, int* hists, int n_bins,
                       int tile, float max_noise, void* stream) {
-  if (levels < 1 || levels > MUSICA_MAX_LEVELS || tile != kTile || n_bins < 1)
+  if (levels < 1 || levels > MUSICA_MAX_LEVELS || tile < 1 || n_bins < 1)
     return (int)cudaErrorInvalidValue;
   NoiseLevels lv = {};
-  long long total = 0;
-  long long tasks[MUSICA_MAX_LEVELS];
   for (int l = 0; l < levels; ++l) {
-    if (ns[l] < 1 || covs[l] < 0 || strides[l] < ns[l]) return (int)cudaErrorInvalidValue;
+    if (ns[l] < 1 || covs[l] < 0 || covs[l] % tile != 0 || strides[l] < ns[l])
+      return (int)cudaErrorInvalidValue;
     lv.ptr[l] = static_cast<const float*>(ptrs[l]);
     lv.n[l] = ns[l];
     lv.cov[l] = covs[l];
     lv.stride[l] = strides[l];
     lv.vec[l] = (reinterpret_cast<unsigned long long>(ptrs[l]) % 16 == 0) && strides[l] % 4 == 0;
-    lv.tasks_per_row[l] = (covs[l] / kTile + kTaskGroups - 1) / kTaskGroups;
-    tasks[l] = (long long)(covs[l] < ns[l] ? covs[l] : ns[l]) * lv.tasks_per_row[l];
-    if (tasks[l] > 0x3fffffffLL) return (int)cudaErrorInvalidValue;
-    total += tasks[l];
   }
-  // one wave: at most (blocks that fit on all SMs) - levels blocks' worth of
-  // tasks per block, so that the levels' rounded-up block counts still fit
-  const size_t smem = n_bins * sizeof(int);
-  int sms = 0, per_sm = 0;
-  int e = sm_count(&sms);
-  if (e != (int)cudaSuccess) return e;
-  e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, noise_hist_kernel,
-                                                         kNoiseThreads, smem);
-  if (e != (int)cudaSuccess) return e;
-  long long wave = (long long)sms * (per_sm > 0 ? per_sm : 1) - levels;
-  if (wave < 1) wave = 1;
-  const long long per_block = (total + wave - 1) / wave;
-  long long per_warp = (per_block + kNoiseWarps - 1) / kNoiseWarps;
-  if (per_warp < 1) per_warp = 1;
-  lv.tasks_per_warp = (int)per_warp;
-  long long blocks = 0;
-  for (int l = 0; l < levels; ++l) {
-    lv.first_block[l] = (int)blocks;
-    blocks += (tasks[l] + per_warp * kNoiseWarps - 1) / (per_warp * kNoiseWarps);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tile) {
+    case 4: return launch_noise<4>(lv, levels, hists, n_bins, max_noise, s);
+    case 8: return launch_noise<8>(lv, levels, hists, n_bins, max_noise, s);
+    case 16: return launch_noise<16>(lv, levels, hists, n_bins, max_noise, s);
+    case 32: return launch_noise<32>(lv, levels, hists, n_bins, max_noise, s);
+    default: return launch_noise_serial(lv, levels, hists, n_bins, tile, max_noise, s);
   }
-  lv.first_block[levels] = (int)blocks;
-  // nothing covered (e.g. quirks coverage 0 below 512 px): one block that
-  // scans nothing, so every call is one launch
-  if (blocks == 0) blocks = 1;
-  noise_hist_kernel<<<(unsigned)blocks, kNoiseThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(lv, levels, hists, n_bins,
-                                                           max_noise);
-  return (int)cudaGetLastError();
 }
 
 // out [levels] int32: first-max bin of each row of hists [levels, n_bins].
@@ -441,7 +571,7 @@ int musica_hist_argmax(const int* hists, int levels, int n_bins, int* out,
 // Gradation histogram weighted by trunc(rel * 100).  hist zeroed by the caller.
 int musica_grad_hist(const float* recon, const float* rel, int n, int stride,
                      int* hist, int n_bins, int tile, void* stream) {
-  if (n < 1 || tile != kTile || n_bins < 1 || stride < n ||
+  if (n < 1 || tile < 1 || n_bins < 1 || stride < n ||
       (long long)n * stride > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   GradArgs a = {};
@@ -449,18 +579,18 @@ int musica_grad_hist(const float* recon, const float* rel, int n, int stride,
   a.rel = rel;
   a.n = n;
   a.stride = stride;
-  return launch_grad<false>(a, hist, n_bins, stream);
+  return launch_grad_tile<false>(a, hist, n_bins, tile, static_cast<cudaStream_t>(stream));
 }
 
 // Gradation histogram with the relevance weight computed in the kernel from
 // the block weight plane and the normalized image.  hist zeroed by the caller.
-// The CNR scale divides the tile (1, 2, 4, 8 or 16), as where the JAX
-// package takes its fused kernel.
+// The CNR scale divides the tile, as where the JAX package takes its fused
+// kernel.
 int musica_grad_hist_relevant(const float* recon, const float* norm, int n,
                               int stride, const int* wplane, int ws, int scale,
                               int border, float max_pixel, int* hist,
                               int n_bins, int tile, void* stream) {
-  if (n < 1 || tile != kTile || n_bins < 1 || scale < 1 || kTile % scale != 0 ||
+  if (n < 1 || tile < 1 || n_bins < 1 || scale < 1 || tile % scale != 0 ||
       stride < n || (long long)ws * scale < n || (long long)n * stride > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   GradArgs a = {};
@@ -470,10 +600,11 @@ int musica_grad_hist_relevant(const float* recon, const float* norm, int n,
   a.stride = stride;
   a.wplane = wplane;
   a.ws = ws;
-  a.scale_shift = __builtin_ctz((unsigned)scale);
+  a.scale = scale;
+  a.scale_shift = __builtin_ctz((unsigned)scale);  // read where the tile is a power of two
   a.border = border;
   a.max_pixel = max_pixel;
-  return launch_grad<true>(a, hist, n_bins, stream);
+  return launch_grad_tile<true>(a, hist, n_bins, tile, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

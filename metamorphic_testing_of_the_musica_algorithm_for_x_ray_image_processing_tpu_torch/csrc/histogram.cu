@@ -16,9 +16,13 @@
 //
 // Bound: one read of the pairs (8 bytes each; 75 MB for the CLAHE joint
 // histogram of a 3072^2 image) and shared-memory atomic contention where
-// neighbouring pixels share a bin.
+// neighbouring pixels share a bin.  A histogram of more than 48 KB (8x8
+// CLAHE tiles of 256 bins: 64 KB) opts into the card's larger dynamic shared
+// memory, up to 227 KB per block.
 
 #include <cuda_runtime.h>
+
+#include "grid.cuh"
 
 namespace {
 
@@ -53,9 +57,12 @@ extern "C" {
 int musica_histogram(const int* bins, const int* weights, long long n,
                      int* hist, int n_bins, void* stream) {
   if (n < 1 || n_bins < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = n_bins * sizeof(int);
+  const int e = allow_shared(histogram_kernel, smem);
+  if (e != (int)cudaSuccess) return e;
   long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  histogram_kernel<<<(int)blocks, kThreads, n_bins * sizeof(int),
+  histogram_kernel<<<(int)blocks, kThreads, smem,
                      static_cast<cudaStream_t>(stream)>>>(bins, weights, n,
                                                           hist, n_bins);
   return (int)cudaGetLastError();

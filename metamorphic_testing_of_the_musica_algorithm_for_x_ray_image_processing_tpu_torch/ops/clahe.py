@@ -120,7 +120,8 @@ def axis_attrs(n: int, cfg, like: torch.Tensor):
     """Per-index blend attributes along one axis, in the operation order of
     the JAX package's ``clahe_apply``: (base tile int32, neighbour tile
     int32, base weight f32, neighbour weight f32, centre flag bool), each
-    [n].  The plain apply and the kernel's wrapper both take them from here."""
+    [n].  The plain apply takes them from here; the CUDA kernel computes the
+    same operations itself (``csrc/clahe_apply.cu::axis_attr``)."""
     t = cfg.clahe_tiles
     coord = (torch.arange(n, dtype=F32, device=like.device)
              / f32(n // t, like))  # GRID_TILE_SIZE: integer division

@@ -8,13 +8,15 @@ wrapper            replaces (JAX package)
                    (``_kernel``): the bilinear blend of up to 4 tile LUTs
 =================  =======================================================
 
-The kernel holds the t*t LUTs in shared memory (16 KB at the defaults) and
-reads one pixel, its row's and its column's blend attributes, and up to 8
-LUT entries per pixel; it is bound by one read and one write of the image.
-The per-axis attributes come from ``ops.clahe.axis_attrs``, the same code
-the plain version runs, so the kernel equals the plain version exactly
-(NaN tiles included).  It runs at every size: there is no block-shape
-condition as on the TPU.
+The kernel builds, once per block of a one-wave grid, a table in shared
+memory of each tile's segment starts and slopes (8 bytes per LUT entry: 32
+KB at 4x4 tiles of 256 bins, 128 KB at 8x8) with the plain version's own
+divisions, computes the blend attributes of ``ops.clahe.axis_attrs`` itself,
+and then reads one pixel and up to 4 table entries per pixel, with no
+division; it is bound by one read and one write of the image.  So the
+wrapper launches one kernel and allocates its output, and the kernel equals
+the plain version exactly (NaN tiles included).  It runs at every size:
+there is no block-shape condition as on the TPU.
 """
 
 from __future__ import annotations
@@ -23,6 +25,16 @@ import torch
 
 from .. import clahe
 from . import launch
+
+_ROW_BATCH = 32  # kBatch in csrc/clahe_apply.cu
+_AXIS_BYTES = 20  # sizeof(Axis) in csrc/clahe_apply.cu
+
+
+def shared_bytes(t: int, bins: int) -> int:
+    """Shared memory of a block of the kernel: the {y1, slope} table of
+    every tile and segment, the segments' starts and widths, and a batch of
+    rows' blend attributes."""
+    return 8 * t * t * bins + 8 * bins + _AXIS_BYTES * _ROW_BATCH
 
 
 def clahe_apply_plain(recon: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
@@ -43,24 +55,19 @@ def clahe_apply(recon: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
         return clahe_apply_plain(recon, px, py, cfg)
     t, bins = cfg.clahe_tiles, cfg.clahe_bins
     launch.check_image(recon, "recon")
-    if py.dtype != torch.float32 or tuple(py.shape) != (t, t, bins):
-        raise ValueError(f"py: expected float32 [{t}, {t}, {bins}], got "
+    if py.dtype != torch.float32 or tuple(py.shape) != (t, t, bins) or not py.is_contiguous():
+        raise ValueError(f"py: expected contiguous float32 [{t}, {t}, {bins}], got "
                          f"{py.dtype} {tuple(py.shape)}")
     if bins < 2:
         raise ValueError(f"clahe_bins={bins}: at least 2")
-    launch.check_bins(t * t * bins)  # the LUTs live in 48 KB of shared memory
+    launch.check_shared(shared_bytes(t, bins), f"clahe_tiles={t}, clahe_bins={bins}")
     n = recon.shape[-1]
     if n < t:
         raise ValueError(f"image size {n} < {t} tiles")
-    base_i, nb_i, w_base, w_nb, zero = clahe.axis_attrs(n, cfg, recon)
-    ax_tile = torch.stack([base_i, nb_i, zero.to(torch.int32)])
-    ax_w = torch.stack([w_base, w_nb])
-    luts = py.contiguous()
     out = torch.empty_like(recon)
     lib = launch.lib()
     with torch.cuda.device(dev):
         launch.launch(lib, "musica_clahe_apply", "clahe_apply",
-                      recon.data_ptr(), out.data_ptr(), luts.data_ptr(),
-                      ax_tile.data_ptr(), ax_w.data_ptr(), n, t, bins,
+                      recon.data_ptr(), out.data_ptr(), py.data_ptr(), n, t, bins,
                       launch.stream(dev))
     return out

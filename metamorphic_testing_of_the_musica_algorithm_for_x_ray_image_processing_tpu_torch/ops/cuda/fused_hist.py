@@ -26,12 +26,16 @@ the noise histogram; 8 for the gradation histograms: recon + the relevance
 image, or recon + normalized with the relevance computed in the kernel; 8
 for the sdev kernel: the band in, the sdev out).  The histograms are
 privatised per block in shared memory, with one global atomic per non-zero
-bin at the end of the block.  The noise and gradation kernels read
-neighbouring pixels across a warp's lanes and find the reference's scan
-breaks with ballots and shuffles; each counted pixel costs one shared
-atomic (``hist_add`` in ``csrc/fused_hist.cu``).  Both take the shaders'
-16-px histogram tile only (``histogram_area_size``); another tile runs on
-the CPU only.
+bin at the end of the block (for the sdev kernel: where a block's range of
+tasks crosses into the next level, and at its end).  The noise and
+gradation kernels read neighbouring pixels across a warp's lanes and find
+the reference's scan breaks with ballots and shuffles; each counted pixel
+costs one shared atomic (``hist_add`` in ``csrc/fused_hist.cu``).  The
+histogram tile (``histogram_area_size``, 16 px in the shaders) is a
+template parameter of those warp layouts: 4, 8, 16 and 32 px for the noise
+histogram, 8, 16 and 32 for the gradation histograms and the sdev kernel;
+any other tile runs a kernel whose thread walks one group or tile in the
+reference's order.  Every tile runs on the card.
 
 Dispatch (``launch.py``): a CUDA tensor launches the kernel or raises; a
 CPU tensor runs the plain version.  There is no fallback from one to the
@@ -50,13 +54,26 @@ from . import launch
 from .histogram import histogram_plain
 
 _MAX_LEVELS = 16  # MUSICA_MAX_LEVELS in fused_hist.cu
-_TILE = 16  # kTile in fused_hist.cu: the shaders' histogram tile
+# csrc/sdev_noise.cu: output rows of a task, its least width in columns
+SDEV_BAND, SDEV_WIDTH = 32, 64
 
 
-def _check_tile(tile: int) -> None:
-    if tile != _TILE:
-        raise ValueError(f"histogram_area_size={tile}: the CUDA histogram kernels "
-                         f"take the shaders' {_TILE}-px tile only")
+def sdev_task_width(tile: int) -> int:
+    """Output columns of a task of the sdev kernel: 64 for the tiles of its
+    warp layout (8, 16, 32), else the least multiple of the tile that is
+    >= 64."""
+    if tile in (8, 16, 32):
+        return SDEV_WIDTH
+    return tile if tile >= SDEV_WIDTH else -(-SDEV_WIDTH // tile) * tile
+
+
+def sdev_shared_bytes(tile: int, n_bins: int) -> int:
+    """Shared memory of a block of the sdev kernel (``Layout`` in
+    csrc/sdev_noise.cu): the float64 vertical sums, two staging buffers of
+    the band and its halo, the sdev tile and the histogram."""
+    w = sdev_task_width(tile)
+    return (8 * SDEV_BAND * (w + 5) + 2 * 4 * (SDEV_BAND + 4) * (w + 8)
+            + 4 * SDEV_BAND * (w + 1) + 4 * n_bins)
 
 
 # ----------------------------------------------------------------------
@@ -83,7 +100,6 @@ def noise_hists(levels, cfg) -> torch.Tensor:
         return noise_hists_plain(levels, cfg)
     nb, tile = cfg.noise_histogram_bins, cfg.histogram_area_size
     launch.check_bins(nb)
-    _check_tile(tile)
     if not 1 <= len(levels) <= _MAX_LEVELS:
         raise ValueError(f"{len(levels)} levels, at most {_MAX_LEVELS}")
     for i, sd in enumerate(levels):
@@ -143,16 +159,18 @@ def sdev_noise_hists_plain(bands, cfg):
     return sdevs, noise_hists_plain(sdevs, cfg)
 
 
-def sdev_noise_hists(bands, cfg):
+def sdev_noise_hists(bands, cfg, grid: int = 0):
     """(sdev images, list of float32 [n_i, n_i]; noise histograms, int32
     [L, n_bins]) of a list of [n_i, n_i] float32 bandpass levels, each
     histogram scanned over its level's coverage (``stats.coverage``), in one
-    launch."""
+    launch.  ``grid`` > 0 launches at most that many blocks instead of one
+    wave, so that a block's range of tasks spans levels (the tests use it)."""
     dev = launch.device_of(bands)
     if dev.type == "cpu":
         return sdev_noise_hists_plain(bands, cfg)
     nb, tile = cfg.noise_histogram_bins, cfg.histogram_area_size
     launch.check_bins(nb)
+    launch.check_shared(sdev_shared_bytes(tile, nb), f"noise_histogram_bins={nb}")
     if not 1 <= len(bands) <= _MAX_LEVELS:
         raise ValueError(f"{len(bands)} levels, at most {_MAX_LEVELS}")
     for i, b in enumerate(bands):
@@ -168,7 +186,7 @@ def sdev_noise_hists(bands, cfg):
     with torch.cuda.device(dev):
         launch.launch(lib, "musica_sdev_noise_hist", "sdev_noise_hist", src, dst,
                       ns, covs, L, hists.data_ptr(), nb, tile,
-                      float(cfg.max_noise_value), launch.stream(dev))
+                      float(cfg.max_noise_value), int(grid), launch.stream(dev))
     return sdevs, hists
 
 
@@ -190,7 +208,6 @@ def grad_hist(recon: torch.Tensor, relevant: torch.Tensor, cfg) -> torch.Tensor:
         return grad_hist_plain(recon, relevant, cfg)
     nb, tile = cfg.grad_histogram_bins, cfg.histogram_area_size
     launch.check_bins(nb)
-    _check_tile(tile)
     launch.check_image(recon, "recon")
     launch.check_image(relevant, "relevant")
     if relevant.shape != recon.shape:
@@ -231,14 +248,13 @@ def grad_hist_relevant(recon: torch.Tensor, normalized: torch.Tensor,
     """Gradation histogram (int32 [n_bins]) with the relevance weight
     computed in the kernel from the small CNR map and the normalized image
     (no full-size relevance image).  On a CUDA device the CNR scale must
-    divide the 16-px tile, where ``gradation_histogram_fused_relevance``
+    divide the histogram tile, where ``gradation_histogram_fused_relevance``
     takes this path."""
     dev = launch.device_of([recon, normalized, cnr])
     if dev.type == "cpu":
         return grad_hist_relevant_plain(recon, normalized, cnr, cfg)
     nb, tile = cfg.grad_histogram_bins, cfg.histogram_area_size
     launch.check_bins(nb)
-    _check_tile(tile)
     launch.check_image(recon, "recon")
     launch.check_image(normalized, "normalized")
     launch.check_image(cnr, "cnr")

@@ -16,7 +16,10 @@ LAUNCHES = {"noise_hist": 0, "hist_argmax": 0, "grad_hist_relevant": 0,
             "grad_hist": 0, "histogram": 0, "clahe_apply": 0,
             "sdev_noise_hist": 0}
 
-MAX_SHARED_BINS = 12288  # static 48 KB of shared memory per block
+# shared memory a block may use on the H100 after the kernels' opt-in
+# (csrc/grid.cuh: 227 KB); a histogram kernel holds its bins there
+MAX_SHARED_BYTES = 232448
+MAX_SHARED_BINS = MAX_SHARED_BYTES // 4
 
 
 def reset_launch_counts() -> None:
@@ -47,6 +50,13 @@ def check_image(t: torch.Tensor, name: str, dtype=torch.float32) -> None:
 def check_bins(n_bins: int) -> None:
     if not 1 <= n_bins <= MAX_SHARED_BINS:
         raise ValueError(f"n_bins={n_bins} outside [1, {MAX_SHARED_BINS}]")
+
+
+def check_shared(n_bytes: int, what: str) -> None:
+    """Raise where a kernel's shared memory exceeds what a block may use."""
+    if n_bytes > MAX_SHARED_BYTES:
+        raise ValueError(f"{what}: {n_bytes} bytes of shared memory, more than the "
+                         f"{MAX_SHARED_BYTES} a block may use")
 
 
 def launch(lib, fn_name: str, counter: str, *args) -> None:

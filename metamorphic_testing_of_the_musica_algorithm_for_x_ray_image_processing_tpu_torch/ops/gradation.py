@@ -62,8 +62,8 @@ def gradation_histogram_fused_relevance(recon: torch.Tensor,
                                         cfg) -> torch.Tensor:
     """Gradation histogram with the relevance mask computed inside the
     kernel (no full-size relevance image).  Taken under the JAX package's
-    condition: the CNR scale divides the 16-px tile and n is a multiple of
-    16; otherwise the relevance image is made and histogrammed."""
+    condition: the CNR scale divides the histogram tile and n is a multiple
+    of the tile; otherwise the relevance image is made and histogrammed."""
     from . import noise as noise_ops
     from .cuda import fused_hist
 

@@ -41,11 +41,13 @@ def img_sdev(img: torch.Tensor) -> torch.Tensor:
 
 def coverage(n: int, cfg) -> int:
     """Pixels per axis the noise histogram scans for an [n, n] level: the
-    16-px tile dispatch, rounded down to ``cfg.hist_coverage`` in quirks mode
-    (integer-division dispatch, QUIRKS #8).  0 means nothing is scanned."""
+    tile dispatch (``histogram_area_size``, 16 px in the shaders), rounded
+    down to ``cfg.hist_coverage`` in quirks mode (integer-division dispatch,
+    QUIRKS #8) and then to whole tiles, as the golden model's tile loop
+    does.  0 means nothing is scanned."""
     tile = cfg.histogram_area_size
     n_pad = -(-n // tile) * tile
-    return min(n_pad, cfg.hist_coverage) if cfg.quirks else n_pad
+    return min(n_pad, cfg.hist_coverage) // tile * tile if cfg.quirks else n_pad
 
 
 def coverage_view(sdev: torch.Tensor, cfg) -> Optional[torch.Tensor]:

@@ -1,48 +1,79 @@
 #!/usr/bin/env python3
-"""What holds the histogram kernels K1, K3 and K4 back, on one CUDA GPU.
+"""What holds the hand-written kernels K1, K3, K4, K5 and K7 back, on one
+CUDA GPU.
 
     python3 scripts/probe_hist_kernels.py [--parent DIR] [--rounds 3]
 
 ``ncu`` and ``nsys`` are not available everywhere the card is, so this
-script answers the question by experiment.  It builds probe variants of
-``csrc/fused_hist.cu`` (text substitutions into copies under
-``build/probe/``; the package's sources are not touched), times each one's
-``noise_hist_kernel`` (K1), ``grad_hist_kernel<true>`` (K3) and
-``grad_hist_kernel<false>`` (K4) at the main path's 3072^2 thorax shapes
-and on a flat image of the same shapes (every pixel of a warp step in one
-bin), kernel alone (the C entry points, no wrapper ops), and checks each against
-the plain PyTorch versions.  ``csrc/sdev_noise.cu`` (K7), which shares the
-noise histogram's bin decision, is built and timed beside them:
+script answers the question by experiment.  It builds probe variants of the
+kernel sources (text substitutions into copies under ``build/probe/``; the
+package's sources are not touched), times each variant's kernels at the
+main path's 3072^2 thorax shapes, kernel alone (the C entry points, no
+wrapper ops), and checks each against the plain PyTorch versions:
 
-* ``kernel``       the sources as they are (one shared atomic per pixel);
-* ``warp_uniform`` a warp step whose pixels all fall in one bin merged into
-                   one atomic (``__all_sync``, ``__reduce_add_sync``);
-* ``run_merge``    every run of equal bins merged (run-head ballot and a
-                   segmented sum over 5 shuffles);
-* ``match_any``    every set of equal bins merged (``__match_any_sync`` +
-                   ``__reduce_add_sync``);
-* ``no_division``  diagnostic, inexact: K1's correctly rounded division by
-                   0.1 replaced by a product with 10;
-* ``no_classify``  diagnostic, inexact: K1's per-pixel bin decision replaced
-                   by one comparison;
-* ``no_atomics``   diagnostic, inexact: K1's shared atomics removed;
-* ``parent``       with ``--parent DIR``: the ``csrc/fused_hist.cu``,
-                   ``noise_scan.cuh`` and ``sdev_noise.cu`` of another
-                   checkout of this repository (its C interface must be the
-                   same), e.g. the parent commit unpacked with ``git
-                   archive`` into a directory that ``.gitignore`` lists.
+* K1 ``noise_hist_kernel``, K3 ``grad_hist_kernel<16, true>``, K4
+  ``grad_hist_kernel<16, false>`` (csrc/fused_hist.cu), also on a flat
+  image of the same shapes (every pixel of a warp step in one bin);
+* K7 ``sdev_noise_hist_kernel`` (csrc/sdev_noise.cu) on the analysis
+  levels' bands, its sdev images written in place;
+* K5 ``clahe_apply_kernel`` (csrc/clahe_apply.cu) on the CLAHE + linear
+  path's recon and LUTs.
+
+Variants:
+
+* ``kernel``        the sources as they are (one shared atomic per pixel);
+* ``warp_uniform``  K1/K3/K4: a warp step whose pixels all fall in one bin
+                    merged into one atomic (``__all_sync``,
+                    ``__reduce_add_sync``);
+* ``run_merge``     K1/K3/K4: every run of equal bins merged (run-head
+                    ballot and a segmented sum over 5 shuffles);
+* ``match_any``     K1/K3/K4: every set of equal bins merged
+                    (``__match_any_sync`` + ``__reduce_add_sync``);
+* ``no_division``   diagnostic, inexact: K1's correctly rounded division by
+                    0.1 replaced by a product with 10;
+* ``no_classify``   diagnostic, inexact: K1's per-pixel bin decision replaced
+                    by one comparison;
+* ``no_atomics``    diagnostic, inexact: K1's shared atomics removed;
+* ``k7_no_hist``    diagnostic, inexact: K7 without its noise scan;
+* ``k7_no_flush``   diagnostic, inexact: K7 without its global atomics;
+* ``k7_no_divsqrt`` diagnostic, inexact: K7's float64 division and square
+                    root replaced by one product with 0.04;
+* ``k7_band16``, ``k7_band64``  K7 with 16- and 64-row tasks (32 in the
+                    sources);
+* ``k7_vseg8``, ``k7_vseg32``  K7 with a thread's vertical sums over 8 or
+                    32 rows (16 in the sources);
+* ``k7_band28``     K7 with 28-row tasks (14-row vertical sums) held to 51
+                    registers, so that 5 blocks fit on an SM (4 in the
+                    sources);
+* ``k7_t128``, ``k7_t512``  K7 with blocks of 128 or 512 threads (256);
+* ``k5_no_tables``  diagnostic, inexact: K5 without building its tables;
+* ``k5_copy``       diagnostic, inexact: K5 copying recon (no lookups);
+* ``k5_regs64``     K5 held to 64 registers (4 blocks of 256 on an SM);
+* ``k5_group4``     K5 loading 4 items together (2 in the sources);
+* ``k5_copy_no_tables``  diagnostic: the copy without the table build;
+* ``k5_carveout``, ``k7_carveout``  the kernel's L1/shared split set to the
+                    most shared memory before its occupancy is read; each
+                    prints its grid once (blocks, tasks a block, wave);
+* ``parent``        with ``--parent DIR``: the kernel sources of another
+                    checkout of this repository, e.g. the parent commit
+                    unpacked with ``git archive`` into a directory that
+                    ``.gitignore`` lists; its C interface is read from that
+                    checkout's ``ops/cuda/build.py``.  Its K5 is timed alone
+                    and with the blend attributes its wrapper computed
+                    (``ops.clahe.axis_attrs`` and two stacks).
 
 Times are device time (CUDA events around 20 calls queued while the GPU
-sleeps), each call including a 1024- or 4x2048-int ``torch.zeros`` of the
-output (timed alone too), in interleaved rounds.  K7 is timed on the
-analysis levels' bands, its sdev images written in place.  The card's name and power
-limit are printed first.  Imports nothing of JAX.
+sleeps), each call including the output's ``torch.zeros`` or
+``torch.empty`` (timed alone too), in interleaved rounds.  The card's name
+and power limit are printed first.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
+import importlib.util
 import os
 import re
 import subprocess
@@ -51,6 +82,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 PKG = "metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch"
+SOURCES = ("fused_hist.cu", "noise_scan.cuh", "sdev_noise.cu", "clahe_apply.cu", "grid.cuh")
 
 HIST_ADD = re.compile(r"__device__ __forceinline__ void hist_add\(.*?\n}\n", re.S)
 MERGE = """__device__ __forceinline__ void hist_add(int* sh, int bin, int w) {
@@ -80,6 +112,37 @@ MATCH = """  const unsigned peers = __match_any_sync(kFull, bin);
 DIVISION = "__fdiv_rn(v, max_noise)"
 CLASSIFY = "bin[q] = noise_bin(v, fbins, max_noise);"
 K1_ADD = "hist_add(sh, add ? bin[q] : -1, 1);"
+K7_SCAN = "    const bool on = r < scan_rows && c / kTile < groups;"
+K7_FLUSH = "    if (c != 0) atomicAdd(&out[i], c);"
+K7_DIVSQRT = "__dsqrt_rn(__ddiv_rn(s, 25.0))"
+K7_BAND = "constexpr int kBand = 32;"
+K7_VSEG = "constexpr int kVSeg = 16;"
+K7_BOUNDS = "__global__ void __launch_bounds__(kThreads)\nsdev_noise_hist_kernel("
+K5_BUILD = "tbl[off + i].x = __ldg(a.luts + off + i);"
+K5_BLEND = "  if (!(x >= 0.0f && x <= 1.0f)) return 0.0f;\n"
+K5_BOUNDS = "__global__ void __launch_bounds__(kThreads) clahe_apply_kernel("
+K5_GROUP = "constexpr int kGroup = 2;"
+INCLUDE = "#include <cuda_runtime.h>\n"
+CARVEOUT = ("  cudaFuncSetAttribute({k}, cudaFuncAttributePreferredSharedMemoryCarveout, 100);\n"
+            "  const int e = wave_blocks({k}, kThreads, smem, &wave);")
+PRINT_GRID = ("  {{ static bool once = false; if (!once) {{ once = true; printf(\"{name} grid %lld "
+              "blocks, %lld a block, wave %lld\\n\", (long long)blocks, (long long){per}, "
+              "wave); }} }}\n{launch}")
+
+
+def carveout(src: dict, name: str, kernel: str, launch: str, per: str) -> dict:
+    """The kernel's carveout set to the most shared memory, its grid printed
+    once."""
+    text = substitute(src[name], INCLUDE, "#include <cstdio>\n" + INCLUDE)
+    text = substitute(text, f"  const int e = wave_blocks({kernel}, kThreads, smem, &wave);",
+                      CARVEOUT.format(k=kernel))
+    text = substitute(text, launch, PRINT_GRID.format(name=name, per=per, launch=launch))
+    return dict(src, **{name: text})
+# mangled names of the timed kernels (a template instance at tile 16, or the
+# parent's non-template kernel)
+REGS = {"K1": r"17noise_hist_kernel(ILi16E|E)", "K3": r"16grad_hist_kernelI(Li16E)?Lb1E",
+        "K4": r"16grad_hist_kernelI(Li16E)?Lb0E", "K5": r"18clahe_apply_kernel",
+        "K7": r"22sdev_noise_hist_kernel(ILi16E|E)"}
 
 
 def substitute(text: str, old, new: str) -> str:
@@ -92,50 +155,103 @@ def substitute(text: str, old, new: str) -> str:
 
 
 def read_sources(root: str):
-    """(fused_hist.cu, noise_scan.cuh, sdev_noise.cu) of a checkout."""
+    """{file name: text} of a checkout's kernel sources (those it has)."""
     csrc = os.path.join(root, PKG, "csrc")
-    out = []
-    for name in ("fused_hist.cu", "noise_scan.cuh", "sdev_noise.cu"):
-        with open(os.path.join(csrc, name)) as f:
-            out.append(f.read())
-    return tuple(out)
-
-
-def variants(src: str, hdr: str, sdev: str, parent: str | None):
-    """{name: (fused_hist.cu, noise_scan.cuh, sdev_noise.cu, must be exact)}"""
-    out = {
-        "kernel": (src, hdr, sdev, True),
-        "warp_uniform": (substitute(src, HIST_ADD, MERGE % UNIFORM), hdr, sdev, True),
-        "run_merge": (substitute(src, HIST_ADD, MERGE % RUNS), hdr, sdev, True),
-        "match_any": (substitute(src, HIST_ADD, MERGE % MATCH), hdr, sdev, True),
-        "no_division": (src, substitute(hdr, DIVISION, "__fmul_rn(v, 10.0f)"), sdev, False),
-        "no_classify": (substitute(src, CLASSIFY, "bin[q] = v > 0.002f ? 7 + (lane & 7) : "
-                                   "-1;"),
-                        hdr, sdev, False),
-        "no_atomics": (substitute(src, K1_ADD, "if (bin[q] == -7) sh[0] = add;"), hdr,
-                       sdev, False),
-    }
-    if parent:
-        out["parent"] = read_sources(parent) + (True,)
+    out = {}
+    for name in SOURCES:
+        path = os.path.join(csrc, name)
+        if os.path.exists(path):
+            with open(path) as f:
+                out[name] = f.read()
     return out
 
 
-def build_all(found, root):
+def with_file(src: dict, name: str, old, new: str) -> dict:
+    return dict(src, **{name: substitute(src[name], old, new)})
+
+
+def variants(src: dict, parent: str | None):
+    """{name: (sources, kernels timed, must be exact)}"""
+    hist = ("K1", "K3", "K4")
+    out = {
+        "kernel": (src, hist + ("K5", "K7"), True),
+        "warp_uniform": (with_file(src, "fused_hist.cu", HIST_ADD, MERGE % UNIFORM), hist, True),
+        "run_merge": (with_file(src, "fused_hist.cu", HIST_ADD, MERGE % RUNS), hist, True),
+        "match_any": (with_file(src, "fused_hist.cu", HIST_ADD, MERGE % MATCH), hist, True),
+        "no_division": (with_file(src, "noise_scan.cuh", DIVISION, "__fmul_rn(v, 10.0f)"),
+                        ("K1",), False),
+        "no_classify": (with_file(src, "fused_hist.cu", CLASSIFY,
+                                  "bin[q] = v > 0.002f ? 7 + (lane & 7) : -1;"), ("K1",), False),
+        "no_atomics": (with_file(src, "fused_hist.cu", K1_ADD, "if (bin[q] == -7) sh[0] = add;"),
+                       ("K1",), False),
+        "k7_no_hist": (with_file(src, "sdev_noise.cu", K7_SCAN, "    const bool on = false;"),
+                       ("K7",), False),
+        "k7_no_flush": (with_file(src, "sdev_noise.cu", K7_FLUSH, "    if (c == -7) out[i] = c;"),
+                        ("K7",), False),
+        "k7_no_divsqrt": (with_file(src, "sdev_noise.cu", K7_DIVSQRT, "__dmul_rn(s, 0.04)"),
+                          ("K7",), False),
+        "k7_band16": (with_file(src, "sdev_noise.cu", K7_BAND, "constexpr int kBand = 16;"),
+                      ("K7",), True),
+        "k7_band64": (with_file(src, "sdev_noise.cu", K7_BAND, "constexpr int kBand = 64;"),
+                      ("K7",), True),
+        "k7_band28": (with_file(with_file(with_file(
+            src, "sdev_noise.cu", K7_BAND, "constexpr int kBand = 28;"),
+            "sdev_noise.cu", K7_VSEG, "constexpr int kVSeg = 14;"),
+            "sdev_noise.cu", K7_BOUNDS, "__global__ void __launch_bounds__(kThreads, 5)\nsdev_noise_hist_kernel("),
+            ("K7",), True),
+        "k7_t128": (with_file(src, "sdev_noise.cu", "constexpr int kThreads = 256;",
+                              "constexpr int kThreads = 128;"), ("K7",), True),
+        "k7_t512": (with_file(src, "sdev_noise.cu", "constexpr int kThreads = 256;",
+                              "constexpr int kThreads = 512;"), ("K7",), True),
+        "k7_vseg8": (with_file(src, "sdev_noise.cu", K7_VSEG, "constexpr int kVSeg = 8;"),
+                     ("K7",), True),
+        "k7_vseg32": (with_file(src, "sdev_noise.cu", K7_VSEG, "constexpr int kVSeg = 32;"),
+                      ("K7",), True),
+        "k5_no_tables": (with_file(src, "clahe_apply.cu", K5_BUILD, "(void)0;"), ("K5",), False),
+        "k5_copy": (with_file(src, "clahe_apply.cu", K5_BLEND, "  return x;\n" + K5_BLEND),
+                    ("K5",), False),
+        "k5_group4": (with_file(src, "clahe_apply.cu", K5_GROUP, "constexpr int kGroup = 4;"),
+                      ("K5",), True),
+        "k5_copy_no_tables": (with_file(with_file(src, "clahe_apply.cu", K5_BLEND,
+                                                  "  return x;\n" + K5_BLEND),
+                                        "clahe_apply.cu", K5_BUILD, "(void)0;"), ("K5",), False),
+        "k5_regs64": (with_file(src, "clahe_apply.cu", K5_BOUNDS,
+                                "__global__ void __launch_bounds__(kThreads, 4) "
+                                "clahe_apply_kernel("), ("K5",), True),
+        "k5_carveout": (carveout(src, "clahe_apply.cu", "clahe_apply_kernel",
+                                 "  clahe_apply_kernel<<<", "a.per_block"), ("K5",), True),
+        "k7_carveout": (carveout(src, "sdev_noise.cu", "sdev_noise_hist_kernel<kTile>",
+                                 "  sdev_noise_hist_kernel<kTile><<<", "lv.per_block"),
+                        ("K7",), True),
+    }
+    if parent:
+        out["parent"] = (read_sources(parent), hist + ("K5", "K7"), True)
+    return out
+
+
+def signatures(root: str):
+    """The C interface (``_SIGNATURES``) of a checkout's ops/cuda/build.py."""
+    path = os.path.join(root, PKG, "ops", "cuda", "build.py")
+    spec = importlib.util.spec_from_file_location(f"probe_build_{abs(hash(root))}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod._SIGNATURES
+
+
+def build_all(found, root, sigs):
     """One nvcc per variant, all started together; returns {name: (lib, regs)}."""
-    import importlib
     build = importlib.import_module(PKG + ".ops.cuda.build")
     nvcc = build._nvcc()
     procs = {}
-    for name, (src, hdr, sdev, _) in found.items():
+    for name, (files, _, _) in found.items():
         d = os.path.join(root, name)
         os.makedirs(d, exist_ok=True)
-        for fname, text in (("fused_hist.cu", src), ("noise_scan.cuh", hdr),
-                            ("sdev_noise.cu", sdev)):
+        for fname, text in files.items():
             with open(os.path.join(d, fname), "w") as f:
                 f.write(text)
         procs[name] = subprocess.Popen(
             [nvcc, *build.NVCC_FLAGS, "-shared", "-o", os.path.join(d, "lib.so"),
-             os.path.join(d, "fused_hist.cu"), os.path.join(d, "sdev_noise.cu")],
+             *[os.path.join(d, f) for f in files if f.endswith(".cu")]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, p in procs.items():
@@ -145,12 +261,11 @@ def build_all(found, root):
         regs = {}
         for entry, used in re.findall(r"Compiling entry function '(\S+)'.*?Used (\d+) registers",
                                       log, re.S):
-            for short, key in (("17noise_hist_kernel", "K1"), ("grad_hist_kernelILb1", "K3"),
-                               ("grad_hist_kernelILb0", "K4"), ("sdev_noise_hist_kernel", "K7")):
-                if short in entry:
+            for key, pattern in REGS.items():
+                if re.search(pattern, entry):
                     regs[key] = int(used)
         lib = ctypes.CDLL(os.path.join(root, name, "lib.so"))
-        for fn, (argtypes, restype) in build._SIGNATURES.items():
+        for fn, (argtypes, restype) in sigs[name].items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
@@ -161,17 +276,17 @@ def build_all(found, root):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
-                    help="root of another checkout whose fused_hist.cu is timed beside")
+                    help="root of another checkout whose kernels are timed beside")
     ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args()
-
-    import importlib
 
     import torch
     if not torch.cuda.is_available():
         print("probe_hist_kernels: needs a CUDA GPU", file=sys.stderr)
         return 1
     fh = importlib.import_module(PKG + ".ops.cuda.fused_hist")
+    k_clahe = importlib.import_module(PKG + ".ops.cuda.clahe_apply")
+    clahe = importlib.import_module(PKG + ".ops.clahe")
     stats = importlib.import_module(PKG + ".ops.stats")
     musica = importlib.import_module(PKG + ".models.musica")
     MusicaConfig = importlib.import_module(PKG).MusicaConfig
@@ -181,11 +296,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0]
     print(f"card: {card}")
-    found = variants(*read_sources(REPO), args.parent)
-    libs = build_all(found, os.path.join(REPO, "build", "probe"))
+    found = variants(read_sources(REPO), args.parent)
+    mine = signatures(REPO)
+    sigs = {name: (signatures(args.parent) if name == "parent" else mine) for name in found}
+    libs = build_all(found, os.path.join(REPO, "build", "probe"), sigs)
 
     dev = torch.device("cuda")
     cfg = MusicaConfig()
+    cfg_var = cfg.with_(enable_clahe=True, grad_with_linear_image=True)
     x = torch.from_numpy(synthetic_radiograph(3072, "thorax")).to(dev)
     res = musica.musica_forward(x, cfg, want_intermediates=True)
     inter, cnr = res["intermediates"], res["cnr"]
@@ -196,6 +314,11 @@ def main() -> int:
     # a flat image: every pixel of a warp step in one bin
     flat = {"recon": torch.full_like(thorax["recon"], 0.5),
             "levels": [torch.full_like(v, 0.05) for v in thorax["levels"]]}
+    var = musica.musica_forward(x, cfg_var, want_intermediates=True)
+    v_recon = var["recon"]
+    v_px, v_py = clahe.clahe_curves(
+        clahe.clahe_histograms(v_recon, var["intermediates"]["relevant"], cfg_var), cfg_var)
+    t, bins = cfg_var.clahe_tiles, cfg_var.clahe_bins
     wplane = fh.relevance_weight_plane(cnr, cfg).contiguous()
     stream = torch.cuda.current_stream().cuda_stream
     n, L = nrm.shape[-1], len(thorax["levels"])
@@ -231,21 +354,51 @@ def main() -> int:
 
     def k7(lib, inp):
         h = torch.zeros((L, nb), dtype=torch.int32, device=dev)
-        assert lib.musica_sdev_noise_hist(inp["srcs"], inp["dsts"], ns, covs, L, h.data_ptr(),
-                                          nb, tile, float(cfg.max_noise_value), stream) == 0
+        fn = lib.musica_sdev_noise_hist
+        grid = (0,) if len(fn.argtypes) == 11 else ()  # the parent's takes no grid size
+        assert fn(inp["srcs"], inp["dsts"], ns, covs, L, h.data_ptr(), nb, tile,
+                  float(cfg.max_noise_value), *grid, stream) == 0
         return h
 
+    def k5(lib, inp, attrs=None):
+        out = torch.empty_like(v_recon)
+        fn = lib.musica_clahe_apply
+        if len(fn.argtypes) == 7:
+            assert fn(v_recon.data_ptr(), out.data_ptr(), v_py.data_ptr(), n, t, bins,
+                      stream) == 0
+        else:  # the parent's: blend attributes from its wrapper
+            ax_tile, ax_w = attrs if attrs is not None else parent_attrs()
+            assert fn(v_recon.data_ptr(), out.data_ptr(), v_py.data_ptr(), ax_tile.data_ptr(),
+                      ax_w.data_ptr(), n, t, bins, stream) == 0
+        return out
+
+    def parent_attrs():
+        base_i, nb_i, w_base, w_nb, zero = clahe.axis_attrs(n, cfg_var, v_recon)
+        return (torch.stack([base_i, nb_i, zero.to(torch.int32)]), torch.stack([w_base, w_nb]))
+
+    fixed_attrs = parent_attrs()
     thorax.update(ptrs=pointers(thorax["levels"]), srcs=pointers(thorax["bands"]),
                   dsts=pointers(sdevs))
     flat.update(ptrs=pointers(flat["levels"]))
     want_sd, want_h = fh.sdev_noise_hists_plain(thorax["bands"], cfg)
-    cases = {"thorax": (thorax, {"K1": k1, "K3": k3, "K4": k4, "K7": k7}),
-             "flat": (flat, {"K1": k1, "K3": k3, "K4": k4})}
+    want_clahe = k_clahe.clahe_apply_plain(v_recon, v_px, v_py, cfg_var)
+    kernels = {"K1": k1, "K3": k3, "K4": k4, "K7": k7,
+               "K5": lambda lib, inp: k5(lib, inp, fixed_attrs)}
+    cases = {"thorax": (thorax, ("K1", "K3", "K4", "K5", "K7")), "flat": (flat, ("K1", "K3", "K4"))}
     want = {case: {"K1": fh.noise_hists_plain(inp["levels"], cfg),
                    "K3": fh.grad_hist_relevant_plain(inp["recon"], nrm, cnr, cfg),
                    "K4": fh.grad_hist_plain(inp["recon"], rel, cfg)}
             for case, (inp, _) in cases.items()}
     want["thorax"]["K7"] = want_h
+
+    def equal(k, got, case):
+        if k == "K5":
+            return bool(torch.equal(torch.isnan(got), torch.isnan(want_clahe))
+                        and torch.equal(got.nan_to_num(), want_clahe.nan_to_num()))
+        ok = torch.equal(got, want[case][k])
+        if k == "K7":
+            ok = ok and all(torch.equal(a, b) for a, b in zip(sdevs, want_sd))
+        return bool(ok)
 
     def device_us(fn, reps=20):
         fn()
@@ -260,31 +413,42 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps * 1e3
 
-    zeros = {"K1": device_us(lambda: torch.zeros((L, nb), dtype=torch.int32, device=dev)),
-             "K3/K4": device_us(lambda: torch.zeros(gb, dtype=torch.int32, device=dev))}
-    for case, (inp, kernels) in cases.items():
-        exact = {}
+    zeros = {"K1/K7": device_us(lambda: torch.zeros((L, nb), dtype=torch.int32, device=dev)),
+             "K3/K4": device_us(lambda: torch.zeros(gb, dtype=torch.int32, device=dev)),
+             "K5": device_us(lambda: torch.empty_like(v_recon))}
+    for case, (inp, timed) in cases.items():
+        exact, times = {}, {}
         for name, (lib, _) in libs.items():
-            exact[name] = {k: torch.equal(fn(lib, inp), want[case][k]) for k, fn in kernels.items()}
-            if "K7" in kernels:
-                exact[name]["K7"] &= all(torch.equal(a, b) for a, b in zip(sdevs, want_sd))
-        for name, (_, _, _, must_be_exact) in found.items():
-            if must_be_exact:
-                assert all(exact[name].values()), f"probe {name} differs on {case}"
-        times = {name: {k: [] for k in kernels} for name in libs}
+            ks = [k for k in found[name][1] if k in timed]
+            exact[name] = {k: equal(k, kernels[k](lib, inp), case) for k in ks}
+            if found[name][2]:
+                assert all(exact[name].values()), f"probe {name} differs on {case}: {exact[name]}"
+            times[name] = {k: [] for k in ks}
         for _ in range(args.rounds):
             for name, (lib, _) in libs.items():
-                for k, fn in kernels.items():
-                    times[name][k].append(device_us(lambda: fn(lib, inp)))
-        print(f"3072^2 {case}, main-path shapes; device us per call incl. the output's "
-              f"torch.zeros (alone: K1 {zeros['K1']:.2f}, K3/K4 {zeros['K3/K4']:.2f}); "
-              f"{args.rounds} interleaved rounds, min (all)")
+                for k in times[name]:
+                    times[name][k].append(device_us(lambda: kernels[k](lib, inp)))
+        print(f"3072^2 {case}, main-path shapes (K5: the CLAHE + linear path's); device us per "
+              f"call incl. the output's allocation (alone: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in zeros.items())
+              + f"); {args.rounds} interleaved rounds, min (all)")
         for name, (_, regs) in libs.items():
-            cells = "  ".join(f"{k} {min(t):7.2f} ({', '.join(f'{v:.2f}' for v in t)})"
-                              for k, t in times[name].items())
+            if not times[name]:
+                continue
+            cells = "  ".join(f"{k} {min(v):7.2f} ({', '.join(f'{u:.2f}' for u in v)})"
+                              for k, v in times[name].items())
             flags = "exact" if all(exact[name].values()) else \
                 "differs: " + ",".join(k for k, ok in exact[name].items() if not ok)
             print(f"  {name:13s} {cells}  regs {regs}  {flags}")
+    copy_out = torch.empty_like(v_recon)
+    copies = [device_us(lambda: copy_out.copy_(v_recon)) for _ in range(args.rounds)]
+    print(f"  torch copy_ of the 3072^2 recon (the card's copy rate, for K5): {min(copies):.2f} "
+          f"({', '.join(f'{u:.2f}' for u in copies)}) us")
+    if "parent" in libs:
+        lib = libs["parent"][0]
+        with_attrs = [device_us(lambda: k5(lib, thorax)) for _ in range(args.rounds)]
+        print(f"  parent K5 with its wrapper's blend attributes (axis_attrs, two stacks): "
+              f"{min(with_attrs):.2f} ({', '.join(f'{u:.2f}' for u in with_attrs)}) us")
     return 0
 
 

@@ -33,10 +33,10 @@ sys.path.insert(0, REPO)
 
 # the hand-written kernels by their names in the trace (csrc/*.cu)
 HAND_WRITTEN = {
-    "K1 noise_hist_kernel": r"(?<![A-Za-z_])noise_hist_kernel\b",
+    "K1 noise_hist_kernel": r"(?<![A-Za-z_])noise_hist(_serial)?_kernel\b",
     "K2 hist_argmax_kernel": r"hist_argmax_kernel\b",
-    "K3 grad_hist_kernel<true>": r"grad_hist_kernel<true>",
-    "K4 grad_hist_kernel<false>": r"grad_hist_kernel<false>",
+    "K3 grad_hist_kernel<tile, true>": r"grad_hist(_serial)?_kernel<(\d+, )?true>",
+    "K4 grad_hist_kernel<tile, false>": r"grad_hist(_serial)?_kernel<(\d+, )?false>",
     "K5 clahe_apply_kernel": r"clahe_apply_kernel\b",
     "K6 histogram_kernel": r"(?<![A-Za-z_])histogram_kernel\b",
     "K7 sdev_noise_hist_kernel": r"sdev_noise_hist_kernel\b",

@@ -148,16 +148,75 @@ def test_sdev_noise_kernel_exact_on_adversarial_bands(dev):
 
 
 def test_histogram_wrappers_reject_what_the_kernels_do_not_take(dev):
-    """The kernels take the shaders' 16-px tile only, and K3 a CNR scale
-    that divides it."""
+    """Only what no kernel takes raises: K3 with a CNR scale that does not
+    divide the tile, more levels than the prefix tables hold, and
+    histograms or CLAHE tables larger than a block's 227 KB of shared
+    memory."""
     cfg = MusicaConfig(image_size=96)
     x = torch.rand((96, 96), device=dev)
-    with pytest.raises(ValueError, match="tile"):
-        fh.grad_hist(x, x, cfg.with_(histogram_area_size=8))
-    with pytest.raises(ValueError, match="tile"):
-        fh.noise_hists([x], cfg.with_(histogram_area_size=8))
     with pytest.raises(ValueError, match="CNR scale"):
         fh.grad_hist_relevant(x, x, torch.rand((32, 32), device=dev), cfg)  # scale 3
+    with pytest.raises(ValueError, match="levels"):
+        fh.noise_hists([x] * 17, cfg)
+    with pytest.raises(ValueError, match="n_bins"):
+        k_hist.histogram(torch.zeros(8, dtype=torch.int32, device=dev),
+                         torch.ones(8, device=dev), launch.MAX_SHARED_BINS + 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        fh.sdev_noise_hists([x], cfg.with_(noise_histogram_bins=launch.MAX_SHARED_BINS))
+    big = cfg.with_(enable_clahe=True, clahe_tiles=12, clahe_bins=256)  # 288 KB of tables
+    with pytest.raises(ValueError, match="shared memory"):
+        k_clahe.clahe_apply(x, None, torch.zeros((12, 12, 256), device=dev), big)
+
+
+@pytest.mark.parametrize("tile", [4, 5, 8, 12, 32])
+def test_histogram_kernels_take_every_tile(dev, tile):
+    """K1, K3, K4 and K7 at histogram tiles other than the shaders' 16: the
+    warp layouts at 4, 8 and 32 px, the serial kernels at 5 and 12 px (and
+    K3/K4 at 4 px), each exactly equal to its plain version, on adversarial
+    and random inputs at 600 (ragged: cropped and padded coverage) and 144
+    (clean math: every level padded)."""
+    rng = np.random.default_rng(tile)
+    for size, quirks in ((600, True), (144, False)):
+        cfg = MusicaConfig(image_size=size, quirks=quirks, histogram_area_size=tile)
+        sizes = [-(-size // 2 ** i) for i in cfg.analysis_levels]
+        for levels in ([torch.from_numpy(a).to(dev) for a in hist_cases.noise_levels(rng, sizes)],
+                       _random_levels(size + tile, sizes, dev)):
+            h = fh.noise_hists(levels, cfg)
+            assert torch.equal(h, fh.noise_hists_plain(levels, cfg))
+            assert torch.equal(fh.hist_argmax(h), fh.hist_argmax_plain(h))
+            sds, h7 = fh.sdev_noise_hists(levels, cfg)
+            want_sd, want_h = fh.sdev_noise_hists_plain(levels, cfg)
+            assert all(torch.equal(a, b) for a, b in zip(sds, want_sd))
+            assert torch.equal(h7, want_h)
+        recon = torch.from_numpy(hist_cases.gradation_image(rng, size)).to(dev)
+        rel = torch.from_numpy(rng.uniform(0, 1, (size, size)).astype(np.float32)).to(dev)
+        assert torch.equal(fh.grad_hist(recon, rel, cfg), fh.grad_hist_plain(recon, rel, cfg))
+    # K3: n a multiple of the tile, a CNR scale (4, or 1 at 5 px) dividing it
+    n = 160 * tile if tile in (4, 5) else 192
+    scale = 4 if tile % 4 == 0 else 1
+    cfg = MusicaConfig(image_size=n, histogram_area_size=tile, relevant_border=10)
+    recon = torch.from_numpy(hist_cases.gradation_image(rng, n)).to(dev)
+    nrm = torch.from_numpy(rng.uniform(0, 1.01, (n, n)).astype(np.float32)).to(dev)
+    cnr = torch.from_numpy(rng.uniform(0, 0.1, (n // scale,) * 2).astype(np.float32)).to(dev)
+    assert torch.equal(fh.grad_hist_relevant(recon, nrm, cnr, cfg),
+                       fh.grad_hist_relevant_plain(recon, nrm, cnr, cfg))
+
+
+@pytest.mark.parametrize("tile", [8, 12, 32])
+def test_pipeline_on_card_at_other_histogram_tiles(dev, tile):
+    """process() with histogram_area_size 8, 12 and 32 runs through the
+    hand-written kernels (no ValueError) and equals the CPU path bit for
+    bit, on the default analysis and the fused-sdev one."""
+    img = synthetic_radiograph(512, "thorax")
+    cfg = MusicaConfig(image_size=512, histogram_area_size=tile)
+    launch.reset_launch_counts()
+    out = musica.process(img, cfg, "cuda")
+    counts = dict(launch.LAUNCHES)
+    assert counts["noise_hist"] == counts["hist_argmax"] == 1
+    # the CNR scale (8 at 512) divides 8 and 32, not 12
+    assert counts["grad_hist_relevant" if tile % 8 == 0 else "grad_hist"] == 1
+    np.testing.assert_array_equal(out, musica.process(img, cfg, "cpu"))
+    np.testing.assert_array_equal(musica.process(img, cfg, "cuda", fused_sdev=True), out)
 
 
 def test_relevance_paths_agree_on_pipeline_data(dev):
@@ -271,6 +330,61 @@ def test_clahe_apply_kernel_matches_plain_exactly(dev, n):
     assert bool(torch.isnan(got).any()) and bool(torch.isfinite(got).any())
 
 
+@pytest.mark.parametrize("n", [3072, 600, 144])
+def test_clahe_kernels_at_8x8_tiles(dev, n):
+    """clahe_tiles = 8: 16,384 joint bins (64 KB) and 128 KB of K5 tables,
+    above the 48 KB a block gets without the shared-memory opt-in."""
+    cfg = MusicaConfig(image_size=n, enable_clahe=True, clahe_tiles=8)
+    recon, relevant = _clahe_inputs(n + 2, n, dev)
+    relevant[: n // 8, : n // 8] = 0.0  # tile (0, 0) without relevant pixels: a NaN LUT
+    launch.reset_launch_counts()
+    h = clahe.clahe_histograms(recon, relevant, cfg)
+    assert torch.equal(h.cpu(), clahe.clahe_histograms(recon.cpu(), relevant.cpu(), cfg))
+    px, py = clahe.clahe_curves(h, cfg)
+    got = k_clahe.clahe_apply(recon, px, py, cfg)
+    assert launch.LAUNCHES["histogram"] == launch.LAUNCHES["clahe_apply"] == 1
+    torch.testing.assert_close(got, k_clahe.clahe_apply_plain(recon, px, py, cfg),
+                               rtol=0, atol=0, equal_nan=True)
+    assert bool(torch.isnan(got).any()) and bool(torch.isfinite(got).any())
+
+
+def _edge_recon(rng, n, bins):
+    """recon with x at segment edges i / bins (true float32 divisions), 1.0,
+    -0.0, 0.0, below 0, above 1, denormals and their negatives."""
+    edges = np.arange(bins + 1, dtype=np.float32) / np.float32(bins)
+    special = np.float32([1.0, -0.0, 0.0, -1e-3, 1.001, 1e-40, -1e-40, 1e-45, 2.0])
+    pool = np.concatenate([edges, np.nextafter(edges, np.float32(2)), special])
+    x = rng.uniform(-0.05, 1.05, (n, n)).astype(np.float32)
+    pick = rng.uniform(size=(n, n)) < 0.5
+    x[pick] = rng.choice(pool, int(pick.sum()))
+    return x
+
+
+@pytest.mark.parametrize("n,t,bins", [(17, 4, 256), (600, 4, 256), (3072, 4, 256),
+                                      (600, 8, 64), (144, 2, 256)])
+def test_clahe_apply_kernel_on_random_luts_and_segment_edges(dev, n, t, bins):
+    """K5 on random LUTs (one NaN tile) with x at every segment edge, 1.0,
+    -0.0, out of range and denormal: equal to the plain version, NaN masks
+    included, and one kernel launch with nothing else on the card."""
+    rng = np.random.default_rng(n + t)
+    cfg = MusicaConfig(image_size=n, enable_clahe=True, clahe_tiles=t, clahe_bins=bins)
+    py = np.sort(rng.uniform(0, 1, (t, t, bins)).astype(np.float32), axis=-1)
+    py[t - 1, 0] = np.nan
+    py = torch.from_numpy(py).to(dev)
+    px = torch.cat([torch.arange(bins - 1, device=dev) / torch.tensor(float(bins), device=dev),
+                    torch.ones(1, device=dev)])
+    recon = torch.from_numpy(_edge_recon(rng, n, bins)).to(dev)
+    got = k_clahe.clahe_apply(recon, px, py, cfg)
+    torch.testing.assert_close(got, k_clahe.clahe_apply_plain(recon, px, py, cfg),
+                               rtol=0, atol=0, equal_nan=True)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        k_clahe.clahe_apply(recon, px, py, cfg)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert kernels and all("clahe_apply" in k for k in kernels), kernels
+
+
 def test_clahe_tile_coordinates_are_true_divisions(dev):
     """i / 768 and i / 3072 on the card equal numpy's float32 division."""
     cfg = MusicaConfig(image_size=3072, enable_clahe=True)
@@ -287,7 +401,8 @@ def test_clahe_tile_coordinates_are_true_divisions(dev):
 @pytest.mark.parametrize("size,anatomy,variant", [
     (512, "thorax", dict(enable_clahe=True, grad_with_linear_image=True)),
     (600, "pelvis", dict(enable_clahe=True)),
-    (512, "knee", dict(grad_with_linear_image=True))])
+    (512, "knee", dict(grad_with_linear_image=True)),
+    (512, "hand", dict(enable_clahe=True, grad_with_linear_image=True, clahe_tiles=8))])
 def test_variant_pipeline_on_card_matches_cpu(dev, size, anatomy, variant):
     img = synthetic_radiograph(size, anatomy)
     cfg = MusicaConfig(image_size=size, relevant_border=20, **variant)
@@ -373,6 +488,18 @@ def test_sdev_noise_kernel_ragged_levels(dev, sizes):
     want_sd, want_h = fh.sdev_noise_hists_plain(bands, cfg)
     assert all(torch.equal(a, b) for a, b in zip(sds, want_sd))
     assert torch.equal(h, want_h)
+
+
+@pytest.mark.parametrize("grid", [1, 2, 5, 33])
+def test_sdev_noise_kernel_ranges_cross_levels(dev, grid):
+    """A grid of a few blocks: each block's range of tasks spans levels, so
+    it flushes its histogram where the range crosses into the next level."""
+    cfg = MusicaConfig(image_size=600)
+    bands = _random_bands(grid, [600, 300, 150, 75], dev)
+    sds, h = fh.sdev_noise_hists(bands, cfg, grid=grid)
+    want_sd, want_h = fh.sdev_noise_hists_plain(bands, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(sds, want_sd))
+    assert torch.equal(h, want_h) and int(h.sum()) > 0
 
 
 @pytest.mark.parametrize("size,anatomy,storage", [(512, "thorax", "float32"),

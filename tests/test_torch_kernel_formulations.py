@@ -1,0 +1,224 @@
+"""The formulations of the CUDA kernels K5 (CLAHE apply) and K7 (sdev +
+noise histogram), emulated on the CPU before the card runs them.
+
+K5 (``csrc/clahe_apply.cu``) takes the divisions out of the per-pixel work:
+each block builds per tile and segment the float2 {y1, slope} with the
+plain version's own divisions, per segment its start x1, and computes the
+blend attributes itself.  ``kernel_clahe_apply`` below repeats that
+formulation in float32 torch operations (each correctly rounded, none
+contracted, as in the kernel) and must equal ``ops.clahe.clahe_apply`` bit
+for bit, NaN masks included.
+
+K7 (``csrc/sdev_noise.cu``) runs a one-wave grid over a prefix table of
+tasks (a task: 32 output rows by a column tile of one level), each block a
+contiguous range of tasks, flushing its shared histogram where the range
+crosses into the next level.  ``sdev_partition`` below repeats the host's
+and the kernel's index arithmetic: every output pixel must lie in exactly
+one task and every group of the scanned coverage be scanned exactly once.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe, stats
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
+
+torch.set_num_threads(2)
+
+F32 = torch.float32
+I32 = torch.int32
+
+
+# ----------------------------------------------------------------------
+# K5: segment tables and in-kernel blend attributes
+# ----------------------------------------------------------------------
+
+def kernel_axis(n, t):
+    """csrc/clahe_apply.cu::axis_attr for every index: (base tile, neighbour
+    tile, base weight, neighbour weight, centre flag), each [n]."""
+    coord = torch.arange(n, dtype=F32) / torch.tensor(float(n // t))
+    fl = torch.floor(coord).to(I32)
+    base = fl.to(F32) + 0.5
+    diff = coord - base
+    sgn = (diff > 0.0).to(I32) - (diff < 0.0).to(I32)
+    wb = 1.0 - torch.abs(base - coord)
+    base_t = fl.clamp(0, t - 1)
+    wn = 1.0 - torch.abs((base_t + sgn).to(F32) + 0.5 - coord)  # from the clamped base
+    return base_t, (fl + sgn).clamp(0, t - 1), wb, wn, diff == 0.0
+
+
+def kernel_tables(luts, bins):
+    """The block's tables: segment starts x1 [bins - 1] and, per tile and
+    segment, y1 and the slope (y2 - y1) / (x2 - x1); entry bins - 1 holds
+    the LUT's last value and slope 0."""
+    i = torch.arange(bins - 1)
+    fb = torch.tensor(float(bins))
+    x1 = i.to(F32) / fb
+    x2 = torch.where(i == bins - 2, torch.tensor(1.0), (i + 1).to(F32) / fb)
+    slope = torch.zeros_like(luts)
+    slope[:, :-1] = (luts[:, 1:] - luts[:, :-1]) / (x2 - x1)
+    return x1, luts, slope
+
+
+def kernel_clahe_apply(recon, py, t, bins):
+    """The kernel's per-pixel work: +0.0 outside [0, 1]; else the segment
+    from one product and one conversion, x - x1 shared by the tiles (x1 a
+    product where bins is a power of two), per tile y1 + slope * (x - x1)
+    (the last entry at exactly 1.0), and the blend chosen by the centre
+    flags, summed left to right."""
+    n = recon.shape[-1]
+    x1, y1, slope = kernel_tables(py.reshape(t * t, bins), bins)
+    x = recon
+    inside = (x >= 0.0) & (x <= 1.0)
+    i = torch.clamp((x * float(bins)).to(I32), 0, bins - 2)
+    seg = torch.where(x == 1.0, bins - 1, i).to(torch.int64)
+    if bins & (bins - 1) == 0:  # the kernel's exact product i * (1 / bins)
+        xm = x - i.to(F32) * (1.0 / bins)
+    else:
+        xm = x - x1[i.to(torch.int64)]
+    rb, rn, rwb, rwn, rc = (a[:, None] for a in kernel_axis(n, t))
+    cb, cn, cwb, cwn, cc = (a[None, :] for a in kernel_axis(n, t))
+
+    def g(tx, ty):
+        k = (tx * t + ty).to(torch.int64) * bins + seg
+        e_y, e_m = y1.reshape(-1)[k], slope.reshape(-1)[k]
+        return torch.where(seg == bins - 1, e_y, e_m * xm + e_y)
+
+    g_bb = g(rb, cb)
+    v_r = cwb * g_bb + cwn * g(rb, cn)
+    v_c = rwb * g_bb + rwn * g(rn, cb)
+    v_4 = (rwb * cwb * g_bb + rwn * cwb * g(rn, cb)) + rwb * cwn * g(rb, cn) + rwn * cwn * g(rn, cn)
+    v = torch.where(rc & cc, g_bb, torch.where(rc, v_r, torch.where(cc, v_c, v_4)))
+    # outside [0, 1] the kernel returns +0.0 at once (the blend of zeros)
+    return torch.where(inside, v, torch.tensor(0.0))
+
+
+def edge_recon(rng, n, bins):
+    """x at segment edges i / bins (true float32 divisions) and the next
+    float up, 1.0, +-0.0, below 0, above 1, denormals and their negatives,
+    among uniform values in [-0.05, 1.05]."""
+    edges = np.arange(bins + 1, dtype=np.float32) / np.float32(bins)
+    special = np.float32([1.0, -0.0, 0.0, -1e-3, 1.001, 1e-40, -1e-40, 1e-45, 2.0])
+    pool = np.concatenate([edges, np.nextafter(edges, np.float32(2)), special])
+    x = rng.uniform(-0.05, 1.05, (n, n)).astype(np.float32)
+    pick = rng.uniform(size=(n, n)) < 0.5
+    x[pick] = rng.choice(pool, int(pick.sum()))
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("bins", [64, 256])
+@pytest.mark.parametrize("t", [2, 4, 8])
+@pytest.mark.parametrize("n", [600, 144, 17])
+def test_clahe_kernel_tables_equal_plain_apply(n, t, bins):
+    """The table formulation equals the plain apply bit for bit (NaN masks
+    and signed zeros included) on random LUTs with a NaN tile and a tile of
+    denormals, and on the real clipped-CDF LUTs."""
+    rng = np.random.default_rng(n * t + bins)
+    cfg = MusicaConfig(image_size=n, enable_clahe=True, clahe_tiles=t, clahe_bins=bins)
+    recon = edge_recon(rng, n, bins)
+    py = np.sort(rng.uniform(0, 1, (t, t, bins)).astype(np.float32), axis=-1)
+    py[t - 1, 0] = np.nan
+    py[0, t - 1] = np.float32(1e-40) * np.arange(bins, dtype=np.float32)
+    relevant = torch.from_numpy((rng.uniform(size=(n, n)) < 0.7).astype(np.float32))
+    px_real, py_real = clahe.clahe_curves(clahe.clahe_histograms(recon, relevant, cfg), cfg)
+    for py_t in (torch.from_numpy(py), py_real):
+        want = clahe.clahe_apply(recon, px_real, py_t, cfg)
+        got = kernel_clahe_apply(recon, py_t, t, bins)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        fin = ~torch.isnan(want)
+        assert torch.equal(got[fin].view(torch.int32), want[fin].view(torch.int32))
+
+
+@pytest.mark.parametrize("n,t", [(3072, 4), (600, 8), (17, 4), (144, 2)])
+def test_clahe_kernel_axis_attributes_equal_plain(n, t):
+    """The kernel's blend attributes equal ``ops.clahe.axis_attrs``."""
+    cfg = MusicaConfig(image_size=n, enable_clahe=True, clahe_tiles=t)
+    for got, want in zip(kernel_axis(n, t), clahe.axis_attrs(n, cfg, torch.zeros(1))):
+        assert got.dtype == want.dtype or want.dtype == torch.bool
+        assert torch.equal(got.view(torch.int32) if got.is_floating_point() else got,
+                           want.view(torch.int32) if want.is_floating_point() else want)
+
+
+# ----------------------------------------------------------------------
+# K7: the task partition of the one-wave grid
+# ----------------------------------------------------------------------
+
+def sdev_partition(ns, covs, tile, wave):
+    """Repeat csrc/sdev_noise.cu's launch_sdev and kernel over levels of
+    sizes ``ns`` with scanned coverages ``covs``: returns per level the
+    number of tasks holding each output pixel [n, n] and the number of
+    scans of each (row, group) of the coverage [min(cov, n), cov // tile],
+    and per block its flushes (the levels, in order)."""
+    band, width = fh.SDEV_BAND, fh.sdev_task_width(tile)
+    col_tasks = [-(-n // width) for n in ns]
+    first = [0]
+    for n, ct in zip(ns, col_tasks):
+        first.append(first[-1] + ct * -(-n // band))
+    total = first[-1]
+    per_block = -(-total // wave)
+    blocks = -(-total // per_block)
+    assert blocks <= wave
+    covered = [np.zeros((n, n), np.int32) for n in ns]
+    scanned = [np.zeros((min(c, n), c // tile), np.int32) for n, c in zip(ns, covs)]
+
+    def task_of(t):
+        level = 0
+        while level + 1 < len(ns) and t >= first[level + 1]:
+            level += 1
+        local = t - first[level]
+        return level, local // col_tasks[level] * band, local % col_tasks[level] * width
+
+    flushes = []
+    for b in range(blocks):
+        begin, end = b * per_block, min(b * per_block + per_block, total)
+        out = []
+        for t in range(begin, end):
+            level, r0, c0 = task_of(t)
+            covered[level][r0:r0 + band, c0:c0 + width] += 1
+            groups = covs[level] // tile
+            g0, g1 = c0 // tile, min(c0 // tile + width // tile, groups)
+            scanned[level][r0:r0 + band, g0:max(g0, g1)] += 1
+            nxt = task_of(t + 1)[0] if t + 1 < end else level
+            if t + 1 == end or nxt != level:
+                out.append(level)
+        flushes.append(out)
+    return covered, scanned, flushes, first
+
+
+LADDERS = {"3072": (3072, True), "600 ragged, cov < n": (600, True),
+           "144 clean math, cov > n": (144, False), "75 below one band": (75, False)}
+
+
+@pytest.mark.parametrize("wave", [528, 132, 7, 1])
+@pytest.mark.parametrize("tile", [16, 12, 5, 32])
+@pytest.mark.parametrize("ladder", list(LADDERS))
+def test_sdev_task_partition_covers_each_pixel_and_group_once(ladder, tile, wave):
+    size, quirks = LADDERS[ladder]
+    cfg = MusicaConfig(image_size=size, quirks=quirks, histogram_area_size=tile)
+    ns = [-(-size // 2 ** i) for i in cfg.analysis_levels]
+    covs = [stats.coverage(n, cfg) for n in ns]
+    covered, scanned, flushes, first = sdev_partition(ns, covs, tile, wave)
+    for level in range(len(ns)):
+        assert (covered[level] == 1).all(), (ladder, level)
+        assert (scanned[level] == 1).all(), (ladder, level)
+    # a block flushes once per level its range touches, in order, and every
+    # level is flushed by as many blocks as its tasks span
+    per_block = -(-first[-1] // wave)
+    for b, out in enumerate(flushes):
+        begin, end = b * per_block, min(b * per_block + per_block, first[-1])
+        touched = [lv for lv in range(len(ns)) if first[lv] < end and first[lv + 1] > begin]
+        assert out == touched, (b, out, touched)
+    if wave < len(ns):
+        assert any(len(out) > 1 for out in flushes)  # some range crosses a level
+
+
+def test_sdev_partition_at_3072_is_one_wave_of_equal_tasks():
+    """At the main path's 3072 ladder the tasks are 6,120 tiles of 32 x 64
+    px (4,608 + 1,152 + 288 + 72), none ragged."""
+    cfg = MusicaConfig(image_size=3072)
+    ns = [3072 >> i for i in cfg.analysis_levels]
+    _, _, flushes, first = sdev_partition(ns, [stats.coverage(n, cfg) for n in ns], 16, 528)
+    assert first == [0, 4608, 5760, 6048, 6120]
+    assert len(flushes) == 510  # 12 tasks a block

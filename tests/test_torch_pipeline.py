@@ -163,23 +163,31 @@ def _leaves(v):
     return [x for e in v for x in _leaves(e)] if isinstance(v, tuple) else [v]
 
 
-@pytest.mark.parametrize("anatomy,bar", [("thorax", "parity"), ("hand", "parity"),
-                                         ("head", "bf16 contract")])
-def test_bf16_matches_jax_bf16(anatomy, bar):
-    """512 in bf16 against the JAX package's process_jit in bf16: the u8
-    output at the parity bar (head misses it at 89.67 dB, 99.993 % bit-exact,
-    max 1 -- ROADMAP Queue 3 -- and is held to tests/test_bf16.py's contract
-    instead), equal argmax bins and t0/ta/t1, and every intermediate in the
-    JAX package's dtype (the bands bf16; sdev, recon, cnr, normalized
-    float32)."""
+@pytest.mark.parametrize("anatomy,reference", [("thorax", "process_jit"), ("hand", "process_jit"),
+                                               ("head", "op by op")])
+def test_bf16_matches_jax_bf16(anatomy, reference):
+    """512 in bf16 against the JAX package in bf16: the u8 output at the
+    parity bar, equal argmax bins and t0/ta/t1, and every intermediate in
+    the JAX package's dtype (the bands bf16; sdev, recon, cnr, normalized
+    float32).
+
+    Thorax and hand are held to the JAX package's ``process_jit``.  Head is
+    held to its ``musica_forward(img, cfg, "fact")`` run op by op
+    (``jax.disable_jit()``, ~30 s on one core): the JAX package's own bf16
+    output moves with XLA's fusion -- at 512 head ``process_jit`` and the op-by-
+    op run differ at 11 of 262,144 px (91.56 dB, max 1), the port and
+    ``process_jit`` at 17 (89.67 dB, below the 90 dB bar), the port and the
+    op-by-op run at 14 (90.51 dB).  The port computes op by op, so that run
+    is the reference it is comparable with."""
     cfg = MusicaConfig(image_size=512, storage="bfloat16")
     img = synthetic_radiograph(512, anatomy)
     res = musica.musica_forward(torch.from_numpy(img), cfg, want_intermediates=True)
-    want = np.asarray(j_musica.process_jit(jnp.asarray(img), cfg))
-    if bar == "parity":
-        assert_u8_parity(res["out_u8"].numpy(), want, "bf16 vs JAX bf16")
+    if reference == "process_jit":
+        want = np.asarray(j_musica.process_jit(jnp.asarray(img), cfg))
     else:
-        assert_bf16_contract(res["out_u8"].numpy(), want, 512)
+        with jax.disable_jit():
+            want = np.asarray(j_musica.musica_forward(jnp.asarray(img), cfg, "fact")["out_u8"])
+    assert_u8_parity(res["out_u8"].numpy(), want, f"bf16 vs JAX bf16 ({reference})")
     jres = jax.jit(lambda im: j_musica.musica_forward(
         im, cfg, "fact", want_intermediates=True))(jnp.asarray(img))
     ti, ji = res["intermediates"], jres["intermediates"]
