@@ -5,8 +5,11 @@
 
 Builds the CUDA kernels from ``..._tpu_torch/csrc`` with nvcc, holds every
 kernel against its plain PyTorch version at the paths' 3072^2 shapes
-(integer histograms and argmaxes exactly equal; the CLAHE apply and the
-sdev exactly equal with equal NaN masks) and the histogram scans K1, K3 and
+(integer histograms exactly equal, and the first-max bins that the noise
+histogram kernels K1 and K7 take in their last block equal to
+``torch.argmax`` of their histograms and to the plain argmax; the CLAHE
+apply and the sdev exactly equal with equal NaN masks) and the histogram
+scans K1, K3 and
 K4 also on adversarial inputs at 3072, 600 and 144 and at histogram tiles 8,
 12 and 32 ([3a]), K5 and K6 also at 8x8 CLAHE tiles and K5 on random LUTs
 with x at the segment edges ([3b]), K7 also with block ranges that cross
@@ -20,13 +23,19 @@ that each went through its kernels and agrees with the port's CPU path (or,
 for fused-sdev, with the default path bit for bit; for bf16 also with the
 float32 output to tests/test_bf16.py's contract), runs ``process`` at
 histogram tiles 8, 12 and 32 and with 8x8 CLAHE tiles through the kernels
-([4g]), runs a batch of 4 through
-``process_batch`` in float32 and in bf16, and times the pipeline paths in
-interleaved windows and each kernel beside its plain version, its bound
-(bytes over the HBM rate, operations over the peak rate, at this run's
-inputs) and, where one exists, the one PyTorch call that computes the same
-function (``torch.argmax`` for the argmax, ``torch.bincount`` for the
-generic histogram), with CUDA events.
+([4g]), runs the metamorphic-testing campaign on the card (``run_campaign``
+as ``cli campaign`` runs it): thorax at 3072, its 30 cases against the
+committed TPU campaign's thorax rows (``artifacts/mt_campaign_3072``), one
+3052^2 row against the float64 host oracles ([4h]), and the bf16 against
+the float32 campaign at 512 over all six anatomies, slope flags equal
+([4i]), runs a batch of 4 through ``process_batch`` in float32 and in
+bf16, and times the pipeline paths in interleaved windows, a campaign
+case's parts, and each kernel beside its plain version, its bound (bytes
+over the HBM rate, operations over the peak rate, at this run's inputs)
+and, where one exists, the one PyTorch call that computes the same function
+(``torch.argmax`` for the argmax, ``torch.bincount`` for the generic
+histogram), with CUDA events; the folded argmax also as the difference
+between K1 (and K7) with and without it.
 
 Every phase prints one line; any failure raises and exits non-zero.  The
 line before the last is a JSON object with one entry per kernel; the last
@@ -36,6 +45,7 @@ exits non-zero and prints no result.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import csv
 import json
 import os
 import subprocess
@@ -52,15 +62,16 @@ PKG = "metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tp
 PALLAS_DIR = ("metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_"
               "processing_tpu/ops/pallas")
 PALLAS = f"{PALLAS_DIR}/fused_hist.py"
-SOURCES = {"noise_hist": "fused_hist.cu", "hist_argmax": "fused_hist.cu",
+SOURCES = {"noise_hist": "fused_hist.cu", "hist_argmax": "hist_argmax.cuh",
            "grad_hist_relevant": "fused_hist.cu", "grad_hist": "fused_hist.cu",
            "histogram": "histogram.cu", "clahe_apply": "clahe_apply.cu",
            "sdev_noise_hist": "sdev_noise.cu"}
 REPLACES = {
     "noise_hist": f"{PALLAS}:139 (_noise_kernel of noise_hist_fused; also the "
                   f"histogram of _noise_multi_kernel, :181)",
-    "hist_argmax": f"{PALLAS}:181 (first-max argmax of _noise_multi_kernel, "
-                   f":202-211)",
+    "hist_argmax": f"{PALLAS}:234 (noise_hist_argmax_multi: the first-max argmax "
+                   f"that _noise_multi_kernel takes on its last row block, :202-211; "
+                   f"folded into noise_hist and sdev_noise_hist)",
     "grad_hist_relevant": f"{PALLAS}:397 (_grad_relevant_kernel of "
                           f"grad_hist_relevant_fused)",
     "grad_hist": f"{PALLAS}:381 (_grad_kernel of grad_hist_fused)",
@@ -81,6 +92,13 @@ MIN_PSNR, MIN_EXACT, MAX_DIFF = 90.0, 0.9999, 1
 # test_bf16_contract_512): knife-edge flips (> 32) at most 3e-4 of the
 # pixels, every other pixel within 16, PSNR over those >= 38 dB
 BF16_KNIFE, BF16_MAX_INLIER, BF16_MIN_PSNR = 3e-4, 16, 38.0
+# the campaign: its CSV values against the TPU campaign's (the pipelines'
+# u8 outputs may differ at a few pixels within the parity bar); a row's
+# float32 numbers against the float64 host oracles (tests/test_metamorphic.py)
+CAMPAIGN_ATOL, ROW_ATOL = 1e-3, 2e-5
+MT_ARTIFACT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts",
+                           "mt_campaign_3072")
+MT_BF16_SIZE = 512  # artifacts/mt_bf16_vs_f32_512.json
 # the least time of a kernel's work: bytes over the H100 SXM's HBM3 rate and
 # float32 operations over its rate outside the tensor cores (NVIDIA's H100
 # SXM data sheet); float64 instructions at 64 per SM per clock (the Hopper
@@ -200,11 +218,23 @@ def analysis_levels(img, cfg, dev):
     return [stats.img_sdev(b) for b in analysis_bands(img, cfg, dev)]
 
 
+def check_argmax(rec, case, h, mb, want_h):
+    """The argmax folded into K1 or K7 (K2): the first-max bins equal
+    ``torch.argmax`` (the first maximum) of the kernel's histograms and the
+    plain version's argmax of the plain histograms."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
+    rec.equal("hist_argmax", f"{case}, vs torch.argmax of the kernel's histograms", mb,
+              torch.argmax(h, dim=-1).to(torch.int32))
+    rec.equal("hist_argmax", f"{case}, vs the plain version", mb, fh.hist_argmax_plain(want_h))
+
+
 def check_noise(rec, cfg, levels, case):
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
-    h = fh.noise_hists(levels, cfg)
-    rec.equal("noise_hist", case, h, fh.noise_hists_plain(levels, cfg))
-    rec.equal("hist_argmax", case, fh.hist_argmax(h), fh.hist_argmax_plain(h))
+    h, mb = fh.noise_hists(levels, cfg)
+    want = fh.noise_hists_plain(levels, cfg)
+    rec.equal("noise_hist", case, h, want)
+    check_argmax(rec, f"K1 {case}", h, mb, want)
 
 
 def check_sdev_noise(rec, cfg, bands, case, grid=0):
@@ -213,13 +243,77 @@ def check_sdev_noise(rec, cfg, bands, case, grid=0):
     so that block ranges cross levels)."""
     import torch
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
-    sds, h = fh.sdev_noise_hists(bands, cfg, grid=grid)
+    sds, h, mb = fh.sdev_noise_hists(bands, cfg, grid=grid)
     p_sds, p_h = fh.sdev_noise_hists_plain(bands, cfg)
     sizes = "/".join(str(b.shape[-1]) for b in bands)
     rec.equal_float("sdev_noise_hist", f"{case} ({sizes}), sdev",
                     torch.cat([s.flatten() for s in sds]),
                     torch.cat([s.flatten() for s in p_sds]))
     rec.equal("sdev_noise_hist", f"{case}, histograms ({int(h.sum())} counts)", h, p_h)
+    check_argmax(rec, f"K7 {case}", h, mb, p_h)
+
+
+def unfolded_noise_hists(levels, cfg):
+    """K1 without its argmax (a null ``max_bins``), through its C entry: the
+    histogram kernel as it ran before the argmax was folded into it.  For
+    timing only; it counts no launch."""
+    import ctypes
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import stats
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
+    L, nb, dev = len(levels), cfg.noise_histogram_bins, levels[0].device
+    h, _, ticket = fh._hist_buffers(L, nb, dev)
+    ints = ctypes.c_int * L
+    rc = launch.lib().musica_noise_hist(
+        (ctypes.c_void_p * L)(*[s.data_ptr() for s in levels]),
+        ints(*[s.shape[-1] for s in levels]),
+        ints(*[stats.coverage(s.shape[-1], cfg) for s in levels]),
+        ints(*[s.stride(0) for s in levels]), L, h.data_ptr(), None, ticket.data_ptr(), nb,
+        cfg.histogram_area_size, float(cfg.max_noise_value), launch.stream(dev))
+    assert rc == 0, rc
+    return h
+
+
+def unfolded_sdev_noise_hists(bands, cfg):
+    """K7 without its argmax, as ``unfolded_noise_hists``."""
+    import ctypes
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import stats
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
+    L, nb, dev = len(bands), cfg.noise_histogram_bins, bands[0].device
+    sdevs = [torch.empty_like(b) for b in bands]
+    h, _, ticket = fh._hist_buffers(L, nb, dev)
+    ints = ctypes.c_int * L
+    rc = launch.lib().musica_sdev_noise_hist(
+        (ctypes.c_void_p * L)(*[b.data_ptr() for b in bands]),
+        (ctypes.c_void_p * L)(*[s.data_ptr() for s in sdevs]),
+        ints(*[b.shape[-1] for b in bands]),
+        ints(*[stats.coverage(b.shape[-1], cfg) for b in bands]), L, h.data_ptr(), None,
+        ticket.data_ptr(), nb, cfg.histogram_area_size, float(cfg.max_noise_value), 0,
+        launch.stream(dev))
+    assert rc == 0, rc
+    return sdevs, h
+
+
+def csv_values(rows, first):
+    """(row names, float64 [rows, columns]) of a campaign CSV's rows after
+    its header; the first ``first`` columns name the row."""
+    return [r[:first] for r in rows[1:]], np.array([[float(v) for v in r[first:]]
+                                                    for r in rows[1:]])
+
+
+def check_campaign_rows(name, got_rows, want_rows, first):
+    """Equal row names; max |got - want| per column within CAMPAIGN_ATOL."""
+    names, got = csv_values(got_rows, first)
+    want_names, want = csv_values(want_rows, first)
+    assert names == want_names, (name, names[:3], want_names[:3])
+    assert got.shape == want.shape and np.isfinite(got).all(), name
+    worst = np.abs(got - want).max(axis=0)
+    log(f"  {name}: {got.shape[0]} rows, max |H100 - TPU| per column "
+        f"{[float(w) for w in worst]}")
+    assert float(worst.max()) <= CAMPAIGN_ATOL, f"{name} differs from the TPU campaign"
+    return float(worst.max())
 
 
 def random_clahe(rng, n, dev):
@@ -285,6 +379,7 @@ def check_adversarial(rec, rng, dev):
     shared atomic on one address)."""
     import torch
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import stats
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import hist_cases
 
@@ -300,6 +395,8 @@ def check_adversarial(rec, rng, dev):
         check_noise(rec, cfg, levels, f"{n} adversarial levels {sizes}")
         check_noise(rec, cfg, [torch.full((m, m), 0.05, device=dev) for m in sizes],
                     f"{n} constant levels")
+        check_noise(rec, cfg, [t(a) for a in hist_cases.tie_levels(sizes)],
+                    f"{n} levels whose bins 1500, 7 and 2047 tie")
         recon = t(hist_cases.gradation_image(rng, n))
         flat = torch.full((n, n), 0.5, device=dev)
         rel = t(rng.uniform(0.0, 1.0, (n, n)).astype(np.float32))
@@ -313,6 +410,14 @@ def check_adversarial(rec, rng, dev):
                 rec.equal("grad_hist_relevant", f"{n} {case}",
                           fh.grad_hist_relevant(r, nrm, cnr, cfg),
                           fh.grad_hist_relevant_plain(r, nrm, cnr, cfg))
+    # the quirks coverage of a 256 image is 0: every histogram empty, every
+    # folded argmax bin 0
+    cfg = MusicaConfig(image_size=256)
+    sizes = [-(-256 // 2 ** i) for i in cfg.analysis_levels]
+    assert all(stats.coverage(m, cfg) == 0 for m in sizes)
+    levels = [t(a) for a in hist_cases.noise_levels(rng, sizes)]
+    check_noise(rec, cfg, levels, "256 adversarial levels, quirks coverage 0")
+    check_sdev_noise(rec, cfg, levels, "256 adversarial bands, quirks coverage 0")
     # histogram tiles other than 16: the warp layouts at 8 and 32 px, the
     # serial kernels at 12 (K1, K4, K7; K3 where the CNR scale 8 divides the
     # tile and the tile divides n)
@@ -542,8 +647,10 @@ def main() -> int:
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_apply as k_clahe
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import histogram as k_hist
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import (
+        analysis, campaign, metrics, perturb)
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import (
-        synthetic_radiograph)
+        ANATOMIES, synthetic_radiograph)
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.utils import io as uio
 
     # ---- 1. device -------------------------------------------------------
@@ -690,8 +797,10 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(launch.LAUNCHES)
     log(f"  launches: {launches}")
-    for k in ("noise_hist", "hist_argmax", "grad_hist_relevant"):
+    for k in ("noise_hist", "grad_hist_relevant"):
         assert launches[k] > 0, f"the main path did not launch {k}"
+    # K1 + K2: one launch, which takes the argmaxes too
+    assert launches["noise_hist"] == 1 and "hist_argmax" not in launches, launches
     assert launches["sdev_noise_hist"] == 0, "the default analysis launched K7"
     m = cfg.out_margin
     assert out_gpu.shape == (SIZE - 2 * m, SIZE - 2 * m) and out_gpu.dtype == np.uint8
@@ -708,7 +817,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches_dbg = dict(launch.LAUNCHES)
     log(f"  launches: {launches_dbg}")
-    for k in ("noise_hist", "hist_argmax", "grad_hist"):
+    for k in ("noise_hist", "grad_hist"):
         assert launches_dbg[k] > 0, f"the intermediates path did not launch {k}"
     assert np.array_equal(dbg["out_u8"].cpu().numpy(), out_gpu)
     assert all(bool(torch.isfinite(v).all()) for v in dbg["intermediates"].values()
@@ -723,7 +832,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches_var = dict(launch.LAUNCHES)
     log(f"  launches: {launches_var}")
-    for k in ("noise_hist", "hist_argmax", "grad_hist", "histogram", "clahe_apply"):
+    for k in ("noise_hist", "grad_hist", "histogram", "clahe_apply"):
         assert launches_var[k] > 0, f"the variant path did not launch {k}"
     assert var_out.shape == out_gpu.shape and var_out.dtype == np.uint8
     assert 0 < int(var_out.max()) and int(var_out.min()) < 255, "degenerate output"
@@ -780,7 +889,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches_fused = dict(launch.LAUNCHES)
     log(f"  launches: {launches_fused}")
-    for k in ("sdev_noise_hist", "hist_argmax", "grad_hist_relevant"):
+    for k in ("sdev_noise_hist", "grad_hist_relevant"):
         assert launches_fused[k] > 0, f"the fused-sdev path did not launch {k}"
     assert launches_fused["noise_hist"] == 0, "the fused-sdev path launched K1"
     assert np.array_equal(fused_out, out_gpu), "fused-sdev out_u8 differs from the default path"
@@ -801,7 +910,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches_bf16 = dict(launch.LAUNCHES)
     log(f"  launches: {launches_bf16}")
-    for k in ("noise_hist", "hist_argmax", "grad_hist_relevant"):
+    for k in ("noise_hist", "grad_hist_relevant"):
         assert launches_bf16[k] > 0, f"the bf16 path did not launch {k}"
     assert out16.shape == out_gpu.shape and out16.dtype == np.uint8
     t0 = time.perf_counter()
@@ -833,7 +942,7 @@ def main() -> int:
         launches_t = dict(launch.LAUNCHES)
         # the CNR scale (8 at 3072) divides 8 and 32: K3; not 12: K4
         k_grad = "grad_hist_relevant" if tile % 8 == 0 else "grad_hist"
-        assert launches_t["noise_hist"] == launches_t["hist_argmax"] == launches_t[k_grad] == 1, \
+        assert launches_t["noise_hist"] == launches_t[k_grad] == 1, \
             (tile, launches_t)
         inter_t = musica.musica_forward(x_dev, cfg_t, want_intermediates=True)
         assert np.array_equal(inter_t["out_u8"].cpu().numpy(), out_t)
@@ -864,6 +973,75 @@ def main() -> int:
     assert np.array_equal(musica.process(img, cfg_c8, "cuda"), out_gpu)
     log(f"  8x8 CLAHE tiles: launches {launches_c8}; {nan_tiles} NaN tile(s); out_u8 equals "
         f"the main path's (CLAHE leaves the tone map alone)")
+
+    log(f"[4h] the metamorphic campaign on the card (run_campaign, as `cli campaign` runs "
+        f"it): thorax at {SIZE}, seed 0, its 30 cases against the TPU campaign's thorax rows "
+        f"(artifacts/mt_campaign_3072)")
+    t0 = time.perf_counter()
+    mt_rng = campaign.advance_rng(np.random.default_rng(0), SIZE, ANATOMIES[:-1])
+    log(f"  the generator drawn past {', '.join(ANATOMIES[:-1])} on the host: "
+        f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        launch.reset_launch_counts()
+        t0 = time.perf_counter()
+        mt = campaign.run_campaign(out_dir=tmp, image_size=SIZE, anatomies=["thorax"],
+                                   rng=mt_rng, device="cuda")
+        torch.cuda.synchronize()
+        launches_mt = dict(launch.LAUNCHES)
+        mt_s = time.perf_counter() - t0
+    log(f"  {mt_s:.1f} s for 31 pipeline runs and 51 rows; launches: {launches_mt}")
+    # 1 unaltered + 30 altered runs; 3 value counts a row: the reference row,
+    # 30 direct rows and 20 registration rows
+    assert launches_mt["noise_hist"] == launches_mt["grad_hist_relevant"] == 31, launches_mt
+    assert launches_mt["histogram"] == 3 * (1 + 30 + 20), launches_mt
+    for name, first in ((campaign.R_CSV, 2), (campaign.NR_CSV, 2), (campaign.S_CSV, 1)):
+        with open(os.path.join(MT_ARTIFACT, name), newline="") as f:
+            rows = list(csv.reader(f))
+        want = [rows[0]] + [r for r in rows[1:] if r[0] == "thorax"]
+        check_campaign_rows(name, mt[name], want, first)
+    # one row at the campaign's crop against the float64 host oracles: the
+    # main path's output, a noisy run of it, and the CLAHE + linear output
+    alt = musica.process(perturb.add_gaussian_noise(img, 0.0, 64.0, np.random.default_rng(5)),
+                         cfg, "cuda")
+    unalt_t, ref_t = torch.from_numpy(out_gpu).to(dev), torch.from_numpy(var_out).to(dev)
+    row = metrics.measure_row(alt, unalt_t, ref_t)
+    want = [metrics.mse_similarity(alt, out_gpu), metrics.ssim_similarity(alt, out_gpu),
+            metrics.hist_similarity(alt, out_gpu)[1], metrics.mse_similarity(alt, var_out),
+            metrics.ssim_similarity(alt, var_out), metrics.hist_similarity(alt, var_out)[1]]
+    row_err = float(np.abs(np.array(row) - np.array(want)).max())
+    log(f"  measure_row at {alt.shape[0]}^2 on the card: {row}; max |card - float64 oracle| "
+        f"{row_err} (bound {ROW_ATOL})")
+    assert row_err <= ROW_ATOL, "measure_row differs from the host oracles"
+    counts = metrics.counts256(unalt_t).cpu().numpy()
+    assert np.array_equal(counts, np.bincount(out_gpu.reshape(-1), minlength=256)), "counts256"
+    log("  counts256 (the histogram kernel) equals np.bincount")
+
+    log(f"[4i] the campaign in bf16 band storage against float32 at {MT_BF16_SIZE}, all six "
+        f"anatomies, seed 0: slope flags (artifacts/mt_bf16_vs_f32_512.json: 54/54)")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mt32 = campaign.run_campaign(out_dir=os.path.join(tmp, "f32"), image_size=MT_BF16_SIZE,
+                                     device="cuda")
+        mt16 = campaign.run_campaign(out_dir=os.path.join(tmp, "bf16"), image_size=MT_BF16_SIZE,
+                                     storage="bfloat16", device="cuda")
+        log(f"  two campaigns of 180 cases: {time.perf_counter() - t0:.1f} s")
+    with open(os.path.join(os.path.dirname(MT_ARTIFACT), "mt_bf16_vs_f32_512.json")) as f:
+        jax_bf16 = json.load(f)
+    for name, first, key in ((campaign.R_CSV, 2, "direct_robustness"),
+                             (campaign.NR_CSV, 2, "reg_based_robustness"),
+                             ("deltas.csv", 1, "deltas")):
+        names32, v32 = csv_values(mt32[name], first)
+        names16, v16 = csv_values(mt16[name], first)
+        assert names32 == names16 and np.isfinite(v16).all(), name
+        d = np.abs(v16 - v32)
+        log(f"  {name}: {v32.shape[0]} rows, max |bf16 - f32| {float(d.max())}, mean "
+            f"{float(d.mean())} (the JAX package's, on the CPU: max "
+            f"{jax_bf16[key]['max_abs_diff']}, mean {jax_bf16[key]['mean_abs_diff']})")
+    flags32 = [f for *_, f in analysis.slope_analysis(mt32["deltas.csv"])]
+    flags16 = [f for *_, f in analysis.slope_analysis(mt16["deltas.csv"])]
+    agree = sum(a == b for a, b in zip(flags32, flags16))
+    log(f"  slope flags agree {agree}/{len(flags32)} ({sum(flags32)} flagged in float32)")
+    assert len(flags32) == 54 and agree == 54, "bf16 changes the campaign's slope flags"
 
     # ---- 5. a batch of 4 ---------------------------------------------------
     anatomies = ["thorax", "pelvis", "hand", "knee"][:BATCH]
@@ -907,16 +1085,43 @@ def main() -> int:
             f"{sorted(diffs)[ROUNDS // 2]}, {sum(d < 0 for d in diffs)} of {ROUNDS} below 0)")
     log(f"  batch of {BATCH}: median {batch} ms/img = {mpix / batch} GPix/s "
         f"(3 windows of 2 batches: {batches})")
+    # a campaign case at 3072 (thorax), in its parts: each perturbation on the
+    # host, process() (host clock: the raw's upload, the pipeline, the
+    # output's download) and a row's measure_row (the altered output's
+    # upload, the row on the card, the counts' download); medians of 5
+    def host_ms(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[reps // 2]
+
+    g = np.random.default_rng(6)
+    case_ms = {"perturbation " + k: host_ms(fn) for k, fn in (
+        ("collimator", lambda: perturb.apply_collimator(img, 200, 200, g)),
+        ("translation", lambda: perturb.clamp_translation(img, x_shift=300)),
+        ("rotation", lambda: perturb.clamp_rotate(img, 27)),
+        ("gaussian", lambda: perturb.add_gaussian_noise(img, 0.0, 64.0, g)),
+        ("quantum", lambda: perturb.apply_quantum_noise(img, 0.1, g)))}
+    case_ms["process"] = host_ms(lambda: musica.process(img.T, cfg, "cuda"))
+    case_ms["measure_row"] = host_ms(lambda: metrics.measure_row(alt, unalt_t, ref_t))
+    case_ms["rotated reference (host)"] = host_ms(lambda: perturb.rotate_nearest_u8(out_gpu, 27))
+    log("  a campaign case at 3072, ms (host clock, medians of 5): "
+        + ", ".join(f"{k} {v}" for k, v in case_ms.items()))
+
     v_px, v_py = clahe.clahe_curves(clahe.clahe_histograms(v_recon, v_rel, cfg_var), cfg_var)
     v_joint, v_w = clahe.clahe_joint_bins(v_recon, v_rel, cfg_var)
     nb = cfg_var.clahe_tiles ** 2 * cfg_var.clahe_bins
     linear = var_inter["intermediates"]["linear"]
-    h3072 = fh.noise_hists(lv3072, cfg)
+    h3072, mb3072 = fh.noise_hists(lv3072, cfg)
     wplane = fh.relevance_weight_plane(cnr, cfg).contiguous()
     cases = {
         "noise_hist": (lambda: fh.noise_hists(lv3072, cfg),
                        lambda: fh.noise_hists_plain(lv3072, cfg)),
-        "hist_argmax": (lambda: fh.hist_argmax(h3072), lambda: fh.hist_argmax_plain(h3072)),
+        # folded into K1 and K7: its time is theirs with it less theirs without
+        "hist_argmax": (None, lambda: fh.hist_argmax_plain(h3072)),
         "grad_hist_relevant": (lambda: fh.grad_hist_relevant(recon, nrm, cnr, cfg),
                                lambda: fh.grad_hist_relevant_plain(recon, nrm, cnr, cfg)),
         "grad_hist": (lambda: fh.grad_hist(linear, v_rel, cfg_var),
@@ -934,15 +1139,33 @@ def main() -> int:
     assert int(joint_flat.min()) >= 0 and int(joint_flat.max()) < nb
     assert torch.equal(torch.bincount(joint_flat, weights=w_flat, minlength=nb).to(torch.int32),
                        k_hist.histogram(v_joint, v_w, nb))
-    assert torch.equal(torch.argmax(h3072, dim=1).to(torch.int32), fh.hist_argmax(h3072))
+    assert torch.equal(torch.argmax(h3072, dim=1).to(torch.int32), mb3072)
+    assert torch.equal(unfolded_noise_hists(lv3072, cfg), h3072)
     library = {"hist_argmax": lambda: torch.argmax(h3072, dim=1),
                "histogram": lambda: torch.bincount(joint_flat, weights=w_flat, minlength=nb)}
     # K3's kernel alone and its wrapper's weight-plane ops alone
     k3_parts = {"kernel_ms": lambda: fh._launch_grad_hist_relevant(recon, nrm, wplane, cfg),
                 "weight_plane_ms": lambda: fh.relevance_weight_plane(cnr, cfg)}
+    # the fold: K1 and K7 with and without the argmax, and K1 without it
+    # followed by one argmax launch, as the main path ran before the fold
+    # (torch.argmax in place of the argmax kernel it had); 5 interleaved
+    # rounds, medians
+    fold_fns = {
+        "k1_ms": lambda: fh.noise_hists(lv3072, cfg),
+        "k1_without_argmax_ms": lambda: unfolded_noise_hists(lv3072, cfg),
+        "k1_then_argmax_launch_ms": lambda: torch.argmax(unfolded_noise_hists(lv3072, cfg), 1),
+        "k7_ms": lambda: fh.sdev_noise_hists(b3072, cfg),
+        "k7_without_argmax_ms": lambda: unfolded_sdev_noise_hists(b3072, cfg),
+    }
+    fold_runs = {k: [] for k in fold_fns}
+    for _ in range(5):
+        for k, fn in fold_fns.items():
+            fold_runs[k].append(cuda_ms(fn, 20, 2, device_only=True))
+    fold = {k: sorted(v)[2] for k, v in fold_runs.items()}
+    log(f"  the argmax folded into K1 and K7, ms (medians of 5 interleaved rounds): {fold}; "
+        f"in run order: {fold_runs}")
     bounds = kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b3072)
     from_run = {"noise_hist": (launches, "process"),
-                "hist_argmax": (launches, "process"),
                 "grad_hist_relevant": (launches, "process"),
                 "grad_hist": (launches_var, "process --clahe --linear-gradation "
                               "(musica_forward, enable_clahe, grad_with_linear_image)"),
@@ -952,18 +1175,30 @@ def main() -> int:
                                     "(the JAX package's hist_method=\"fused_sdev\")")}
     kernels = []
     for name, (kern, plain) in cases.items():
-        k_ms = cuda_ms(kern, 20, 2, device_only=True)
         p_ms = cuda_ms(plain, 5, 1, device_only=True)
         lib_ms = cuda_ms(library[name], 20, 2, device_only=True) if name in library else None
         b_ms, b_by = bounds[name]
-        counts, path = from_run[name]
         row = {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{SOURCES[name]}",
-               "replaces": REPLACES[name], "launches": counts[name], "launched_by": path,
-               "max_abs_err": rec.err[name], "ms": k_ms, "plain_ms": p_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+               "replaces": REPLACES[name]}
+        if kern is None:
+            # no launch of its own: the main path's K1 launches took it
+            k_ms = fold["k1_ms"] - fold["k1_without_argmax_ms"]
+            row.update({"launches": launches["noise_hist"], "own_launches": 0,
+                        "folded_into": ["noise_hist", "sdev_noise_hist"],
+                        "launched_by": "process (inside noise_hist's launch)"})
+        else:
+            k_ms = cuda_ms(kern, 20, 2, device_only=True)
+            counts, path = from_run[name]
+            row.update({"launches": counts[name], "launched_by": path})
+        row.update({"max_abs_err": rec.err[name], "ms": k_ms, "plain_ms": p_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
         if name == "grad_hist_relevant":
             row.update({k: cuda_ms(fn, 20, 2, device_only=True) for k, fn in k3_parts.items()})
-        extra = ", ".join(f"{k} {row[k]}" for k in ("kernel_ms", "weight_plane_ms") if k in row)
+        if kern is None:
+            row.update(fold)
+            row["k7_argmax_ms"] = fold["k7_ms"] - fold["k7_without_argmax_ms"]
+        extra = ", ".join(f"{k} {row[k]}" for k in ("kernel_ms", "weight_plane_ms",
+                                                    "k7_argmax_ms") if k in row)
         log(f"  {name}: kernel {k_ms} ms, plain {p_ms} ms, bound {b_ms} ms ({b_by}), "
             f"one PyTorch call {lib_ms} ms" + (f"; {extra}" if extra else ""))
         kernels.append(row)

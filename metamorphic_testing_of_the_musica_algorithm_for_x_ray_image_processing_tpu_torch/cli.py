@@ -1,8 +1,10 @@
-"""Command-line interface of the PyTorch port: ``process`` and ``batch``.
+"""Command-line interface of the PyTorch port: ``process`` and ``batch``,
+the metamorphic ``campaign`` and its analysis tools ``slope-analysis`` and
+``mean-cnr``.
 
 The formats are those of the JAX package's CLI (and of the reference
 standalone CLI): a raw radiograph with a 256-byte header, loaded transposed,
-in; a margin-10-cropped 8-bit BMP out.
+in; a margin-10-cropped 8-bit BMP out; the campaign's CSVs.
 
 Usage:
     python -m metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.cli process in.raw out.bmp
@@ -10,6 +12,9 @@ Usage:
     python -m ...cli process --clahe --linear-gradation --timing in.raw out.bmp
     python -m ...cli process --bf16 in.raw out.bmp
     python -m ...cli batch --size 3072 'raws/*.raw' outdir/
+    python -m ...cli campaign --size 3072 --out-dir mt_out/
+    python -m ...cli slope-analysis mt_out/deltas.csv
+    python -m ...cli mean-cnr cnr_bmps/
 """
 
 from __future__ import annotations
@@ -106,6 +111,35 @@ def cmd_batch(args) -> int:
     return 0
 
 
+def cmd_campaign(args) -> int:
+    from .testing.campaign import run_campaign
+    run_campaign(out_dir=args.out_dir, image_size=args.size,
+                 anatomies=args.anatomies.split(",") if args.anatomies else None,
+                 input_dir=args.input_dir,
+                 seed=args.seed,
+                 save_images=args.save_images,
+                 quirks=not args.no_quirks,
+                 transpose=not args.no_transpose,
+                 storage="bfloat16" if args.bf16 else "float32",
+                 device=args.device)
+    return 0
+
+
+def cmd_slope(args) -> int:
+    from .testing.analysis import slope_analysis_file
+    for line in slope_analysis_file(args.csv, out_file=args.out,
+                                    wilcoxon=args.wilcoxon):
+        print(line)
+    return 0
+
+
+def cmd_mean_cnr(args) -> int:
+    from .testing.analysis import mean_cnr_dir
+    for name, val in mean_cnr_dir(args.in_dir, out_file=args.out):
+        print(f"{name} \t {val}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="musica-torch", description="MUSICA pipeline on PyTorch/CUDA")
@@ -143,6 +177,43 @@ def main(argv=None) -> int:
                    help="bf16 storage for the pyramid band streams (fast "
                         "mode; see `process --bf16`)")
     p.set_defaults(fn=cmd_batch)
+
+    p = sub.add_parser("campaign", help="run the metamorphic-testing campaign")
+    _add_common(p)
+    p.add_argument("--out-dir", default="mt_out")
+    p.add_argument("--anatomies", default=None,
+                   help="comma-separated subset of foot,hand,head,knee,pelvis,thorax")
+    p.add_argument("--input-dir", default=None,
+                   help="directory of real anatomy data (<anatomy>/image.raw "
+                        "+ optional <anatomy>/proc vendor DICOM ground "
+                        "truth, the reference harness's INPUT_PATH layout); "
+                        "default: synthetic phantoms")
+    p.add_argument("--save-images", action="store_true",
+                   help="save every altered input raw and processed BMP per "
+                        "case (script.py:417-421 save_image behavior)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="RNG seed for the noise/collimator perturbations")
+    p.add_argument("--bf16", action="store_true",
+                   help="run the campaign against the bf16 fast mode "
+                        "(storage=\"bfloat16\") -- measures whether the "
+                        "fast mode preserves the metamorphic robustness "
+                        "profile (see `process --bf16`)")
+    p.set_defaults(fn=cmd_campaign)
+
+    p = sub.add_parser("slope-analysis",
+                       help="per-alteration linear-regression slope test")
+    p.add_argument("csv")
+    p.add_argument("--out", default=None)
+    p.add_argument("--wilcoxon", action="store_true",
+                   help="also run the Wilcoxon signed-rank test per group "
+                        "(the reference's commented-out branch, "
+                        "test/reg_vs_dir_delta/script.py:30-33)")
+    p.set_defaults(fn=cmd_slope)
+
+    p = sub.add_parser("mean-cnr", help="mean CNR of debug BMPs in a directory")
+    p.add_argument("in_dir")
+    p.add_argument("--out", default=None)
+    p.set_defaults(fn=cmd_mean_cnr)
 
     args = ap.parse_args(argv)
     return args.fn(args)

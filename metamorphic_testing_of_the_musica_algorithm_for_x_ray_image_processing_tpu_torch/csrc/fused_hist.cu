@@ -3,11 +3,10 @@
 // They replace the Pallas kernels of the JAX package's
 // ops/pallas/fused_hist.py:
 //
-//   noise_hist_kernel   <- _noise_kernel (noise_hist_fused) and the
-//                          histogram part of _noise_multi_kernel
-//                          (noise_hist_argmax_multi)
-//   hist_argmax_kernel  <- the in-kernel first-max argmax of
-//                          _noise_multi_kernel
+//   noise_hist_kernel   <- _noise_kernel (noise_hist_fused) and
+//                          _noise_multi_kernel (noise_hist_argmax_multi):
+//                          every level's histogram, and its first-max bin
+//                          taken by the last block (hist_argmax.cuh)
 //   grad_hist_kernel<tile, true>  <- _grad_relevant_kernel (grad_hist_relevant_fused)
 //   grad_hist_kernel<tile, false> <- _grad_kernel (grad_hist_fused)
 //
@@ -42,9 +41,9 @@
 // -fmad=false, never with --use_fast_math.
 
 #include <cuda_runtime.h>
-#include <limits.h>
 
 #include "grid.cuh"
+#include "hist_argmax.cuh"
 #include "noise_scan.cuh"
 
 #define MUSICA_MAX_LEVELS 16
@@ -125,7 +124,7 @@ struct NoiseLayout {
 template <int kTile>
 __global__ void __launch_bounds__(kNoiseThreads)
 noise_hist_kernel(NoiseLevels lv, int levels, int* __restrict__ hists, int n_bins,
-                  float max_noise) {
+                  float max_noise, unsigned* ticket, int* max_bins) {
   constexpr int kLanePx = NoiseLayout<kTile>::kLanePx;
   constexpr int kGroupLanes = NoiseLayout<kTile>::kGroupLanes;
   constexpr int kTaskGroups = NoiseLayout<kTile>::kTaskGroups;
@@ -184,13 +183,15 @@ noise_hist_kernel(NoiseLevels lv, int levels, int* __restrict__ hists, int n_bin
   }
   __syncthreads();
   flush(sh, hists + (long long)level * n_bins, n_bins);
+  last_block_argmax(hists, levels, n_bins, ticket, max_bins,
+                    reinterpret_cast<unsigned long long*>(sh));
 }
 
 // Any other tile: one thread walks one (row, group) of a level's coverage
 // (noise_scan_group); blockIdx.y is the level.
 __global__ void __launch_bounds__(kNoiseThreads)
 noise_hist_serial_kernel(NoiseLevels lv, int* __restrict__ hists, int n_bins, int tile,
-                         float max_noise) {
+                         float max_noise, unsigned* ticket, int* max_bins) {
   extern __shared__ int sh[];
   for (int b = threadIdx.x; b < n_bins; b += blockDim.x) sh[b] = 0;
   __syncthreads();
@@ -212,11 +213,20 @@ noise_hist_serial_kernel(NoiseLevels lv, int* __restrict__ hists, int n_bins, in
   }
   __syncthreads();
   flush(sh, hists + (long long)level * n_bins, n_bins);
+  last_block_argmax(hists, gridDim.y, n_bins, ticket, max_bins,
+                    reinterpret_cast<unsigned long long*>(sh));
+}
+
+// The histogram kernels' shared memory: the bins, and at least what the last
+// block's argmax needs.
+inline size_t noise_smem(int n_bins) {
+  const size_t bins = sizeof(int) * (size_t)n_bins;
+  return bins < kArgmaxScratchBytes ? kArgmaxScratchBytes : bins;
 }
 
 template <int kTile>
 int launch_noise(NoiseLevels lv, int levels, int* hists, int n_bins, float max_noise,
-                 cudaStream_t stream) {
+                 unsigned* ticket, int* max_bins, cudaStream_t stream) {
   constexpr int kTaskGroups = NoiseLayout<kTile>::kTaskGroups;
   long long total = 0;
   long long tasks[MUSICA_MAX_LEVELS];
@@ -228,7 +238,7 @@ int launch_noise(NoiseLevels lv, int levels, int* hists, int n_bins, float max_n
   }
   // one wave: at most (blocks that fit on all SMs) - levels blocks' worth of
   // tasks per block, so that the levels' rounded-up block counts still fit
-  const size_t smem = n_bins * sizeof(int);
+  const size_t smem = noise_smem(n_bins);
   long long wave = 0;
   const int e = wave_blocks(noise_hist_kernel<kTile>, kNoiseThreads, smem, &wave);
   if (e != (int)cudaSuccess) return e;
@@ -245,21 +255,23 @@ int launch_noise(NoiseLevels lv, int levels, int* hists, int n_bins, float max_n
   }
   lv.first_block[levels] = (int)blocks;
   // nothing covered (e.g. quirks coverage 0 below 512 px): one block that
-  // scans nothing, so every call is one launch
+  // scans nothing and writes bin 0 for every level, so every call is one
+  // launch
   if (blocks == 0) blocks = 1;
   noise_hist_kernel<kTile><<<(unsigned)blocks, kNoiseThreads, smem, stream>>>(
-      lv, levels, hists, n_bins, max_noise);
+      lv, levels, hists, n_bins, max_noise, ticket, max_bins);
   return (int)cudaGetLastError();
 }
 
 int launch_noise_serial(const NoiseLevels& lv, int levels, int* hists, int n_bins, int tile,
-                        float max_noise, cudaStream_t stream) {
+                        float max_noise, unsigned* ticket, int* max_bins,
+                        cudaStream_t stream) {
   long long work = 0;
   for (int l = 0; l < levels; ++l) {
     const long long w = (long long)(lv.cov[l] < lv.n[l] ? lv.cov[l] : lv.n[l]) * (lv.cov[l] / tile);
     if (w > work) work = w;
   }
-  const size_t smem = n_bins * sizeof(int);
+  const size_t smem = noise_smem(n_bins);
   long long wave = 0;
   const int e = wave_blocks(noise_hist_serial_kernel, kNoiseThreads, smem, &wave);
   if (e != (int)cudaSuccess) return e;
@@ -267,39 +279,8 @@ int launch_noise_serial(const NoiseLevels& lv, int levels, int* hists, int n_bin
   if (bx > wave) bx = wave;
   if (bx < 1) bx = 1;
   noise_hist_serial_kernel<<<dim3((unsigned)bx, levels), kNoiseThreads, smem, stream>>>(
-      lv, hists, n_bins, tile, max_noise);
+      lv, hists, n_bins, tile, max_noise, ticket, max_bins);
   return (int)cudaGetLastError();
-}
-
-// First-max argmax of each histogram row (shaders/img_histogram_max.comp:
-// strict >, so the first maximum wins and an all-zero row gives bin 0).
-constexpr int kArgmaxThreads = 256;
-
-__global__ void hist_argmax_kernel(const int* __restrict__ hists, int n_bins,
-                                   int* __restrict__ out) {
-  __shared__ int sv[kArgmaxThreads];
-  __shared__ int si[kArgmaxThreads];
-  const int* h = hists + (long long)blockIdx.x * n_bins;
-  int best_v = INT_MIN;
-  int best_i = n_bins;
-  for (int b = threadIdx.x; b < n_bins; b += blockDim.x) {
-    const int v = h[b];
-    if (v > best_v) { best_v = v; best_i = b; }
-  }
-  sv[threadIdx.x] = best_v;
-  si[threadIdx.x] = best_i;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) {
-      const int ov = sv[threadIdx.x + s], oi = si[threadIdx.x + s];
-      if (ov > sv[threadIdx.x] || (ov == sv[threadIdx.x] && oi < si[threadIdx.x])) {
-        sv[threadIdx.x] = ov;
-        si[threadIdx.x] = oi;
-      }
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[blockIdx.x] = si[0];
 }
 
 // ---------------------------------------------------------------------------
@@ -533,10 +514,13 @@ const char* musica_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// hists [levels, n_bins] int32, zeroed by the caller.  Returns a cudaError_t.
+// hists [levels, n_bins] int32 and *ticket zeroed by the caller (one
+// allocation: the wrapper zeroes it once); max_bins [levels] int32 receives
+// each row's first-max bin (nullptr: no argmax).  Returns a cudaError_t.
 int musica_noise_hist(const void* const* ptrs, const int* ns, const int* covs,
-                      const int* strides, int levels, int* hists, int n_bins,
-                      int tile, float max_noise, void* stream) {
+                      const int* strides, int levels, int* hists, int* max_bins,
+                      unsigned* ticket, int n_bins, int tile, float max_noise,
+                      void* stream) {
   if (levels < 1 || levels > MUSICA_MAX_LEVELS || tile < 1 || n_bins < 1)
     return (int)cudaErrorInvalidValue;
   NoiseLevels lv = {};
@@ -551,21 +535,17 @@ int musica_noise_hist(const void* const* ptrs, const int* ns, const int* covs,
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tile) {
-    case 4: return launch_noise<4>(lv, levels, hists, n_bins, max_noise, s);
-    case 8: return launch_noise<8>(lv, levels, hists, n_bins, max_noise, s);
-    case 16: return launch_noise<16>(lv, levels, hists, n_bins, max_noise, s);
-    case 32: return launch_noise<32>(lv, levels, hists, n_bins, max_noise, s);
-    default: return launch_noise_serial(lv, levels, hists, n_bins, tile, max_noise, s);
+    case 4:
+      return launch_noise<4>(lv, levels, hists, n_bins, max_noise, ticket, max_bins, s);
+    case 8:
+      return launch_noise<8>(lv, levels, hists, n_bins, max_noise, ticket, max_bins, s);
+    case 16:
+      return launch_noise<16>(lv, levels, hists, n_bins, max_noise, ticket, max_bins, s);
+    case 32:
+      return launch_noise<32>(lv, levels, hists, n_bins, max_noise, ticket, max_bins, s);
+    default:
+      return launch_noise_serial(lv, levels, hists, n_bins, tile, max_noise, ticket, max_bins, s);
   }
-}
-
-// out [levels] int32: first-max bin of each row of hists [levels, n_bins].
-int musica_hist_argmax(const int* hists, int levels, int n_bins, int* out,
-                       void* stream) {
-  if (levels < 1 || n_bins < 1) return (int)cudaErrorInvalidValue;
-  hist_argmax_kernel<<<levels, kArgmaxThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(hists, n_bins, out);
-  return (int)cudaGetLastError();
 }
 
 // Gradation histogram weighted by trunc(rel * 100).  hist zeroed by the caller.

@@ -2,9 +2,11 @@
 //
 // Replaces the JAX package's ops/pallas/fused_hist.py::sdev_noise_hist_fused
 // (_sdev_noise_kernel): each analysis level's bandpass image in, its sdev
-// image (shaders/img_sdev.comp) and its noise histogram
-// (shaders/noise_hist.comp) out, without reading the sdev image back.  One
-// launch covers every analysis level.
+// image (shaders/img_sdev.comp), its noise histogram
+// (shaders/noise_hist.comp) and the histogram's first-max bin
+// (shaders/img_histogram_max.comp, taken by the last block:
+// hist_argmax.cuh) out, without reading the sdev image back.  One launch
+// covers every analysis level.
 //
 // The TPU kernel takes its column taps as masked lane rolls and builds the
 // histogram as one-hot matrix products, and runs only where the level is
@@ -58,6 +60,7 @@
 #include <cuda_runtime.h>
 
 #include "grid.cuh"
+#include "hist_argmax.cuh"
 #include "noise_scan.cuh"
 
 namespace {
@@ -271,7 +274,8 @@ __device__ __forceinline__ void flush_hist(int* hist, int* out, int n_bins) {
 template <int kTile>
 __global__ void __launch_bounds__(kThreads)
 sdev_noise_hist_kernel(const __grid_constant__ SdevLevels lv, int levels,
-                       int* __restrict__ hists, int n_bins, float max_noise) {
+                       int* __restrict__ hists, int n_bins, float max_noise,
+                       unsigned* ticket, int* max_bins) {
   const int width = kTile ? kWidth : lv.width;
   const int tile = kTile ? kTile : lv.tile;
   const Layout L(width);
@@ -369,11 +373,15 @@ sdev_noise_hist_kernel(const __grid_constant__ SdevLevels lv, int levels,
     }
     k = next;
   }
+  // the vertical sums (kBand rows of doubles) are no longer needed: their
+  // first kArgmaxScratchBytes are the argmax's scratch
+  last_block_argmax(hists, levels, n_bins, ticket, max_bins,
+                    reinterpret_cast<unsigned long long*>(vsum));
 }
 
 template <int kTile>
 int launch_sdev(SdevLevels lv, int levels, int* hists, int n_bins, float max_noise,
-                int grid, cudaStream_t stream) {
+                int grid, unsigned* ticket, int* max_bins, cudaStream_t stream) {
   const int tile = lv.tile;
   lv.width = kTile ? kWidth : (tile >= kWidth ? tile : tile * ((kWidth + tile - 1) / tile));
   long long total = 0;
@@ -394,7 +402,7 @@ int launch_sdev(SdevLevels lv, int levels, int* hists, int n_bins, float max_noi
   lv.per_block = (int)((total + wave - 1) / wave);
   const long long blocks = (total + lv.per_block - 1) / lv.per_block;
   sdev_noise_hist_kernel<kTile><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      lv, levels, hists, n_bins, max_noise);
+      lv, levels, hists, n_bins, max_noise, ticket, max_bins);
   return (int)cudaGetLastError();
 }
 
@@ -403,11 +411,14 @@ int launch_sdev(SdevLevels lv, int levels, int* hists, int n_bins, float max_noi
 extern "C" {
 
 // sdevs[l] receives the sdev image of bands[l] ([n_l, n_l] contiguous
-// float32); hists [levels, n_bins] int32, zeroed by the caller.  grid: at
-// most that many blocks, 0 for one wave.  Returns a cudaError_t.
+// float32); hists [levels, n_bins] int32 and *ticket zeroed by the caller;
+// max_bins [levels] int32 receives each histogram's first-max bin (nullptr:
+// no argmax).  grid: at most that many blocks, 0 for one wave.  Returns a
+// cudaError_t.
 int musica_sdev_noise_hist(const void* const* bands, void* const* sdevs,
                            const int* ns, const int* covs, int levels, int* hists,
-                           int n_bins, int tile, float max_noise, int grid, void* stream) {
+                           int* max_bins, unsigned* ticket, int n_bins, int tile,
+                           float max_noise, int grid, void* stream) {
   if (levels < 1 || levels > kMaxLevels || tile < 1 || n_bins < 1 || grid < 0)
     return (int)cudaErrorInvalidValue;
   SdevLevels lv = {};
@@ -423,10 +434,14 @@ int musica_sdev_noise_hist(const void* const* bands, void* const* sdevs,
   lv.tile = tile;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tile) {
-    case 8: return launch_sdev<8>(lv, levels, hists, n_bins, max_noise, grid, s);
-    case 16: return launch_sdev<16>(lv, levels, hists, n_bins, max_noise, grid, s);
-    case 32: return launch_sdev<32>(lv, levels, hists, n_bins, max_noise, grid, s);
-    default: return launch_sdev<0>(lv, levels, hists, n_bins, max_noise, grid, s);
+    case 8:
+      return launch_sdev<8>(lv, levels, hists, n_bins, max_noise, grid, ticket, max_bins, s);
+    case 16:
+      return launch_sdev<16>(lv, levels, hists, n_bins, max_noise, grid, ticket, max_bins, s);
+    case 32:
+      return launch_sdev<32>(lv, levels, hists, n_bins, max_noise, grid, ticket, max_bins, s);
+    default:
+      return launch_sdev<0>(lv, levels, hists, n_bins, max_noise, grid, ticket, max_bins, s);
   }
 }
 

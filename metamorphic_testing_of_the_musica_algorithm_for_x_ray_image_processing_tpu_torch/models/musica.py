@@ -119,7 +119,9 @@ def _forward(img_u16: torch.Tensor, cfg: MusicaConfig, want_intermediates: bool,
 
     # ---- phase 2: normalize -------------------------------------------------
     with phase("normalize"):
-        normalized, vmax, vmin = normalize.normalize_from_u16(img_u16, cfg.quirks)
+        # a strided view (the campaign's runner passes the raw transposed)
+        # would give strided images, which the kernels refuse
+        normalized, vmax, vmin = normalize.normalize_from_u16(img_u16.contiguous(), cfg.quirks)
 
     # ---- phase 3: pyramid reduce -------------------------------------------
     with phase("reduce"):

@@ -5,17 +5,16 @@ counters: ``launch.LAUNCHES``).
 =========================  ==================================================
 wrapper                    replaces (JAX package, ops/pallas/fused_hist.py)
 =========================  ==================================================
-``noise_hists``            ``noise_hist_fused`` (``_noise_kernel``) and the
-                           histogram of ``noise_hist_argmax_multi``
-                           (``_noise_multi_kernel``): one launch over all
-                           analysis levels, at every size
-``hist_argmax``            the in-kernel first-max argmax of
-                           ``_noise_multi_kernel``
+``noise_hists``            ``noise_hist_fused`` (``_noise_kernel``) and
+                           ``noise_hist_argmax_multi``
+                           (``_noise_multi_kernel``): every analysis level's
+                           histogram and its first-max bin, one launch, at
+                           every size
 ``sdev_noise_hists``       ``sdev_noise_hist_fused`` (``_sdev_noise_kernel``):
-                           the sdev images and their noise histograms from
-                           the bandpass levels, one launch over all levels,
-                           at every size (the JAX package falls back to two
-                           steps where cov != n)
+                           the sdev images, their noise histograms and the
+                           first-max bins from the bandpass levels, one
+                           launch over all levels, at every size (the JAX
+                           package falls back to two steps where cov != n)
 ``grad_hist_relevant``     ``grad_hist_relevant_fused``
                            (``_grad_relevant_kernel``)
 ``grad_hist``              ``grad_hist_fused`` (``_grad_kernel``)
@@ -27,7 +26,11 @@ image, or recon + normalized with the relevance computed in the kernel; 8
 for the sdev kernel: the band in, the sdev out).  The histograms are
 privatised per block in shared memory, with one global atomic per non-zero
 bin at the end of the block (for the sdev kernel: where a block's range of
-tasks crosses into the next level, and at its end).  The noise and
+tasks crosses into the next level, and at its end).  The block that
+finishes last takes every level's first-max bin (``csrc/hist_argmax.cuh``),
+the argmax that ``noise_hist_argmax_multi`` takes on its last row block;
+its ticket counter lies in the histograms' allocation, which one memset
+zeroes per call.  The noise and
 gradation kernels read neighbouring pixels across a warp's lanes and find
 the reference's scan breaks with ballots and shuffles; each counted pixel
 costs one shared atomic (``hist_add`` in ``csrc/fused_hist.cu``).  The
@@ -80,6 +83,20 @@ def sdev_shared_bytes(tile: int, n_bins: int) -> int:
 # noise histogram + argmax (kernels 1 and 2 of the JAX package)
 # ----------------------------------------------------------------------
 
+def _hist_buffers(L: int, nb: int, dev):
+    """(histograms int32 [L, nb], first-max bins int32 [L], the kernel's
+    block ticket counter): views of one allocation, zeroed by one memset, so
+    the counter starts at 0 in every call and no launch is added."""
+    buf = torch.zeros(L * nb + L + 1, dtype=torch.int32, device=dev)
+    return buf[:L * nb].view(L, nb), buf[L * nb:L * nb + L], buf[L * nb + L:]
+
+
+def hist_argmax_plain(hists: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernels' argmax: ``torch.argmax`` (first
+    maximum) per row."""
+    return stats.histogram_max(hists)[1]
+
+
 def noise_hists_plain(levels, cfg) -> torch.Tensor:
     """Plain version: per level, ``stats.noise_bins`` + an int64
     ``scatter_add_``."""
@@ -91,13 +108,14 @@ def noise_hists_plain(levels, cfg) -> torch.Tensor:
     return torch.stack(hists)
 
 
-def noise_hists(levels, cfg) -> torch.Tensor:
-    """Noise histograms (int32 [L, n_bins]) of a list of [n_i, n_i] float32
-    level images, each scanned over its coverage (``stats.coverage``), in
-    one launch."""
+def noise_hists(levels, cfg):
+    """(noise histograms int32 [L, n_bins], their first-max bins int32 [L])
+    of a list of [n_i, n_i] float32 level images, each scanned over its
+    coverage (``stats.coverage``), in one launch."""
     dev = launch.device_of(levels)
     if dev.type == "cpu":
-        return noise_hists_plain(levels, cfg)
+        hists = noise_hists_plain(levels, cfg)
+        return hists, hist_argmax_plain(hists)
     nb, tile = cfg.noise_histogram_bins, cfg.histogram_area_size
     launch.check_bins(nb)
     if not 1 <= len(levels) <= _MAX_LEVELS:
@@ -106,46 +124,17 @@ def noise_hists(levels, cfg) -> torch.Tensor:
         launch.check_image(sd, f"level {i}")
     L = len(levels)
     lib = launch.lib()
-    hists = torch.zeros((L, nb), dtype=torch.int32, device=dev)
+    hists, max_bins, ticket = _hist_buffers(L, nb, dev)
     ptrs = (ctypes.c_void_p * L)(*[sd.data_ptr() for sd in levels])
     ns = (ctypes.c_int * L)(*[sd.shape[-1] for sd in levels])
     covs = (ctypes.c_int * L)(*[stats.coverage(sd.shape[-1], cfg) for sd in levels])
     strides = (ctypes.c_int * L)(*[sd.stride(0) for sd in levels])
     with torch.cuda.device(dev):
         launch.launch(lib, "musica_noise_hist", "noise_hist", ptrs, ns, covs,
-                      strides, L, hists.data_ptr(), nb, tile,
-                      float(cfg.max_noise_value), launch.stream(dev))
-    return hists
-
-
-def hist_argmax_plain(hists: torch.Tensor) -> torch.Tensor:
-    """Plain version: ``torch.argmax`` (first maximum) per row."""
-    return stats.histogram_max(hists)[1]
-
-
-def hist_argmax(hists: torch.Tensor) -> torch.Tensor:
-    """First-max bin (int32 [L]) of each row of int32 [L, n_bins]."""
-    dev = launch.device_of([hists])
-    if dev.type == "cpu":
-        return hist_argmax_plain(hists)
-    if hists.dtype != torch.int32 or hists.ndim != 2 or not hists.is_contiguous():
-        raise ValueError(f"hists: expected contiguous int32 [L, n_bins], got "
-                         f"{hists.dtype} {tuple(hists.shape)}")
-    L, nb = hists.shape
-    lib = launch.lib()
-    out = torch.empty(L, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        launch.launch(lib, "musica_hist_argmax", "hist_argmax",
-                      hists.data_ptr(), L, nb, out.data_ptr(),
+                      strides, L, hists.data_ptr(), max_bins.data_ptr(),
+                      ticket.data_ptr(), nb, tile, float(cfg.max_noise_value),
                       launch.stream(dev))
-    return out
-
-
-def noise_hist_levels(levels, cfg):
-    """(noise histograms int32 [L, n_bins], first-max bins int32 [L]) of the
-    analysis levels: two launches on a CUDA device, whatever the sizes."""
-    hists = noise_hists(levels, cfg)
-    return hists, hist_argmax(hists)
+    return hists, max_bins
 
 
 # ----------------------------------------------------------------------
@@ -161,13 +150,15 @@ def sdev_noise_hists_plain(bands, cfg):
 
 def sdev_noise_hists(bands, cfg, grid: int = 0):
     """(sdev images, list of float32 [n_i, n_i]; noise histograms, int32
-    [L, n_bins]) of a list of [n_i, n_i] float32 bandpass levels, each
-    histogram scanned over its level's coverage (``stats.coverage``), in one
-    launch.  ``grid`` > 0 launches at most that many blocks instead of one
-    wave, so that a block's range of tasks spans levels (the tests use it)."""
+    [L, n_bins]; their first-max bins, int32 [L]) of a list of [n_i, n_i]
+    float32 bandpass levels, each histogram scanned over its level's
+    coverage (``stats.coverage``), in one launch.  ``grid`` > 0 launches at
+    most that many blocks instead of one wave, so that a block's range of
+    tasks spans levels (the tests use it)."""
     dev = launch.device_of(bands)
     if dev.type == "cpu":
-        return sdev_noise_hists_plain(bands, cfg)
+        sdevs, hists = sdev_noise_hists_plain(bands, cfg)
+        return sdevs, hists, hist_argmax_plain(hists)
     nb, tile = cfg.noise_histogram_bins, cfg.histogram_area_size
     launch.check_bins(nb)
     launch.check_shared(sdev_shared_bytes(tile, nb), f"noise_histogram_bins={nb}")
@@ -178,16 +169,17 @@ def sdev_noise_hists(bands, cfg, grid: int = 0):
     L = len(bands)
     lib = launch.lib()
     sdevs = [torch.empty_like(b) for b in bands]
-    hists = torch.zeros((L, nb), dtype=torch.int32, device=dev)
+    hists, max_bins, ticket = _hist_buffers(L, nb, dev)
     src = (ctypes.c_void_p * L)(*[b.data_ptr() for b in bands])
     dst = (ctypes.c_void_p * L)(*[s.data_ptr() for s in sdevs])
     ns = (ctypes.c_int * L)(*[b.shape[-1] for b in bands])
     covs = (ctypes.c_int * L)(*[stats.coverage(b.shape[-1], cfg) for b in bands])
     with torch.cuda.device(dev):
         launch.launch(lib, "musica_sdev_noise_hist", "sdev_noise_hist", src, dst,
-                      ns, covs, L, hists.data_ptr(), nb, tile,
-                      float(cfg.max_noise_value), int(grid), launch.stream(dev))
-    return sdevs, hists
+                      ns, covs, L, hists.data_ptr(), max_bins.data_ptr(),
+                      ticket.data_ptr(), nb, tile, float(cfg.max_noise_value),
+                      int(grid), launch.stream(dev))
+    return sdevs, hists, max_bins
 
 
 # ----------------------------------------------------------------------

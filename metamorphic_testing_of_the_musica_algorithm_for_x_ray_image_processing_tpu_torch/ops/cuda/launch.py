@@ -12,9 +12,8 @@ import torch
 
 # launches of each CUDA kernel since the last reset (plain versions and CPU
 # calls do not count)
-LAUNCHES = {"noise_hist": 0, "hist_argmax": 0, "grad_hist_relevant": 0,
-            "grad_hist": 0, "histogram": 0, "clahe_apply": 0,
-            "sdev_noise_hist": 0}
+LAUNCHES = {"noise_hist": 0, "grad_hist_relevant": 0, "grad_hist": 0,
+            "histogram": 0, "clahe_apply": 0, "sdev_noise_hist": 0}
 
 # shared memory a block may use on the H100 after the kernels' opt-in
 # (csrc/grid.cuh: 227 KB); a histogram kernel holds its bins there

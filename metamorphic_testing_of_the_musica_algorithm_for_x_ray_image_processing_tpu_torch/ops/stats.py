@@ -108,12 +108,12 @@ def analysis_noise_hists(sdevs: Dict[int, torch.Tensor], cfg):
     """Noise histogram + first-max argmax for every analysis level at once.
 
     Returns ``(hists, max_bins)`` dicts keyed by level, as int32 device
-    tensors ([n_bins] and 0-d).  One kernel launch covers all levels and one
-    more takes the argmaxes, at every size."""
+    tensors ([n_bins] and 0-d).  One kernel launch covers all levels and
+    their argmaxes, at every size."""
     from .cuda import fused_hist
 
     levels = list(cfg.analysis_levels)
-    hs, mbs = fused_hist.noise_hist_levels([sdevs[i] for i in levels], cfg)
+    hs, mbs = fused_hist.noise_hists([sdevs[i] for i in levels], cfg)
     return ({i: hs[j] for j, i in enumerate(levels)},
             {i: mbs[j] for j, i in enumerate(levels)})
 
@@ -125,15 +125,14 @@ def sdev_and_noise_histograms(bands, cfg):
     ``histogram_max``, its ``hist_method="fused_sdev"`` path.
 
     Returns ``(sdevs, hists, max_bins)`` dicts keyed by level.  One kernel
-    launch computes every level's sdev and histogram, at every size (the JAX
-    package's kernel needs full coverage and falls back to two steps
-    elsewhere; this one needs no fallback), and one more takes the argmaxes.
-    The results equal ``img_sdev`` + ``analysis_noise_hists`` exactly."""
+    launch computes every level's sdev, histogram and argmax, at every size
+    (the JAX package's kernel needs full coverage and falls back to two
+    steps elsewhere; this one needs no fallback).  The results equal
+    ``img_sdev`` + ``analysis_noise_hists`` exactly."""
     from .cuda import fused_hist
 
     levels = list(cfg.analysis_levels)
-    sds, hs = fused_hist.sdev_noise_hists([bands[i] for i in levels], cfg)
-    mbs = fused_hist.hist_argmax(hs)
+    sds, hs, mbs = fused_hist.sdev_noise_hists([bands[i] for i in levels], cfg)
     return ({i: sds[j] for j, i in enumerate(levels)},
             {i: hs[j] for j, i in enumerate(levels)},
             {i: mbs[j] for j, i in enumerate(levels)})
@@ -143,7 +142,7 @@ def noise_histogram(sdev: torch.Tensor, cfg) -> torch.Tensor:
     """One level's noise histogram (int32 [n_bins])."""
     from .cuda import fused_hist
 
-    return fused_hist.noise_hist_levels([sdev], cfg)[0][0]
+    return fused_hist.noise_hists([sdev], cfg)[0][0]
 
 
 def histogram_max(hist: torch.Tensor):

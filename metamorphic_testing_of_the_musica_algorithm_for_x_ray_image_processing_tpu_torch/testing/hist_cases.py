@@ -51,3 +51,18 @@ def gradation_image(rng, n: int) -> np.ndarray:
     """An adversarial gradation-histogram input: 1.0 maps to bin 1024
     (dropped), values in [1, 2) are out of range, 1e-6 maps to bin 0."""
     return adversarial_image(rng, n, 0.0, 1.0, (1.0, 2.0), 1.0, 1e-6)
+
+
+def tie_levels(sizes):
+    """Noise levels whose histograms tie: each [m, m] level is 0.0 but for
+    its first three rows, row i wholly at the value that maps to bin 1500, 7
+    or 2047 (of 2,048, max_noise 0.1), so each of those bins gets one count
+    per scanned column and the first maximum, the smallest bin, must win
+    though a larger one comes first in the image."""
+    out = []
+    for m in sizes:
+        sd = np.zeros((m, m), np.float32)
+        for i, b in enumerate((1500, 7, 2047)[:m]):
+            sd[i] = np.float32(b / 2048 * 0.1)
+        out.append(sd)
+    return out

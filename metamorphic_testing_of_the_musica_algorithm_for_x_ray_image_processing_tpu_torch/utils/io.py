@@ -106,7 +106,26 @@ def _write_bmp24(path, rgb: np.ndarray) -> None:
 
 
 def load_bmp(path: str | os.PathLike) -> np.ndarray:
-    """Read a BMP back as a uint8 grayscale array [rows, cols] (uses PIL)."""
-    from PIL import Image
-    with Image.open(path) as im:
-        return np.array(im.convert("L"), dtype=np.uint8)
+    """Read an uncompressed 8-, 24- or 32-bit BMP as a uint8 grayscale array
+    [rows, cols], as the JAX package's reader does with Pillow's
+    ``convert("L")`` (L = (19595 R + 38470 G + 7471 B + 2^15) >> 16), in
+    NumPy: the machines with the card have no Pillow."""
+    data = np.fromfile(path, dtype=np.uint8).tobytes()
+    if data[:2] != b"BM":
+        raise ValueError(f"{path}: not a BMP file")
+    offset, dib = struct.unpack_from("<II", data, 10)
+    w, h, _, bpp, compression = struct.unpack_from("<iiHHI", data, 18)
+    if bpp not in (8, 24, 32) or compression not in (0, 3) or (compression == 3 and bpp != 32):
+        raise ValueError(f"{path}: {bpp}-bit BMP with compression {compression} is not read")
+    rows, stride = abs(h), (w * bpp // 8 + 3) // 4 * 4
+    px = np.frombuffer(data, np.uint8, rows * stride, offset).reshape(rows, stride)
+    if h > 0:  # stored bottom-up
+        px = px[::-1]
+    if bpp == 8:
+        colours = struct.unpack_from("<I", data, 46)[0] or 256
+        palette = np.frombuffer(data, np.uint8, 4 * colours, 14 + dib).reshape(colours, 4)
+        bgr = palette[px[:, :w]][..., :3]
+    else:
+        bgr = px[:, :w * bpp // 8].reshape(rows, w, bpp // 8)[..., :3]
+    b, g, r = (bgr[..., i].astype(np.int64) for i in range(3))
+    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.uint8)

@@ -2,7 +2,7 @@
 """What holds the hand-written kernels K1, K3, K4, K5 and K7 back, on one
 CUDA GPU.
 
-    python3 scripts/probe_hist_kernels.py [--parent DIR] [--rounds 3]
+    python3 scripts/probe_hist_kernels.py [--parent DIR] [--rounds 3] [--only V1,V2]
 
 ``ncu`` and ``nsys`` are not available everywhere the card is, so this
 script answers the question by experiment.  It builds probe variants of the
@@ -11,11 +11,16 @@ package's sources are not touched), times each variant's kernels at the
 main path's 3072^2 thorax shapes, kernel alone (the C entry points, no
 wrapper ops), and checks each against the plain PyTorch versions:
 
-* K1 ``noise_hist_kernel``, K3 ``grad_hist_kernel<16, true>``, K4
+* K1 ``noise_hist_kernel`` (since the argmax is folded into it, with its
+  argmax tail and, as ``K1-tail``, without: a null ``max_bins``), ``K1+K2``
+  the levels' histograms and first-max bins (the sources: K1 with its tail;
+  a parent whose argmax is a kernel of its own: its K1, then its
+  ``hist_argmax_kernel``), K3 ``grad_hist_kernel<16, true>``, K4
   ``grad_hist_kernel<16, false>`` (csrc/fused_hist.cu), also on a flat
   image of the same shapes (every pixel of a warp step in one bin);
 * K7 ``sdev_noise_hist_kernel`` (csrc/sdev_noise.cu) on the analysis
-  levels' bands, its sdev images written in place;
+  levels' bands, its sdev images written in place (and, as ``K7-tail``,
+  without its argmax);
 * K5 ``clahe_apply_kernel`` (csrc/clahe_apply.cu) on the CLAHE + linear
   path's recon and LUTs.
 
@@ -46,6 +51,13 @@ Variants:
                     registers, so that 5 blocks fit on an SM (4 in the
                     sources);
 * ``k7_t128``, ``k7_t512``  K7 with blocks of 128 or 512 threads (256);
+* ``argmax_lane8``, ``argmax_lane32``  the argmax tail of K1 and K7
+                    (csrc/hist_argmax.cuh) with 8 or 32 loads a lane in
+                    flight (16 in the sources);
+* ``argmax_fence_all``  the tail with a fence in every thread before the
+                    ticket (thread 0 alone in the sources);
+* ``argmax_ticket_only``  diagnostic, inexact: the tail's barrier, fence
+                    and ticket without the argmax;
 * ``k5_no_tables``  diagnostic, inexact: K5 without building its tables;
 * ``k5_copy``       diagnostic, inexact: K5 copying recon (no lookups);
 * ``k5_regs64``     K5 held to 64 registers (4 blocks of 256 on an SM);
@@ -82,7 +94,8 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 PKG = "metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch"
-SOURCES = ("fused_hist.cu", "noise_scan.cuh", "sdev_noise.cu", "clahe_apply.cu", "grid.cuh")
+SOURCES = ("fused_hist.cu", "noise_scan.cuh", "sdev_noise.cu", "clahe_apply.cu", "grid.cuh",
+           "hist_argmax.cuh")
 
 HIST_ADD = re.compile(r"__device__ __forceinline__ void hist_add\(.*?\n}\n", re.S)
 MERGE = """__device__ __forceinline__ void hist_add(int* sh, int bin, int w) {
@@ -123,6 +136,9 @@ K5_BLEND = "  if (!(x >= 0.0f && x <= 1.0f)) return 0.0f;\n"
 K5_BOUNDS = "__global__ void __launch_bounds__(kThreads) clahe_apply_kernel("
 K5_GROUP = "constexpr int kGroup = 2;"
 INCLUDE = "#include <cuda_runtime.h>\n"
+ARGMAX_LANE = "constexpr int kArgmaxPerLane = 16;"
+ARGMAX_TICKET = "  int last = 0;\n  if (threadIdx.x == 0) {"
+ARGMAX_LAST = "  if (!__syncthreads_or(last)) return;"
 CARVEOUT = ("  cudaFuncSetAttribute({k}, cudaFuncAttributePreferredSharedMemoryCarveout, 100);\n"
             "  const int e = wave_blocks({k}, kThreads, smem, &wave);")
 PRINT_GRID = ("  {{ static bool once = false; if (!once) {{ once = true; printf(\"{name} grid %lld "
@@ -173,8 +189,9 @@ def with_file(src: dict, name: str, old, new: str) -> dict:
 def variants(src: dict, parent: str | None):
     """{name: (sources, kernels timed, must be exact)}"""
     hist = ("K1", "K3", "K4")
+    argmax = ("K1", "K1+K2", "K7")
     out = {
-        "kernel": (src, hist + ("K5", "K7"), True),
+        "kernel": (src, hist + ("K1-tail", "K1+K2", "K5", "K7", "K7-tail"), True),
         "warp_uniform": (with_file(src, "fused_hist.cu", HIST_ADD, MERGE % UNIFORM), hist, True),
         "run_merge": (with_file(src, "fused_hist.cu", HIST_ADD, MERGE % RUNS), hist, True),
         "match_any": (with_file(src, "fused_hist.cu", HIST_ADD, MERGE % MATCH), hist, True),
@@ -223,9 +240,18 @@ def variants(src: dict, parent: str | None):
         "k7_carveout": (carveout(src, "sdev_noise.cu", "sdev_noise_hist_kernel<kTile>",
                                  "  sdev_noise_hist_kernel<kTile><<<", "lv.per_block"),
                         ("K7",), True),
+        "argmax_lane8": (with_file(src, "hist_argmax.cuh", ARGMAX_LANE,
+                                   "constexpr int kArgmaxPerLane = 8;"), argmax, True),
+        "argmax_lane32": (with_file(src, "hist_argmax.cuh", ARGMAX_LANE,
+                                    "constexpr int kArgmaxPerLane = 32;"), argmax, True),
+        "argmax_fence_all": (with_file(src, "hist_argmax.cuh", ARGMAX_TICKET,
+                                       "  __threadfence();\n" + ARGMAX_TICKET), argmax, True),
+        "argmax_ticket_only": (with_file(src, "hist_argmax.cuh", ARGMAX_LAST,
+                                         "  if (__syncthreads_or(last) || true) return;"),
+                               ("K1", "K7"), False),
     }
     if parent:
-        out["parent"] = (read_sources(parent), hist + ("K5", "K7"), True)
+        out["parent"] = (read_sources(parent), hist + ("K1+K2", "K5", "K7"), True)
     return out
 
 
@@ -278,6 +304,8 @@ def main() -> int:
     ap.add_argument("--parent", default=None,
                     help="root of another checkout whose kernels are timed beside")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--only", default=None,
+                    help="comma-separated variants to build and time (default: all)")
     args = ap.parse_args()
 
     import torch
@@ -297,6 +325,8 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0]
     print(f"card: {card}")
     found = variants(read_sources(REPO), args.parent)
+    if args.only:
+        found = {k: v for k, v in found.items() if k in args.only.split(",")}
     mine = signatures(REPO)
     sigs = {name: (signatures(args.parent) if name == "parent" else mine) for name in found}
     libs = build_all(found, os.path.join(REPO, "build", "probe"), sigs)
@@ -330,11 +360,27 @@ def main() -> int:
     def pointers(tensors):
         return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
-    def k1(lib, inp):
-        h = torch.zeros((L, nb), dtype=torch.int32, device=dev)
-        assert lib.musica_noise_hist(inp["ptrs"], ns, covs, strides, L, h.data_ptr(), nb, tile,
-                                     float(cfg.max_noise_value), stream) == 0
-        return h
+    def k1(lib, inp, argmax=True):
+        """(histograms, first-max bins or None); a parent whose C entry
+        takes no argmax output runs its histogram kernel alone."""
+        fn = lib.musica_noise_hist
+        if len(fn.argtypes) == 10:
+            h = torch.zeros((L, nb), dtype=torch.int32, device=dev)
+            assert fn(inp["ptrs"], ns, covs, strides, L, h.data_ptr(), nb, tile,
+                      float(cfg.max_noise_value), stream) == 0
+            return h, None
+        h, mb, ticket = fh._hist_buffers(L, nb, dev)
+        assert fn(inp["ptrs"], ns, covs, strides, L, h.data_ptr(),
+                  mb.data_ptr() if argmax else None, ticket.data_ptr(), nb, tile,
+                  float(cfg.max_noise_value), stream) == 0
+        return h, (mb if argmax else None)
+
+    def k12(lib, inp):
+        h, mb = k1(lib, inp)
+        if mb is None:  # the parent's separate argmax kernel
+            mb = torch.empty(L, dtype=torch.int32, device=dev)
+            assert lib.musica_hist_argmax(h.data_ptr(), L, nb, mb.data_ptr(), stream) == 0
+        return h, mb
 
     def k3(lib, inp):
         h = torch.zeros(gb, dtype=torch.int32, device=dev)
@@ -352,10 +398,16 @@ def main() -> int:
 
     sdevs = [torch.empty_like(b) for b in thorax["bands"]]
 
-    def k7(lib, inp):
-        h = torch.zeros((L, nb), dtype=torch.int32, device=dev)
+    def k7(lib, inp, argmax=True):
         fn = lib.musica_sdev_noise_hist
-        grid = (0,) if len(fn.argtypes) == 11 else ()  # the parent's takes no grid size
+        if len(fn.argtypes) == 13:
+            h, mb, ticket = fh._hist_buffers(L, nb, dev)
+            assert fn(inp["srcs"], inp["dsts"], ns, covs, L, h.data_ptr(),
+                      mb.data_ptr() if argmax else None, ticket.data_ptr(), nb, tile,
+                      float(cfg.max_noise_value), 0, stream) == 0
+            return h
+        h = torch.zeros((L, nb), dtype=torch.int32, device=dev)
+        grid = (0,) if len(fn.argtypes) == 11 else ()  # older parents take no grid size
         assert fn(inp["srcs"], inp["dsts"], ns, covs, L, h.data_ptr(), nb, tile,
                   float(cfg.max_noise_value), *grid, stream) == 0
         return h
@@ -382,21 +434,29 @@ def main() -> int:
     flat.update(ptrs=pointers(flat["levels"]))
     want_sd, want_h = fh.sdev_noise_hists_plain(thorax["bands"], cfg)
     want_clahe = k_clahe.clahe_apply_plain(v_recon, v_px, v_py, cfg_var)
-    kernels = {"K1": k1, "K3": k3, "K4": k4, "K7": k7,
+    kernels = {"K1": lambda lib, inp: k1(lib, inp)[0],
+               "K1-tail": lambda lib, inp: k1(lib, inp, argmax=False)[0],
+               "K1+K2": k12, "K3": k3, "K4": k4, "K7": k7,
+               "K7-tail": lambda lib, inp: k7(lib, inp, argmax=False),
                "K5": lambda lib, inp: k5(lib, inp, fixed_attrs)}
-    cases = {"thorax": (thorax, ("K1", "K3", "K4", "K5", "K7")), "flat": (flat, ("K1", "K3", "K4"))}
-    want = {case: {"K1": fh.noise_hists_plain(inp["levels"], cfg),
-                   "K3": fh.grad_hist_relevant_plain(inp["recon"], nrm, cnr, cfg),
-                   "K4": fh.grad_hist_plain(inp["recon"], rel, cfg)}
-            for case, (inp, _) in cases.items()}
-    want["thorax"]["K7"] = want_h
+    cases = {"thorax": (thorax, ("K1", "K1-tail", "K1+K2", "K3", "K4", "K5", "K7", "K7-tail")),
+             "flat": (flat, ("K1", "K3", "K4"))}
+    want = {}
+    for case, (inp, _) in cases.items():
+        h1 = fh.noise_hists_plain(inp["levels"], cfg)
+        want[case] = {"K1": h1, "K1-tail": h1, "K1+K2": (h1, fh.hist_argmax_plain(h1)),
+                      "K3": fh.grad_hist_relevant_plain(inp["recon"], nrm, cnr, cfg),
+                      "K4": fh.grad_hist_plain(inp["recon"], rel, cfg)}
+    want["thorax"]["K7"] = want["thorax"]["K7-tail"] = want_h
 
     def equal(k, got, case):
         if k == "K5":
             return bool(torch.equal(torch.isnan(got), torch.isnan(want_clahe))
                         and torch.equal(got.nan_to_num(), want_clahe.nan_to_num()))
+        if k == "K1+K2":
+            return all(torch.equal(a, b) for a, b in zip(got, want[case][k]))
         ok = torch.equal(got, want[case][k])
-        if k == "K7":
+        if k in ("K7", "K7-tail"):
             ok = ok and all(torch.equal(a, b) for a, b in zip(sdevs, want_sd))
         return bool(ok)
 

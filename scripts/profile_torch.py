@@ -33,8 +33,7 @@ sys.path.insert(0, REPO)
 
 # the hand-written kernels by their names in the trace (csrc/*.cu)
 HAND_WRITTEN = {
-    "K1 noise_hist_kernel": r"(?<![A-Za-z_])noise_hist(_serial)?_kernel\b",
-    "K2 hist_argmax_kernel": r"hist_argmax_kernel\b",
+    "K1 noise_hist_kernel (with K2's argmax)": r"(?<![A-Za-z_])noise_hist(_serial)?_kernel\b",
     "K3 grad_hist_kernel<tile, true>": r"grad_hist(_serial)?_kernel<(\d+, )?true>",
     "K4 grad_hist_kernel<tile, false>": r"grad_hist(_serial)?_kernel<(\d+, )?false>",
     "K5 clahe_apply_kernel": r"clahe_apply_kernel\b",

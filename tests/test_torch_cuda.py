@@ -61,17 +61,33 @@ def test_noise_kernel_matches_plain(dev, size, source):
         levels = _random_levels(size, [-(-size // 2 ** i) for i in cfg.analysis_levels], dev)
     else:
         levels = _levels(synthetic_radiograph(size, source), cfg, dev)
-    h = fh.noise_hists(levels, cfg)
+    h, mb = fh.noise_hists(levels, cfg)
     assert torch.equal(h, fh.noise_hists_plain(levels, cfg))
-    assert torch.equal(fh.hist_argmax(h), fh.hist_argmax_plain(h))
+    assert torch.equal(mb, fh.hist_argmax_plain(h))
     assert int(h.sum()) > 0
 
 
+def _level_of_bins(n, groups):
+    """An [n, n] noise level that is 0.0 but for whole 16-px groups of row 0
+    at the value that maps to each given bin (each group adds 16 counts)."""
+    sd = np.zeros((n, n), np.float32)
+    for g, b in enumerate(groups):
+        sd[0, 16 * g:16 * g + 16] = np.float32(b / 2048 * 0.1)
+    return sd
+
+
 def test_argmax_kernel_first_max_and_zero_rows(dev):
-    h = torch.zeros((3, 2048), dtype=torch.int32, device=dev)
-    h[0, 7] = h[0, 1500] = 9      # tie: the first maximum wins
-    h[2, 2047] = 1
-    assert fh.hist_argmax(h).tolist() == [7, 0, 2047]
+    """The argmax folded into K1's last block: a tie (the first maximum wins,
+    though the larger bin comes first in the image), an all-zero level (bin
+    0) and a maximum at the last bin."""
+    cfg = MusicaConfig(image_size=512, quirks=False)
+    levels = [torch.from_numpy(a).to(dev) for a in
+              (_level_of_bins(64, [1500, 7]), _level_of_bins(64, []),
+               _level_of_bins(64, [2047]))]
+    h, mb = fh.noise_hists(levels, cfg)
+    assert torch.equal(h, fh.noise_hists_plain(levels, cfg))
+    assert int(h[0, 7]) == int(h[0, 1500]) == 16 and int(h[2, 2047]) == 16
+    assert mb.tolist() == [7, 0, 2047]
 
 
 @pytest.mark.parametrize("n,cnr_n", [(512, 64), (256, 32), (768, 96)])
@@ -109,9 +125,10 @@ def test_noise_kernel_adversarial_and_constant_levels(dev, size, quirks):
     for levels in ([torch.from_numpy(a).to(dev) for a in hist_cases.noise_levels(rng, sizes)],
                    [torch.full((m, m), 0.05, device=dev) for m in sizes]):
         launch.reset_launch_counts()
-        h = fh.noise_hists(levels, cfg)
+        h, mb = fh.noise_hists(levels, cfg)
         assert launch.LAUNCHES["noise_hist"] == 1
         assert torch.equal(h, fh.noise_hists_plain(levels, cfg))
+        assert torch.equal(mb, fh.hist_argmax_plain(h))
         assert int(h.sum()) > 0
 
 
@@ -141,10 +158,11 @@ def test_sdev_noise_kernel_exact_on_adversarial_bands(dev):
     cfg = MusicaConfig(image_size=600)
     rng = np.random.default_rng(9)
     bands = [torch.from_numpy(a).to(dev) for a in hist_cases.noise_levels(rng, [600, 300, 150, 75])]
-    sds, h = fh.sdev_noise_hists(bands, cfg)
+    sds, h, mb = fh.sdev_noise_hists(bands, cfg)
     want_sd, want_h = fh.sdev_noise_hists_plain(bands, cfg)
     assert all(torch.equal(a, b) for a, b in zip(sds, want_sd))
     assert torch.equal(h, want_h) and int(h.sum()) > 0
+    assert torch.equal(mb, fh.hist_argmax_plain(want_h))
 
 
 def test_histogram_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -181,13 +199,14 @@ def test_histogram_kernels_take_every_tile(dev, tile):
         sizes = [-(-size // 2 ** i) for i in cfg.analysis_levels]
         for levels in ([torch.from_numpy(a).to(dev) for a in hist_cases.noise_levels(rng, sizes)],
                        _random_levels(size + tile, sizes, dev)):
-            h = fh.noise_hists(levels, cfg)
+            h, mb = fh.noise_hists(levels, cfg)
             assert torch.equal(h, fh.noise_hists_plain(levels, cfg))
-            assert torch.equal(fh.hist_argmax(h), fh.hist_argmax_plain(h))
-            sds, h7 = fh.sdev_noise_hists(levels, cfg)
+            assert torch.equal(mb, fh.hist_argmax_plain(h))
+            sds, h7, mb7 = fh.sdev_noise_hists(levels, cfg)
             want_sd, want_h = fh.sdev_noise_hists_plain(levels, cfg)
             assert all(torch.equal(a, b) for a, b in zip(sds, want_sd))
             assert torch.equal(h7, want_h)
+            assert torch.equal(mb7, fh.hist_argmax_plain(want_h))
         recon = torch.from_numpy(hist_cases.gradation_image(rng, size)).to(dev)
         rel = torch.from_numpy(rng.uniform(0, 1, (size, size)).astype(np.float32)).to(dev)
         assert torch.equal(fh.grad_hist(recon, rel, cfg), fh.grad_hist_plain(recon, rel, cfg))
@@ -212,7 +231,7 @@ def test_pipeline_on_card_at_other_histogram_tiles(dev, tile):
     launch.reset_launch_counts()
     out = musica.process(img, cfg, "cuda")
     counts = dict(launch.LAUNCHES)
-    assert counts["noise_hist"] == counts["hist_argmax"] == 1
+    assert counts["noise_hist"] == 1 and "hist_argmax" not in counts
     # the CNR scale (8 at 512) divides 8 and 32, not 12
     assert counts["grad_hist_relevant" if tile % 8 == 0 else "grad_hist"] == 1
     np.testing.assert_array_equal(out, musica.process(img, cfg, "cpu"))
@@ -239,7 +258,7 @@ def test_pipeline_on_card_matches_cpu_and_launches_kernels(dev, size, anatomy):
     launch.reset_launch_counts()
     out = musica.process(img, cfg, "cuda")
     counts = dict(launch.LAUNCHES)
-    assert counts["noise_hist"] == 1 and counts["hist_argmax"] == 1
+    assert counts["noise_hist"] == 1 and "hist_argmax" not in counts
     # 512 takes the in-kernel relevance; 600 is ragged (relevance image)
     key = "grad_hist_relevant" if size % 16 == 0 else "grad_hist"
     assert counts[key] == 1
@@ -469,12 +488,13 @@ def test_sdev_noise_kernel_matches_plain(dev, size, source):
     else:
         bands = _bands(synthetic_radiograph(size, source), cfg, dev)
     launch.reset_launch_counts()
-    sds, h = fh.sdev_noise_hists(bands, cfg)
+    sds, h, mb = fh.sdev_noise_hists(bands, cfg)
     assert launch.LAUNCHES["sdev_noise_hist"] == 1
     want_sd, want_h = fh.sdev_noise_hists_plain(bands, cfg)
     for got, want in zip(sds, want_sd):
         assert got.dtype == torch.float32 and torch.equal(got, want)
     assert torch.equal(h, want_h)
+    assert torch.equal(mb, fh.hist_argmax_plain(want_h))
     assert (int(h.sum()) > 0) == (size >= 512)
 
 
@@ -484,10 +504,11 @@ def test_sdev_noise_kernel_ragged_levels(dev, sizes):
     every row and column at a level's edge."""
     cfg = MusicaConfig(image_size=512)
     bands = _random_bands(sum(sizes), sizes, dev)
-    sds, h = fh.sdev_noise_hists(bands, cfg)
+    sds, h, mb = fh.sdev_noise_hists(bands, cfg)
     want_sd, want_h = fh.sdev_noise_hists_plain(bands, cfg)
     assert all(torch.equal(a, b) for a, b in zip(sds, want_sd))
     assert torch.equal(h, want_h)
+    assert torch.equal(mb, fh.hist_argmax_plain(want_h))
 
 
 @pytest.mark.parametrize("grid", [1, 2, 5, 33])
@@ -496,25 +517,27 @@ def test_sdev_noise_kernel_ranges_cross_levels(dev, grid):
     it flushes its histogram where the range crosses into the next level."""
     cfg = MusicaConfig(image_size=600)
     bands = _random_bands(grid, [600, 300, 150, 75], dev)
-    sds, h = fh.sdev_noise_hists(bands, cfg, grid=grid)
+    sds, h, mb = fh.sdev_noise_hists(bands, cfg, grid=grid)
     want_sd, want_h = fh.sdev_noise_hists_plain(bands, cfg)
     assert all(torch.equal(a, b) for a, b in zip(sds, want_sd))
     assert torch.equal(h, want_h) and int(h.sum()) > 0
+    assert torch.equal(mb, fh.hist_argmax_plain(want_h))
 
 
 @pytest.mark.parametrize("size,anatomy,storage", [(512, "thorax", "float32"),
                                                   (600, "pelvis", "float32"),
                                                   (512, "knee", "bfloat16")])
 def test_fused_sdev_pipeline_on_card(dev, size, anatomy, storage):
-    """The fused-sdev path launches K7 and the argmax instead of K1, and its
-    output equals the default path on the card and the CPU path."""
+    """The fused-sdev path launches K7 (which takes the argmaxes) instead of
+    K1, and its output equals the default path on the card and the CPU
+    path."""
     img = synthetic_radiograph(size, anatomy)
     cfg = MusicaConfig(image_size=size, storage=storage)
     x = torch.from_numpy(img).to(dev)
     launch.reset_launch_counts()
     res = musica.musica_forward(x, cfg, fused_sdev=True)
     counts = dict(launch.LAUNCHES)
-    assert counts["sdev_noise_hist"] == 1 and counts["hist_argmax"] == 1
+    assert counts["sdev_noise_hist"] == 1 and "hist_argmax" not in counts
     assert counts["noise_hist"] == 0
     assert torch.equal(res["out_u8"], musica.musica_forward(x, cfg)["out_u8"])
     assert torch.equal(res["out_u8"].cpu(),
@@ -561,3 +584,55 @@ def test_timed_process_on_card_fused_sdev_bf16(dev):
     res = musica.musica_forward(torch.from_numpy(img).to(dev), cfg)
     np.testing.assert_array_equal(out, res["out_u8"].cpu().numpy())
     assert list(times) == ["norm", "red", "anly", "aply", "exp", "grad", "tot"]
+
+
+def _u8_pair(seed, shape):
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 256, shape).astype(np.uint8)
+    return a, np.clip(a.astype(int) + rng.integers(-25, 25, shape), 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("shape", [(173, 211), (600, 600), (40, 40)])
+def test_measure_row_on_card_matches_host_oracles(dev, shape):
+    """A campaign row on the card (float32 mse and SSIM, the value counts
+    through the histogram kernel) against the float64 host oracles within
+    2e-5; the identity row is [1, 1, 0, 1, 1, 0]; the counts equal
+    ``np.bincount``."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import metrics
+    alt, unalt = _u8_pair(shape[0], shape)
+    ref = np.clip(alt.astype(int) + 3, 0, 255).astype(np.uint8)
+    unalt_t, ref_t = torch.from_numpy(unalt).to(dev), torch.from_numpy(ref).to(dev)
+    launch.reset_launch_counts()
+    vals = metrics.measure_row(alt, unalt_t, ref_t)
+    assert launch.LAUNCHES["histogram"] == 3
+    want = [metrics.mse_similarity(alt, unalt), metrics.ssim_similarity(alt, unalt),
+            metrics.hist_similarity(alt, unalt)[1],
+            metrics.mse_similarity(alt, ref), metrics.ssim_similarity(alt, ref),
+            metrics.hist_similarity(alt, ref)[1]]
+    np.testing.assert_allclose(vals, want, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(metrics.measure_row(unalt, unalt_t, unalt_t), [1, 1, 0, 1, 1, 0],
+                               rtol=0, atol=1e-6)
+    assert metrics.counts256(ref_t).cpu().numpy().tolist() == \
+        np.bincount(ref.reshape(-1), minlength=256).tolist()
+
+
+def test_campaign_on_card_matches_cpu(dev, tmp_path):
+    """The port's campaign at 512 (knee) on the card against the same
+    campaign on the CPU: the same rows, every value within 1e-5, and the
+    card's run launched K1 (with the folded argmax), a gradation histogram
+    and the histogram kernel of the rows' value counts."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import campaign
+    launch.reset_launch_counts()
+    res = campaign.run_campaign(out_dir=str(tmp_path / "card"), image_size=512,
+                                anatomies=["knee"], seed=3, device="cuda")
+    counts = dict(launch.LAUNCHES)
+    assert counts["noise_hist"] == counts["grad_hist_relevant"] == 31, counts
+    assert counts["histogram"] == 3 * (1 + 30 + 20), counts
+    want = campaign.run_campaign(out_dir=str(tmp_path / "cpu"), image_size=512,
+                                 anatomies=["knee"], seed=3, device="cpu")
+    for name in (campaign.R_CSV, campaign.NR_CSV, campaign.S_CSV, "deltas.csv"):
+        first = 2 if name in (campaign.R_CSV, campaign.NR_CSV) else 1
+        assert [r[:first] for r in res[name]] == [r[:first] for r in want[name]], name
+        got = np.array([[float(v) for v in r[first:]] for r in res[name][1:]])
+        np.testing.assert_allclose(got, [[float(v) for v in r[first:]] for r in want[name][1:]],
+                                   rtol=0, atol=1e-5, err_msg=name)

@@ -134,7 +134,7 @@ def test_levels_match_per_level_fact(image_size):
     (quirks coverage 0: every histogram empty, every argmax 0)."""
     cfg = MusicaConfig(image_size=image_size)
     sdevs = _noise_levels(image_size, cfg)
-    hs, mbs = fh.noise_hist_levels([T(sdevs[i]) for i in cfg.analysis_levels], cfg)
+    hs, mbs = fh.noise_hists([T(sdevs[i]) for i in cfg.analysis_levels], cfg)
     for j, i in enumerate(cfg.analysis_levels):
         ref = np.asarray(j_stats.noise_histogram(jnp.asarray(sdevs[i]), cfg, "fact"))
         np.testing.assert_array_equal(hs[j].numpy(), ref, err_msg=f"level {i}")
@@ -291,7 +291,7 @@ def test_cpu_calls_run_plain_versions_and_count_no_launch():
     cfg = MusicaConfig(image_size=512)
     launch.reset_launch_counts()
     x = torch.rand((512, 512))
-    fh.noise_hist_levels([x, x[:256, :256].contiguous()], cfg)
+    fh.noise_hists([x, x[:256, :256].contiguous()], cfg)
     fh.grad_hist(x, x, cfg)
     fh.grad_hist_relevant(x, x, torch.rand((64, 64)), cfg)
     assert launch.LAUNCHES == {k: 0 for k in launch.LAUNCHES}

@@ -72,9 +72,10 @@ def test_plain_version_matches_jax_kernel_and_golden(source, level):
     cfg = MusicaConfig(image_size=512)
     band = _random_band(75, 512) if source == "random" else _bands(512, "thorax")[level].numpy()
     assert stats.coverage(band.shape[-1], cfg) == band.shape[-1]
-    sds, hs = fh.sdev_noise_hists([T(band)], cfg)
+    sds, hs, mbs = fh.sdev_noise_hists([T(band)], cfg)
     assert len(sds) == 1 and sds[0].dtype == torch.float32 and sds[0].shape == band.shape
     assert hs.dtype == torch.int32 and hs.shape == (1, cfg.noise_histogram_bins)
+    assert mbs.dtype == torch.int32 and mbs.tolist() == [int(np.argmax(hs[0].numpy()))]
     sd, h = sds[0].numpy(), hs[0].numpy()
     np.testing.assert_array_equal(sd, golden.img_sdev(band))
     j_sd, _ = j_stats.sdev_and_noise_histogram(jnp.asarray(band), cfg, "fused_sdev_interpret")
@@ -93,8 +94,9 @@ def test_partial_coverage_equals_two_step(n, image_size):
     cfg = MusicaConfig(image_size=image_size)
     assert stats.coverage(n, cfg) != n
     band = _random_band(76 + n, n)
-    sds, hs = fh.sdev_noise_hists([T(band)], cfg)
+    sds, hs, mbs = fh.sdev_noise_hists([T(band)], cfg)
     sd_ref = stats.img_sdev(T(band))
+    assert int(mbs[0]) == int(np.argmax(hs[0].numpy()))
     assert torch.equal(sds[0], sd_ref)
     assert torch.equal(hs[0], stats.noise_histogram(sd_ref, cfg))
     assert int(hs.sum()) > 0
@@ -134,12 +136,13 @@ def test_cpu_call_runs_plain_version_and_counts_no_launch():
     cfg = MusicaConfig(image_size=512)
     x = torch.rand((512, 512)) * 0.05
     launch.reset_launch_counts()
-    sds, hs = fh.sdev_noise_hists([x, x[:64, :64].contiguous()], cfg)
+    sds, hs, mbs = fh.sdev_noise_hists([x, x[:64, :64].contiguous()], cfg)
     assert "sdev_noise_hist" in launch.LAUNCHES
     assert launch.LAUNCHES == {k: 0 for k in launch.LAUNCHES}
     plain_sd, plain_h = fh.sdev_noise_hists_plain([x, x[:64, :64].contiguous()], cfg)
     assert all(torch.equal(a, b) for a, b in zip(sds, plain_sd))
     assert torch.equal(hs, plain_h)
+    assert torch.equal(mbs, fh.hist_argmax_plain(plain_h))
     with pytest.raises(ValueError):
         fh.sdev_noise_hists([x, x.to("meta")], cfg)  # mixed devices
 
