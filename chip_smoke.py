@@ -28,8 +28,14 @@ as ``cli campaign`` runs it): thorax at 3072, its 30 cases against the
 committed TPU campaign's thorax rows (``artifacts/mt_campaign_3072``), one
 3052^2 row against the float64 host oracles ([4h]), and the bf16 against
 the float32 campaign at 512 over all six anatomies, slope flags equal
-([4i]), runs a batch of 4 through ``process_batch`` in float32 and in
-bf16, and times the pipeline paths in interleaved windows, a campaign
+([4i]), drives the rest of the host surface at 3072 (``cli process
+--save-last-raw --cnr-out``, ``--profile`` in a process of its own, and
+``cli report``, [4j]), the HTTP viewer at 512 ([4k]) and the data-parallel
+path (``process_sharded`` of 4 images and ``throughput_step`` over every
+card, against ``forward_batch``; with two cards also over two and
+``process`` on ``cuda:1``, [4l]), runs a batch of 4 through
+``process_batch`` in float32 and in bf16, and times the pipeline paths in
+interleaved windows, ``scripts/bench_torch.py``'s measurement, a campaign
 case's parts, and each kernel beside its plain version, its bound (bytes
 over the HBM rate, operations over the peak rate, at this run's inputs)
 and, where one exists, the one PyTorch call that computes the same function
@@ -613,6 +619,167 @@ def kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b
     return out
 
 
+def check_host_surface(img, cfg, dev):
+    """[4j]: ``cli process --save-last-raw --cnr-out`` and ``cli report`` in
+    this process (launches counted), ``cli process`` with ``--profile`` too
+    in a process of its own, as a user runs it, so that the profiler's
+    tracing cannot touch this process's later timings.  Returns the BMP's
+    pixels."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import cli
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.utils import debug
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.utils import io as uio
+    n = cfg.image_size
+    log(f"[4j] the host surface at {n}: `cli process --save-last-raw --cnr-out --profile` "
+        f"and `cli report` on the {n}^2 raw")
+    img_t = np.ascontiguousarray(img.T)  # the CLI loads the raw transposed
+    want_t = musica.musica_forward(torch.from_numpy(img_t).to(dev), cfg)
+    want_out, want_cnr = want_t["out_u8"].cpu().numpy(), want_t["cnr"].cpu().numpy()
+    common = ["--size", str(n), "--device", str(dev)]
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = os.path.join(tmp, "in.raw")
+        uio.save_raw(raw, img)
+        paths = {k: os.path.join(tmp, k) for k in ("out.bmp", "last.raw", "cnr.bmp", "rep")}
+        launch.reset_launch_counts()
+        assert cli.main(["process", *common, "--save-last-raw", paths["last.raw"],
+                         "--cnr-out", paths["cnr.bmp"], raw, paths["out.bmp"]]) == 0
+        launches_cli = dict(launch.LAUNCHES)
+        launch.reset_launch_counts()
+        assert cli.main(["report", *common, raw, paths["rep"]]) == 0
+        launches_rep = dict(launch.LAUNCHES)
+        prof = os.path.join(tmp, "prof")
+        args = ["process", *common, "--save-last-raw", prof + ".raw",
+                "--cnr-out", prof + "_cnr.bmp", "--profile", prof, raw, prof + ".bmp"]
+        r = subprocess.run([sys.executable, "-m", f"{PKG}.cli", *args], capture_output=True,
+                           text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+        assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+        for a, b in ((prof + ".raw", paths["last.raw"]), (prof + "_cnr.bmp", paths["cnr.bmp"]),
+                     (prof + ".bmp", paths["out.bmp"])):
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                assert fa.read() == fb.read(), f"--profile changed {os.path.basename(b)}"
+        with open(os.path.join(prof, "trace.json")) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        spans = sorted(x for x in names if x.startswith("musica."))
+        if dev.type == "cuda":
+            for k in ("noise_hist_kernel", "grad_hist_kernel"):
+                assert any(k in x for x in names), f"trace.json names no {k}"
+        assert {f"musica.{p}" for p in ("normalize", "reduce", "analysis", "apply", "expand",
+                                        "gradation", "tonemap")} <= set(spans), spans
+        cli_bmp = uio.load_bmp(paths["out.bmp"])
+        assert np.array_equal(cli_bmp, want_out), "cli process: BMP"
+        with open(paths["last.raw"], "rb") as f:
+            last = f.read()
+        assert last == b"\x00" * uio.RAW_HEADER_BYTES + img_t.astype("<u2").tobytes(), \
+            "--save-last-raw: not the loaded (transposed) raw"
+        cnr_bmp = uio.load_bmp(paths["cnr.bmp"])
+        assert np.array_equal(cnr_bmp, debug.cnr_u8(want_cnr)), "--cnr-out"
+        rep = paths["rep"]
+        assert os.path.exists(os.path.join(rep, "index.html"))
+        assert np.array_equal(uio.load_bmp(os.path.join(rep, "out.bmp")), cli_bmp)
+        assert np.array_equal(uio.load_bmp(os.path.join(rep, "cnr.bmp")), cnr_bmp)
+        n_rep = len(os.listdir(rep))
+    log(f"  process launches {launches_cli}; report launches {launches_rep}")
+    if dev.type == "cuda":
+        assert launches_cli["noise_hist"] == launches_cli["grad_hist_relevant"] == 1, launches_cli
+        assert launches_rep["noise_hist"] == launches_rep["grad_hist"] == 1, launches_rep
+        assert sum(launches_rep.values()) == 2, launches_rep
+    log(f"  BMP equals musica_forward on the transposed raw; the re-saved raw is the loaded "
+        f"(transposed) raw byte for byte; the CNR BMP equals clip(cnr x 255); with --profile "
+        f"(its own process) the same three files, and trace.json names noise_hist_kernel, "
+        f"grad_hist_kernel and {spans}; the report wrote {n_rep} files, its out.bmp and "
+        f"cnr.bmp equal process's")
+    return want_out
+
+
+def check_viewer(dev, n=512):
+    """[4k]: ``serve`` on port 0, not blocking: GET / and /img/out, two POST
+    /execute, /flip, /debug; the pipeline runs in the server's threads."""
+    import urllib.request
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import (
+        synthetic_radiograph)
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.utils import io as uio
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.utils.viewer import serve
+    log(f"[4k] the viewer at {n} (`cli view`: serve on port 0, not blocking) on {dev}")
+    img = synthetic_radiograph(n, "hand")
+    cfg = MusicaConfig(image_size=n)
+    want = musica.musica_forward(torch.from_numpy(np.ascontiguousarray(img.T)).to(dev),
+                                 cfg)["out_u8"].cpu().numpy()
+
+    def http(url, post=False):
+        req = urllib.request.Request(url, method="POST" if post else "GET",
+                                     data=b"" if post else None)
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = os.path.join(tmp, "in.raw")
+        uio.save_raw(raw, img)
+        launch.reset_launch_counts()
+        server, state = serve(raw, cfg, port=0, report_dir=os.path.join(tmp, "rep"),
+                              block=False, device=str(dev))
+        try:
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            status, page = http(base + "/")
+            assert status == 200 and b"execute()" in page
+            status, blob = http(base + "/img/out")
+            assert status == 200 and blob[:2] == b"BM"
+            out_path = os.path.join(tmp, "out.bmp")
+            with open(out_path, "wb") as f:
+                f.write(blob)
+            assert np.array_equal(uio.load_bmp(out_path), want), "viewer out image"
+            for _ in range(2):
+                assert http(base + "/execute", post=True)[0] == 200
+            assert state.n_executes == 3 and len(state.outputs) == 2 and state.current == 1
+            http(base + "/flip", post=True)
+            assert state.current == 0
+            status, body = http(base + "/debug", post=True)
+            assert status == 200 and os.path.exists(json.loads(body)["report"])
+        finally:
+            server.shutdown()
+            server.server_close()
+        launches = dict(launch.LAUNCHES)
+    log(f"  GET / and /img/out (equal to musica_forward on the transposed raw), two POST "
+        f"/execute (buffer 2 of 2 shown), /flip, /debug (a report); launches {launches}")
+    if dev.type == "cuda":
+        # 3 executes and the report, each one K1 and one K4, from the server's threads
+        assert launches["noise_hist"] == launches["grad_hist"] == 4, launches
+
+
+def check_data_parallel(imgs, cfg, mesh, dev):
+    """[4l]: ``process_sharded`` over ``mesh`` against ``forward_batch`` on
+    ``dev``, bit for bit, also with ``outputs=("out_u8", "cnr")``, and
+    ``throughput_step``'s checksum against the outputs' sum."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
+    b = len(imgs)
+    ref = musica.forward_batch(torch.from_numpy(imgs).to(dev), cfg)
+    launch.reset_launch_counts()
+    out, cnr = sharding.process_sharded(imgs, cfg, mesh, outputs=("out_u8", "cnr"))
+    counts = dict(launch.LAUNCHES)
+    if dev.type == "cuda":
+        assert counts["noise_hist"] == counts["grad_hist_relevant"] == b, counts
+    assert out.device == mesh[0] and torch.equal(out.to(dev), ref), "process_sharded"
+    assert torch.equal(sharding.process_sharded(imgs, cfg, mesh).to(dev), ref)
+    for i in range(b):
+        want = musica.musica_forward(torch.from_numpy(imgs[i]).to(dev), cfg)["cnr"]
+        assert torch.equal(cnr[i].to(dev), want), f"cnr {i}"
+    step, example = sharding.throughput_step(cfg, mesh)
+    total = int(step(example))
+    want_sum = sum(int(musica.forward_batch(e.to(dev), cfg).sum(dtype=torch.int64))
+                   for e in example)
+    assert total == want_sum, (total, want_sum)
+    log(f"  mesh {[str(d) for d in mesh]}: out_u8 and cnr equal forward_batch's bit for bit; "
+        f"launches {counts}; throughput_step checksum {total} equals the outputs' sum")
+
+
 def cuda_ms(fn, reps: int, warmup: int = 1, device_only: bool = False) -> float:
     """ms per call of ``fn`` between two CUDA events.  With ``device_only``
     the GPU sleeps while the host queues every call, so the events bracket
@@ -1043,6 +1210,24 @@ def main() -> int:
     log(f"  slope flags agree {agree}/{len(flags32)} ({sum(flags32)} flagged in float32)")
     assert len(flags32) == 54 and agree == 54, "bf16 changes the campaign's slope flags"
 
+    out_gpu_t = check_host_surface(img, cfg, dev)
+    check_viewer(dev)
+    log(f"[4l] data parallelism: process_sharded of {BATCH} x {SIZE}^2 over make_mesh() "
+        f"against forward_batch, and throughput_step")
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
+    dp_imgs = np.stack([synthetic_radiograph(SIZE, a) for a in ("thorax", "pelvis", "hand", "knee")])
+    check_data_parallel(dp_imgs, cfg, sharding.make_mesh(), dev)
+    if torch.cuda.device_count() > 1:
+        check_data_parallel(dp_imgs, cfg, sharding.make_mesh(n_data=2), dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            raw, bmp = os.path.join(tmp, "in.raw"), os.path.join(tmp, "out.bmp")
+            uio.save_raw(raw, img)
+            assert cli.main(["process", "--device", "cuda:1", "--size", str(SIZE), raw, bmp]) == 0
+            assert np.array_equal(uio.load_bmp(bmp), out_gpu_t), "process on cuda:1"
+        log("  process --device cuda:1 equals cuda:0's BMP")
+    else:
+        log("  a mesh of two cards and process on cuda:1: skipped, one card visible")
+
     # ---- 5. a batch of 4 ---------------------------------------------------
     anatomies = ["thorax", "pelvis", "hand", "knee"][:BATCH]
     imgs = np.stack([synthetic_radiograph(SIZE, a) for a in anatomies])
@@ -1085,6 +1270,36 @@ def main() -> int:
             f"{sorted(diffs)[ROUNDS // 2]}, {sum(d < 0 for d in diffs)} of {ROUNDS} below 0)")
     log(f"  batch of {BATCH}: median {batch} ms/img = {mpix / batch} GPix/s "
         f"(3 windows of 2 batches: {batches})")
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "bench_torch", os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                                    "bench_torch.py"))
+    bench_torch = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench_torch)
+    bench = bench_torch.measure("cuda", SIZE)
+    log("  scripts/bench_torch.py:")
+    log(json.dumps(bench))
+    # the mesh leg's worker threads on one card: throughput_step over 1, 2
+    # and 4 mesh entries that are all this card (one thread, one stream and
+    # one random image each), host clock, medians of 3 steps; 4 threads also
+    # with the interpreter's switch interval at 0.1 ms instead of 5 ms
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
+    interval = sys.getswitchinterval()
+    for k, switch in ((1, interval), (2, interval), (4, interval), (4, 1e-4)):
+        step, example = sharding.throughput_step(cfg, sharding.make_mesh(devices=[dev] * k))
+        sys.setswitchinterval(switch)
+        try:
+            int(step(example))
+            steps = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                int(step(example))
+                steps.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            sys.setswitchinterval(interval)
+        med = sorted(steps)[1]
+        log(f"  throughput_step, {k} worker thread(s) on {dev}, switch interval {switch} s: "
+            f"{med / k} ms/img = {k * mpix / med} GPix/s (steps, ms: {steps})")
     # a campaign case at 3072 (thorax), in its parts: each perturbation on the
     # host, process() (host clock: the raw's upload, the pipeline, the
     # output's download) and a row's measure_row (the altered output's

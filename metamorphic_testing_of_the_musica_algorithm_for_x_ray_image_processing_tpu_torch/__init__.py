@@ -13,13 +13,19 @@ to find:
                 ``timed_process``, with the CLAHE and linear-gradation
                 variants;
 - ``csrc``    : the CUDA C++ sources, built with ``nvcc`` at first use;
-- ``cli``     : ``process`` and ``batch``;
+- ``parallel``: data parallelism over several devices (``sharding``:
+                ``make_mesh``, ``process_sharded``, ``throughput_step``);
+- ``cli``     : ``process``, ``batch``, ``report``, ``view``, ``campaign``,
+                ``slope-analysis`` and ``mean-cnr``;
 - ``config``  : ``MusicaConfig``;
-- ``utils``   : raw/BMP IO and the debug dump with its renders;
-- ``testing`` : synthetic radiographs.
+- ``utils``   : raw/BMP IO (``io``), the debug dump with its renders and
+                ``StageTimer`` (``debug``, ``render``), the HTML report
+                (``report``) and the HTTP viewer (``viewer``);
+- ``testing`` : synthetic radiographs and the metamorphic-testing harness.
 
 Every entry point takes an explicit device.  A kernel runs when its input
-lies on a CUDA device; on the CPU its plain PyTorch version runs instead.
+lies on a CUDA device, on that device, from any thread; on the CPU its plain
+PyTorch version runs instead.
 
 The port imports nothing of the JAX package: ``config``, ``utils`` and
 ``testing`` are its own copies of that package's NumPy modules, held equal

@@ -1,6 +1,6 @@
 """Command-line interface of the PyTorch port: ``process`` and ``batch``,
-the metamorphic ``campaign`` and its analysis tools ``slope-analysis`` and
-``mean-cnr``.
+the HTML ``report`` and the HTTP viewer ``view``, the metamorphic
+``campaign`` and its analysis tools ``slope-analysis`` and ``mean-cnr``.
 
 The formats are those of the JAX package's CLI (and of the reference
 standalone CLI): a raw radiograph with a 256-byte header, loaded transposed,
@@ -11,6 +11,9 @@ Usage:
     python -m ...cli process --size 3072 --device cpu --debug-dump dbg/ in.raw out.bmp
     python -m ...cli process --clahe --linear-gradation --timing in.raw out.bmp
     python -m ...cli process --bf16 in.raw out.bmp
+    python -m ...cli process --save-last-raw last.raw --cnr-out cnr.bmp --profile prof/ in.raw out.bmp
+    python -m ...cli report in.raw report_dir/
+    python -m ...cli view --port 8000 in.raw
     python -m ...cli batch --size 3072 'raws/*.raw' outdir/
     python -m ...cli campaign --size 3072 --out-dir mt_out/
     python -m ...cli slope-analysis mt_out/deltas.csv
@@ -37,45 +40,63 @@ def _add_common(p):
                    help="torch device to run on (cuda, cuda:N or cpu)")
 
 
-def _numpy_tree(v):
-    """Intermediates as numpy arrays (tuples kept as tuples); numpy has no
-    bf16, so bf16 bands are upcast to float32 (exact), as the JAX package's
-    dump upcasts its bf16 arrays."""
-    import torch
-
-    if isinstance(v, tuple):
-        return tuple(_numpy_tree(x) for x in v)
-    return (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
-
-
 def cmd_process(args) -> int:
-    import torch
     from . import MusicaConfig
     from .models import musica
     from .utils import io as uio
-    from .utils.debug import dump_intermediates
+    from .utils.debug import cnr_u8, dump_intermediates, numpy_tree
 
     cfg = MusicaConfig(image_size=args.size, quirks=not args.no_quirks,
                        enable_clahe=args.clahe,
                        grad_with_linear_image=args.linear_gradation,
                        storage="bfloat16" if args.bf16 else "float32")
     raw = uio.load_raw(args.input, args.size, transpose=not args.no_transpose)
+    if args.save_last_raw:
+        # saveLastRawImage analogue (src/vk_processing.cpp:2811-2815)
+        uio.save_raw(args.save_last_raw, raw)
+    prof = None
+    if args.profile:
+        # deep-profiling analogue of the reference's MSVC /PROFILE link flag
+        # (CMakeLists.txt:14-16): a torch.profiler Chrome trace of the host
+        # and, on a CUDA device, the device timeline with the musica.<phase>
+        # spans.  Only starting the profiler may fail with a warning.
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if torch.device(args.device).type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        try:
+            prof = profile(activities=activities)
+            prof.start()
+        except Exception as e:  # noqa: BLE001 - profiling must never break processing
+            print(f"profiler unavailable ({type(e).__name__}: {e})", file=sys.stderr)
+            prof = None
     t0 = time.perf_counter()
+    res = None
     if args.timing:
         # MEASURE_PROCESS analogue: per-phase fenced timing
         out, times = musica.timed_process(raw, cfg, args.device)
         print(" \t ".join(f"{k}: {v:.2f}" for k, v in times.items()))
-    elif args.debug_dump:
-        img = musica.to_device(raw, args.device)
-        res = musica.musica_forward(img, cfg, want_intermediates=True)
-        out = res["out_u8"].cpu().numpy()
-        dump_intermediates({k: _numpy_tree(v) for k, v in res["intermediates"].items()},
-                           args.debug_dump)
     else:
-        out = musica.process(raw, cfg, args.device)
-    if torch.device(args.device).type == "cuda":
-        torch.cuda.synchronize()
+        res = musica.musica_forward(musica.to_device(raw, args.device), cfg,
+                                    want_intermediates=bool(args.debug_dump))
+        out = numpy_tree(res["out_u8"])  # waits for the device
+        if args.debug_dump:
+            dump_intermediates({k: numpy_tree(v) for k, v in res["intermediates"].items()},
+                               args.debug_dump)
+    if args.cnr_out:
+        # CNR_DEBUG analogue (shaders/cnr_debug.comp): the CNR map as a
+        # grayscale BMP, the input format of `mean-cnr`; the timed run
+        # returns no CNR map, so it takes a run of its own
+        if res is None:
+            res = musica.musica_forward(musica.to_device(raw, args.device), cfg)
+        uio.save_bmp8(args.cnr_out, cnr_u8(numpy_tree(res["cnr"])))
     dt = time.perf_counter() - t0
+    if prof is not None:
+        prof.stop()
+        os.makedirs(args.profile, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        print(f"profile trace -> {os.path.join(args.profile, 'trace.json')}")
     uio.save_bmp8(args.output, out)
     print(f"processed {args.input} ({args.size}^2) on {args.device} in "
           f"{dt * 1e3:.1f} ms (incl. kernel build on first use) -> {args.output}")
@@ -108,6 +129,28 @@ def cmd_batch(args) -> int:
     dt = time.perf_counter() - t0
     print(f"{len(files)} images on {args.device} in {dt:.2f}s "
           f"({len(files) * args.size ** 2 / dt / 1e9:.3f} GPix/s incl. IO)")
+    return 0
+
+
+def cmd_report(args) -> int:
+    from . import MusicaConfig
+    from .utils import io as uio
+    from .utils.report import write_report
+
+    cfg = MusicaConfig(image_size=args.size, quirks=not args.no_quirks)
+    raw = uio.load_raw(args.input, args.size, transpose=not args.no_transpose)
+    index = write_report(raw, args.out_dir, cfg, title=args.input, device=args.device)
+    print(f"report -> {index}")
+    return 0
+
+
+def cmd_view(args) -> int:
+    from . import MusicaConfig
+    from .utils.viewer import serve
+
+    cfg = MusicaConfig(image_size=args.size, quirks=not args.no_quirks)
+    serve(args.input, cfg, transpose=not args.no_transpose, host=args.host,
+          port=args.port, report_dir=args.report_dir, device=args.device)
     return 0
 
 
@@ -153,6 +196,15 @@ def main(argv=None) -> int:
                    help="directory for intermediate-image BMPs (debugProcess)")
     p.add_argument("--timing", action="store_true",
                    help="per-phase fenced timing (MEASURE_PROCESS analogue)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the run to "
+                        "DIR/trace.json (host, and the device on CUDA; "
+                        "/PROFILE analogue)")
+    p.add_argument("--save-last-raw", default=None,
+                   help="re-save the loaded raw (saveLastRawImage analogue)")
+    p.add_argument("--cnr-out", default=None,
+                   help="write the CNR map as BMP (CNR_DEBUG analogue; "
+                        "feeds the mean-cnr subcommand)")
     p.add_argument("--clahe", action="store_true",
                    help="enable the CLAHE gradation variant (ENABLE_CLAHE)")
     p.add_argument("--linear-gradation", action="store_true",
@@ -177,6 +229,25 @@ def main(argv=None) -> int:
                    help="bf16 storage for the pyramid band streams (fast "
                         "mode; see `process --bf16`)")
     p.set_defaults(fn=cmd_batch)
+
+    p = sub.add_parser("report", help="HTML gallery of all pipeline stages "
+                                      "(the GUI viewer's headless analogue)")
+    _add_common(p)
+    p.add_argument("input")
+    p.add_argument("out_dir")
+    p.set_defaults(fn=cmd_report)
+
+    p = sub.add_parser("view", help="interactive HTTP viewer (the GLFW/"
+                                    "ImGui app shell's live analogue: "
+                                    "double-buffered out image, render "
+                                    "panels, execute/debugProcess buttons)")
+    _add_common(p)
+    p.add_argument("input", help="raw input image (re-read on each execute)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--report-dir", default="viewer_report",
+                   help="debugProcess() output directory")
+    p.set_defaults(fn=cmd_view)
 
     p = sub.add_parser("campaign", help="run the metamorphic-testing campaign")
     _add_common(p)

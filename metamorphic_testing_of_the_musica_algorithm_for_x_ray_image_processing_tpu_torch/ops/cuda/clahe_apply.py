@@ -66,8 +66,6 @@ def clahe_apply(recon: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
         raise ValueError(f"image size {n} < {t} tiles")
     out = torch.empty_like(recon)
     lib = launch.lib()
-    with torch.cuda.device(dev):
-        launch.launch(lib, "musica_clahe_apply", "clahe_apply",
-                      recon.data_ptr(), out.data_ptr(), py.data_ptr(), n, t, bins,
-                      launch.stream(dev))
+    launch.launch(lib, "musica_clahe_apply", "clahe_apply", dev, recon.data_ptr(),
+                  out.data_ptr(), py.data_ptr(), n, t, bins)
     return out

@@ -129,11 +129,9 @@ def noise_hists(levels, cfg):
     ns = (ctypes.c_int * L)(*[sd.shape[-1] for sd in levels])
     covs = (ctypes.c_int * L)(*[stats.coverage(sd.shape[-1], cfg) for sd in levels])
     strides = (ctypes.c_int * L)(*[sd.stride(0) for sd in levels])
-    with torch.cuda.device(dev):
-        launch.launch(lib, "musica_noise_hist", "noise_hist", ptrs, ns, covs,
-                      strides, L, hists.data_ptr(), max_bins.data_ptr(),
-                      ticket.data_ptr(), nb, tile, float(cfg.max_noise_value),
-                      launch.stream(dev))
+    launch.launch(lib, "musica_noise_hist", "noise_hist", dev, ptrs, ns, covs, strides, L,
+                  hists.data_ptr(), max_bins.data_ptr(), ticket.data_ptr(), nb, tile,
+                  float(cfg.max_noise_value))
     return hists, max_bins
 
 
@@ -174,11 +172,9 @@ def sdev_noise_hists(bands, cfg, grid: int = 0):
     dst = (ctypes.c_void_p * L)(*[s.data_ptr() for s in sdevs])
     ns = (ctypes.c_int * L)(*[b.shape[-1] for b in bands])
     covs = (ctypes.c_int * L)(*[stats.coverage(b.shape[-1], cfg) for b in bands])
-    with torch.cuda.device(dev):
-        launch.launch(lib, "musica_sdev_noise_hist", "sdev_noise_hist", src, dst,
-                      ns, covs, L, hists.data_ptr(), max_bins.data_ptr(),
-                      ticket.data_ptr(), nb, tile, float(cfg.max_noise_value),
-                      int(grid), launch.stream(dev))
+    launch.launch(lib, "musica_sdev_noise_hist", "sdev_noise_hist", dev, src, dst, ns, covs,
+                  L, hists.data_ptr(), max_bins.data_ptr(), ticket.data_ptr(), nb, tile,
+                  float(cfg.max_noise_value), int(grid))
     return sdevs, hists, max_bins
 
 
@@ -207,10 +203,8 @@ def grad_hist(recon: torch.Tensor, relevant: torch.Tensor, cfg) -> torch.Tensor:
     lib = launch.lib()
     n = recon.shape[-1]
     hist = torch.zeros(nb, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        launch.launch(lib, "musica_grad_hist", "grad_hist", recon.data_ptr(),
-                      relevant.data_ptr(), n, n, hist.data_ptr(), nb, tile,
-                      launch.stream(dev))
+    launch.launch(lib, "musica_grad_hist", "grad_hist", dev, recon.data_ptr(),
+                  relevant.data_ptr(), n, n, hist.data_ptr(), nb, tile)
     return hist
 
 
@@ -269,10 +263,8 @@ def _launch_grad_hist_relevant(recon, normalized, wplane, cfg) -> torch.Tensor:
     nb, n, ws = cfg.grad_histogram_bins, recon.shape[-1], wplane.shape[-1]
     lib = launch.lib()
     hist = torch.zeros(nb, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        launch.launch(lib, "musica_grad_hist_relevant", "grad_hist_relevant",
-                      recon.data_ptr(), normalized.data_ptr(), n, n,
-                      wplane.data_ptr(), ws, int(math.ceil(n / ws)),
-                      cfg.relevant_border, float(cfg.relevant_max_pixel),
-                      hist.data_ptr(), nb, cfg.histogram_area_size, launch.stream(dev))
+    launch.launch(lib, "musica_grad_hist_relevant", "grad_hist_relevant", dev,
+                  recon.data_ptr(), normalized.data_ptr(), n, n, wplane.data_ptr(), ws,
+                  int(math.ceil(n / ws)), cfg.relevant_border, float(cfg.relevant_max_pixel),
+                  hist.data_ptr(), nb, cfg.histogram_area_size)
     return hist

@@ -62,8 +62,6 @@ def histogram(bins: torch.Tensor, weights: torch.Tensor,
     b = bins.reshape(-1).contiguous()
     w = weights.reshape(-1).to(torch.int32).contiguous()
     lib = launch.lib()
-    with torch.cuda.device(dev):
-        launch.launch(lib, "musica_histogram", "histogram", b.data_ptr(),
-                      w.data_ptr(), b.numel(), hist.data_ptr(), n_bins,
-                      launch.stream(dev))
+    launch.launch(lib, "musica_histogram", "histogram", dev, b.data_ptr(), w.data_ptr(),
+                  b.numel(), hist.data_ptr(), n_bins)
     return hist

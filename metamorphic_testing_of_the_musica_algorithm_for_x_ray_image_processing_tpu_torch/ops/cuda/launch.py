@@ -4,16 +4,27 @@ device and input checks, the current stream, and the launch itself.
 Dispatch rule of every wrapper: a CPU tensor runs the plain PyTorch version,
 a CUDA tensor launches the kernel or raises.  There is no fallback from one
 to the other.
+
+The C entry points work on the calling thread's current CUDA device: they
+read its SM count, opt its kernels into large shared memory and launch there
+(``csrc/grid.cuh``).  PyTorch leaves the current device at ``cuda:0`` in every
+thread that does not set it, so ``launch`` makes the tensors' device current
+around the call; a kernel on ``cuda:1`` or in a worker thread of the
+data-parallel path (``parallel/sharding.py``) then runs where its tensors lie.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 # launches of each CUDA kernel since the last reset (plain versions and CPU
-# calls do not count)
+# calls do not count); the data-parallel workers launch from several threads,
+# so every update holds _COUNT_LOCK
 LAUNCHES = {"noise_hist": 0, "grad_hist_relevant": 0, "grad_hist": 0,
             "histogram": 0, "clahe_apply": 0, "sdev_noise_hist": 0}
+_COUNT_LOCK = threading.Lock()
 
 # shared memory a block may use on the H100 after the kernels' opt-in
 # (csrc/grid.cuh: 227 KB); a histogram kernel holds its bins there
@@ -22,8 +33,9 @@ MAX_SHARED_BINS = MAX_SHARED_BYTES // 4
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def device_of(tensors) -> torch.device:
@@ -58,14 +70,17 @@ def check_shared(n_bytes: int, what: str) -> None:
                          f"{MAX_SHARED_BYTES} a block may use")
 
 
-def launch(lib, fn_name: str, counter: str, *args) -> None:
-    """Call a C entry point (it returns a cudaError_t) and count the launch
-    only if it was accepted."""
-    rc = getattr(lib, fn_name)(*args)
+def launch(lib, fn_name: str, counter: str, dev: torch.device, *args) -> None:
+    """Call a C entry point with ``args`` and the current stream of ``dev``
+    (its last argument), with ``dev`` the current CUDA device, and count the
+    launch only if it was accepted (the entry point returns a cudaError_t)."""
+    with torch.cuda.device(dev):
+        rc = getattr(lib, fn_name)(*args, stream(dev))
     if rc != 0:
         msg = lib.musica_error_string(rc).decode()
         raise RuntimeError(f"{fn_name} failed: CUDA error {rc} ({msg})")
-    LAUNCHES[counter] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[counter] += 1
 
 
 def stream(dev: torch.device) -> int:

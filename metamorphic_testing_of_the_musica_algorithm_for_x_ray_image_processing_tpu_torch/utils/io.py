@@ -17,6 +17,10 @@ Formats, as the reference writes and reads them:
 * **8-bit single-channel BMP** output (written by stb_image_write in the
   reference, ``src/vk_processing.cpp:2636``), expanded to 24-bit BGR as stb
   does.
+
+The readers and the in-memory encoder (``bmp_bytes``, the viewer's) are
+NumPy too, where the JAX package uses Pillow: the machines with the card
+have no Pillow.
 """
 
 from __future__ import annotations
@@ -85,7 +89,22 @@ def save_bmp_rgb(path: str | os.PathLike, img_rgb: np.ndarray) -> None:
     _write_bmp24(path, np.asarray(img_rgb, np.uint8))
 
 
+def bmp_bytes(img_u8: np.ndarray) -> bytes:
+    """An [h, w] u8 or [h, w, 3|4] rgb(a) image as the bytes of a 24-bit
+    BMP file (a 4th channel is dropped), as ``save_bmp8`` and
+    ``save_bmp_rgb`` write it."""
+    img = np.asarray(img_u8, np.uint8)
+    rgb = np.repeat(img[..., None], 3, axis=-1) if img.ndim == 2 else img[..., :3]
+    return _bmp24(rgb)
+
+
 def _write_bmp24(path, rgb: np.ndarray) -> None:
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(_bmp24(rgb))
+
+
+def _bmp24(rgb: np.ndarray) -> bytes:
     h, w = rgb.shape[:2]
     row_bytes = w * 3
     pad = (-row_bytes) % 4
@@ -99,17 +118,22 @@ def _write_bmp24(path, rgb: np.ndarray) -> None:
     for row in range(h - 1, -1, -1):
         bgr = rgb[row][:, ::-1]  # BMP stores BGR
         body += np.ascontiguousarray(bgr).tobytes() + padding
-    Path(path).parent.mkdir(parents=True, exist_ok=True)
-    with open(path, "wb") as f:
-        f.write(header)
-        f.write(bytes(body))
+    return header + bytes(body)
 
 
 def load_bmp(path: str | os.PathLike) -> np.ndarray:
     """Read an uncompressed 8-, 24- or 32-bit BMP as a uint8 grayscale array
     [rows, cols], as the JAX package's reader does with Pillow's
-    ``convert("L")`` (L = (19595 R + 38470 G + 7471 B + 2^15) >> 16), in
-    NumPy: the machines with the card have no Pillow."""
+    ``convert("L")`` (L = (19595 R + 38470 G + 7471 B + 2^15) >> 16)."""
+    rgb = load_bmp_rgb(path).astype(np.int64)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.uint8)
+
+
+def load_bmp_rgb(path: str | os.PathLike) -> np.ndarray:
+    """Read an uncompressed 8-, 24- or 32-bit BMP as a uint8 RGB array
+    [rows, cols, 3], as the JAX package's reader does with Pillow's
+    ``convert("RGB")``."""
     data = np.fromfile(path, dtype=np.uint8).tobytes()
     if data[:2] != b"BM":
         raise ValueError(f"{path}: not a BMP file")
@@ -127,5 +151,4 @@ def load_bmp(path: str | os.PathLike) -> np.ndarray:
         bgr = palette[px[:, :w]][..., :3]
     else:
         bgr = px[:, :w * bpp // 8].reshape(rows, w, bpp // 8)[..., :3]
-    b, g, r = (bgr[..., i].astype(np.int64) for i in range(3))
-    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.uint8)
+    return np.ascontiguousarray(bgr[..., ::-1])

@@ -1,11 +1,12 @@
-"""Pixel-faithful transcriptions of the GLSL debug-render shaders that the
-debug dump draws.
+"""Pixel-faithful transcriptions of the 5 GLSL debug-render shaders.
 
-The port's own copy of the three renders of the JAX package's
-``utils/render.py`` that ``utils.debug.dump_intermediates`` calls:
-``render_noise_hist``, ``render_gradation_curve_debug`` and
-``render_contrast_curve``.  The dump's files are held byte-identical to the
-JAX package's (``tests/test_torch_standalone.py``).
+The port's own copy of the JAX package's ``utils/render.py``: the debug dump
+draws ``render_noise_hist``, ``render_gradation_curve_debug`` and
+``render_contrast_curve``, the viewer also ``render_gradation_curve``, and
+``render_img_histogram`` completes the set (its dispatch is commented out in
+the reference, src/vk_processing.cpp:2306).  The dump's files are held
+byte-identical to the JAX package's (``tests/test_torch_standalone.py``),
+every render array-equal (``tests/test_torch_report.py``).
 
 The reference renders histograms and curves into 512x128 rgba8 images
 (``histRenderWidth/Height``, include/vk_processing.h:31-32).  These are
@@ -35,6 +36,7 @@ WHITE = (255, 255, 255, 255)
 RED = (255, 0, 0, 255)
 GREEN = (0, 255, 0, 255)
 BLUE = (0, 0, 255, 255)
+YELLOW = (255, 255, 0, 255)
 MAGENTA = (255, 0, 255, 255)
 
 
@@ -84,6 +86,35 @@ def render_noise_hist(hist: np.ndarray, max_value: int, max_bin: int,
         # barWidth == 1: the x loop is a single iteration (:68)
         is_peak = (bin_pos <= max_bin) and (bin_pos + 1.0 > max_bin)
         color = GREEN if is_peak else WHITE
+        for y in range(start_y, start_y + bar):
+            _store(img, x, y, color)
+    return img
+
+
+def render_img_histogram(hist: np.ndarray, max_value: int, max_bin: int,
+                         background: np.ndarray | None = None) -> np.ndarray:
+    """shaders/img_histogram_render.comp:17-56 (compiled, dispatch commented
+    out at src/vk_processing.cpp:2306).
+
+    factor = 1024 / 512 = 2: column x samples bin 2x of the 1024-bin
+    gradation histogram.  No background clear -- the writeonly rgba8 image
+    keeps stale contents (``background``, default zeros).  Peak column is
+    magenta when max_bin is in [2x, 2x + 2).
+    """
+    img = (np.zeros((H, W, 4), np.uint8) if background is None
+           else background.copy())
+    hist = np.asarray(hist)
+    factor = np.float32(1024.0 / 512.0)
+    for x in range(W):
+        bin_pos = int(np.float32(x) * factor)
+        value = int(hist[bin_pos])
+        bar = _bar_height(value, max_value)
+        _store(img, x, H - 1, RED)
+        if bar < 0:
+            continue
+        start_y = H - bar - 1
+        is_peak = (bin_pos <= max_bin) and (bin_pos + float(factor) > max_bin)
+        color = MAGENTA if is_peak else WHITE
         for y in range(start_y, start_y + bar):
             _store(img, x, y, color)
     return img
@@ -156,6 +187,37 @@ def render_gradation_curve_debug(hist: np.ndarray, max_value: int,
             for i in range(W):
                 _store(img, pos_x, i, RED)
         _store(img, pos_x, pos_y, BLUE)
+    return img
+
+
+def render_gradation_curve(px: np.ndarray, py: np.ndarray, t0: float,
+                           ta: float, t1: float,
+                           background: np.ndarray | None = None) -> np.ndarray:
+    """shaders/gradation_curve_render.comp:40-74 (compiled, not dispatched;
+    the viewer's ``grad_curve`` panel).
+
+    Standalone curve panel: t0/t1 red and ta YELLOW marker columns, then the
+    white curve pixel.  No background clear (stale contents preserved).
+    """
+    img = (np.zeros((H, W, 4), np.uint8) if background is None
+           else background.copy())
+    inv_bins = np.float32(1.0) / np.float32(512.0)
+    for x in range(W):
+        curve_pos = np.float32(x) * inv_bins
+        pos_x = int(curve_pos * np.float32(512.0) * np.float32(1.0))
+        gy = _get_y_f32(px, py, curve_pos)
+        pos_y = (H - 1) - int(np.float32(gy) * np.float32(H - 1))
+        nxt = np.float32(x + 1) * inv_bins
+        if curve_pos <= t0 < nxt:
+            for i in range(W):
+                _store(img, pos_x, i, RED)
+        if curve_pos <= ta < nxt:
+            for i in range(W):
+                _store(img, pos_x, i, YELLOW)
+        if curve_pos <= t1 < nxt:
+            for i in range(W):
+                _store(img, pos_x, i, RED)
+        _store(img, pos_x, pos_y, WHITE)
     return img
 
 

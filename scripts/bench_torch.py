@@ -1,0 +1,148 @@
+#!/usr/bin/env python3
+"""Throughput of the PyTorch port's main path on CUDA GPUs.
+
+    python3 scripts/bench_torch.py                  # one line of JSON, on the card(s)
+    python3 scripts/bench_torch.py --device cpu --size 256   # the tests' CPU run
+
+Input: a device-resident ``synthetic_radiograph(size, "thorax")`` (uint16),
+the image of the JAX package's ``bench.py``.  Warm-up: the kernel build,
+then 3 runs.  Three legs, in GPix/s (size² pixels per image):
+
+* single image: ``musica_forward`` one call after another, 5 windows of 10
+  calls between CUDA events (the host's issue time included), the median
+  window;
+* batch: ``forward_batch`` of 4 copies of the image, 5 windows of 2 calls,
+  the median window;
+* mesh: ``parallel.sharding.throughput_step`` over every visible card, 4
+  random images per card, the host clock around 5 steps (each ends with its
+  checksum on the host), the median step.
+
+``value`` is the better of the single-image and batch rates, one card's
+rate as in ``bench.py``; the mesh rate is that of all the cards together.
+The line names the card and its power limit as ``nvidia-smi`` reports them.
+Without a card the script exits 1, unless ``--device cpu`` asks for the
+CPU, where the host clock replaces the CUDA events and the line says
+``"platform": "cpu"``.  No TPU figure is a target here.  Imports nothing of
+JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+BATCH = 4
+WINDOWS = 5
+SINGLE_CALLS, BATCH_CALLS = 10, 2
+
+
+def card() -> tuple[str, float]:
+    """(name, power limit in W) of the first card, from nvidia-smi."""
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0]
+    name, limit = (x.strip() for x in line.rsplit(",", 1))
+    return name, float(limit.split()[0])
+
+
+def window_ms(fn, calls: int, dev) -> float:
+    """ms per call over ``calls`` calls of ``fn``: between CUDA events on a
+    CUDA device, on the host clock on the CPU."""
+    import torch
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / calls
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def measure(device: str = "cuda", size: int = 3072) -> dict:
+    """The three legs on ``device`` (``"cuda"``: the first card for single
+    and batch, every visible card for the mesh); returns the JSON record."""
+    import torch
+
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import (
+        synthetic_radiograph)
+
+    dev = torch.device(device)
+    cfg = MusicaConfig(image_size=size)
+    x = musica.to_device(synthetic_radiograph(size, "thorax"), dev)
+    if dev.type == "cuda":
+        dev = x.device
+        launch.lib()
+        mesh = sharding.make_mesh()
+        name, power = card()
+    else:
+        mesh = sharding.make_mesh(devices=[dev])
+        name, power = "cpu", None
+    xb = torch.stack([x] * BATCH)
+    step, example = sharding.throughput_step(cfg, mesh, batch_per_device=BATCH)
+
+    def single():
+        return musica.musica_forward(x, cfg)["out_u8"]
+
+    def batch():
+        return musica.forward_batch(xb, cfg)
+
+    for _ in range(3):
+        single()
+    batch()
+    int(step(example))
+
+    single_ms = median([window_ms(single, SINGLE_CALLS, dev) for _ in range(WINDOWS)])
+    batch_ms = median([window_ms(batch, BATCH_CALLS, dev) / BATCH for _ in range(WINDOWS)])
+    steps = []
+    for _ in range(WINDOWS):
+        t0 = time.perf_counter()
+        int(step(example))  # the checksum on the host: every device has finished
+        steps.append(time.perf_counter() - t0)
+    mpix = size * size / 1e6
+    single_gpix = mpix / single_ms
+    batch_gpix = mpix / batch_ms
+    mesh_gpix = BATCH * len(mesh) * size * size / median(steps) / 1e9
+    return {"metric": "musica_3072_gpix_per_s", "value": max(single_gpix, batch_gpix),
+            "unit": "GPix/s", "single_image_gpix": single_gpix, "batch_gpix": batch_gpix,
+            "batch_size": BATCH, "mesh_gpix": mesh_gpix, "devices": len(mesh), "size": size,
+            "platform": dev.type, "device": name, "power_limit": power}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default: the visible cards) or cpu")
+    ap.add_argument("--size", type=int, default=3072)
+    args = ap.parse_args(argv)
+    import torch
+    if args.device != "cpu" and not torch.cuda.is_available():
+        print("bench_torch: torch.cuda.is_available() is False: this bench needs a CUDA "
+              "GPU (--device cpu runs it on the CPU)", file=sys.stderr)
+        return 1
+    print(json.dumps(measure(args.device, args.size)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,44 @@
+"""``scripts/bench_torch.py`` on the CPU: ``--device cpu --size 256``
+prints one JSON line with the bench's keys; without ``--device cpu`` and
+without a card it exits non-zero and prints no result."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BENCH = os.path.join(REPO, "scripts", "bench_torch.py")
+KEYS = {"metric", "value", "unit", "single_image_gpix", "batch_gpix", "batch_size",
+        "mesh_gpix", "devices", "size", "platform", "device", "power_limit"}
+
+
+def _run(*args):
+    return subprocess.run([sys.executable, BENCH, *args], capture_output=True, text=True,
+                          cwd=REPO, timeout=300)
+
+
+def test_bench_cpu_prints_one_json_line():
+    p = _run("--device", "cpu", "--size", "256")
+    assert p.returncode == 0, p.stderr[-2000:]
+    lines = p.stdout.strip().splitlines()
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    assert set(rec) == KEYS
+    assert rec["metric"] == "musica_3072_gpix_per_s" and rec["unit"] == "GPix/s"
+    assert rec["platform"] == "cpu" and rec["device"] == "cpu" and rec["power_limit"] is None
+    assert rec["size"] == 256 and rec["batch_size"] == 4 and rec["devices"] == 1
+    for k in ("single_image_gpix", "batch_gpix", "mesh_gpix"):
+        assert rec[k] > 0, k
+    assert rec["value"] == max(rec["single_image_gpix"], rec["batch_gpix"])
+
+
+def test_bench_without_a_card_exits_non_zero():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    p = _run("--size", "256")
+    assert p.returncode != 0 and not p.stdout.strip()
+    assert "CUDA" in p.stderr

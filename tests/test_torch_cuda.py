@@ -636,3 +636,61 @@ def test_campaign_on_card_matches_cpu(dev, tmp_path):
         got = np.array([[float(v) for v in r[first:]] for r in res[name][1:]])
         np.testing.assert_allclose(got, [[float(v) for v in r[first:]] for r in want[name][1:]],
                                    rtol=0, atol=1e-5, err_msg=name)
+
+
+def _k1_k3(dev, cfg, seed):
+    """K1's histograms and first-max bins and K3's histogram on ``dev``."""
+    n = cfg.image_size
+    rng = np.random.default_rng(seed)
+    levels = _random_levels(seed, [-(-n // 2 ** i) for i in cfg.analysis_levels], dev)
+    recon = rng.uniform(-0.1, 1.2, (n, n)).astype(np.float32)
+    recon[rng.uniform(size=(n, n)) < 0.02] = 0.0
+    nrm = rng.uniform(0.0, 1.01, (n, n)).astype(np.float32)
+    cnr = rng.uniform(0.0, 0.1, (n // 8, n // 8)).astype(np.float32)
+    h, mb = fh.noise_hists(levels, cfg)
+    g = fh.grad_hist_relevant(*[torch.from_numpy(a).to(dev) for a in (recon, nrm, cnr)], cfg)
+    return [t.cpu() for t in (h, mb, g)]
+
+
+@pytest.mark.parametrize("index", [0, 1])
+def test_kernels_from_a_worker_thread_run_on_their_tensors_device(dev, index):
+    """K1 and K3 launched from a worker thread, whose current device is
+    cuda:0 whatever the tensors' device, give the main thread's results and
+    their plain versions' (on cuda:1 where a second card exists)."""
+    import threading
+    if index >= torch.cuda.device_count():
+        pytest.skip(f"needs {index + 1} cards")
+    card = torch.device("cuda", index)
+    cfg = MusicaConfig(image_size=512)
+    launch.reset_launch_counts()
+    main = _k1_k3(card, cfg, 7)
+    box = {}
+    t = threading.Thread(target=lambda: box.update(r=_k1_k3(card, cfg, 7)))
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and "r" in box
+    for a, b in zip(main, box["r"]):
+        assert torch.equal(a, b)
+    plain = _k1_k3(torch.device("cpu"), cfg, 7)
+    for a, b in zip(main, plain):
+        assert torch.equal(a, b)
+    assert launch.LAUNCHES["noise_hist"] == launch.LAUNCHES["grad_hist_relevant"] == 2
+
+
+@pytest.mark.parametrize("copies", [1, 2])
+def test_process_sharded_on_card_equals_forward_batch(dev, copies):
+    """The data-parallel path on every card (and with each card twice in
+    the mesh: two worker threads and streams on one card) equals
+    forward_batch bit for bit; its checksum equals the outputs' sum."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
+    cfg = MusicaConfig(image_size=512)
+    mesh = sharding.make_mesh() * copies
+    imgs = np.stack([synthetic_radiograph(512, a) for a in ("thorax", "hand", "knee", "foot")]
+                    * len(mesh))
+    out, cnr = sharding.process_sharded(imgs, cfg, mesh, outputs=("out_u8", "cnr"))
+    x = torch.from_numpy(imgs).to(dev)
+    assert out.device == mesh[0] and torch.equal(out, musica.forward_batch(x, cfg))
+    assert torch.equal(cnr, torch.stack([musica.musica_forward(im, cfg)["cnr"] for im in x]))
+    step, example = sharding.throughput_step(cfg, mesh, batch_per_device=2)
+    want = sum(int(musica.forward_batch(e.to(dev), cfg).sum(dtype=torch.int64)) for e in example)
+    assert int(step(example)) == want

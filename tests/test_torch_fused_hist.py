@@ -10,6 +10,7 @@ decision value differently (QUIRKS #29), and these tests target the kernel
 logic -- break/return semantics, coverage, weights -- not that rounding.
 """
 
+import contextlib
 import sys
 
 import numpy as np
@@ -299,7 +300,7 @@ def test_cpu_calls_run_plain_versions_and_count_no_launch():
         fh.grad_hist(x, x.to("meta"), cfg)  # mixed devices
 
 
-def test_failed_launch_raises_and_is_not_counted():
+def test_failed_launch_raises_and_is_not_counted(monkeypatch):
     class FakeLib:
         @staticmethod
         def musica_grad_hist(*args):
@@ -309,9 +310,12 @@ def test_failed_launch_raises_and_is_not_counted():
         def musica_error_string(code):
             return b"an illegal memory access was encountered"
 
+    # no card here: a do-nothing device guard and stream
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(launch, "stream", lambda dev: 0)
     launch.reset_launch_counts()
     with pytest.raises(RuntimeError, match="CUDA error 700"):
-        launch.launch(FakeLib, "musica_grad_hist", "grad_hist")
+        launch.launch(FakeLib, "musica_grad_hist", "grad_hist", torch.device("cuda:0"))
     assert launch.LAUNCHES["grad_hist"] == 0
 
 

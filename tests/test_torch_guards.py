@@ -32,15 +32,17 @@ def _port_modules():
 
 
 def test_port_imports_no_jax(tmp_path):
-    """With the JAX package blocked in ``sys.modules``, every module of the
-    port imports and ``cli process --device cpu`` runs on a raw written
-    here; neither JAX nor the JAX package is loaded, nothing is built."""
+    """With the JAX package and Pillow blocked in ``sys.modules``, every
+    module of the port imports and ``cli process --device cpu`` runs on a
+    raw written here; neither JAX nor the JAX package is loaded, nothing is
+    built."""
     raw, bmp = tmp_path / "in.raw", tmp_path / "out.bmp"
     img = np.random.default_rng(5).integers(0, 60000, (256, 256)).astype("<u2")
     raw.write_bytes(b"\x00" * 256 + img.tobytes())
     code = (
         "import importlib, sys\n"
         f"sys.modules[{JAX_PKG!r}] = None\n"
+        "sys.modules['PIL'] = None\n"
         f"for m in {_port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         f"from {PKG} import cli\n"
@@ -67,18 +69,19 @@ def _imported_names(path):
             yield node.module
 
 
-@pytest.mark.parametrize("where", [PKG, "chip_smoke.py", "scripts/profile_torch.py"])
+@pytest.mark.parametrize("where", [PKG, "chip_smoke.py", "scripts/profile_torch.py",
+                                   "scripts/bench_torch.py"])
 def test_no_file_imports_the_jax_package(where):
-    """No file of the port, nor the port's two scripts, imports JAX or the
-    JAX package (``import`` and ``from ... import`` statements, at any
-    depth)."""
+    """No file of the port, nor the port's scripts, imports JAX, the JAX
+    package or Pillow (``import`` and ``from ... import`` statements, at
+    any depth): the machines with the card have neither JAX nor Pillow."""
     base = pathlib.Path(REPO) / where
     files = sorted(base.rglob("*.py")) if base.is_dir() else [base]
     assert files
     for f in files:
         for name in _imported_names(f):
             top = name.split(".")[0]
-            assert top not in (JAX_PKG, "jax", "jaxlib", "musica_tpu"), (f, name)
+            assert top not in (JAX_PKG, "jax", "jaxlib", "musica_tpu", "PIL"), (f, name)
 
 
 def test_config_equals_the_jax_packages():

@@ -14,7 +14,7 @@ from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu 
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu.testing import phantoms as j_phantoms
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu.utils import debug as j_debug
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu.utils import io as j_io
-from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import cli, config
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import config
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import phantoms
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.utils import debug, io
@@ -109,7 +109,7 @@ def test_dump_intermediates_equals_jax_dump(tmp_path):
     cfg = config.MusicaConfig(image_size=256)
     img = phantoms.synthetic_radiograph(256, "thorax")
     res = musica.musica_forward(torch.from_numpy(img), cfg, want_intermediates=True)
-    inter = {k: cli._numpy_tree(v) for k, v in res["intermediates"].items()}
+    inter = {k: debug.numpy_tree(v) for k, v in res["intermediates"].items()}
     debug.dump_intermediates(inter, str(tmp_path / "mine"))
     j_debug.dump_intermediates(inter, str(tmp_path / "ref"))
     names = sorted(os.listdir(tmp_path / "ref"))
