@@ -33,10 +33,16 @@ the float32 campaign at 512 over all six anatomies, slope flags equal
 ``cli report``, [4j]), the HTTP viewer at 512 ([4k]) and the data-parallel
 path (``process_sharded`` of 4 images and ``throughput_step`` over every
 card, against ``forward_batch``; with two cards also over two and
-``process`` on ``cuda:1``, [4l]), runs a batch of 4 through
-``process_batch`` in float32 and in bf16, and times the pipeline paths in
-interleaved windows, ``scripts/bench_torch.py``'s measurement, a campaign
-case's parts, and each kernel beside its plain version, its bound (bytes
+``process`` on ``cuda:1``, [4l]), holds the compiled entries (``process_jit``
+and ``process_batch_jit``, replays of ``musica_forward``'s captured CUDA
+graph, ``models/graphs.py``) against eager ``musica_forward`` bit for bit in
+every variant, on a second image and on a transposed one, and the graph
+mesh against ``forward_batch`` ([4m]), runs a batch of 4 through
+``process_batch`` in float32 and in bf16, and times the pipeline paths
+(graph replays against eager) in interleaved windows,
+``scripts/bench_torch.py``'s measurement, the mesh's worker threads on one
+card, a campaign case's parts, and each kernel beside its plain version,
+its bound (bytes
 over the HBM rate, operations over the peak rate, at this run's inputs)
 and, where one exists, the one PyTorch call that computes the same function
 (``torch.argmax`` for the argmax, ``torch.bincount`` for the generic
@@ -54,6 +60,7 @@ from __future__ import annotations
 import csv
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -87,6 +94,16 @@ REPLACES = {
                    f"clahe_apply_fused, pallas_call :188)",
     "sdev_noise_hist": f"{PALLAS}:262 (_sdev_noise_kernel of "
                        f"sdev_noise_hist_fused, pallas_call :334)",
+}
+# each hand-written kernel's CUDA kernel events as the profiler names them
+# (scripts/profile_torch.py matches them alike)
+KERNEL_EVENTS = {
+    "noise_hist": r"(?<![A-Za-z_])noise_hist(_serial)?_kernel\b",
+    "grad_hist_relevant": r"grad_hist(_serial)?_kernel<(\d+, )?true>",
+    "grad_hist": r"grad_hist(_serial)?_kernel<(\d+, )?false>",
+    "histogram": r"(?<![A-Za-z_])histogram_kernel\b",
+    "clahe_apply": r"clahe_apply_kernel\b",
+    "sdev_noise_hist": r"sdev_noise_hist_kernel\b",
 }
 # clahe_graded against the port's CPU path: the LUTs are order-stable sums
 # and the apply is exact, so only a recon that differs could move it; the
@@ -759,15 +776,20 @@ def check_data_parallel(imgs, cfg, mesh, dev):
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import graphs
     b = len(imgs)
     ref = musica.forward_batch(torch.from_numpy(imgs).to(dev), cfg)
+    # the first call captures each entry's graph; the second is counted
+    assert torch.equal(sharding.process_sharded(imgs, cfg, mesh).to(dev), ref)
+    captures = graphs.capture_count()
     launch.reset_launch_counts()
     out, cnr = sharding.process_sharded(imgs, cfg, mesh, outputs=("out_u8", "cnr"))
     counts = dict(launch.LAUNCHES)
+    assert graphs.capture_count() == captures, "the mesh captured its graphs again"
     if dev.type == "cuda":
+        # one replay an image
         assert counts["noise_hist"] == counts["grad_hist_relevant"] == b, counts
     assert out.device == mesh[0] and torch.equal(out.to(dev), ref), "process_sharded"
-    assert torch.equal(sharding.process_sharded(imgs, cfg, mesh).to(dev), ref)
     for i in range(b):
         want = musica.musica_forward(torch.from_numpy(imgs[i]).to(dev), cfg)["cnr"]
         assert torch.equal(cnr[i].to(dev), want), f"cnr {i}"
@@ -778,6 +800,81 @@ def check_data_parallel(imgs, cfg, mesh, dev):
     assert total == want_sum, (total, want_sum)
     log(f"  mesh {[str(d) for d in mesh]}: out_u8 and cnr equal forward_batch's bit for bit; "
         f"launches {counts}; throughput_step checksum {total} equals the outputs' sum")
+
+
+def profiled_run(fn, what: str):
+    """One run of a path whose graph is captured already, with every count
+    set to 0 just before ``fn()`` and read just after, under
+    ``torch.profiler``: ``(fn's result, launches)``, ``launches`` the CUDA
+    kernel events of each hand-written kernel (``KERNEL_EVENTS``) that the
+    profiler recorded.  Fails unless they equal ``launch.LAUNCHES``, which
+    a replay adds from its capture's tally.  The profiler may record no CUDA
+    event for a run (it did so once for one K5 launch): the run is then made
+    once more, and it fails if neither recorded one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
+    for _ in range(2):
+        torch.cuda.synchronize()
+        launch.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        counted = dict(launch.LAUNCHES)
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    assert names, f"{what}: the profiler recorded no CUDA event in two runs"
+    seen = {k: sum(bool(re.search(p, n)) for n in names) for k, p in KERNEL_EVENTS.items()}
+    assert seen == counted, f"{what}: the profiler saw {seen}, LAUNCHES counted {counted}"
+    return out, seen
+
+
+def check_graphs(imgs, x_dev, variants, dev):
+    """[4m]: ``process_jit`` (a graph replay) against eager ``musica_forward``
+    bit for bit per variant, on the thorax, then on a second image (a stale
+    static buffer would show) with the first result kept unchanged, and on
+    the transposed thorax (a strided input); the first call's seconds and
+    the growth of ``torch.cuda.memory_reserved`` over it, after an eager run
+    has filled the allocator's cache with the warm-up's blocks (so the
+    growth is the graph's private pool), and the capture's seconds: the
+    first call less that eager run and a replay."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import graphs, musica
+
+    def host_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    x2 = torch.from_numpy(imgs[1]).to(dev)
+    for name, c, fused in variants:
+        want1, eager_s = host_s(lambda: musica.musica_forward(x_dev, c, fused_sdev=fused)["out_u8"])
+        reserved = torch.cuda.memory_reserved(dev)
+        out1, first_s = host_s(lambda: musica.process_jit(x_dev, c, fused))
+        grown = (torch.cuda.memory_reserved(dev) - reserved) / 2 ** 20
+        g = graphs.cached_graphs()[-1]
+        kept = out1.clone()
+        out2, replay_s = host_s(lambda: musica.process_jit(x2, c, fused))
+        want2 = musica.musica_forward(x2, c, fused_sdev=fused)["out_u8"]
+        out_t = musica.process_jit(x_dev.T, c, fused)
+        eager_t = musica.musica_forward(x_dev.T, c, fused_sdev=fused)
+        want_t = eager_t["out_u8"]
+        assert torch.equal(out1, want1), f"{name}: replay differs from eager"
+        assert torch.equal(out2, want2), f"{name}: second image differs from eager"
+        assert torch.equal(out1, kept), f"{name}: a later replay changed an earlier result"
+        assert torch.equal(out_t, want_t), f"{name}: transposed input differs from eager"
+        assert not torch.equal(want1, want2)
+        for k, v in g.outputs.items():
+            torch.testing.assert_close(v, eager_t[k], rtol=0, atol=0, equal_nan=True,
+                                       msg=f"{name}: {k}")
+        log(f"  {name}: out_u8 equals eager on the thorax, on a second image (the first "
+            f"result unchanged) and on the transposed thorax, static outputs "
+            f"{sorted(g.outputs)} equal eager's; first call {first_s:.3f} s (an eager run "
+            f"{eager_s:.3f} s, a replay {replay_s:.3f} s: capture ~{first_s - eager_s - replay_s:.3f}"
+            f" s), private pool +{grown:.1f} MB reserved over the first call; tally {g.tally}")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1, device_only: bool = False) -> float:
@@ -808,7 +905,7 @@ def main() -> int:
         return 1
 
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig, cli
-    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import graphs, musica
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe, noise, stats
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import build, launch
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_apply as k_clahe
@@ -958,12 +1055,15 @@ def main() -> int:
         check_sdev_noise(rec, cfg_n, bands_n, f"{n} {anatomy} stack, 3 blocks", grid=3)
 
     # ---- 4. the main path at 3072^2 ----------------------------------------
-    log(f"[4] main path: process() on a {SIZE}^2 thorax phantom")
-    launch.reset_launch_counts()
-    out_gpu = musica.process(img, cfg, "cuda")
-    torch.cuda.synchronize()
-    launches = dict(launch.LAUNCHES)
-    log(f"  launches: {launches}")
+    log(f"[4] main path: process() on a {SIZE}^2 thorax phantom; a first call captures its "
+        f"graph (eager warm-up, capture, one replay), the next (one replay) is counted")
+    graphs.release_graphs()
+    captures = graphs.capture_count()
+    first_out = musica.process(img, cfg, "cuda")
+    assert graphs.capture_count() == captures + 1, "process did not capture the main path's graph"
+    out_gpu, launches = profiled_run(lambda: musica.process(img, cfg, "cuda"), "main path")
+    log(f"  launches: {launches} (one replay: the profiler's kernel events, equal to LAUNCHES)")
+    assert np.array_equal(out_gpu, first_out)
     for k in ("noise_hist", "grad_hist_relevant"):
         assert launches[k] > 0, f"the main path did not launch {k}"
     # K1 + K2: one launch, which takes the argmaxes too
@@ -997,10 +1097,18 @@ def main() -> int:
     var_out = var["out_u8"].cpu().numpy()
     var_clahe = var["clahe_graded"].cpu()
     torch.cuda.synchronize()
-    launches_var = dict(launch.LAUNCHES)
-    log(f"  launches: {launches_var}")
+    launches_var_eager = dict(launch.LAUNCHES)
+    log(f"  launches (musica_forward): {launches_var_eager}")
     for k in ("noise_hist", "grad_hist", "histogram", "clahe_apply"):
-        assert launches_var[k] > 0, f"the variant path did not launch {k}"
+        assert launches_var_eager[k] > 0, f"the variant path did not launch {k}"
+    musica.process(img, cfg_var, "cuda")  # captures the variant's graph
+    var_replay, launches_var = profiled_run(lambda: musica.process(img, cfg_var, "cuda"),
+                                            "CLAHE + linear")
+    log(f"  launches (process, one replay: the profiler's kernel events, equal to LAUNCHES): "
+        f"{launches_var}")
+    assert np.array_equal(var_replay, var_out), "the variant's replay differs from musica_forward"
+    for k in ("noise_hist", "grad_hist", "histogram", "clahe_apply"):
+        assert launches_var[k] == 1, f"the variant's replay launched {k} {launches_var[k]} times"
     assert var_out.shape == out_gpu.shape and var_out.dtype == np.uint8
     assert 0 < int(var_out.max()) and int(var_out.min()) < 255, "degenerate output"
     assert var_clahe.shape == (SIZE, SIZE) and bool(torch.isfinite(var_clahe).any())
@@ -1054,14 +1162,22 @@ def main() -> int:
     fused = musica.musica_forward(x_dev, cfg, fused_sdev=True)
     fused_out = fused["out_u8"].cpu().numpy()
     torch.cuda.synchronize()
-    launches_fused = dict(launch.LAUNCHES)
-    log(f"  launches: {launches_fused}")
+    launches_fused_eager = dict(launch.LAUNCHES)
+    log(f"  launches (musica_forward): {launches_fused_eager}")
     for k in ("sdev_noise_hist", "grad_hist_relevant"):
-        assert launches_fused[k] > 0, f"the fused-sdev path did not launch {k}"
-    assert launches_fused["noise_hist"] == 0, "the fused-sdev path launched K1"
+        assert launches_fused_eager[k] > 0, f"the fused-sdev path did not launch {k}"
+    assert launches_fused_eager["noise_hist"] == 0, "the fused-sdev path launched K1"
     assert np.array_equal(fused_out, out_gpu), "fused-sdev out_u8 differs from the default path"
     assert torch.equal(fused["recon"], inter["recon"]) and torch.equal(fused["cnr"], inter["cnr"])
-    assert np.array_equal(musica.process(img, cfg, "cuda", fused_sdev=True), out_gpu)
+    assert np.array_equal(musica.process(img, cfg, "cuda", fused_sdev=True), out_gpu)  # captures
+    fused_replay, launches_fused = profiled_run(
+        lambda: musica.process(img, cfg, "cuda", fused_sdev=True), "fused-sdev")
+    log(f"  launches (process, one replay: the profiler's kernel events, equal to LAUNCHES): "
+        f"{launches_fused}")
+    assert np.array_equal(fused_replay, out_gpu)
+    assert launches_fused["sdev_noise_hist"] == launches_fused["grad_hist_relevant"] == 1, \
+        launches_fused
+    assert launches_fused["noise_hist"] == 0, "the fused-sdev replay launched K1"
     f_out, f_times = musica.timed_process(img, cfg, "cuda", fused_sdev=True)
     assert np.array_equal(f_out, out_gpu), "timed_process(fused_sdev=True) out_u8"
     log("  out_u8, recon and cnr equal the default path's on the card bit for bit; "
@@ -1103,14 +1219,15 @@ def main() -> int:
         f"{SIZE}^2 thorax phantom, each kernel vs its plain version on that run's inputs")
     for tile in (8, 12, 32):
         cfg_t = cfg.with_(histogram_area_size=tile)
+        first_t = musica.process(img, cfg_t, "cuda")  # captures the tile's graph
         launch.reset_launch_counts()
         out_t = musica.process(img, cfg_t, "cuda")
         torch.cuda.synchronize()
         launches_t = dict(launch.LAUNCHES)
+        assert np.array_equal(out_t, first_t)
         # the CNR scale (8 at 3072) divides 8 and 32: K3; not 12: K4
         k_grad = "grad_hist_relevant" if tile % 8 == 0 else "grad_hist"
-        assert launches_t["noise_hist"] == launches_t[k_grad] == 1, \
-            (tile, launches_t)
+        assert launches_t["noise_hist"] == launches_t[k_grad] == 1, (tile, launches_t)
         inter_t = musica.musica_forward(x_dev, cfg_t, want_intermediates=True)
         assert np.array_equal(inter_t["out_u8"].cpu().numpy(), out_t)
         assert np.array_equal(musica.process(img, cfg_t, "cuda", fused_sdev=True), out_t)
@@ -1148,7 +1265,11 @@ def main() -> int:
     mt_rng = campaign.advance_rng(np.random.default_rng(0), SIZE, ANATOMIES[:-1])
     log(f"  the generator drawn past {', '.join(ANATOMIES[:-1])} on the host: "
         f"{time.perf_counter() - t0:.1f} s")
+    # the runner's graph (the main path's, if it is still cached) before the
+    # counted run
+    assert np.array_equal(campaign.default_runner(SIZE, device="cuda")(img.T), out_gpu)
     with tempfile.TemporaryDirectory() as tmp:
+        captures = graphs.capture_count()
         launch.reset_launch_counts()
         t0 = time.perf_counter()
         mt = campaign.run_campaign(out_dir=tmp, image_size=SIZE, anatomies=["thorax"],
@@ -1156,7 +1277,9 @@ def main() -> int:
         torch.cuda.synchronize()
         launches_mt = dict(launch.LAUNCHES)
         mt_s = time.perf_counter() - t0
-    log(f"  {mt_s:.1f} s for 31 pipeline runs and 51 rows; launches: {launches_mt}")
+    assert graphs.capture_count() == captures, "the campaign captured a graph of its own"
+    log(f"  {mt_s:.1f} s for 31 pipeline runs (graph replays) and 51 rows; launches: "
+        f"{launches_mt}")
     # 1 unaltered + 30 altered runs; 3 value counts a row: the reference row,
     # 30 direct rows and 20 registration rows
     assert launches_mt["noise_hist"] == launches_mt["grad_hist_relevant"] == 31, launches_mt
@@ -1228,9 +1351,37 @@ def main() -> int:
     else:
         log("  a mesh of two cards and process on cuda:1: skipped, one card visible")
 
-    # ---- 5. a batch of 4 ---------------------------------------------------
     anatomies = ["thorax", "pelvis", "hand", "knee"][:BATCH]
     imgs = np.stack([synthetic_radiograph(SIZE, a) for a in anatomies])
+    log(f"[4m] the compiled entries at {SIZE}: process_jit and process_batch_jit (replays of "
+        f"musica_forward's captured CUDA graph) against eager, bit for bit")
+    graphs.release_graphs()
+    torch.cuda.empty_cache()
+    check_graphs(imgs, x_dev, [
+        ("main path", cfg, False), ("CLAHE + linear", cfg_var, False),
+        ("fused-sdev", cfg, True), ("bf16", cfg16, False),
+        *[(f"tile {t}", cfg.with_(histogram_area_size=t), False) for t in (8, 12, 32)]], dev)
+    xb_dev = torch.from_numpy(imgs).to(dev)
+    want_b = musica.forward_batch(xb_dev, cfg)
+    assert torch.equal(musica.process_batch_jit(xb_dev, cfg), want_b), "process_batch_jit"
+    for mesh in (sharding.make_mesh(devices=[dev] * 2), sharding.make_mesh()):
+        assert torch.equal(sharding.process_sharded(imgs, cfg, mesh).to(dev), want_b), mesh
+    log(f"  process_batch_jit of {', '.join(anatomies)} equals forward_batch; process_sharded "
+        f"through graphs equals it with 2 mesh entries on {dev} and over every card "
+        f"({torch.cuda.device_count()})")
+    musica.process_jit(x_dev, cfg)
+    g = graphs.cached_graphs()[-1]
+    launch.reset_launch_counts()
+    for _ in range(5):
+        musica.process_jit(x_dev, cfg)
+    torch.cuda.synchronize()
+    counts = dict(launch.LAUNCHES)
+    assert counts == {k: 5 * g.tally.get(k, 0) for k in counts}, (counts, g.tally)
+    log(f"  LAUNCHES after 5 replays of the main path's graph: {counts} = 5 x its tally "
+        f"{g.tally}; {len(graphs.cached_graphs())} graphs cached, "
+        f"{torch.cuda.memory_reserved(dev) / 2 ** 30:.2f} GiB reserved on {dev}")
+
+    # ---- 5. a batch of 4 ---------------------------------------------------
     for c in (cfg, cfg16):
         outs = musica.process_batch(imgs, c, "cuda")
         assert outs.shape == (BATCH,) + out_gpu.shape
@@ -1241,12 +1392,16 @@ def main() -> int:
 
     # ---- 6. timings ----------------------------------------------------------
     # the single-image paths run in interleaved windows (default, fused-sdev,
-    # bf16, CLAHE + linear, default, ...), so the host's drift falls on all
+    # bf16, CLAHE + linear, each eager and as a graph replay, default, ...),
+    # so the host's drift falls on all
     xb_dev = torch.from_numpy(imgs).to(dev)
-    paths = {"default": lambda: musica.musica_forward(x_dev, cfg)["out_u8"],
-             "fused_sdev": lambda: musica.musica_forward(x_dev, cfg, fused_sdev=True)["out_u8"],
-             "bf16": lambda: musica.musica_forward(x_dev, cfg16)["out_u8"],
-             "CLAHE + linear": lambda: musica.musica_forward(x_dev, cfg_var)["out_u8"]}
+    variants = {"default": (cfg, False), "fused_sdev": (cfg, True), "bf16": (cfg16, False),
+                "CLAHE + linear": (cfg_var, False)}
+    paths = {}
+    for k, (c, fused) in variants.items():
+        paths[k] = (lambda c=c, fused=fused:
+                    musica.musica_forward(x_dev, c, fused_sdev=fused)["out_u8"])
+        paths[f"{k} (graph)"] = lambda c=c, fused=fused: musica.process_jit(x_dev, c, fused)
     for _ in range(3):
         for fn in paths.values():
             fn()
@@ -1254,9 +1409,12 @@ def main() -> int:
     for _ in range(ROUNDS):
         for k, fn in paths.items():
             windows[k].append(cuda_ms(fn, 10, 0))
-    batches = sorted(cuda_ms(lambda: musica.forward_batch(xb_dev, cfg), 2, 1) / BATCH
-                     for _ in range(3))
-    batch = batches[1]
+    batch_fns = {"eager": lambda: musica.forward_batch(xb_dev, cfg),
+                 "graph": lambda: musica.process_batch_jit(xb_dev, cfg)}
+    batch_runs = {k: [] for k in batch_fns}
+    for _ in range(3):
+        for k, fn in batch_fns.items():
+            batch_runs[k].append(cuda_ms(fn, 2, 1) / BATCH)
     mpix = SIZE * SIZE / 1e6
     log(f"[6] timings on {card} (CUDA events, device-resident u16 input; "
         f"pipeline: host issue included; kernels: device time)")
@@ -1264,12 +1422,17 @@ def main() -> int:
         med = sorted(w)[ROUNDS // 2]
         log(f"  single, {k}: median {med} ms/img = {mpix / med} GPix/s "
             f"({ROUNDS} interleaved windows of 10, in run order: {w})")
+    for k in variants:
+        ratios = [a / b for a, b in zip(windows[f"{k} (graph)"], windows[k])]
+        log(f"  {k}, graph / eager per round: {ratios} (median {sorted(ratios)[ROUNDS // 2]})")
     for k in ("fused_sdev", "bf16"):
         diffs = [a - b for a, b in zip(windows[k], windows["default"])]
         log(f"  {k} - default, per round: {diffs} ms/img (median "
             f"{sorted(diffs)[ROUNDS // 2]}, {sum(d < 0 for d in diffs)} of {ROUNDS} below 0)")
-    log(f"  batch of {BATCH}: median {batch} ms/img = {mpix / batch} GPix/s "
-        f"(3 windows of 2 batches: {batches})")
+    for k, runs in batch_runs.items():
+        med = sorted(runs)[1]
+        log(f"  batch of {BATCH}, {k}: median {med} ms/img = {mpix / med} GPix/s "
+            f"(3 windows of 2 batches, interleaved with the other's: {runs})")
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "bench_torch", os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
@@ -1279,10 +1442,11 @@ def main() -> int:
     bench = bench_torch.measure("cuda", SIZE)
     log("  scripts/bench_torch.py:")
     log(json.dumps(bench))
-    # the mesh leg's worker threads on one card: throughput_step over 1, 2
-    # and 4 mesh entries that are all this card (one thread, one stream and
-    # one random image each), host clock, medians of 3 steps; 4 threads also
-    # with the interpreter's switch interval at 0.1 ms instead of 5 ms
+    # the mesh leg's worker threads on one card: throughput_step (graph
+    # replays) over 1, 2 and 4 mesh entries that are all this card (one
+    # thread, one stream, one graph and one random image each), host clock,
+    # medians of 3 steps after one that captures; 4 threads also with the
+    # interpreter's switch interval at 0.1 ms instead of 5 ms
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
     interval = sys.getswitchinterval()
     for k, switch in ((1, interval), (2, interval), (4, interval), (4, 1e-4)):
@@ -1298,11 +1462,13 @@ def main() -> int:
         finally:
             sys.setswitchinterval(interval)
         med = sorted(steps)[1]
-        log(f"  throughput_step, {k} worker thread(s) on {dev}, switch interval {switch} s: "
+        log(f"  throughput_step through graphs, {k} worker thread(s) on {dev}, switch interval "
+            f"{switch} s: "
             f"{med / k} ms/img = {k * mpix / med} GPix/s (steps, ms: {steps})")
     # a campaign case at 3072 (thorax), in its parts: each perturbation on the
-    # host, process() (host clock: the raw's upload, the pipeline, the
-    # output's download) and a row's measure_row (the altered output's
+    # host, process() (host clock: the raw's upload, the graph's replay, the
+    # output's download; and the same with eager musica_forward in place of
+    # the replay) and a row's measure_row (the altered output's
     # upload, the row on the card, the counts' download); medians of 5
     def host_ms(fn, reps=5):
         times = []
@@ -1321,6 +1487,8 @@ def main() -> int:
         ("gaussian", lambda: perturb.add_gaussian_noise(img, 0.0, 64.0, g)),
         ("quantum", lambda: perturb.apply_quantum_noise(img, 0.1, g)))}
     case_ms["process"] = host_ms(lambda: musica.process(img.T, cfg, "cuda"))
+    case_ms["process eager"] = host_ms(lambda: musica.musica_forward(
+        musica.to_device(img.T, "cuda"), cfg)["out_u8"].cpu().numpy())
     case_ms["measure_row"] = host_ms(lambda: metrics.measure_row(alt, unalt_t, ref_t))
     case_ms["rotated reference (host)"] = host_ms(lambda: perturb.rotate_nearest_u8(out_gpu, 27))
     log("  a campaign case at 3072, ms (host clock, medians of 5): "
@@ -1380,14 +1548,18 @@ def main() -> int:
     log(f"  the argmax folded into K1 and K7, ms (medians of 5 interleaved rounds): {fold}; "
         f"in run order: {fold_runs}")
     bounds = kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b3072)
-    from_run = {"noise_hist": (launches, "process"),
-                "grad_hist_relevant": (launches, "process"),
-                "grad_hist": (launches_var, "process --clahe --linear-gradation "
-                              "(musica_forward, enable_clahe, grad_with_linear_image)"),
-                "histogram": (launches_var, "process --clahe --linear-gradation"),
-                "clahe_apply": (launches_var, "process --clahe --linear-gradation"),
-                "sdev_noise_hist": (launches_fused, "musica_forward(fused_sdev=True) "
-                                    "(the JAX package's hist_method=\"fused_sdev\")")}
+    # each count: the profiler's kernel events over one process call (one
+    # graph replay), checked equal to LAUNCHES ([4], [4c], [4e])
+    from_run = {"noise_hist": (launches, "process (one graph replay)"),
+                "grad_hist_relevant": (launches, "process (one graph replay)"),
+                "grad_hist": (launches_var, "process with enable_clahe and "
+                              "grad_with_linear_image (one graph replay)"),
+                "histogram": (launches_var, "process with enable_clahe and "
+                              "grad_with_linear_image (one graph replay)"),
+                "clahe_apply": (launches_var, "process with enable_clahe and "
+                                "grad_with_linear_image (one graph replay)"),
+                "sdev_noise_hist": (launches_fused, "process(fused_sdev=True) (one graph "
+                                    "replay; the JAX package's hist_method=\"fused_sdev\")")}
     kernels = []
     for name, (kern, plain) in cases.items():
         p_ms = cuda_ms(plain, 5, 1, device_only=True)
@@ -1400,7 +1572,7 @@ def main() -> int:
             k_ms = fold["k1_ms"] - fold["k1_without_argmax_ms"]
             row.update({"launches": launches["noise_hist"], "own_launches": 0,
                         "folded_into": ["noise_hist", "sdev_noise_hist"],
-                        "launched_by": "process (inside noise_hist's launch)"})
+                        "launched_by": "process (one graph replay; inside noise_hist's launch)"})
         else:
             k_ms = cuda_ms(kern, 20, 2, device_only=True)
             counts, path = from_run[name]

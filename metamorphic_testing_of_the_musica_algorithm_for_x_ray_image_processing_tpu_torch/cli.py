@@ -78,6 +78,10 @@ def cmd_process(args) -> int:
         out, times = musica.timed_process(raw, cfg, args.device)
         print(" \t ".join(f"{k}: {v:.2f}" for k, v in times.items()))
     else:
+        # eager, not musica.process_jit as in the JAX package's CLI: one
+        # image per process, so a graph's warm-up and capture would cost
+        # more than its replay saves, and --debug-dump, --cnr-out and
+        # --profile read the eager run's intermediates, CNR map and spans
         res = musica.musica_forward(musica.to_device(raw, args.device), cfg,
                                     want_intermediates=bool(args.debug_dump))
         out = numpy_tree(res["out_u8"])  # waits for the device

@@ -1,7 +1,8 @@
 """The MUSICA pipeline on PyTorch.  Port of the JAX package's
-``models/musica.py`` (``musica_forward``, ``process``, a batch entry,
-``timed_process``), with the CLAHE and linear-gradation variants, bf16 band
-storage (``cfg.storage``) and the opt-in fused-sdev analysis.
+``models/musica.py`` (``musica_forward``, ``process_jit``,
+``process_batch_jit``, ``process``, a batch entry, ``timed_process``), with
+the CLAHE and linear-gradation variants, bf16 band storage (``cfg.storage``)
+and the opt-in fused-sdev analysis.
 
 PyTorch runs eagerly, so the function below is the schedule: each stage is
 a handful of device ops, and the histograms and the CLAHE apply go through
@@ -21,6 +22,12 @@ Phase map (reference -> here):
   7. gradation        -> ops.gradation (relevance-weighted histogram, curve);
                          ENABLE_CLAHE: ops.clahe (per-tile LUTs, blended apply)
   output              -> margin crop + x255 truncating u8 cast
+
+The production entries ``process_jit`` and ``process_batch_jit`` (and
+``process``, ``process_batch`` on top of them) replay ``musica_forward`` as a
+captured CUDA graph on a CUDA device (``models/graphs.py``), as the JAX
+package's run one compiled program; ``forward_batch``, ``timed_process``
+and ``want_intermediates`` run eagerly.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from torch.profiler import record_function
 
 from .. import MusicaConfig
 from ..ops import clahe, curves, gradation, noise, normalize, pyramid, stats
+from . import graphs
 
 
 # dtype of the band streams per cfg.storage: in "bfloat16" the bandpasses,
@@ -231,9 +239,26 @@ def _forward(img_u16: torch.Tensor, cfg: MusicaConfig, want_intermediates: bool,
 def forward_batch(imgs_u16: torch.Tensor, cfg: MusicaConfig,
                   fused_sdev: bool = False) -> torch.Tensor:
     """[B, n, n] integer images -> [B, n-2m, n-2m] uint8, on their device,
-    one image after another."""
+    one image after another, eagerly."""
     return torch.stack([musica_forward(im, cfg, fused_sdev=fused_sdev)["out_u8"]
                         for im in imgs_u16])
+
+
+def process_jit(img_u16: torch.Tensor, cfg: MusicaConfig,
+                fused_sdev: bool = False) -> torch.Tensor:
+    """One [n, n] integer image on its device -> the cropped uint8 image, a
+    tensor of its own on that device: the replay of ``musica_forward``'s
+    captured CUDA graph on a CUDA device, ``musica_forward`` on the CPU."""
+    return process_batch_jit(img_u16[None], cfg, fused_sdev)[0]
+
+
+def process_batch_jit(imgs_u16: torch.Tensor, cfg: MusicaConfig,
+                      fused_sdev: bool = False) -> torch.Tensor:
+    """[B, n, n] integer images -> [B, n-2m, n-2m] uint8, on their device:
+    one graph replay an image, one image after another (``lax.map``'s order
+    in the JAX package), each copied into its row of one output.  Equal to
+    ``forward_batch`` bit for bit."""
+    return graphs.run_batch(musica_forward, imgs_u16, cfg, fused_sdev)[0]
 
 
 def to_device(imgs, device) -> torch.Tensor:
@@ -247,18 +272,19 @@ def to_device(imgs, device) -> torch.Tensor:
 def process(img_u16, cfg: Optional[MusicaConfig], device,
             fused_sdev: bool = False) -> np.ndarray:
     """Host API mirroring the golden model's: one [n, n] uint16 array in,
-    the cropped uint8 array out, computed on ``device``."""
+    the cropped uint8 array out, computed on ``device`` by ``process_jit``."""
     img = to_device(img_u16, device)
     cfg = cfg or MusicaConfig(image_size=img.shape[-1])
-    return musica_forward(img, cfg, fused_sdev=fused_sdev)["out_u8"].cpu().numpy()
+    return process_jit(img, cfg, fused_sdev).cpu().numpy()
 
 
 def process_batch(imgs_u16, cfg: Optional[MusicaConfig], device,
                   fused_sdev: bool = False) -> np.ndarray:
-    """[B, n, n] uint16 array in, [B, n-2m, n-2m] uint8 out, on ``device``."""
+    """[B, n, n] uint16 array in, [B, n-2m, n-2m] uint8 out, on ``device``,
+    by ``process_batch_jit``."""
     imgs = to_device(imgs_u16, device)
     cfg = cfg or MusicaConfig(image_size=imgs.shape[-1])
-    return forward_batch(imgs, cfg, fused_sdev).cpu().numpy()
+    return process_batch_jit(imgs, cfg, fused_sdev).cpu().numpy()
 
 
 def timed_process(img_u16, cfg: Optional[MusicaConfig], device,

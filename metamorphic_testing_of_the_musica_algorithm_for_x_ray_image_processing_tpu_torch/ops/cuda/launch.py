@@ -15,16 +15,22 @@ data-parallel path (``parallel/sharding.py``) then runs where its tensors lie.
 
 from __future__ import annotations
 
+import contextlib
 import threading
+from typing import Dict, Iterator
 
 import torch
 
-# launches of each CUDA kernel since the last reset (plain versions and CPU
-# calls do not count); the data-parallel workers launch from several threads,
-# so every update holds _COUNT_LOCK
+# launches of each CUDA kernel that ran since the last reset (plain versions
+# and CPU calls do not count); the data-parallel workers launch from several
+# threads, so every update holds _COUNT_LOCK.  A launch recorded while a
+# thread captures a CUDA graph does not run then: it goes to that capture's
+# tally (``recorded_launches``), and each replay of the graph adds the tally
+# (``add_launches``), so the counts mean kernels that ran on either path.
 LAUNCHES = {"noise_hist": 0, "grad_hist_relevant": 0, "grad_hist": 0,
             "histogram": 0, "clahe_apply": 0, "sdev_noise_hist": 0}
 _COUNT_LOCK = threading.Lock()
+_CAPTURING = threading.local()  # .tally: this thread's capture tally, if any
 
 # shared memory a block may use on the H100 after the kernels' opt-in
 # (csrc/grid.cuh: 227 KB); a histogram kernel holds its bins there
@@ -36,6 +42,35 @@ def reset_launch_counts() -> None:
     with _COUNT_LOCK:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count ``counts[k]`` more launches of each kernel ``k``."""
+    with _COUNT_LOCK:
+        for k, n in counts.items():
+            LAUNCHES[k] += n
+
+
+@contextlib.contextmanager
+def recorded_launches() -> Iterator[Dict[str, int]]:
+    """Within the block, this thread's launches go to the dict it yields
+    instead of ``LAUNCHES``: the block captures a CUDA graph, whose kernels
+    run only when it is replayed.  Other threads count as before."""
+    tally = {k: 0 for k in LAUNCHES}
+    _CAPTURING.tally = tally
+    try:
+        yield tally
+    finally:
+        _CAPTURING.tally = None
+
+
+def _count(counter: str) -> None:
+    tally = getattr(_CAPTURING, "tally", None)
+    if tally is not None:
+        tally[counter] += 1
+        return
+    with _COUNT_LOCK:
+        LAUNCHES[counter] += 1
 
 
 def device_of(tensors) -> torch.device:
@@ -73,14 +108,14 @@ def check_shared(n_bytes: int, what: str) -> None:
 def launch(lib, fn_name: str, counter: str, dev: torch.device, *args) -> None:
     """Call a C entry point with ``args`` and the current stream of ``dev``
     (its last argument), with ``dev`` the current CUDA device, and count the
-    launch only if it was accepted (the entry point returns a cudaError_t)."""
+    launch only if it was accepted (the entry point returns a cudaError_t);
+    under ``recorded_launches`` it counts in that block's tally."""
     with torch.cuda.device(dev):
         rc = getattr(lib, fn_name)(*args, stream(dev))
     if rc != 0:
         msg = lib.musica_error_string(rc).decode()
         raise RuntimeError(f"{fn_name} failed: CUDA error {rc} ({msg})")
-    with _COUNT_LOCK:
-        LAUNCHES[counter] += 1
+    _count(counter)
 
 
 def stream(dev: torch.device) -> int:

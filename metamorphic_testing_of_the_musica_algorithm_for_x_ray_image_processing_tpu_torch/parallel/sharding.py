@@ -8,8 +8,14 @@ each device with ``lax.map``.  Here a mesh is a tuple of ``torch.device``\\ s:
 device i takes the contiguous images ``[i B/n, (i+1) B/n)``, as
 ``P("data")`` splits the batch, and one worker thread per device runs
 ``musica_forward`` on one image after another with that device current and
-on a CUDA stream of its own.  No image crosses devices, so no collective is
-needed; the results are gathered onto the mesh's first device.
+on a CUDA stream of its own.  On a CUDA device each image is a replay of
+that stream's captured graph of ``musica_forward`` (``models/graphs.py``,
+keyed by the stream, so two entries on one card never share static
+buffers), a few Python calls an image instead of ~2,300 op issues that the
+threads would contend for under the interpreter lock; the first call of
+each entry captures, one thread at a time (``graphs._CAPTURE_LOCK``).  No
+image crosses devices, so no collective is needed; the results are
+gathered onto the mesh's first device.
 
 The JAX package's spatial path (``space > 1``: GSPMD row sharding with conv
 halos and histogram all-reduces) is not ported.
@@ -25,7 +31,7 @@ import numpy as np
 import torch
 
 from ..config import MusicaConfig
-from ..models import musica
+from ..models import graphs, musica
 from ..ops.cuda import launch
 
 Mesh = Tuple[torch.device, ...]
@@ -112,9 +118,8 @@ def process_sharded(imgs_u16, cfg: MusicaConfig, mesh: Mesh,
     per = b // n
 
     def shard(i: int, dev: torch.device):
-        res = [musica.musica_forward(im, cfg, fused_sdev=fused_sdev)
-               for im in imgs[i * per:(i + 1) * per].to(dev)]
-        return tuple(torch.stack([r[k] for r in res]) for k in outputs)
+        return graphs.run_batch(musica.musica_forward, imgs[i * per:(i + 1) * per].to(dev), cfg,
+                                fused_sdev, outputs)
 
     parts = _on_mesh(mesh, shard)
     out = tuple(_gather([p[j] for p in parts], mesh[0]) for j in range(len(outputs)))
@@ -139,7 +144,7 @@ def throughput_step(cfg: MusicaConfig, mesh: Mesh, batch_per_device: int = 1):
         def local(i: int, dev: torch.device):
             total = torch.zeros((), dtype=torch.int64, device=dev)
             for im in shares[i]:
-                total += musica.musica_forward(im, cfg)["out_u8"].sum(dtype=torch.int64)
+                total += musica.process_jit(im, cfg).sum(dtype=torch.int64)
             return total
 
         sums = _on_mesh(mesh, local)

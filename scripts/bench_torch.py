@@ -5,17 +5,23 @@
     python3 scripts/bench_torch.py --device cpu --size 256   # the tests' CPU run
 
 Input: a device-resident ``synthetic_radiograph(size, "thorax")`` (uint16),
-the image of the JAX package's ``bench.py``.  Warm-up: the kernel build,
-then 3 runs.  Three legs, in GPix/s (size² pixels per image):
+the image of the JAX package's ``bench.py``.  Warm-up: the kernel build and
+the graphs' capture, then 3 runs.  The legs, in GPix/s (size² pixels per
+image), measure the production entries, which replay captured CUDA graphs
+(``models/graphs.py``):
 
-* single image: ``musica_forward`` one call after another, 5 windows of 10
+* single image: ``process_jit`` one call after another, 5 windows of 10
   calls between CUDA events (the host's issue time included), the median
   window;
-* batch: ``forward_batch`` of 4 copies of the image, 5 windows of 2 calls,
-  the median window;
+* batch: ``process_batch_jit`` of 4 copies of the image, 5 windows of 2
+  calls, the median window;
 * mesh: ``parallel.sharding.throughput_step`` over every visible card, 4
   random images per card, the host clock around 5 steps (each ends with its
-  checksum on the host), the median step.
+  checksum on the host), the median step;
+* ``single_image_eager_gpix`` and ``batch_eager_gpix``: the same single and
+  batch windows of eager ``musica_forward`` and ``forward_batch``, the
+  legs the bench measured before the graphs.  The four single and batch
+  legs run in interleaved windows, so the host's drift falls on all.
 
 ``value`` is the better of the single-image and batch rates, one card's
 rate as in ``bench.py``; the mesh rate is that of all the cards together.
@@ -101,30 +107,33 @@ def measure(device: str = "cuda", size: int = 3072) -> dict:
     xb = torch.stack([x] * BATCH)
     step, example = sharding.throughput_step(cfg, mesh, batch_per_device=BATCH)
 
-    def single():
-        return musica.musica_forward(x, cfg)["out_u8"]
-
-    def batch():
-        return musica.forward_batch(xb, cfg)
-
+    legs = {"single": (lambda: musica.process_jit(x, cfg), SINGLE_CALLS, 1),
+            "single_eager": (lambda: musica.musica_forward(x, cfg)["out_u8"], SINGLE_CALLS, 1),
+            "batch": (lambda: musica.process_batch_jit(xb, cfg), BATCH_CALLS, BATCH),
+            "batch_eager": (lambda: musica.forward_batch(xb, cfg), BATCH_CALLS, BATCH)}
     for _ in range(3):
-        single()
-    batch()
+        for fn, _, _ in legs.values():
+            fn()
     int(step(example))
 
-    single_ms = median([window_ms(single, SINGLE_CALLS, dev) for _ in range(WINDOWS)])
-    batch_ms = median([window_ms(batch, BATCH_CALLS, dev) / BATCH for _ in range(WINDOWS)])
+    windows = {k: [] for k in legs}
+    for _ in range(WINDOWS):
+        for k, (fn, calls, images) in legs.items():
+            windows[k].append(window_ms(fn, calls, dev) / images)
+    ms = {k: median(w) for k, w in windows.items()}
     steps = []
     for _ in range(WINDOWS):
         t0 = time.perf_counter()
         int(step(example))  # the checksum on the host: every device has finished
         steps.append(time.perf_counter() - t0)
     mpix = size * size / 1e6
-    single_gpix = mpix / single_ms
-    batch_gpix = mpix / batch_ms
+    single_gpix = mpix / ms["single"]
+    batch_gpix = mpix / ms["batch"]
     mesh_gpix = BATCH * len(mesh) * size * size / median(steps) / 1e9
     return {"metric": "musica_3072_gpix_per_s", "value": max(single_gpix, batch_gpix),
             "unit": "GPix/s", "single_image_gpix": single_gpix, "batch_gpix": batch_gpix,
+            "single_image_eager_gpix": mpix / ms["single_eager"],
+            "batch_eager_gpix": mpix / ms["batch_eager"],
             "batch_size": BATCH, "mesh_gpix": mesh_gpix, "devices": len(mesh), "size": size,
             "platform": dev.type, "device": name, "power_limit": power}
 

@@ -5,6 +5,7 @@
     python3 scripts/profile_torch.py --clahe --linear-gradation   # the variants
     python3 scripts/profile_torch.py --fused-sdev    # sdev + noise histograms in one kernel
     python3 scripts/profile_torch.py --bf16          # bf16 band storage
+    python3 scripts/profile_torch.py --graph         # also the graph replays
 
 Runs ``musica_forward`` on a device-resident synthetic radiograph under
 ``torch.profiler`` and prints, with the card's name and power limit:
@@ -16,8 +17,16 @@ Runs ``musica_forward`` on a device-resident synthetic radiograph under
 * the device time and launches of each hand-written kernel (K1-K7);
 * the kernels with the most device time.
 
+With ``--graph`` it then profiles ``process_jit``, the replay of
+``musica_forward``'s captured CUDA graph (``models/graphs.py``; captured
+before the profiler starts), and prints the same wall time, kernels,
+device busy ms and share, and hand-written kernels for the replays beside
+the eager run's (a replay has no ``musica.<phase>`` spans: they are host
+spans of the capture).
+
 A Chrome trace of the run goes to ``DIR/trace.json`` (default
-``build/profile_torch``).  Imports nothing of JAX.
+``build/profile_torch``), the replays' to ``DIR/trace_graph.json``.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -56,6 +65,8 @@ def main() -> int:
                     help="the fused-sdev analysis (musica_forward(fused_sdev=True))")
     ap.add_argument("--bf16", action="store_true",
                     help="bf16 storage for the pyramid band streams")
+    ap.add_argument("--graph", action="store_true",
+                    help="also profile the replays of the captured graph (process_jit)")
     args = ap.parse_args()
 
     import torch
@@ -81,19 +92,33 @@ def main() -> int:
         musica.musica_forward(x, cfg, fused_sdev=args.fused_sdev)["out_u8"]
     torch.cuda.synchronize()
 
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(args.reps):
-            musica.musica_forward(x, cfg, fused_sdev=args.fused_sdev)["out_u8"]
-        end.record()
-        torch.cuda.synchronize()
-    wall = start.elapsed_time(end) / args.reps
+    def profiled(fn):
+        """(profiler, wall ms/img by CUDA events, kernel events, device busy
+        ms/img, kernels/img) of ``args.reps`` calls of ``fn``."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(args.reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = [e for e in events
+                   if e.device_type == DeviceType.CUDA and not e.key.startswith("musica.")]
+        return (prof, start.elapsed_time(end) / args.reps, kernels,
+                sum(e.self_device_time_total for e in kernels) / 1e3 / args.reps,
+                sum(e.count for e in kernels) / args.reps)
+
+    def hand_written(kernels):
+        for label, pattern in HAND_WRITTEN.items():
+            hits = [e for e in kernels if re.search(pattern, e.key)]
+            ms = sum(e.self_device_time_total for e in hits) / 1e3 / args.reps
+            print(f"  {ms:9.3f} {sum(e.count for e in hits) / args.reps:7.1f}  {label}")
+
+    prof, wall, kernels, busy, launches = profiled(
+        lambda: musica.musica_forward(x, cfg, fused_sdev=args.fused_sdev)["out_u8"])
     events = prof.key_averages()
     on_gpu = [e for e in events if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in on_gpu if not e.key.startswith("musica.")]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / args.reps
-    launches = sum(e.count for e in kernels) / args.reps
 
     print(f"card: {card}")
     variant = " + ".join(v for v, on in (("CLAHE", args.clahe),
@@ -114,16 +139,27 @@ def main() -> int:
         print(f"  {k:20s} {host[k] / 1e3 / args.reps:12.3f} "
               f"{span.get(k, 0.0) / 1e3 / args.reps:13.3f}")
     print("hand-written kernels (ms/img, launches/img):")
-    for label, pattern in HAND_WRITTEN.items():
-        hits = [e for e in kernels if re.search(pattern, e.key)]
-        ms = sum(e.self_device_time_total for e in hits) / 1e3 / args.reps
-        print(f"  {ms:9.3f} {sum(e.count for e in hits) / args.reps:7.1f}  {label}")
+    hand_written(kernels)
     print("top kernels by device time (ms/img, launches/img):")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3 / args.reps:9.3f} "
               f"{e.count / args.reps:7.1f}  {e.key[:110]}")
     os.makedirs(args.out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
+    if args.graph:
+        for _ in range(3):  # the capture, then replays
+            musica.process_jit(x, cfg, args.fused_sdev)
+        torch.cuda.synchronize()
+        g_prof, g_wall, g_kernels, g_busy, g_launches = profiled(
+            lambda: musica.process_jit(x, cfg, args.fused_sdev))
+        print(f"graph replays (process_jit), {args.reps} reps under the profiler: "
+              f"{g_wall:.3f} ms/img wall (CUDA events), {g_launches:.0f} kernels/img, "
+              f"device busy {g_busy:.3f} ms/img = {100 * g_busy / g_wall:.1f} % "
+              f"(eager: {wall:.3f} ms/img wall, {launches:.0f} kernels/img, "
+              f"busy {busy:.3f} ms/img = {100 * busy / wall:.1f} %)")
+        print("hand-written kernels in the replays (ms/img, launches/img):")
+        hand_written(g_kernels)
+        g_prof.export_chrome_trace(os.path.join(args.out, "trace_graph.json"))
     return 0
 
 

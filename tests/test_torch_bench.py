@@ -1,5 +1,6 @@
 """``scripts/bench_torch.py`` on the CPU: ``--device cpu --size 256``
-prints one JSON line with the bench's keys; without ``--device cpu`` and
+prints one JSON line with the bench's keys (the production entries' legs
+and the eager ones beside them); without ``--device cpu`` and
 without a card it exits non-zero and prints no result."""
 
 import json
@@ -12,8 +13,9 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.join(REPO, "scripts", "bench_torch.py")
-KEYS = {"metric", "value", "unit", "single_image_gpix", "batch_gpix", "batch_size",
-        "mesh_gpix", "devices", "size", "platform", "device", "power_limit"}
+KEYS = {"metric", "value", "unit", "single_image_gpix", "batch_gpix", "single_image_eager_gpix",
+        "batch_eager_gpix", "batch_size", "mesh_gpix", "devices", "size", "platform", "device",
+        "power_limit"}
 
 
 def _run(*args):
@@ -31,7 +33,8 @@ def test_bench_cpu_prints_one_json_line():
     assert rec["metric"] == "musica_3072_gpix_per_s" and rec["unit"] == "GPix/s"
     assert rec["platform"] == "cpu" and rec["device"] == "cpu" and rec["power_limit"] is None
     assert rec["size"] == 256 and rec["batch_size"] == 4 and rec["devices"] == 1
-    for k in ("single_image_gpix", "batch_gpix", "mesh_gpix"):
+    for k in ("single_image_gpix", "batch_gpix", "single_image_eager_gpix", "batch_eager_gpix",
+              "mesh_gpix"):
         assert rec[k] > 0, k
     assert rec["value"] == max(rec["single_image_gpix"], rec["batch_gpix"])
 

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
-from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import graphs, musica
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe, noise, normalize, pyramid, stats
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_apply as k_clahe
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
@@ -228,6 +228,7 @@ def test_pipeline_on_card_at_other_histogram_tiles(dev, tile):
     bit, on the default analysis and the fused-sdev one."""
     img = synthetic_radiograph(512, "thorax")
     cfg = MusicaConfig(image_size=512, histogram_area_size=tile)
+    musica.process(img, cfg, "cuda")  # captures the graph
     launch.reset_launch_counts()
     out = musica.process(img, cfg, "cuda")
     counts = dict(launch.LAUNCHES)
@@ -255,6 +256,7 @@ def test_relevance_paths_agree_on_pipeline_data(dev):
 def test_pipeline_on_card_matches_cpu_and_launches_kernels(dev, size, anatomy):
     img = synthetic_radiograph(size, anatomy)
     cfg = MusicaConfig(image_size=size)
+    musica.process(img, cfg, "cuda")  # captures the graph
     launch.reset_launch_counts()
     out = musica.process(img, cfg, "cuda")
     counts = dict(launch.LAUNCHES)
@@ -384,7 +386,10 @@ def _edge_recon(rng, n, bins):
 def test_clahe_apply_kernel_on_random_luts_and_segment_edges(dev, n, t, bins):
     """K5 on random LUTs (one NaN tile) with x at every segment edge, 1.0,
     -0.0, out of range and denormal: equal to the plain version, NaN masks
-    included, and one kernel launch with nothing else on the card."""
+    included, and one kernel launch with nothing else on the card.  The
+    profiler may record no CUDA event for a call (it did in 1 of 5 runs at
+    3072): a second call is profiled then, and the check fails only if
+    neither recorded the kernel or either recorded another kernel."""
     rng = np.random.default_rng(n + t)
     cfg = MusicaConfig(image_size=n, enable_clahe=True, clahe_tiles=t, clahe_bins=bins)
     py = np.sort(rng.uniform(0, 1, (t, t, bins)).astype(np.float32), axis=-1)
@@ -397,11 +402,19 @@ def test_clahe_apply_kernel_on_random_luts_and_segment_edges(dev, n, t, bins):
     torch.testing.assert_close(got, k_clahe.clahe_apply_plain(recon, px, py, cfg),
                                rtol=0, atol=0, equal_nan=True)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        k_clahe.clahe_apply(recon, px, py, cfg)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert kernels and all("clahe_apply" in k for k in kernels), kernels
+    profiled = []
+    for _ in range(2):
+        before = launch.LAUNCHES["clahe_apply"]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            k_clahe.clahe_apply(recon, px, py, cfg)
+            torch.cuda.synchronize()
+        assert launch.LAUNCHES["clahe_apply"] == before + 1
+        profiled.append([e.name for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA])
+        if profiled[-1]:
+            break
+    assert any(profiled), profiled
+    assert all("clahe_apply" in k for kernels in profiled for k in kernels), profiled
 
 
 def test_clahe_tile_coordinates_are_true_divisions(dev):
@@ -622,10 +635,14 @@ def test_campaign_on_card_matches_cpu(dev, tmp_path):
     card's run launched K1 (with the folded argmax), a gradation histogram
     and the histogram kernel of the rows' value counts."""
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import campaign
+    # the runner's graph, captured before the counted run
+    campaign.default_runner(512, device="cuda")(synthetic_radiograph(512, "knee"))
     launch.reset_launch_counts()
+    captures = graphs.capture_count()
     res = campaign.run_campaign(out_dir=str(tmp_path / "card"), image_size=512,
                                 anatomies=["knee"], seed=3, device="cuda")
     counts = dict(launch.LAUNCHES)
+    assert graphs.capture_count() == captures, "the campaign captured another graph"
     assert counts["noise_hist"] == counts["grad_hist_relevant"] == 31, counts
     assert counts["histogram"] == 3 * (1 + 30 + 20), counts
     want = campaign.run_campaign(out_dir=str(tmp_path / "cpu"), image_size=512,
@@ -694,3 +711,89 @@ def test_process_sharded_on_card_equals_forward_batch(dev, copies):
     step, example = sharding.throughput_step(cfg, mesh, batch_per_device=2)
     want = sum(int(musica.forward_batch(e.to(dev), cfg).sum(dtype=torch.int64)) for e in example)
     assert int(step(example)) == want
+
+
+# ----------------------------------------------------------------------
+# the compiled entries: musica_forward as captured CUDA graphs
+# ----------------------------------------------------------------------
+
+GRAPH_VARIANTS = {"main": ({}, False), "clahe_linear": (dict(enable_clahe=True,
+                                                             grad_with_linear_image=True), False),
+                  "fused_sdev": ({}, True), "bf16": (dict(storage="bfloat16"), False)}
+
+
+@pytest.mark.parametrize("variant", sorted(GRAPH_VARIANTS))
+@pytest.mark.parametrize("size,anatomy,quirks", [(144, "hand", False), (256, "thorax", True),
+                                                 (600, "pelvis", True)])
+def test_graph_replays_equal_eager(dev, variant, size, anatomy, quirks):
+    """process_jit (a replay) equals eager musica_forward bit for bit, also
+    the other outputs the graph keeps; process_batch_jit equals
+    forward_batch; the launches counted are the warm-up's and one tally a
+    replay."""
+    kw, fused = GRAPH_VARIANTS[variant]
+    cfg = MusicaConfig(image_size=size, quirks=quirks, **kw)
+    x = torch.from_numpy(synthetic_radiograph(size, anatomy)).to(dev)
+    graphs.release_graphs()
+    launch.reset_launch_counts()
+    out = musica.process_jit(x, cfg, fused)
+    warm = dict(launch.LAUNCHES)
+    (g,) = graphs.cached_graphs()
+    assert g.tally and all(warm[k] == 2 * n for k, n in g.tally.items()), (warm, g.tally)
+    want = musica.musica_forward(x, cfg, fused_sdev=fused)
+    assert torch.equal(out, want["out_u8"])
+    for k, v in g.outputs.items():
+        torch.testing.assert_close(v, want[k], rtol=0, atol=0, equal_nan=True)
+    xs = torch.stack([x] + [torch.from_numpy(synthetic_radiograph(size, a)).to(dev)
+                            for a in ("knee", "foot")])
+    assert torch.equal(musica.process_batch_jit(xs, cfg, fused),
+                       musica.forward_batch(xs, cfg, fused))
+    assert graphs.capture_count() and len(graphs.cached_graphs()) == 1
+
+
+def test_graph_alternating_images_and_strided_input(dev):
+    """Two images replayed in turns, each result kept: a stale static buffer
+    or an output overwritten by the next replay shows; a transposed (strided)
+    input and an int32 image (a graph of its own) equal eager."""
+    cfg = MusicaConfig(image_size=512)
+    a, b = (torch.from_numpy(synthetic_radiograph(512, k)).to(dev) for k in ("thorax", "hand"))
+    want = {k: musica.musica_forward(x, cfg)["out_u8"] for k, x in (("a", a), ("b", b))}
+    kept = [(k, musica.process_jit(x, cfg)) for _ in range(3) for k, x in (("a", a), ("b", b))]
+    for k, out in kept:
+        assert torch.equal(out, want[k]), k
+    assert not torch.equal(want["a"], want["b"])
+    assert torch.equal(musica.process_jit(a.T, cfg), musica.musica_forward(a.T, cfg)["out_u8"])
+    assert torch.equal(musica.process_jit(a.to(torch.int32), cfg), want["a"])
+
+
+def test_graph_capture_and_replay_never_wait_for_the_host(dev):
+    """A capture (after its eager warm-up) and replays under
+    set_sync_debug_mode("error")."""
+    cfg = MusicaConfig(image_size=600, enable_clahe=True)
+    x = torch.from_numpy(synthetic_radiograph(600, "knee")).to(dev)
+    graphs.release_graphs()
+    want = musica.musica_forward(x, cfg)["out_u8"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = musica.process_jit(x, cfg)
+        second = musica.process_jit(x, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(first, want) and torch.equal(second, want)
+
+
+def test_graph_captured_under_the_profiler_replays_exactly(dev):
+    """musica_forward's record_function spans are inside the capture: a
+    graph captured while a profiler runs replays bit-identical, after the
+    profiler has stopped too."""
+    cfg = MusicaConfig(image_size=256)
+    x = torch.from_numpy(synthetic_radiograph(256, "head")).to(dev)
+    graphs.release_graphs()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        inside = musica.process_jit(x, cfg)
+        torch.cuda.synchronize()
+    after = musica.process_jit(x, cfg)
+    want = musica.musica_forward(x, cfg)["out_u8"]
+    assert torch.equal(inside, want) and torch.equal(after, want)
+    assert graphs.capture_count() and len(graphs.cached_graphs()) == 1
