@@ -13,7 +13,10 @@ scans K1, K3 and
 K4 also on adversarial inputs at 3072, 600 and 144 and at histogram tiles 8,
 12 and 32 ([3a]), K5 and K6 also at 8x8 CLAHE tiles and K5 on random LUTs
 with x at the segment edges ([3b]), K7 also with block ranges that cross
-levels ([3d]), drives the port's main path
+levels ([3d]), K1, K3 and K4 on the row windows of the spatial path's plan
+(3072 over 4 shards; adversarial inputs at 3072, 600 and 144; tiles 8, 12,
+32) and K2 as a launch of its own on the summed histograms ([3e]), drives
+the port's main path
 (``process`` on a 3072^2 uint16 radiograph, then the intermediates path of
 ``process --debug-dump``), the CLAHE + linear-gradation variant path
 (``musica_forward`` as ``process --clahe --linear-gradation`` runs it), the
@@ -37,7 +40,13 @@ card, against ``forward_batch``; with two cards also over two and
 and ``process_batch_jit``, replays of ``musica_forward``'s captured CUDA
 graph, ``models/graphs.py``) against eager ``musica_forward`` bit for bit in
 every variant, on a second image and on a transposed one, and the graph
-mesh against ``forward_batch`` ([4m]), runs a batch of 4 through
+mesh against ``forward_batch`` ([4m]), drives the spatial path
+(``process_sharded`` of two 3072^2 radiographs with each image's rows split
+over 1x4 and 2x2 mesh entries on one card, 600 over 1x4 for K4, and one
+image over every card where there are several) against
+``process_batch_jit`` bit for bit, counting K1 per shard with covered rows,
+K2 per image and K3 per shard, and times it beside one card's replay
+([4n]), runs a batch of 4 through
 ``process_batch`` in float32 and in bf16, and times the pipeline paths
 (graph replays against eager) in interleaved windows,
 ``scripts/bench_torch.py``'s measurement, the mesh's worker threads on one
@@ -99,6 +108,7 @@ REPLACES = {
 # (scripts/profile_torch.py matches them alike)
 KERNEL_EVENTS = {
     "noise_hist": r"(?<![A-Za-z_])noise_hist(_serial)?_kernel\b",
+    "hist_argmax": r"hist_argmax_kernel\b",
     "grad_hist_relevant": r"grad_hist(_serial)?_kernel<(\d+, )?true>",
     "grad_hist": r"grad_hist(_serial)?_kernel<(\d+, )?false>",
     "histogram": r"(?<![A-Za-z_])histogram_kernel\b",
@@ -291,8 +301,9 @@ def unfolded_noise_hists(levels, cfg):
         (ctypes.c_void_p * L)(*[s.data_ptr() for s in levels]),
         ints(*[s.shape[-1] for s in levels]),
         ints(*[stats.coverage(s.shape[-1], cfg) for s in levels]),
-        ints(*[s.stride(0) for s in levels]), L, h.data_ptr(), None, ticket.data_ptr(), nb,
-        cfg.histogram_area_size, float(cfg.max_noise_value), launch.stream(dev))
+        ints(*[s.stride(0) for s in levels]), ints(*[0] * L), ints(*[s.shape[-1] for s in levels]),
+        L, h.data_ptr(), None, ticket.data_ptr(), nb, cfg.histogram_area_size,
+        float(cfg.max_noise_value), launch.stream(dev))
     assert rc == 0, rc
     return h
 
@@ -462,6 +473,205 @@ def check_adversarial(rec, rng, dev):
                 rec.equal("grad_hist_relevant", f"{n} adversarial, tile {tile}",
                           fh.grad_hist_relevant(recon, nrm, cnr, cfg),
                           fh.grad_hist_relevant_plain(recon, nrm, cnr, cfg))
+
+
+def plan_rows(plan, k, i):
+    """Shard i's rows of level k under ``plan``; a level past the sharded
+    ones is scanned whole by the first shard, as ``spatial.forward`` does."""
+    if k < plan.replicated:
+        return plan.rows(k, i)
+    return (0, plan.sizes[k]) if i == 0 else (0, 0)
+
+
+def check_windows(rec, cfg, levels, case, space=4, grad=None, relevant=None, cfg_grad=None):
+    """K1, K3 and K4 on the row windows of ``spatial.row_plan(n, space)``
+    and K2's own launch, each against its plain version on the same
+    windows, exactly; the windows' histograms summed against the whole
+    image's, and K2 on the sum against K1's folded argmax.  ``levels``: the
+    analysis levels' sdev images; ``grad``: (recon, normalized, cnr) for K3;
+    ``relevant``: (image, relevance) for K4 (under ``cfg_grad``)."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import noise
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
+    n = cfg.image_size
+    plan = spatial.row_plan(n, space, cfg)
+    lv = list(cfg.analysis_levels)
+    dev = levels[0].device
+    h1 = torch.zeros((len(lv), cfg.noise_histogram_bins), dtype=torch.int32, device=dev)
+    h3 = torch.zeros(cfg.grad_histogram_bins, dtype=torch.int32, device=dev)
+    h4 = torch.zeros_like(h3)
+    launched = 0
+    for i in range(space):
+        rows = [plan_rows(plan, k, i) for k in lv]
+        wins, r0s = [sd[a:b] for sd, (a, b) in zip(levels, rows)], [a for a, _ in rows]
+        got = fh.noise_hists_rows(wins, r0s, cfg)
+        want = fh.noise_hists_rows_plain(wins, r0s, cfg)
+        if got is None:
+            assert not bool(want.any()), f"{case}: shard {i} launched nothing but has counts"
+        else:
+            launched += 1
+            rec.equal("noise_hist", f"{case}, shard {i} rows {rows}", got, want)
+            h1 += got
+        a, b = plan.rows(0, i)
+        if grad is not None:
+            recon, nrm, cnr = grad
+            c0, c1 = noise.cnr_rows(cnr.shape[-1], n, a, b)
+            got = fh.grad_hist_relevant(recon[a:b], nrm[a:b], cnr[c0:c1], cfg, a, c0)
+            rec.equal("grad_hist_relevant", f"{case}, shard {i} rows [{a}, {b}), CNR rows "
+                      f"[{c0}, {c1})", got, fh.grad_hist_relevant_plain(
+                          recon[a:b], nrm[a:b], cnr[c0:c1], cfg, a, c0))
+            h3 += got
+        if relevant is not None:
+            img, rel = relevant
+            c = cfg_grad or cfg
+            got = fh.grad_hist(img[a:b], rel[a:b], c, a)
+            rec.equal("grad_hist", f"{case}, shard {i} rows [{a}, {b})", got,
+                      fh.grad_hist_plain(img[a:b], rel[a:b], c, a))
+            h4 += got
+    whole, mb = fh.noise_hists(levels, cfg)
+    rec.equal("noise_hist", f"{case}, {launched} shards' windows summed vs the whole", h1, whole)
+    k2 = fh.hist_argmax(h1)
+    rec.equal("hist_argmax", f"{case}, own launch on the summed windows vs the plain version",
+              k2, fh.hist_argmax_plain(h1))
+    rec.equal("hist_argmax", f"{case}, own launch vs K1's folded argmax", k2, mb)
+    if grad is not None:
+        rec.equal("grad_hist_relevant", f"{case}, windows summed vs the whole", h3,
+                  fh.grad_hist_relevant(*grad, cfg))
+    if relevant is not None:
+        rec.equal("grad_hist", f"{case}, windows summed vs the whole", h4,
+                  fh.grad_hist(*relevant, cfg_grad or cfg))
+
+
+def check_window_kernels(rec, rng, dev, cfg, lv3072, main, var):
+    """[3e]: ``check_windows`` at the 3072 shapes of the spatial plan over 4
+    shards (the thorax's levels, K3 on its recon, K4 on the CLAHE + linear
+    path's squared image), on the adversarial inputs of
+    ``testing/hist_cases.py`` at 3072, 600 and 144 (over 2: 144 holds no 4
+    shards of whole 16-px tiles), and at histogram tiles 8, 12 and 32."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import hist_cases
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    cfg_var, linear, v_rel = var
+    check_windows(rec, cfg, lv3072, "3072 thorax over 4", grad=main,
+                  relevant=(linear, v_rel), cfg_grad=cfg_var)
+    cases = [(MusicaConfig(image_size=3072), 4), (MusicaConfig(image_size=600), 4),
+             (MusicaConfig(image_size=144, quirks=False), 2)]
+    cases += [(MusicaConfig(image_size=n, quirks=q, histogram_area_size=tile), s)
+              for tile in (8, 12, 32) for n, q, s in ((600, True, 4), (144, False, 2))]
+    for c, space in cases:
+        n, tile = c.image_size, c.histogram_area_size
+        sizes = [-(-n // 2 ** i) for i in c.analysis_levels]
+        recon = t(hist_cases.gradation_image(rng, n))
+        rel = t(rng.uniform(0.0, 1.0, (n, n)).astype(np.float32))
+        nrm = t(rng.uniform(0.0, 1.01, (n, n)).astype(np.float32))
+        cnr = t(rng.uniform(0.0, 0.1, (-(-n // 8), -(-n // 8))).astype(np.float32))
+        check_windows(rec, c, [t(a) for a in hist_cases.noise_levels(rng, sizes)],
+                      f"{n} adversarial, tile {tile}, over {space}", space,
+                      grad=(recon, nrm, cnr) if tile % 8 == 0 else None, relevant=(recon, rel))
+
+
+def check_spatial(imgs, cfg, dev, imgs600):
+    """[4n]: ``process_sharded`` of ``imgs`` over a 1 x 4 and a 2 x 2 mesh
+    of entries on ``dev`` (each with a stream of its own) against
+    ``process_batch_jit``, bit for bit, with every count set to 0 just
+    before each run and read just after (the 1 x 4 run under the profiler,
+    its kernel events equal to the counts): K1 once per shard that holds
+    covered rows, K2 once per image, K3 once per shard.  Then ``imgs600``
+    over 1 x 4 (K4), and where two or more cards are visible one image over
+    ``n_space`` = every card.  Times (host clock around a run that ends
+    with the card's synchronisation, medians of 3): the spatial path per
+    image, beside one card's graph replay (CUDA events)."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import stats
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding, spatial
+
+    def covered(c, space):
+        plan = spatial.row_plan(c.image_size, space, c)
+        return sum(any(plan_rows(plan, k, i)[0] < min(plan_rows(plan, k, i)[1],
+                                                      stats.coverage(plan.sizes[k], c))
+                       for k in c.analysis_levels) for i in range(space))
+
+    def host_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[reps // 2], times
+
+    out = {"counts": {}, "ms_per_img": {}}
+    b = len(imgs)
+    want = musica.process_batch_jit(torch.from_numpy(imgs).to(dev), cfg)
+    for d, s in ((1, 4), (2, 2)):
+        mesh = sharding.make_mesh(n_data=d, n_space=s, devices=[dev] * 4)
+        key = f"{d}x{s} on {dev}"
+        run = lambda mesh=mesh: sharding.process_sharded(imgs, cfg, mesh)  # noqa: E731
+        run()  # the entries' streams and their allocator caches
+        if (d, s) == (1, 4):
+            got, counts = profiled_run(run, f"spatial {key}")
+        else:
+            torch.cuda.synchronize()
+            launch.reset_launch_counts()
+            got = run()
+            torch.cuda.synchronize()
+            counts = dict(launch.LAUNCHES)
+        assert torch.equal(got.to(dev), want), f"spatial {key} differs from process_batch_jit"
+        k1 = b * covered(cfg, s)
+        assert (counts["noise_hist"], counts["hist_argmax"], counts["grad_hist_relevant"]) == (
+            k1, b, b * s), (key, counts, k1)
+        assert counts["sdev_noise_hist"] == counts["grad_hist"] == 0, (key, counts)
+        med, runs = host_ms(run)
+        out["counts"][key] = counts
+        out["ms_per_img"][key] = med / b
+        log(f"  {key}: {b} x {cfg.image_size}^2 equal process_batch_jit bit for bit; launches "
+            f"{counts} (K1: {covered(cfg, s)} of {s} shards hold covered rows); "
+            f"{med / b} ms/img (host clock, runs of {b} images, ms: {runs})")
+    c600 = cfg.with_(image_size=imgs600.shape[-1])
+    mesh = sharding.make_mesh(n_data=1, n_space=4, devices=[dev] * 4)
+    sharding.process_sharded(imgs600, c600, mesh)
+    torch.cuda.synchronize()
+    launch.reset_launch_counts()
+    got = sharding.process_sharded(imgs600, c600, mesh)
+    torch.cuda.synchronize()
+    counts = dict(launch.LAUNCHES)
+    want600 = musica.process_batch_jit(torch.from_numpy(imgs600).to(dev), c600)
+    assert torch.equal(got.to(dev), want600), "spatial 600 differs from process_batch_jit"
+    b6 = len(imgs600)
+    assert (counts["grad_hist"], counts["hist_argmax"], counts["grad_hist_relevant"]) == (
+        b6 * 4, b6, 0), counts
+    out["counts"]["600 1x4"] = counts
+    log(f"  {b6} x 600^2 over 1x4 on {dev} equal process_batch_jit; launches {counts} (K4 once "
+        "a shard: 600 is no multiple of the 16-px tile)")
+    x0 = torch.from_numpy(imgs[0]).to(dev)
+    out["replay_ms"] = cuda_ms(lambda: musica.process_jit(x0, cfg), 10, 2)
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        mesh = sharding.make_mesh(n_data=1, n_space=cards)
+        run = lambda: sharding.process_sharded(imgs[:1], cfg, mesh)  # noqa: E731
+        run()
+        launch.reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        assert torch.equal(got.to(dev), want[:1]), "spatial over every card differs"
+        med, runs = host_ms(run)
+        key = f"1x{cards} over {cards} cards"
+        out["counts"][key] = dict(launch.LAUNCHES)
+        out["ms_per_img"][key] = med
+        log(f"  one image over n_space = {cards} cards equals process_batch_jit; {med} ms/img "
+            f"(ms: {runs})")
+    else:
+        log("  one image over every card: skipped, one card visible")
+    log(f"  one card's graph replay (process_jit): {out['replay_ms']} ms/img (CUDA events)")
+    return out
 
 
 def bound(n_bytes: float, flops: float = 0.0, rate: float = FP32_PER_S):
@@ -1054,6 +1264,12 @@ def main() -> int:
                          f"{n} random stack")
         check_sdev_noise(rec, cfg_n, bands_n, f"{n} {anatomy} stack, 3 blocks", grid=3)
 
+    log("[3e] the spatial path's kernels on row windows: K1, K3, K4 per shard vs their "
+        "plain versions and summed vs the whole image, K2's own launch on the summed "
+        "histograms (exact)")
+    check_window_kernels(rec, rng, dev, cfg, lv3072, (recon, nrm, cnr),
+                         (cfg_var, var_inter["intermediates"]["linear"], v_rel))
+
     # ---- 4. the main path at 3072^2 ----------------------------------------
     log(f"[4] main path: process() on a {SIZE}^2 thorax phantom; a first call captures its "
         f"graph (eager warm-up, capture, one replay), the next (one replay) is counted")
@@ -1067,7 +1283,7 @@ def main() -> int:
     for k in ("noise_hist", "grad_hist_relevant"):
         assert launches[k] > 0, f"the main path did not launch {k}"
     # K1 + K2: one launch, which takes the argmaxes too
-    assert launches["noise_hist"] == 1 and "hist_argmax" not in launches, launches
+    assert launches["noise_hist"] == 1 and launches["hist_argmax"] == 0, launches
     assert launches["sdev_noise_hist"] == 0, "the default analysis launched K7"
     m = cfg.out_margin
     assert out_gpu.shape == (SIZE - 2 * m, SIZE - 2 * m) and out_gpu.dtype == np.uint8
@@ -1381,6 +1597,12 @@ def main() -> int:
         f"{g.tally}; {len(graphs.cached_graphs())} graphs cached, "
         f"{torch.cuda.memory_reserved(dev) / 2 ** 30:.2f} GiB reserved on {dev}")
 
+    log(f"[4n] the spatial path: process_sharded of 2 x {SIZE}^2 with each image's rows split "
+        f"over the space entries (1x4 and 2x2 on {dev}), against process_batch_jit, bit for bit")
+    spatial_run = check_spatial(imgs[:2], cfg, dev, np.stack(
+        [synthetic_radiograph(600, a) for a in ("pelvis", "hand")]))
+    sp_counts = spatial_run["counts"][f"1x4 on {dev}"]
+
     # ---- 5. a batch of 4 ---------------------------------------------------
     for c in (cfg, cfg16):
         outs = musica.process_batch(imgs, c, "cuda")
@@ -1560,6 +1782,14 @@ def main() -> int:
                                 "grad_with_linear_image (one graph replay)"),
                 "sdev_noise_hist": (launches_fused, "process(fused_sdev=True) (one graph "
                                     "replay; the JAX package's hist_method=\"fused_sdev\")")}
+    # the spatial path's own count of each kernel ([4n]: 1x4 at 3072; K4
+    # from the 600 run)
+    spatial_from = {k: (sp_counts, f"process_sharded of 2 x {SIZE}^2 over 1x4 on {dev}")
+                    for k in ("noise_hist", "hist_argmax", "grad_hist_relevant")}
+    spatial_from["grad_hist"] = (spatial_run["counts"]["600 1x4"],
+                                 f"process_sharded of 2 x 600^2 over 1x4 on {dev}")
+    h_sum = h3072.clone()
+    k2_own_ms = cuda_ms(lambda: fh.hist_argmax(h_sum), 20, 2, device_only=True)
     kernels = []
     for name, (kern, plain) in cases.items():
         p_ms = cuda_ms(plain, 5, 1, device_only=True)
@@ -1570,7 +1800,7 @@ def main() -> int:
         if kern is None:
             # no launch of its own: the main path's K1 launches took it
             k_ms = fold["k1_ms"] - fold["k1_without_argmax_ms"]
-            row.update({"launches": launches["noise_hist"], "own_launches": 0,
+            row.update({"launches": launches["noise_hist"],
                         "folded_into": ["noise_hist", "sdev_noise_hist"],
                         "launched_by": "process (one graph replay; inside noise_hist's launch)"})
         else:
@@ -1584,8 +1814,14 @@ def main() -> int:
         if kern is None:
             row.update(fold)
             row["k7_argmax_ms"] = fold["k7_ms"] - fold["k7_without_argmax_ms"]
+            # its own launch (hist_argmax_kernel) on the spatial path
+            row.update({"own_launches": sp_counts["hist_argmax"], "own_ms": k2_own_ms})
+        if name in spatial_from:
+            counts, path = spatial_from[name]
+            row.update({"spatial_launches": counts[name], "spatial_launched_by": path})
         extra = ", ".join(f"{k} {row[k]}" for k in ("kernel_ms", "weight_plane_ms",
-                                                    "k7_argmax_ms") if k in row)
+                                                    "k7_argmax_ms", "own_ms",
+                                                    "spatial_launches") if k in row)
         log(f"  {name}: kernel {k_ms} ms, plain {p_ms} ms, bound {b_ms} ms ({b_by}), "
             f"one PyTorch call {lib_ms} ms" + (f"; {extra}" if extra else ""))
         kernels.append(row)

@@ -9,6 +9,14 @@
 //                          taken by the last block (hist_argmax.cuh)
 //   grad_hist_kernel<tile, true>  <- _grad_relevant_kernel (grad_hist_relevant_fused)
 //   grad_hist_kernel<tile, false> <- _grad_kernel (grad_hist_fused)
+//   hist_argmax_kernel  <- the argmax of noise_hist_argmax_multi, as a launch
+//                          of its own on the spatial path's summed histograms
+//
+// Each histogram entry takes a window of rows of its image: the rows a shard
+// of the spatial path (parallel/spatial.py) holds, with their global row
+// origin, which places the coverage, the tiles, the relevance border and the
+// CNR rows.  The histograms of a partition of the rows sum to the whole
+// image's; a whole image is the window of all its rows.
 //
 // The TPU kernels build each histogram as factorised one-hot matrix products
 // and encode the scan aborts with masked lane-roll prefix ORs, because the
@@ -80,8 +88,9 @@ constexpr int kNoiseWarps = kNoiseThreads / 32;
 
 struct NoiseLevels {
   const float* ptr[MUSICA_MAX_LEVELS];
-  int n[MUSICA_MAX_LEVELS];       // level size (square)
+  int n[MUSICA_MAX_LEVELS];       // level size: the row's width, columns past it read as 0.0
   int cov[MUSICA_MAX_LEVELS];     // scanned coverage, a multiple of the tile
+  int rows[MUSICA_MAX_LEVELS];    // rows scanned from ptr: the window's rows inside the coverage
   int stride[MUSICA_MAX_LEVELS];  // row stride in elements
   int tasks_per_row[MUSICA_MAX_LEVELS];
   int vec[MUSICA_MAX_LEVELS];     // rows 16-byte aligned: float4 loads
@@ -139,7 +148,7 @@ noise_hist_kernel(NoiseLevels lv, int levels, int* __restrict__ hists, int n_bin
   const int stride = lv.stride[level];
   const int groups = lv.cov[level] / kTile;
   const int per_row = max(lv.tasks_per_row[level], 1);  // 0: nothing covered
-  const int tasks = min(lv.cov[level], n) * per_row;
+  const int tasks = lv.rows[level] * per_row;
   const bool vec = lv.vec[level] != 0;
   const int lane = threadIdx.x & 31;
   const int part = lane % kGroupLanes;  // the lane's place in its group
@@ -201,7 +210,7 @@ noise_hist_serial_kernel(NoiseLevels lv, int* __restrict__ hists, int n_bins, in
   const int n = lv.n[level];
   const int cov = lv.cov[level];
   const int groups = cov / tile;
-  const long long work = (long long)min(cov, n) * groups;
+  const long long work = (long long)lv.rows[level] * groups;
   const float fbins = (float)n_bins;
   for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < work;
        t += (long long)gridDim.x * blockDim.x) {
@@ -232,7 +241,7 @@ int launch_noise(NoiseLevels lv, int levels, int* hists, int n_bins, float max_n
   long long tasks[MUSICA_MAX_LEVELS];
   for (int l = 0; l < levels; ++l) {
     lv.tasks_per_row[l] = (lv.cov[l] / kTile + kTaskGroups - 1) / kTaskGroups;
-    tasks[l] = (long long)(lv.cov[l] < lv.n[l] ? lv.cov[l] : lv.n[l]) * lv.tasks_per_row[l];
+    tasks[l] = (long long)lv.rows[l] * lv.tasks_per_row[l];
     if (tasks[l] > 0x3fffffffLL) return (int)cudaErrorInvalidValue;
     total += tasks[l];
   }
@@ -268,7 +277,7 @@ int launch_noise_serial(const NoiseLevels& lv, int levels, int* hists, int n_bin
                         cudaStream_t stream) {
   long long work = 0;
   for (int l = 0; l < levels; ++l) {
-    const long long w = (long long)(lv.cov[l] < lv.n[l] ? lv.cov[l] : lv.n[l]) * (lv.cov[l] / tile);
+    const long long w = (long long)lv.rows[l] * (lv.cov[l] / tile);
     if (w > work) work = w;
   }
   const size_t smem = noise_smem(n_bins);
@@ -294,14 +303,18 @@ constexpr int kSlots = 4;  // tiles a warp scans side by side
 constexpr int kGradBlocksPerSM = 5;
 
 struct GradArgs {
-  const float* recon;   // [n, n], row stride `stride`
+  const float* recon;   // rows [row0, row0 + rows) of an [n, n] image, row stride `stride`
   int n;
+  int row0;             // a multiple of the tile: tiles lie whole in one window
+  int rows;             // a multiple of the tile unless the window ends at row n
   int stride;
   const float* rel;     // relevance image (kRelevance == false)
   const float* norm;    // normalized image (kRelevance == true), same stride
-  const int* wplane;    // [ws, ws] block weights on the CNR grid: >= 0 the
-                        // weight, -1 a solid block (weight from the pixel test)
+  const int* wplane;    // rows [wrow0, ...) of the [ws, ws] block weights on the
+                        // CNR grid: >= 0 the weight, -1 a solid block (weight
+                        // from the pixel test)
   int ws;
+  int wrow0;
   int scale;            // the CNR nearest-upsample scale; it divides the tile
   int scale_shift;      // its log2 where the tile is a power of two
   int border;
@@ -338,8 +351,8 @@ grad_hist_kernel(GradArgs a, int* __restrict__ hist, int n_bins) {
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
-  const int tiles = (a.n + kTile - 1) / kTile;
-  const long long work = (long long)tiles * tiles;
+  const int tiles = (a.n + kTile - 1) / kTile;  // tiles along a row
+  const long long work = (long long)((a.rows + kTile - 1) / kTile) * tiles;
   const long long warps = (long long)gridDim.x * (blockDim.x / 32);
   const long long warp = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const long long begin = work * warp / warps;
@@ -355,9 +368,11 @@ grad_hist_kernel(GradArgs a, int* __restrict__ hist, int n_bins) {
     // column and the weight-plane entry of the current step
     int x0[kSlots], y[kSlots], yc[kSlots], wq[kSlots];
     bool live[kSlots], y_in[kSlots], y_inner[kSlots];
+    // x: a row of the window; its global row is a.row0 + x
     auto plane = [&](int x, int p) {
-      return (x < a.n && y_in[p])
-                 ? __ldg(a.wplane + (x >> a.scale_shift) * a.ws + yc[p]) : 0;
+      return (x < a.rows && y_in[p])
+                 ? __ldg(a.wplane + (((a.row0 + x) >> a.scale_shift) - a.wrow0) * a.ws + yc[p])
+                 : 0;
     };
 #pragma unroll
     for (int p = 0; p < kSlots; ++p) {
@@ -387,19 +402,21 @@ grad_hist_kernel(GradArgs a, int* __restrict__ hist, int n_bins) {
 #pragma unroll
       for (int p = 0; p < kSlots; ++p) {
         const int x = x0[p] + kStepRows * s;
-        const bool in = live[p] && x < a.n && y_in[p];
+        const bool in = live[p] && x < a.rows && y_in[p];
         const int off = x * a.stride + y[p];
         v[p] = in ? a.recon[off] : 0.0f;
         if (kRelevance) {
           // img_relevant.comp:27-63: the 100-px border is excluded; ramp
           // blocks carry their precomputed weight, solid blocks (-1) 100
           // where norm <= 0.9
-          const bool inner = in && y_inner[p] && x > a.border && x < a.n - a.border;
+          const int xg = a.row0 + x;
+          const bool inner = in && y_inner[p] && xg > a.border && xg < a.n - a.border;
           wp[p] = inner ? wq[p] : 0;
           r[p] = wp[p] < 0 ? a.norm[off] : 0.0f;
           // the next step's entry, read where it lies in another CNR row
           const int xn = x + kStepRows;
-          if (live[p] && s + 1 < kSteps && (xn >> a.scale_shift) != (x >> a.scale_shift))
+          if (live[p] && s + 1 < kSteps &&
+              ((a.row0 + xn) >> a.scale_shift) != (xg >> a.scale_shift))
             wq[p] = plane(xn, p);
         } else {
           r[p] = in ? a.rel[off] : 0.0f;
@@ -432,8 +449,8 @@ grad_hist_serial_kernel(GradArgs a, int* __restrict__ hist, int n_bins, int tile
   extern __shared__ int sh[];
   for (int b = threadIdx.x; b < n_bins; b += blockDim.x) sh[b] = 0;
   __syncthreads();
-  const int tiles = (a.n + tile - 1) / tile;
-  const long long work = (long long)tiles * tiles;
+  const int tiles = (a.n + tile - 1) / tile;  // tiles along a row
+  const long long work = (long long)((a.rows + tile - 1) / tile) * tiles;
   const float fbins = (float)n_bins;
   for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < work;
        t += (long long)gridDim.x * blockDim.x) {
@@ -445,7 +462,7 @@ grad_hist_serial_kernel(GradArgs a, int* __restrict__ hist, int n_bins, int tile
       for (int k = 0; k < tile; ++k) {
         const int y = ty * tile + k;
         const int off = x * a.stride + y;
-        const float v = x < a.n && y < a.n ? a.recon[off] : 0.0f;
+        const float v = x < a.rows && y < a.n ? a.recon[off] : 0.0f;
         if (v == 0.0f) {
           stop = true;
           break;
@@ -454,9 +471,10 @@ grad_hist_serial_kernel(GradArgs a, int* __restrict__ hist, int n_bins, int tile
         if (bin < 0 || bin >= n_bins) continue;  // OOB atomic, dropped
         int w;
         if (kRelevance) {
-          if (!(x > a.border && x < a.n - a.border && y > a.border && y < a.n - a.border))
+          const int xg = a.row0 + x;
+          if (!(xg > a.border && xg < a.n - a.border && y > a.border && y < a.n - a.border))
             continue;
-          const int wp = __ldg(a.wplane + (x / a.scale) * a.ws + y / a.scale);
+          const int wp = __ldg(a.wplane + (xg / a.scale - a.wrow0) * a.ws + y / a.scale);
           w = wp >= 0 ? wp : (a.norm[off] <= a.max_pixel ? 100 : 0);
         } else {
           w = __float2int_rz(__fmul_rn(a.rel[off], 100.0f));
@@ -478,9 +496,9 @@ int launch_grad(const GradArgs& a, int* hist, int n_bins, cudaStream_t stream) {
   long long wave = 0;
   const int e = wave_blocks(grad_hist_kernel<kTile, kRelevance>, kGradThreads, smem, &wave);
   if (e != (int)cudaSuccess) return e;
-  const long long tiles = (a.n + kTile - 1) / kTile;
+  const long long tiles = (long long)((a.rows + kTile - 1) / kTile) * ((a.n + kTile - 1) / kTile);
   const long long per_block = (long long)kGradThreads / 32 * kSlots;
-  const long long fill = (tiles * tiles + per_block - 1) / per_block;
+  const long long fill = (tiles + per_block - 1) / per_block;
   const int blocks = (int)(wave < fill ? wave : fill);
   grad_hist_kernel<kTile, kRelevance><<<blocks, kGradThreads, smem, stream>>>(a, hist, n_bins);
   return (int)cudaGetLastError();
@@ -498,12 +516,30 @@ int launch_grad_tile(const GradArgs& a, int* hist, int n_bins, int tile, cudaStr
   long long wave = 0;
   const int e = wave_blocks(grad_hist_serial_kernel<kRelevance>, kGradThreads, smem, &wave);
   if (e != (int)cudaSuccess) return e;
-  const long long tiles = (a.n + tile - 1) / tile;
-  long long blocks = (tiles * tiles + kGradThreads - 1) / kGradThreads;
+  const long long tiles = (long long)((a.rows + tile - 1) / tile) * ((a.n + tile - 1) / tile);
+  long long blocks = (tiles + kGradThreads - 1) / kGradThreads;
   if (blocks > wave) blocks = wave;
   grad_hist_serial_kernel<kRelevance><<<(int)blocks, kGradThreads, smem, stream>>>(
       a, hist, n_bins, tile);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// first-max bins of summed histograms (the spatial path's K2)
+// ---------------------------------------------------------------------------
+
+// One block takes every level's first-max bin of hists [levels, n_bins]
+// (hist_argmax.cuh::block_argmax, the code that K1's and K7's last block
+// runs after its ticket).  The spatial path launches it once per image on
+// the histograms that its shards' K1 partials sum to.  It reads levels *
+// n_bins ints once: 32 KB at the main path's 4 x 2048 bins, a few
+// microseconds of L2 round trips, bound by latency, not by bytes.
+__global__ void __launch_bounds__(kNoiseThreads)
+hist_argmax_kernel(const int* __restrict__ hists, int levels, int n_bins, int* max_bins) {
+  __shared__ unsigned long long scratch[kArgmaxMaxLevels];
+  if ((int)threadIdx.x < levels) scratch[threadIdx.x] = 0;  // below every key
+  __syncthreads();
+  block_argmax(hists, levels, n_bins, max_bins, scratch);
 }
 
 }  // namespace
@@ -516,20 +552,27 @@ const char* musica_error_string(int code) {
 
 // hists [levels, n_bins] int32 and *ticket zeroed by the caller (one
 // allocation: the wrapper zeroes it once); max_bins [levels] int32 receives
-// each row's first-max bin (nullptr: no argmax).  Returns a cudaError_t.
+// each row's first-max bin (nullptr: no argmax).  Level l is a window of
+// rows[l] rows of an [ns[l], ns[l]] image, from global row row0s[l] on,
+// ptrs[l] its first row; a whole image has row0 0 and rows ns[l].  Only the
+// window's rows inside the coverage are scanned, so the histograms of a
+// partition of the rows sum to the whole image's.  Returns a cudaError_t.
 int musica_noise_hist(const void* const* ptrs, const int* ns, const int* covs,
-                      const int* strides, int levels, int* hists, int* max_bins,
-                      unsigned* ticket, int n_bins, int tile, float max_noise,
-                      void* stream) {
+                      const int* strides, const int* row0s, const int* rows, int levels,
+                      int* hists, int* max_bins, unsigned* ticket, int n_bins, int tile,
+                      float max_noise, void* stream) {
   if (levels < 1 || levels > MUSICA_MAX_LEVELS || tile < 1 || n_bins < 1)
     return (int)cudaErrorInvalidValue;
   NoiseLevels lv = {};
   for (int l = 0; l < levels; ++l) {
-    if (ns[l] < 1 || covs[l] < 0 || covs[l] % tile != 0 || strides[l] < ns[l])
+    if (ns[l] < 1 || covs[l] < 0 || covs[l] % tile != 0 || strides[l] < ns[l] ||
+        row0s[l] < 0 || rows[l] < 0 || row0s[l] + rows[l] > ns[l])
       return (int)cudaErrorInvalidValue;
     lv.ptr[l] = static_cast<const float*>(ptrs[l]);
     lv.n[l] = ns[l];
     lv.cov[l] = covs[l];
+    const int in_cov = covs[l] - row0s[l];  // the window's rows inside the coverage
+    lv.rows[l] = in_cov <= 0 ? 0 : (rows[l] < in_cov ? rows[l] : in_cov);
     lv.stride[l] = strides[l];
     lv.vec[l] = (reinterpret_cast<unsigned long long>(ptrs[l]) % 16 == 0) && strides[l] % 4 == 0;
   }
@@ -548,38 +591,67 @@ int musica_noise_hist(const void* const* ptrs, const int* ns, const int* covs,
   }
 }
 
-// Gradation histogram weighted by trunc(rel * 100).  hist zeroed by the caller.
-int musica_grad_hist(const float* recon, const float* rel, int n, int stride,
-                     int* hist, int n_bins, int tile, void* stream) {
-  if (n < 1 || tile < 1 || n_bins < 1 || stride < n ||
-      (long long)n * stride > 0x7fffffffLL)
+// The row window [row0, row0 + rows) of an [n, n] image that the gradation
+// histograms take: row0 a multiple of the tile, rows one too unless the
+// window ends at row n, so that every tile lies in one window and the
+// histograms of a partition of the rows sum to the whole image's.
+static bool grad_window_ok(int n, int stride, int row0, int rows, int tile) {
+  return n >= 1 && tile >= 1 && stride >= n && row0 >= 0 && rows >= 1 && row0 + rows <= n &&
+         row0 % tile == 0 && (rows % tile == 0 || row0 + rows == n) &&
+         (long long)rows * stride <= 0x7fffffffLL;
+}
+
+// max_bins [levels] int32 receives the first-max bin of each row of hists
+// [levels, n_bins] int32.  Returns a cudaError_t.
+int musica_hist_argmax(const int* hists, int levels, int n_bins, int* max_bins,
+                       void* stream) {
+  if (levels < 1 || levels > kArgmaxMaxLevels || n_bins < 1) return (int)cudaErrorInvalidValue;
+  hist_argmax_kernel<<<1, kNoiseThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      hists, levels, n_bins, max_bins);
+  return (int)cudaGetLastError();
+}
+
+// Gradation histogram weighted by trunc(rel * 100) of the rows [row0, row0 +
+// rows) of an [n, n] image (recon and rel point at the window's first row;
+// a whole image: row0 0, rows n).  hist zeroed by the caller.
+int musica_grad_hist(const float* recon, const float* rel, int n, int stride, int row0,
+                     int rows, int* hist, int n_bins, int tile, void* stream) {
+  if (n_bins < 1 || !grad_window_ok(n, stride, row0, rows, tile))
     return (int)cudaErrorInvalidValue;
   GradArgs a = {};
   a.recon = recon;
   a.rel = rel;
   a.n = n;
+  a.row0 = row0;
+  a.rows = rows;
   a.stride = stride;
   return launch_grad_tile<false>(a, hist, n_bins, tile, static_cast<cudaStream_t>(stream));
 }
 
 // Gradation histogram with the relevance weight computed in the kernel from
-// the block weight plane and the normalized image.  hist zeroed by the caller.
-// The CNR scale divides the tile, as where the JAX package takes its fused
+// the block weight plane and the normalized image, on the row window as
+// musica_grad_hist's; wplane holds the plane's rows [wrow0, wrow0 + wrows),
+// which must cover the window's CNR rows.  hist zeroed by the caller.  The
+// CNR scale divides the tile, as where the JAX package takes its fused
 // kernel.
-int musica_grad_hist_relevant(const float* recon, const float* norm, int n,
-                              int stride, const int* wplane, int ws, int scale,
-                              int border, float max_pixel, int* hist,
+int musica_grad_hist_relevant(const float* recon, const float* norm, int n, int stride,
+                              int row0, int rows, const int* wplane, int ws, int wrow0,
+                              int wrows, int scale, int border, float max_pixel, int* hist,
                               int n_bins, int tile, void* stream) {
-  if (n < 1 || tile < 1 || n_bins < 1 || scale < 1 || tile % scale != 0 ||
-      stride < n || (long long)ws * scale < n || (long long)n * stride > 0x7fffffffLL)
+  if (n_bins < 1 || !grad_window_ok(n, stride, row0, rows, tile) || scale < 1 ||
+      tile % scale != 0 || (long long)ws * scale < n || wrow0 < 0 || row0 / scale < wrow0 ||
+      (row0 + rows - 1) / scale >= wrow0 + wrows)
     return (int)cudaErrorInvalidValue;
   GradArgs a = {};
   a.recon = recon;
   a.norm = norm;
   a.n = n;
+  a.row0 = row0;
+  a.rows = rows;
   a.stride = stride;
   a.wplane = wplane;
   a.ws = ws;
+  a.wrow0 = wrow0;
   a.scale = scale;
   a.scale_shift = __builtin_ctz((unsigned)scale);  // read where the tile is a power of two
   a.border = border;

@@ -3,7 +3,11 @@
 // fused_hist.cu, sdev_noise_hist_kernel in sdev_noise.cu).  It replaces the
 // in-kernel argmax of the JAX package's
 // ops/pallas/fused_hist.py::noise_hist_argmax_multi (_noise_multi_kernel,
-// which takes it on its last row block), so no launch of its own is needed.
+// which takes it on its last row block), so no launch of its own is needed
+// on a whole image.  A shard's partial histogram on the spatial path has no
+// meaningful argmax: there the summed histograms go through
+// hist_argmax_kernel (fused_hist.cu), one block that runs block_argmax, the
+// same code as after the ticket here.
 //
 // The rule is shaders/img_histogram_max.comp's: strict >, so the first
 // maximum wins and an all-zero row gives bin 0 (QUIRKS #9).
@@ -55,24 +59,13 @@ __device__ __forceinline__ void argmax_merge(int count, int bin, unsigned long l
   if ((threadIdx.x & 31) == 0) atomicMax(slot, best);
 }
 
-// scratch: kArgmaxScratchBytes of 8-byte-aligned shared memory that the
-// block no longer needs.  levels <= kArgmaxMaxLevels <= blockDim.x, and
-// blockDim.x a multiple of 32.  max_bins == nullptr: no argmax, nothing is
-// done.
-__device__ __forceinline__ void last_block_argmax(const int* hists, int levels, int n_bins,
-                                                  unsigned* ticket, int* max_bins,
-                                                  unsigned long long* scratch) {
-  if (max_bins == nullptr) return;
-  __syncthreads();  // the flush has read the bins: scratch is free
-  if ((int)threadIdx.x < levels) scratch[threadIdx.x] = 0;  // below every key
-  int last = 0;
-  if (threadIdx.x == 0) {
-    __threadfence();
-    last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y * gridDim.z - 1;
-    __threadfence();
-  }
-  if (!__syncthreads_or(last)) return;
-
+// Every level's first-max bin of hists [levels, n_bins] into max_bins,
+// taken by the calling block alone.  scratch: kArgmaxScratchBytes of
+// 8-byte-aligned shared memory, each of its first `levels` keys set to 0
+// and visible to the block (a barrier after the write).  levels <=
+// kArgmaxMaxLevels <= blockDim.x, and blockDim.x a multiple of 32.
+__device__ __forceinline__ void block_argmax(const int* hists, int levels, int n_bins,
+                                             int* max_bins, unsigned long long* scratch) {
   // a warp takes a run of consecutive chunks, mostly of one level; a lane
   // keeps the first maximum of its bins (they come in increasing order) in
   // two registers
@@ -110,4 +103,22 @@ __device__ __forceinline__ void last_block_argmax(const int* hists, int levels, 
   __syncthreads();
   if ((int)threadIdx.x < levels)
     max_bins[threadIdx.x] = (int)(0xffffffffu - (unsigned)(scratch[threadIdx.x] & 0xffffffffull));
+}
+
+// scratch: kArgmaxScratchBytes of 8-byte-aligned shared memory that the
+// block no longer needs.  max_bins == nullptr: no argmax, nothing is done.
+__device__ __forceinline__ void last_block_argmax(const int* hists, int levels, int n_bins,
+                                                  unsigned* ticket, int* max_bins,
+                                                  unsigned long long* scratch) {
+  if (max_bins == nullptr) return;
+  __syncthreads();  // the flush has read the bins: scratch is free
+  if ((int)threadIdx.x < levels) scratch[threadIdx.x] = 0;  // below every key
+  int last = 0;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y * gridDim.z - 1;
+    __threadfence();
+  }
+  if (!__syncthreads_or(last)) return;
+  block_argmax(hists, levels, n_bins, max_bins, scratch);
 }

@@ -35,10 +35,12 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "musica_error_string": ([_I], ctypes.c_char_p),
     "musica_noise_hist": ([ctypes.POINTER(_VP), ctypes.POINTER(_I),
-                           ctypes.POINTER(_I), ctypes.POINTER(_I), _I, _VP,
-                           _VP, _VP, _I, _I, ctypes.c_float, _VP], _I),
-    "musica_grad_hist": ([_VP, _VP, _I, _I, _VP, _I, _I, _VP], _I),
-    "musica_grad_hist_relevant": ([_VP, _VP, _I, _I, _VP, _I, _I, _I,
+                           ctypes.POINTER(_I), ctypes.POINTER(_I), ctypes.POINTER(_I),
+                           ctypes.POINTER(_I), _I, _VP, _VP, _VP, _I, _I, ctypes.c_float,
+                           _VP], _I),
+    "musica_hist_argmax": ([_VP, _I, _I, _VP, _VP], _I),
+    "musica_grad_hist": ([_VP, _VP, _I, _I, _I, _I, _VP, _I, _I, _VP], _I),
+    "musica_grad_hist_relevant": ([_VP, _VP, _I, _I, _I, _I, _VP, _I, _I, _I, _I, _I,
                                    ctypes.c_float, _VP, _I, _I, _VP], _I),
     "musica_histogram": ([_VP, _VP, ctypes.c_longlong, _VP, _I, _VP], _I),
     "musica_clahe_apply": ([_VP, _VP, _VP, _I, _I, _I, _VP], _I),

@@ -18,7 +18,18 @@ wrapper                    replaces (JAX package, ops/pallas/fused_hist.py)
 ``grad_hist_relevant``     ``grad_hist_relevant_fused``
                            (``_grad_relevant_kernel``)
 ``grad_hist``              ``grad_hist_fused`` (``_grad_kernel``)
+``noise_hists_rows``       ``noise_hist_fused`` on the spatial path: each
+                           level's histogram of a shard's rows, no argmax
+``hist_argmax``            ``noise_hist_argmax_multi``'s argmax, a launch of
+                           its own on the spatial path's summed histograms
 =========================  ==================================================
+
+K1, K3 and K4 take a window of rows of their images (the spatial path's
+shards, ``parallel/spatial.py``): ``row0``, the window's first global row,
+places the coverage, the tiles, the relevance border and the CNR rows, so
+the histograms of a partition of the rows sum to the whole image's; each
+plain version is the whole-image plain function on the window's rows.  A
+whole image is the window of all its rows.
 
 Each histogram kernel is bound by one read of its images (4 bytes/px for
 the noise histogram; 8 for the gradation histograms: recon + the relevance
@@ -108,6 +119,47 @@ def noise_hists_plain(levels, cfg) -> torch.Tensor:
     return torch.stack(hists)
 
 
+def noise_hists_rows_plain(windows, row0s, cfg) -> torch.Tensor:
+    """Plain version of ``noise_hists_rows``: per level,
+    ``stats.noise_bins_rows`` + an int64 ``scatter_add_``."""
+    nb = cfg.noise_histogram_bins
+    return torch.stack([histogram_plain(*stats.noise_bins_rows(sd, r0, cfg), nb)
+                        for sd, r0 in zip(windows, row0s)])
+
+
+def _scanned_rows(sd, row0: int, cfg) -> int:
+    """Rows of the window [row0, row0 + rows) of an [n, n] level inside its
+    coverage."""
+    return max(0, min(sd.shape[-2], stats.coverage(sd.shape[-1], cfg) - row0))
+
+
+def _launch_noise(levels, row0s, cfg, argmax: bool):
+    """K1 on CUDA windows of rows: (histograms, first-max bins or None)."""
+    dev = levels[0].device
+    nb, tile = cfg.noise_histogram_bins, cfg.histogram_area_size
+    launch.check_bins(nb)
+    if not 1 <= len(levels) <= _MAX_LEVELS:
+        raise ValueError(f"{len(levels)} levels, at most {_MAX_LEVELS}")
+    for i, (sd, r0) in enumerate(zip(levels, row0s)):
+        launch.check_rows(sd, f"level {i}")
+        if not 0 <= r0 <= sd.shape[-1] - sd.shape[-2]:
+            raise ValueError(f"level {i}: rows [{r0}, {r0 + sd.shape[-2]}) of a "
+                             f"{sd.shape[-1]}-row level")
+    L = len(levels)
+    lib = launch.lib()
+    hists, max_bins, ticket = _hist_buffers(L, nb, dev)
+    ints = ctypes.c_int * L
+    ptrs = (ctypes.c_void_p * L)(*[sd.data_ptr() for sd in levels])
+    ns = ints(*[sd.shape[-1] for sd in levels])
+    covs = ints(*[stats.coverage(sd.shape[-1], cfg) for sd in levels])
+    strides = ints(*[max(sd.stride(0), sd.shape[-1]) for sd in levels])
+    launch.launch(lib, "musica_noise_hist", "noise_hist", dev, ptrs, ns, covs, strides,
+                  ints(*row0s), ints(*[sd.shape[-2] for sd in levels]), L, hists.data_ptr(),
+                  max_bins.data_ptr() if argmax else None, ticket.data_ptr(), nb, tile,
+                  float(cfg.max_noise_value))
+    return hists, (max_bins if argmax else None)
+
+
 def noise_hists(levels, cfg):
     """(noise histograms int32 [L, n_bins], their first-max bins int32 [L])
     of a list of [n_i, n_i] float32 level images, each scanned over its
@@ -116,23 +168,42 @@ def noise_hists(levels, cfg):
     if dev.type == "cpu":
         hists = noise_hists_plain(levels, cfg)
         return hists, hist_argmax_plain(hists)
-    nb, tile = cfg.noise_histogram_bins, cfg.histogram_area_size
-    launch.check_bins(nb)
-    if not 1 <= len(levels) <= _MAX_LEVELS:
-        raise ValueError(f"{len(levels)} levels, at most {_MAX_LEVELS}")
     for i, sd in enumerate(levels):
         launch.check_image(sd, f"level {i}")
-    L = len(levels)
-    lib = launch.lib()
-    hists, max_bins, ticket = _hist_buffers(L, nb, dev)
-    ptrs = (ctypes.c_void_p * L)(*[sd.data_ptr() for sd in levels])
-    ns = (ctypes.c_int * L)(*[sd.shape[-1] for sd in levels])
-    covs = (ctypes.c_int * L)(*[stats.coverage(sd.shape[-1], cfg) for sd in levels])
-    strides = (ctypes.c_int * L)(*[sd.stride(0) for sd in levels])
-    launch.launch(lib, "musica_noise_hist", "noise_hist", dev, ptrs, ns, covs, strides, L,
-                  hists.data_ptr(), max_bins.data_ptr(), ticket.data_ptr(), nb, tile,
-                  float(cfg.max_noise_value))
-    return hists, max_bins
+    return _launch_noise(levels, [0] * len(levels), cfg, argmax=True)
+
+
+def noise_hists_rows(windows, row0s, cfg):
+    """Partial noise histograms (int32 [L, n_bins]) of windows of rows:
+    ``windows[j]`` [rows_j, n_j] holds the rows [row0s[j], row0s[j] +
+    rows_j) of an [n_j, n_j] level (0 rows: none of it), each scanned where
+    it lies inside its level's coverage, in one launch without the argmax;
+    ``None``, and no launch, where no window holds a covered row."""
+    dev = launch.device_of(windows)
+    if not any(_scanned_rows(sd, r0, cfg) for sd, r0 in zip(windows, row0s)):
+        return None
+    if dev.type == "cpu":
+        return noise_hists_rows_plain(windows, row0s, cfg)
+    return _launch_noise(windows, list(row0s), cfg, argmax=False)[0]
+
+
+def hist_argmax(hists: torch.Tensor) -> torch.Tensor:
+    """First-max bins (int32 [L]) of int32 histograms [L, n_bins], one
+    launch (``hist_argmax_kernel``): the spatial path's argmax of its
+    summed noise histograms."""
+    dev = launch.device_of([hists])
+    if dev.type == "cpu":
+        return hist_argmax_plain(hists)
+    if hists.dtype != torch.int32 or hists.ndim != 2 or not hists.is_contiguous():
+        raise ValueError(f"hists: expected contiguous int32 [L, n_bins], got "
+                         f"{hists.dtype} {tuple(hists.shape)}")
+    L, nb = hists.shape
+    if not 1 <= L <= _MAX_LEVELS:
+        raise ValueError(f"{L} levels, at most {_MAX_LEVELS}")
+    max_bins = torch.empty(L, dtype=torch.int32, device=dev)
+    launch.launch(launch.lib(), "musica_hist_argmax", "hist_argmax", dev, hists.data_ptr(), L,
+                  nb, max_bins.data_ptr())
+    return max_bins
 
 
 # ----------------------------------------------------------------------
@@ -182,29 +253,33 @@ def sdev_noise_hists(bands, cfg, grid: int = 0):
 # gradation histograms (kernels 3 and 4 of the JAX package)
 # ----------------------------------------------------------------------
 
-def grad_hist_plain(recon, relevant, cfg):
+def grad_hist_plain(recon, relevant, cfg, row0: int = 0):
     """Plain version: ``gradation.gradation_bins`` + an int64 scatter-add."""
+    gradation.check_window(recon.shape[-1], row0, recon.shape[-2], cfg.histogram_area_size)
     bins, w = gradation.gradation_bins(recon, relevant, cfg)
     return histogram_plain(bins, w, cfg.grad_histogram_bins)
 
 
-def grad_hist(recon: torch.Tensor, relevant: torch.Tensor, cfg) -> torch.Tensor:
+def grad_hist(recon: torch.Tensor, relevant: torch.Tensor, cfg, row0: int = 0) -> torch.Tensor:
     """Gradation histogram (int32 [n_bins]) of recon [n, n] weighted by
-    trunc(relevant * 100), with the whole-tile return at the first 0.0."""
+    trunc(relevant * 100), with the whole-tile return at the first 0.0; of
+    the rows [row0, row0 + rows) of an [n, n] image where recon and
+    relevant are [rows, n] (``gradation.check_window``)."""
     dev = launch.device_of([recon, relevant])
     if dev.type == "cpu":
-        return grad_hist_plain(recon, relevant, cfg)
+        return grad_hist_plain(recon, relevant, cfg, row0)
     nb, tile = cfg.grad_histogram_bins, cfg.histogram_area_size
     launch.check_bins(nb)
-    launch.check_image(recon, "recon")
-    launch.check_image(relevant, "relevant")
+    launch.check_rows(recon, "recon")
+    launch.check_rows(relevant, "relevant")
     if relevant.shape != recon.shape:
         raise ValueError(f"relevant {tuple(relevant.shape)} != recon {tuple(recon.shape)}")
+    rows, n = recon.shape
+    gradation.check_window(n, row0, rows, tile)
     lib = launch.lib()
-    n = recon.shape[-1]
     hist = torch.zeros(nb, dtype=torch.int32, device=dev)
     launch.launch(lib, "musica_grad_hist", "grad_hist", dev, recon.data_ptr(),
-                  relevant.data_ptr(), n, n, hist.data_ptr(), nb, tile)
+                  relevant.data_ptr(), n, n, row0, rows, hist.data_ptr(), nb, tile)
     return hist
 
 
@@ -223,48 +298,60 @@ def relevance_weight_plane(cnr: torch.Tensor, cfg) -> torch.Tensor:
     return torch.where(solid, -1, torch.where(ramp, w_ramp, 0)).to(torch.int32)
 
 
-def grad_hist_relevant_plain(recon, normalized, cnr, cfg):
+def grad_hist_relevant_plain(recon, normalized, cnr, cfg, row0: int = 0, cnr_row0: int = 0):
     """Plain version: the relevance image (``noise.img_relevant``), then
     ``grad_hist_plain``."""
-    return grad_hist_plain(recon, noise.img_relevant(normalized, cnr, cfg), cfg)
+    return grad_hist_plain(recon, noise.img_relevant(normalized, cnr, cfg, row0, cnr_row0),
+                           cfg, row0)
 
 
 def grad_hist_relevant(recon: torch.Tensor, normalized: torch.Tensor,
-                       cnr: torch.Tensor, cfg) -> torch.Tensor:
+                       cnr: torch.Tensor, cfg, row0: int = 0,
+                       cnr_row0: int = 0) -> torch.Tensor:
     """Gradation histogram (int32 [n_bins]) with the relevance weight
     computed in the kernel from the small CNR map and the normalized image
     (no full-size relevance image).  On a CUDA device the CNR scale must
     divide the histogram tile, where ``gradation_histogram_fused_relevance``
-    takes this path."""
+    takes this path.  A window: recon and normalized [rows, n] hold the rows
+    [row0, row0 + rows) as ``grad_hist``'s, cnr the CNR rows [cnr_row0,
+    ...) that they read (``noise.cnr_rows``), all its columns."""
     dev = launch.device_of([recon, normalized, cnr])
     if dev.type == "cpu":
-        return grad_hist_relevant_plain(recon, normalized, cnr, cfg)
+        return grad_hist_relevant_plain(recon, normalized, cnr, cfg, row0, cnr_row0)
     nb, tile = cfg.grad_histogram_bins, cfg.histogram_area_size
     launch.check_bins(nb)
-    launch.check_image(recon, "recon")
-    launch.check_image(normalized, "normalized")
-    launch.check_image(cnr, "cnr")
+    launch.check_rows(recon, "recon")
+    launch.check_rows(normalized, "normalized")
+    launch.check_rows(cnr, "cnr")
     if normalized.shape != recon.shape:
         raise ValueError(f"normalized {tuple(normalized.shape)} != recon {tuple(recon.shape)}")
-    n = recon.shape[-1]
+    rows, n = recon.shape
+    gradation.check_window(n, row0, rows, tile)
     scale = int(math.ceil(n / cnr.shape[-1]))
     if tile % scale:
         raise ValueError(f"CNR scale {scale} ({n} px over a {cnr.shape[-1]}-px CNR map) "
                          f"does not divide the {tile}-px tile")
+    lo, hi = noise.cnr_rows(cnr.shape[-1], n, row0, row0 + rows)
+    if not cnr_row0 <= lo < hi <= cnr_row0 + cnr.shape[-2]:
+        raise ValueError(f"cnr holds CNR rows [{cnr_row0}, {cnr_row0 + cnr.shape[-2]}), "
+                         f"the window reads [{lo}, {hi})")
     return _launch_grad_hist_relevant(recon, normalized,
-                                      relevance_weight_plane(cnr, cfg).contiguous(), cfg)
+                                      relevance_weight_plane(cnr, cfg).contiguous(), cfg,
+                                      row0, cnr_row0)
 
 
-def _launch_grad_hist_relevant(recon, normalized, wplane, cfg) -> torch.Tensor:
+def _launch_grad_hist_relevant(recon, normalized, wplane, cfg, row0: int = 0,
+                               wrow0: int = 0) -> torch.Tensor:
     """The kernel of ``grad_hist_relevant`` alone, on CUDA tensors the
     wrapper has checked, given the block weight plane
-    (``relevance_weight_plane``); ``chip_smoke.py`` times it so."""
+    (``relevance_weight_plane``) of the CNR rows [wrow0, ...);
+    ``chip_smoke.py`` times it so."""
     dev = recon.device
-    nb, n, ws = cfg.grad_histogram_bins, recon.shape[-1], wplane.shape[-1]
+    nb, (rows, n), ws = cfg.grad_histogram_bins, recon.shape, wplane.shape[-1]
     lib = launch.lib()
     hist = torch.zeros(nb, dtype=torch.int32, device=dev)
     launch.launch(lib, "musica_grad_hist_relevant", "grad_hist_relevant", dev,
-                  recon.data_ptr(), normalized.data_ptr(), n, n, wplane.data_ptr(), ws,
-                  int(math.ceil(n / ws)), cfg.relevant_border, float(cfg.relevant_max_pixel),
-                  hist.data_ptr(), nb, cfg.histogram_area_size)
+                  recon.data_ptr(), normalized.data_ptr(), n, n, row0, rows, wplane.data_ptr(),
+                  ws, wrow0, wplane.shape[-2], int(math.ceil(n / ws)), cfg.relevant_border,
+                  float(cfg.relevant_max_pixel), hist.data_ptr(), nb, cfg.histogram_area_size)
     return hist

@@ -27,7 +27,7 @@ import torch
 # thread captures a CUDA graph does not run then: it goes to that capture's
 # tally (``recorded_launches``), and each replay of the graph adds the tally
 # (``add_launches``), so the counts mean kernels that ran on either path.
-LAUNCHES = {"noise_hist": 0, "grad_hist_relevant": 0, "grad_hist": 0,
+LAUNCHES = {"noise_hist": 0, "hist_argmax": 0, "grad_hist_relevant": 0, "grad_hist": 0,
             "histogram": 0, "clahe_apply": 0, "sdev_noise_hist": 0}
 _COUNT_LOCK = threading.Lock()
 _CAPTURING = threading.local()  # .tally: this thread's capture tally, if any
@@ -85,10 +85,18 @@ def device_of(tensors) -> torch.device:
 
 def check_image(t: torch.Tensor, name: str, dtype=torch.float32) -> None:
     """A contiguous square [n, n] image of ``dtype``."""
+    check_rows(t, name, dtype)
+    if t.shape[0] != t.shape[1]:
+        raise ValueError(f"{name}: expected a square [n, n] image, got {tuple(t.shape)}")
+
+
+def check_rows(t: torch.Tensor, name: str, dtype=torch.float32) -> None:
+    """A contiguous [rows, n] window of rows of an [n, n] image, of ``dtype``."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.ndim != 2 or t.shape[0] != t.shape[1]:
-        raise ValueError(f"{name}: expected a square [n, n] image, got {tuple(t.shape)}")
+    if t.ndim != 2 or t.shape[0] > t.shape[1]:
+        raise ValueError(f"{name}: expected [rows, n] rows of an [n, n] image, got "
+                         f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 

@@ -29,23 +29,38 @@ def gradation_bins(recon: torch.Tensor, relevant: torch.Tensor, cfg):
     quirk (QUIRKS #16, #17): the whole 16x16 tile scan (rows of the tile
     outer, 16 pixels along axis -1 inner) aborts at its first pixel == 0.0.
     bin = trunc(v * 1024); weight = trunc(relevant * 100) as int64; OOB bins
-    are dropped atomics.  Pixels past n read as 0.0 (ceil dispatch)."""
-    n = recon.shape[-1]
+    are dropped atomics.  Pixels past n read as 0.0 (ceil dispatch).
+
+    A window of rows [rows, n] whose first row is a multiple of the tile,
+    and whose rows are one too unless it ends at row n (``check_window``),
+    gives the whole image's (bin, weight) of those rows."""
+    h, n = recon.shape[-2], recon.shape[-1]
     tile = cfg.histogram_area_size
     cov = -(-n // tile) * tile
+    cov_h = -(-h // tile) * tile
     v, r = recon, relevant
-    if cov > n:
-        v = F.pad(v, (0, cov - n, 0, cov - n))
-        r = F.pad(r, (0, cov - n, 0, cov - n))
-    t = cov // tile
-    zero = (v == 0.0).reshape(t, tile, t, tile).permute(0, 2, 1, 3)
-    dead = torch.cumsum(zero.reshape(t, t, tile * tile).to(torch.int32), -1)
-    alive = (dead == 0).reshape(t, t, tile, tile).permute(0, 2, 1, 3)
+    if cov > n or cov_h > h:
+        v = F.pad(v, (0, cov - n, 0, cov_h - h))
+        r = F.pad(r, (0, cov - n, 0, cov_h - h))
+    t, th = cov // tile, cov_h // tile
+    zero = (v == 0.0).reshape(th, tile, t, tile).permute(0, 2, 1, 3)
+    dead = torch.cumsum(zero.reshape(th, t, tile * tile).to(torch.int32), -1)
+    alive = (dead == 0).reshape(th, t, tile, tile).permute(0, 2, 1, 3)
     bins = (v * float(cfg.grad_histogram_bins)).to(torch.int32)  # trunc
     w = (r * 100.0).to(torch.int32).to(torch.int64)
-    keep = alive.reshape(cov, cov) & (bins >= 0) & (bins < cfg.grad_histogram_bins)
+    keep = alive.reshape(cov_h, cov) & (bins >= 0) & (bins < cfg.grad_histogram_bins)
     w = torch.where(keep, w, 0)
     return bins.reshape(-1), w.reshape(-1)
+
+
+def check_window(n: int, row0: int, rows: int, tile: int) -> None:
+    """Raise unless rows [row0, row0 + rows) of an [n, n] image hold whole
+    histogram tiles: row0 a multiple of the tile, rows one too unless the
+    window ends at row n."""
+    if not (0 <= row0 and 1 <= rows and row0 + rows <= n and row0 % tile == 0
+            and (rows % tile == 0 or row0 + rows == n)):
+        raise ValueError(f"rows [{row0}, {row0 + rows}) of a {n}-row image do not hold "
+                         f"whole {tile}-px tiles")
 
 
 def gradation_histogram(recon: torch.Tensor, relevant: torch.Tensor,

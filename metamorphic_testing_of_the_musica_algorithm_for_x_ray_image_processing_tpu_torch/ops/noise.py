@@ -4,11 +4,17 @@
 The CNR image lives at the cnr_level resolution (384^2 for a 3072 input)
 and is read at finer resolutions through integer nearest upsampling
 (scale = ceil(target/size), idx = x // scale).
+
+On the spatial path (``parallel/spatial.py``) a shard holds a window of
+rows: ``row0`` is the window's first global row and ``cnr_row0`` that of
+the CNR rows it is given (``cnr_rows`` says which), so every row index and
+the relevance border are global and a window equals the whole op's rows.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,22 +45,35 @@ def img_cnr(sdev: torch.Tensor, max_bin: torch.Tensor, cfg) -> torch.Tensor:
     return sdev / ref / f32(cfg.max_cnr_value, sdev)
 
 
-def nearest_upsample(small: torch.Tensor, target: int) -> torch.Tensor:
+def cnr_rows(size: int, target: int, r0: int, r1: int) -> tuple:
+    """[lo, hi): the rows of a ``size``-px CNR map that rows [r0, r1) of its
+    nearest upsample to ``target`` px read."""
+    scale = int(math.ceil(target / size))
+    return r0 // scale, (r1 - 1) // scale + 1
+
+
+def nearest_upsample(small: torch.Tensor, target: int, row0: int = 0,
+                     rows: Optional[int] = None, small_row0: int = 0) -> torch.Tensor:
     """Integer-scale nearest upsample: scale = ceil(target/size),
-    idx = x // scale (a repeat truncated to target)."""
+    idx = x // scale (a repeat truncated to target).  ``size`` is the small
+    image's width; with ``rows`` only the output rows [row0, row0 + rows),
+    ``small`` holding the rows [small_row0, ...) of the small image."""
     scale = int(math.ceil(target / small.shape[-1]))
-    up = torch.repeat_interleave(small, scale, dim=-2)[..., :target, :]
+    start = row0 - small_row0 * scale
+    rows = target if rows is None else rows
+    up = torch.repeat_interleave(small, scale, dim=-2)[..., start:start + rows, :]
     return torch.repeat_interleave(up, scale, dim=-1)[..., :, :target]
 
 
 def noise_reduction(bandpass: torch.Tensor, cnr: torch.Tensor,
                     low_cnr: float, low_factor: float,
                     high_cnr: float, high_factor: float,
-                    cfg) -> torch.Tensor:
+                    cfg, row0: int = 0, cnr_row0: int = 0) -> torch.Tensor:
     """Per-pixel damping/boost from the CNR map.  Quirk preserved: inside
     the ramp the factor is ``m * cnr + lowFactor`` with the ABSOLUTE cnr, so
     the ramp is anchored at cnr = 0 (QUIRKS #13, #14)."""
-    cnr_up = nearest_upsample(cnr, bandpass.shape[-1]) * cfg.max_cnr_value
+    cnr_up = nearest_upsample(cnr, bandpass.shape[-1], row0, bandpass.shape[-2],
+                              cnr_row0) * cfg.max_cnr_value
     m = float(np.float32((high_factor - low_factor) / (high_cnr - low_cnr)))
     lo_f = float(np.float32(low_factor))
     hi_f = float(np.float32(high_factor))
@@ -65,16 +84,16 @@ def noise_reduction(bandpass: torch.Tensor, cnr: torch.Tensor,
 
 
 def img_relevant(normalized: torch.Tensor, cnr: torch.Tensor,
-                 cfg) -> torch.Tensor:
+                 cfg, row0: int = 0, cnr_row0: int = 0) -> torch.Tensor:
     """Relevance mask from CNR + intensity (shaders/img_relevant.comp:27-63):
     ramp (cnr/6)^5 for cnr in [1, 6]; 1.0 for cnr in [6, 256] and pixel
     <= 0.90; 100-px border excluded; else 0."""
-    size = normalized.shape[-1]
-    cnr_up = nearest_upsample(cnr, size) * cfg.max_cnr_value
+    rows, size = normalized.shape[-2], normalized.shape[-1]
+    cnr_up = nearest_upsample(cnr, size, row0, rows, cnr_row0) * cfg.max_cnr_value
     xs = torch.arange(size, device=normalized.device)
     b = cfg.relevant_border
     inb = (xs > b) & (xs < size - b)
-    inb2d = inb[:, None] & inb[None, :]
+    inb2d = inb[row0:row0 + rows, None] & inb[None, :]
     lo = cfg.relevant_cnr_low
     top = cfg.relevant_cnr_low + cfg.relevant_cnr_ramp
     ramp_region = (cnr_up >= lo) & (cnr_up <= top) & inb2d

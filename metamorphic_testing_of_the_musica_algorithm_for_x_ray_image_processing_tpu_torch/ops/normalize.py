@@ -35,20 +35,26 @@ def _chain_misaligned(n: int, area: int = 8) -> bool:
     return False
 
 
-def normalize_from_u16(img_u16: torch.Tensor, quirks: bool = True):
+def normalize_from_u16(img_u16: torch.Tensor, quirks: bool = True, extrema=None):
     """(normalized, vmax, vmin) from an integer image [..., n, n].
 
     sqrt is monotone, so the global max/min commute with it: the reductions
     run on the input values and the sqrt is applied to the two scalars.
     vmax and vmin stay 0-d (or batch-shaped) tensors on the input's device.
-    """
+
+    ``extrema``: the image's (max, min) as float32 tensors, reduced
+    elsewhere; ``img_u16`` is then a window of rows [rows, n] of an [n, n]
+    image (the spatial path's shard) and is normalized as the whole."""
     x = img_u16.to(torch.float32)  # u16 -> f32 is exact
-    vmax = _sqrt(x.amax(dim=(-2, -1)))
-    vmin = _sqrt(x.amin(dim=(-2, -1)))
+    if extrema is None:
+        hi, lo, h = x.amax(dim=(-2, -1)), x.amin(dim=(-2, -1)), img_u16.shape[-2]
+    else:
+        (hi, lo), h = extrema, img_u16.shape[-1]
+    vmax = _sqrt(hi)
+    vmin = _sqrt(lo)
     if quirks:
         vmax = torch.trunc(vmax)
-        if (_chain_misaligned(img_u16.shape[-1])
-                or _chain_misaligned(img_u16.shape[-2])):
+        if _chain_misaligned(img_u16.shape[-1]) or _chain_misaligned(h):
             vmin = torch.zeros_like(vmin)
         else:
             vmin = torch.trunc(vmin)

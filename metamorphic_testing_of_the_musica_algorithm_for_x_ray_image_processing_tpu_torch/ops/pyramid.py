@@ -17,6 +17,13 @@ default.
 Boundary handling matches the GLSL ``mirror()``: one reflection without edge
 repeat; for axes of size <= 2 the reflected index can stay out of bounds,
 and the Vulkan ``imageLoad`` then returns 0 (QUIRKS #4).
+
+The ``*_rows`` forms compute a window of output rows of the whole-image op
+from a window of its input rows (the spatial path's shards,
+``parallel/spatial.py``): the same taps in the same order, with the mirror
+taken at the image's true first and last rows, so the window equals the
+whole op's rows bit for bit.  ``needed_rows`` says which input rows a
+window reads.
 """
 
 from __future__ import annotations
@@ -53,13 +60,14 @@ def _mirror_idx(n: int):
     return idx, valid
 
 
-def mirror_pad(img: torch.Tensor) -> torch.Tensor:
-    """Pad both spatial axes by 2 with the mirror boundary (OOB -> 0).
+def mirror_pad(img: torch.Tensor, axes=None) -> torch.Tensor:
+    """Pad both spatial axes (or ``axes``) by 2 with the mirror boundary
+    (OOB -> 0).
 
     Built from slices and zeros on the image's device, so no index table is
     copied from the host."""
     out = img
-    for axis in (img.ndim - 2, img.ndim - 1):
+    for axis in axes or (img.ndim - 2, img.ndim - 1):
         n = img.shape[axis]
         idx, valid = _mirror_idx(n)
 
@@ -111,27 +119,31 @@ def smooth_downsample(img: torch.Tensor) -> torch.Tensor:
             out = out + _W[n] * _slice(tmp, ca, n, n + 2 * dw - 1, 2)
         return out.to(img.dtype)
 
-    def decimate_axis(a, axis, n, dn):
-        idx, valid = _mirror_idx(n)  # taps for positions -2..n+1
+    tmp = _decimate_axis(x, ra, h, dh)
+    return _decimate_axis(tmp, ca, w, dw).to(img.dtype)
 
-        def tap_rows(positions):
-            total = None
-            for m, pos in enumerate(positions):
-                row = a.narrow(axis, int(idx[pos + 2]), 1)
-                row = row * float(np.float32(_W[m]) * valid[pos + 2])
-                total = row if total is None else total + row
-            return total
 
-        first = tap_rows([-2, -1, 0, 1, 2])
-        last = tap_rows([2 * (dn - 1) + m - 2 for m in range(5)])
-        interior = _W[0] * _slice(a, axis, 0, 2 * (dn - 2) - 1, 2)
-        for m in range(1, 5):
-            interior = interior + _W[m] * _slice(a, axis, m,
-                                                 m + 2 * (dn - 2) - 1, 2)
-        return torch.cat([first, interior, last], dim=axis)
+def _decimate_axis(a: torch.Tensor, axis: int, n: int, dn: int) -> torch.Tensor:
+    """``smooth_downsample``'s pass along one axis of size n >= 8: the first
+    and last outputs through mirrored taps, the interior as strided
+    slices."""
+    idx, valid = _mirror_idx(n)  # taps for positions -2..n+1
 
-    tmp = decimate_axis(x, ra, h, dh)
-    return decimate_axis(tmp, ca, w, dw).to(img.dtype)
+    def tap_rows(positions):
+        total = None
+        for m, pos in enumerate(positions):
+            row = a.narrow(axis, int(idx[pos + 2]), 1)
+            row = row * float(np.float32(_W[m]) * valid[pos + 2])
+            total = row if total is None else total + row
+        return total
+
+    first = tap_rows([-2, -1, 0, 1, 2])
+    last = tap_rows([2 * (dn - 1) + m - 2 for m in range(5)])
+    interior = _W[0] * _slice(a, axis, 0, 2 * (dn - 2) - 1, 2)
+    for m in range(1, 5):
+        interior = interior + _W[m] * _slice(a, axis, m,
+                                             m + 2 * (dn - 2) - 1, 2)
+    return torch.cat([first, interior, last], dim=axis)
 
 
 def upsample(img: torch.Tensor, out_size: int) -> torch.Tensor:
@@ -156,6 +168,21 @@ def _interleave(a: torch.Tensor, b: torch.Tensor, axis: int,
     return _slice(st.reshape(shape), axis, 0, total)
 
 
+_WE = (_W[0], _W[2], _W[4])  # upsample taps hitting even (data) positions
+_WO = (_W[1], _W[3])         # taps hitting odd (zero) positions
+
+
+def _phase_conv(a: torch.Tensor, axis: int, n: int, edge: int):
+    """The two output phases of the x2 upsample's smooth along ``axis`` of
+    the small image ``a`` (``upsample_smooth``'s polyphase form)."""
+    n_even, n_odd = -(-n // 2), n // 2
+    e = torch.cat([a.narrow(axis, 1, 1), a, a.narrow(axis, edge, 1)], dim=axis)
+    ph0 = (_WE[0] * e.narrow(axis, 0, n_even) + _WE[1] * e.narrow(axis, 1, n_even)
+           + _WE[2] * e.narrow(axis, 2, n_even))
+    ph1 = _WO[0] * e.narrow(axis, 1, n_odd) + _WO[1] * e.narrow(axis, 2, n_odd)
+    return ph0, ph1
+
+
 def upsample_smooth(img: torch.Tensor, out_size: int) -> torch.Tensor:
     """Zero-stuff then smooth with x4 gain (the pyramid expand step), in
     polyphase form: three of every five taps land on stuffed zeros, so each
@@ -167,26 +194,13 @@ def upsample_smooth(img: torch.Tensor, out_size: int) -> torch.Tensor:
     if n < 6 or img.shape[-1] < 3 or img.shape[-2] < 3:
         return smooth(upsample(img, out_size), gain=4.0)
     r = img[..., :src, :src].double()
-    we = (_W[0], _W[2], _W[4])  # taps hitting even (data) positions
-    wo = (_W[1], _W[3])         # taps hitting odd (zero) positions
-    n_even = -(-n // 2)
-    n_odd = n // 2
     # boundary extension on the small grid: up-grid mirror(-2) = 2 -> r[1];
     # mirror(2j) for 2j > n-1 -> 2(n-1) - 2j, giving r[n-1-src] at j = src
     edge = n - 1 - src
-
-    def phase_conv(a, axis):
-        e = torch.cat([a.narrow(axis, 1, 1), a, a.narrow(axis, edge, 1)],
-                      dim=axis)
-        ph0 = (we[0] * e.narrow(axis, 0, n_even) + we[1] * e.narrow(axis, 1, n_even)
-               + we[2] * e.narrow(axis, 2, n_even))
-        ph1 = wo[0] * e.narrow(axis, 1, n_odd) + wo[1] * e.narrow(axis, 2, n_odd)
-        return ph0, ph1
-
     ra, ca = r.ndim - 2, r.ndim - 1
-    r0, r1 = phase_conv(r, ra)
-    a00, a01 = phase_conv(r0, ca)
-    a10, a11 = phase_conv(r1, ca)
+    r0, r1 = _phase_conv(r, ra, n, edge)
+    a00, a01 = _phase_conv(r0, ca, n, edge)
+    a10, a11 = _phase_conv(r1, ca, n, edge)
     a00, a01, a10, a11 = (a.to(img.dtype) * 4.0 for a in (a00, a01, a10, a11))
     rows_even = _interleave(a00, a01, ca, n)
     rows_odd = _interleave(a10, a11, ca, n)
@@ -203,3 +217,114 @@ def reduce_ladder(normalized: torch.Tensor, levels: int):
         downs.append(dn)
         cur = dn
     return bandpass, downs
+
+
+# ----------------------------------------------------------------------
+# row windows (the spatial path)
+# ----------------------------------------------------------------------
+
+def _down_map(h: int):
+    """smooth_downsample's row taps: position -> (row, valid) (GLSL mirror())."""
+    idx, valid = _mirror_idx(h)
+    return lambda p: (int(idx[p + 2]), bool(valid[p + 2]))
+
+
+def _up_map(n: int):
+    """upsample_smooth's small-row taps: position -1..src -> row (the
+    boundary extension of its polyphase form)."""
+    src = -(-n // 2)
+    return lambda p: (1 if p < 0 else n - 1 - src if p >= src else p, True)
+
+
+def _span(p0: int, p1: int, size: int, tap) -> tuple:
+    """[lo, hi): the rows that positions [p0, p1) read through ``tap``
+    (positions inside [0, size) read themselves)."""
+    rows = [r for p in (*range(p0, min(p1, 0)), *range(max(p0, size), p1))
+            for r, ok in [tap(p)] if ok]
+    inner = range(max(p0, 0), min(p1, size))
+    if inner:
+        rows += [inner[0], inner[-1]]
+    return min(rows), max(rows) + 1
+
+
+def _taps(x: torch.Tensor, x0: int, p0: int, p1: int, size: int, tap) -> torch.Tensor:
+    """Rows for positions [p0, p1) from ``x``, the rows [x0, ...) of the
+    image: the inner positions as one slice, each outer one through
+    ``tap`` (a zero row where the tap is invalid)."""
+    def one(p):
+        r, ok = tap(p)
+        return x.narrow(-2, r - x0, 1) if ok else torch.zeros_like(x.narrow(-2, 0, 1))
+
+    lo, hi = max(p0, 0), min(p1, size)
+    parts = [one(p) for p in range(p0, min(p1, 0))]
+    if lo < hi:
+        parts.append(x.narrow(-2, lo - x0, hi - lo))
+    parts += [one(p) for p in range(max(p0, size), p1)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+
+
+def needed_rows(op: str, size: int, r0: int, r1: int) -> tuple:
+    """[lo, hi): the input rows that output rows [r0, r1) of ``op`` read.
+    ``size`` is the op's input rows (``smooth_downsample``: the image's;
+    ``img_sdev``: the image's; ``upsample_smooth``: the output's, the input
+    being the ceil(size/2)-row small image)."""
+    if op == "smooth_downsample":
+        return _span(2 * r0 - 2, 2 * r1 + 1, size, _down_map(size))
+    if op == "upsample_smooth":
+        return _span(r0 // 2 - 1, (r1 - 1) // 2 + 2, -(-size // 2), _up_map(size))
+    if op == "img_sdev":
+        return max(r0 - 2, 0), min(r1 + 2, size)
+    raise ValueError(op)
+
+
+def smooth_downsample_rows(x: torch.Tensor, x0: int, h: int, j0: int, j1: int) -> torch.Tensor:
+    """Rows [j0, j1) of ``smooth_downsample`` of an [h, w] image, from ``x``,
+    its rows [x0, x0 + x.shape[-2]) (at least ``needed_rows``), all its
+    columns.  Bit-equal to the whole op's rows in either of its forms: the
+    row taps are summed in its order with its weights, and its column pass
+    is run on the window's row sums as it is run on the whole image's."""
+    w = x.shape[-1]
+    dw = -(-w // 2)
+    p = _taps(x.double(), x0, 2 * j0 - 2, 2 * j1 + 1, h, _down_map(h))
+    cnt = j1 - j0
+    ra, ca = p.ndim - 2, p.ndim - 1
+    tmp = _W[0] * _slice(p, ra, 0, 2 * cnt - 1, 2)
+    for m in range(1, 5):
+        tmp = tmp + _W[m] * _slice(p, ra, m, m + 2 * cnt - 1, 2)
+    if h < 8 or w < 8:
+        # the whole op's small form pads both axes before its row pass; a
+        # padded column is a copy of a column (or zeros), and so is its sum
+        q = mirror_pad(tmp, axes=(ca,))
+        out = _W[0] * _slice(q, ca, 0, 2 * dw - 1, 2)
+        for n in range(1, 5):
+            out = out + _W[n] * _slice(q, ca, n, n + 2 * dw - 1, 2)
+        return out.to(x.dtype)
+    return _decimate_axis(tmp, ca, w, dw).to(x.dtype)
+
+
+def upsample_smooth_rows(small: torch.Tensor, s0: int, out_size: int, r0: int,
+                         r1: int) -> torch.Tensor:
+    """Rows [r0, r1) of ``upsample_smooth(img, out_size)``, from ``small``,
+    the rows [s0, ...) of the ceil(out_size/2)-px small image (at least
+    ``needed_rows``), all its columns.  Only the polyphase form (the whole
+    op's at out_size >= 6 and a small image of >= 3 px): the spatial path
+    shards no level below that."""
+    n = out_size
+    src = -(-n // 2)
+    if n < 6 or src < 3 or small.shape[-1] != src:
+        raise ValueError(f"upsample_smooth_rows: out_size {n}, small width {small.shape[-1]}: "
+                         "only the polyphase form takes row windows")
+    edge = n - 1 - src
+    ja, jb = r0 // 2, (r1 - 1) // 2
+    cnt = jb - ja + 1
+    e = _taps(small.double(), s0, ja - 1, jb + 2, src, _up_map(n))
+    ra, ca = e.ndim - 2, e.ndim - 1
+    ph0 = (_WE[0] * e.narrow(ra, 0, cnt) + _WE[1] * e.narrow(ra, 1, cnt)
+           + _WE[2] * e.narrow(ra, 2, cnt))
+    ph1 = _WO[0] * e.narrow(ra, 1, cnt) + _WO[1] * e.narrow(ra, 2, cnt)
+    a00, a01 = _phase_conv(ph0, ca, n, edge)
+    a10, a11 = _phase_conv(ph1, ca, n, edge)
+    a00, a01, a10, a11 = (a.to(small.dtype) * 4.0 for a in (a00, a01, a10, a11))
+    rows_even = _interleave(a00, a01, ca, n)
+    rows_odd = _interleave(a10, a11, ca, n)
+    return _interleave(rows_even, rows_odd, ra, 2 * cnt).narrow(ra, r0 - 2 * ja, r1 - r0)

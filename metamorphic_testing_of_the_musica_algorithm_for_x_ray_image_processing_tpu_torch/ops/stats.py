@@ -27,16 +27,27 @@ def img_sdev(img: torch.Tensor) -> torch.Tensor:
     The float32 squares are summed left to right in float64 and the RMS is
     rounded to float32 once, as the golden model does (see ops/pyramid.py
     on accumulation)."""
-    h, w = img.shape[-2], img.shape[-1]
-    p = F.pad((img * img).double(), (2, 2, 2, 2))
-    tmp = p[..., 0:h, :]
+    h = img.shape[-2]
+    return img_sdev_rows(img, 0, h, 0, h)
+
+
+def img_sdev_rows(x: torch.Tensor, x0: int, h: int, r0: int, r1: int) -> torch.Tensor:
+    """Rows [r0, r1) of ``img_sdev`` of an [h, w] image, from ``x``, its rows
+    [x0, ...) (at least ``pyramid.needed_rows("img_sdev", ...)``): the zero
+    padding only past the image's true first and last rows, the same sums
+    in the same order, so bit-equal to the whole op's rows."""
+    lo, hi = max(r0 - 2, 0), min(r1 + 2, h)
+    sq = (x.narrow(-2, lo - x0, hi - lo) * x.narrow(-2, lo - x0, hi - lo)).double()
+    p = F.pad(sq, (2, 2, lo - (r0 - 2), (r1 + 2) - hi))
+    cnt, w = r1 - r0, x.shape[-1]
+    tmp = p[..., 0:cnt, :]
     for m in range(1, 5):
-        tmp = tmp + p[..., m:m + h, :]
+        tmp = tmp + p[..., m:m + cnt, :]
     s = tmp[..., :, 0:w]
     for n in range(1, 5):
         s = s + tmp[..., :, n:n + w]
     return torch.sqrt(s / torch.full((), 25.0, dtype=s.dtype, device=s.device)
-                      ).to(img.dtype)
+                      ).to(x.dtype)
 
 
 def coverage(n: int, cfg) -> int:
@@ -90,6 +101,21 @@ def noise_bins(sdev: torch.Tensor, cfg):
         return z.to(torch.int32), z
     return noise_bins_view(v, cfg.noise_histogram_bins,
                            cfg.histogram_area_size, cfg.max_noise_value)
+
+
+def noise_bins_rows(sd: torch.Tensor, row0: int, cfg):
+    """``noise_bins`` of the rows [row0, row0 + rows) of an [n, n] level,
+    held in ``sd`` [rows, n]: the window's rows inside the coverage, each
+    scanned as the whole level's scan scans it (its columns cropped or
+    zero-padded to the coverage), so the histograms of a partition of the
+    rows sum to the whole level's."""
+    n = sd.shape[-1]
+    cov = coverage(n, cfg)
+    keep = max(0, min(sd.shape[-2], cov - row0))
+    v = sd[..., :keep, :]
+    v = F.pad(v, (0, cov - n)) if cov > n else v[..., :cov]
+    return noise_bins_view(v, cfg.noise_histogram_bins, cfg.histogram_area_size,
+                           cfg.max_noise_value)
 
 
 def fixed_histogram(bins_idx: torch.Tensor, weights: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Data parallelism over several devices, the port of the JAX package's
-``parallel/sharding.py`` on its ``space == 1`` path.
+"""Data and spatial parallelism over several devices, the port of the JAX
+package's ``parallel/sharding.py``.
 
 The reference has no distribution at all (a single Vulkan compute queue,
 SURVEY.md section 2.5).  The JAX package splits the image batch over the
@@ -17,15 +17,18 @@ each entry captures, one thread at a time (``graphs._CAPTURE_LOCK``).  No
 image crosses devices, so no collective is needed; the results are
 gathered onto the mesh's first device.
 
-The JAX package's spatial path (``space > 1``: GSPMD row sharding with conv
-halos and histogram all-reduces) is not ported.
+With ``n_space > 1`` (``make_mesh``: ``n_data`` rows of ``n_space``
+devices, the JAX package's ``(data, space)`` mesh) each image's rows are
+split over its mesh row's entries (``parallel/spatial.py``: halo exchanges
+and histogram all-reduces written out); one worker thread per mesh row
+drives its entries, each on a CUDA stream of its own, eagerly.
 """
 
 from __future__ import annotations
 
 import functools
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,28 +36,40 @@ import torch
 from ..config import MusicaConfig
 from ..models import graphs, musica
 from ..ops.cuda import launch
+from . import spatial
 
-Mesh = Tuple[torch.device, ...]
+# a data-parallel mesh: one device an entry; a spatial mesh: n_data rows of
+# n_space devices
+Mesh = Union[Tuple[torch.device, ...], Tuple[Tuple[torch.device, ...], ...]]
 
 
 def make_mesh(n_data: Optional[int] = None, n_space: int = 1,
               devices: Optional[Sequence] = None) -> Mesh:
     """The first ``n_data`` of ``devices`` (default: every visible CUDA
-    device) as a data-parallel mesh."""
-    if n_space != 1:
-        raise NotImplementedError(
-            f"n_space={n_space}: the spatial (row-sharded) path of the JAX package "
-            "is not ported; the mesh is data-parallel only")
+    device) as a data-parallel mesh; with ``n_space > 1`` the first
+    ``n_data * n_space`` as ``n_data`` rows of ``n_space`` (the order of
+    ``np.array(devices).reshape(n_data, n_space)``; ``n_data`` defaults to
+    ``len(devices) // n_space``).  A device may repeat: several entries on
+    one card each run on a stream of their own."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh: no CUDA device visible; pass devices= "
                                "to build a mesh of other devices")
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     devices = [torch.device(d) for d in devices]
-    n_data = len(devices) if n_data is None else n_data
-    if not 1 <= n_data <= len(devices):
-        raise ValueError(f"n_data={n_data}: between 1 and the {len(devices)} devices given")
-    return tuple(devices[:n_data])
+    if n_space < 1:
+        raise ValueError(f"n_space={n_space}: at least 1")
+    n_data = len(devices) // n_space if n_data is None else n_data
+    if not 1 <= n_data * n_space <= len(devices) or n_data < 1:
+        raise ValueError(f"n_data={n_data} x n_space={n_space}: between 1 and the "
+                         f"{len(devices)} devices given")
+    if n_space == 1:
+        return tuple(devices[:n_data])
+    return tuple(tuple(devices[d * n_space:(d + 1) * n_space]) for d in range(n_data))
+
+
+def is_spatial(mesh: Mesh) -> bool:
+    return isinstance(mesh[0], tuple)
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,31 +80,46 @@ def _worker_stream(dev: torch.device, slot: int) -> "torch.cuda.Stream":
     return torch.cuda.Stream(device=dev)
 
 
-def _on_mesh(mesh: Mesh, fn: Callable[[int, torch.device], object]) -> list:
-    """``fn(i, mesh[i])`` for every entry, each in a worker thread of its
-    own; on a CUDA device with that device current and a stream of its own
+def _on_rows(rows, fn: Callable[[int, list], object]) -> list:
+    """``fn(i, entries)`` for every mesh row ``rows[i]`` (a tuple of
+    devices), each in a worker thread of its own; ``entries`` are the row's
+    ``spatial.Entry``\\ s, on a CUDA device each with a stream of its own
     (``_worker_stream``), which first waits for the caller's current stream
     there (the inputs were made on it) and which the worker waits for before
     it returns.  Returns the results in mesh order; the first worker's
     exception, in mesh order, is raised here once every worker has ended."""
-    callers = {d: torch.cuda.current_stream(d) for d in mesh if d.type == "cuda"}
+    devs = {d for row in rows for d in row}
+    callers = {d: torch.cuda.current_stream(d) for d in devs if d.type == "cuda"}
     if callers:
         launch.lib()  # build the kernels once, before any worker launches
-    streams = [_worker_stream(d, i) if d.type == "cuda" else None for i, d in enumerate(mesh)]
+    width = len(rows[0])
+    entries = [[spatial.Entry(d, _worker_stream(d, i * width + s) if d.type == "cuda" else None)
+                for s, d in enumerate(row)] for i, row in enumerate(rows)]
 
-    def work(i: int, dev: torch.device):
-        if dev.type != "cuda":
-            return fn(i, dev)
-        stream = streams[i]
-        stream.wait_stream(callers[dev])
-        with torch.cuda.device(dev), torch.cuda.stream(stream):
-            out = fn(i, dev)
-        stream.synchronize()
+    def work(i: int):
+        for e in entries[i]:
+            if e.stream is not None:
+                e.stream.wait_stream(callers[e.device])
+        out = fn(i, entries[i])
+        for e in entries[i]:
+            if e.stream is not None:
+                e.stream.synchronize()
         return out
 
-    with ThreadPoolExecutor(max_workers=len(mesh)) as pool:
-        futures = [pool.submit(work, i, d) for i, d in enumerate(mesh)]
+    with ThreadPoolExecutor(max_workers=len(rows)) as pool:
+        futures = [pool.submit(work, i) for i in range(len(rows))]
     return [f.result() for f in futures]
+
+
+def _on_mesh(mesh: Mesh, fn: Callable[[int, torch.device], object]) -> list:
+    """``fn(i, mesh[i])`` for every entry of a data-parallel mesh, each in a
+    worker thread of its own (``_on_rows``), with that device current and,
+    on a CUDA device, the entry's stream."""
+    def one(i: int, entries):
+        with entries[0].on():
+            return fn(i, entries[0].device)
+
+    return _on_rows([(d,) for d in mesh], one)
 
 
 def _gather(parts, dev: torch.device) -> torch.Tensor:
@@ -106,9 +136,12 @@ def process_sharded(imgs_u16, cfg: MusicaConfig, mesh: Mesh,
                     outputs: Sequence[str] = ("out_u8",), fused_sdev: bool = False):
     """Batched pipeline with the batch split over the mesh.  Input [B, n, n]
     uint16 (a numpy array or a tensor on any device), ``B`` a multiple of
-    the mesh size; output [B, ...] per name in ``outputs`` (``musica_forward``'s
-    results), on ``mesh[0]``: one tensor for one name, else a tuple in
-    order.  ``fused_sdev`` as in ``musica_forward``."""
+    the mesh's ``data`` size; output [B, ...] per name in ``outputs``
+    (``musica_forward``'s results), on the mesh's first device: one tensor
+    for one name, else a tuple in order.  ``fused_sdev`` as in
+    ``musica_forward``.  On a spatial mesh each image's rows are split over
+    its mesh row (``spatial.forward``; ``outputs`` among ``spatial.OUTPUTS``,
+    each gathered whole)."""
     imgs = imgs_u16 if isinstance(imgs_u16, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(imgs_u16))
     outputs = tuple(outputs)
@@ -116,38 +149,58 @@ def process_sharded(imgs_u16, cfg: MusicaConfig, mesh: Mesh,
     if b % n:
         raise ValueError(f"batch of {b} images does not split evenly over {n} devices")
     per = b // n
+    if is_spatial(mesh):
+        spatial.check_supported(cfg, fused_sdev)
 
-    def shard(i: int, dev: torch.device):
-        return graphs.run_batch(musica.musica_forward, imgs[i * per:(i + 1) * per].to(dev), cfg,
-                                fused_sdev, outputs)
+        def rows(i: int, entries):
+            res = [spatial.forward(im, cfg, entries, outputs)
+                   for im in imgs[i * per:(i + 1) * per]]
+            with entries[0].on():
+                return tuple(torch.stack([r[k] for r in res]) for k in outputs)
 
-    parts = _on_mesh(mesh, shard)
-    out = tuple(_gather([p[j] for p in parts], mesh[0]) for j in range(len(outputs)))
+        parts = _on_rows(mesh, rows)
+        first = mesh[0][0]
+    else:
+        def shard(i: int, dev: torch.device):
+            return graphs.run_batch(musica.musica_forward, imgs[i * per:(i + 1) * per].to(dev),
+                                    cfg, fused_sdev, outputs)
+
+        parts = _on_mesh(mesh, shard)
+        first = mesh[0]
+    out = tuple(_gather([p[j] for p in parts], first) for j in range(len(outputs)))
     return out[0] if len(outputs) == 1 else out
 
 
 def throughput_step(cfg: MusicaConfig, mesh: Mesh, batch_per_device: int = 1):
     """A steady-state throughput step: ``(step, example)``.  ``example`` is
-    each device's share (a tuple in mesh order) of the JAX package's example
-    batch, ``default_rng(0)`` uint16 of ``[batch_per_device * len(mesh), n,
-    n]``; ``step(example)`` returns a 0-d int64 tensor on ``mesh[0]``, the
-    sum over devices of each ``out_u8``'s sum (the JAX package's uint32
-    ``psum`` equals it modulo 2**32).  The scalar forces the whole batch to
-    run and needs no large copy back."""
+    each data entry's share (a tuple in mesh order; on a spatial mesh on its
+    row's first device) of the JAX package's example batch,
+    ``default_rng(0)`` uint16 of ``[batch_per_device * n_data, n, n]``;
+    ``step(example)`` returns a 0-d int64 tensor on the mesh's first
+    device, the sum over images of each ``out_u8``'s sum (the JAX package's
+    uint32 ``psum`` equals it modulo 2**32).  The scalar forces the whole
+    batch to run and needs no large copy back."""
     n = cfg.image_size
     rng = np.random.default_rng(0)
     batch = rng.integers(0, 65535, (batch_per_device * len(mesh), n, n), dtype=np.uint16)
+    heads = [row[0] for row in mesh] if is_spatial(mesh) else list(mesh)
     example = tuple(torch.from_numpy(batch[i * batch_per_device:(i + 1) * batch_per_device]).to(d)
-                    for i, d in enumerate(mesh))
+                    for i, d in enumerate(heads))
 
     def step(shares) -> torch.Tensor:
-        def local(i: int, dev: torch.device):
-            total = torch.zeros((), dtype=torch.int64, device=dev)
-            for im in shares[i]:
-                total += musica.process_jit(im, cfg).sum(dtype=torch.int64)
-            return total
-
-        sums = _on_mesh(mesh, local)
-        return _gather([s.reshape(1) for s in sums], mesh[0]).sum()
+        if is_spatial(mesh):
+            def rows(i: int, entries):
+                outs = [spatial.forward(im, cfg, entries)["out_u8"] for im in shares[i]]
+                with entries[0].on():
+                    return sum(o.sum(dtype=torch.int64) for o in outs).reshape(1)
+            sums = _on_rows(mesh, rows)
+        else:
+            def local(i: int, dev: torch.device):
+                total = torch.zeros((), dtype=torch.int64, device=dev)
+                for im in shares[i]:
+                    total += musica.process_jit(im, cfg).sum(dtype=torch.int64)
+                return total.reshape(1)
+            sums = _on_mesh(mesh, local)
+        return _gather(sums, heads[0]).sum()
 
     return step, example

@@ -3,6 +3,7 @@
 
     python3 scripts/bench_torch.py                  # one line of JSON, on the card(s)
     python3 scripts/bench_torch.py --device cpu --size 256   # the tests' CPU run
+    python3 scripts/bench_torch.py --configs 1x4,2x2        # also spatial meshes
 
 Input: a device-resident ``synthetic_radiograph(size, "thorax")`` (uint16),
 the image of the JAX package's ``bench.py``.  Warm-up: the kernel build and
@@ -21,7 +22,15 @@ image), measure the production entries, which replay captured CUDA graphs
 * ``single_image_eager_gpix`` and ``batch_eager_gpix``: the same single and
   batch windows of eager ``musica_forward`` and ``forward_batch``, the
   legs the bench measured before the graphs.  The four single and batch
-  legs run in interleaved windows, so the host's drift falls on all.
+  legs run in interleaved windows, so the host's drift falls on all;
+* ``spatial``: per ``--configs`` mesh shape DxS (``scripts/bench_mesh.py``'s
+  flag), ``throughput_step`` over ``make_mesh(n_data=D, n_space=S)``, each
+  image's rows split over S entries (one image a data row a step), the host
+  clock around 5 steps, the median step: ``ms_per_img`` (a step over D
+  images, so the latency of one image at D = 1) and ``gpix``.  The entries
+  take the visible cards in order and wrap around where there are fewer
+  cards than entries (several entries on one card, each on its stream);
+  ``devices`` names them.
 
 ``value`` is the better of the single-image and batch rates, one card's
 rate as in ``bench.py``; the mesh rate is that of all the cards together.
@@ -81,9 +90,42 @@ def median(xs):
     return sorted(xs)[len(xs) // 2]
 
 
-def measure(device: str = "cuda", size: int = 3072) -> dict:
+def spatial_leg(cfg, configs, dev) -> list:
+    """The ``spatial`` entries: per (data, space) shape, the median of 5
+    throughput steps over that mesh (after one warm-up step)."""
+    import torch
+
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
+    out = []
+    for d, s in configs:
+        if dev.type == "cuda":
+            cards = torch.cuda.device_count()
+            devices = [torch.device("cuda", j % cards) for j in range(d * s)]
+        else:
+            devices = [dev] * (d * s)
+        step, example = sharding.throughput_step(cfg, sharding.make_mesh(d, s, devices))
+        int(step(example))
+        steps = []
+        for _ in range(WINDOWS):
+            t0 = time.perf_counter()
+            int(step(example))
+            steps.append(time.perf_counter() - t0)
+        ms = median(steps) * 1e3 / d
+        out.append({"data": d, "space": s, "ms_per_img": ms,
+                    "gpix": cfg.image_size ** 2 / ms / 1e6,
+                    "devices": [str(x) for x in devices], "steps_ms": [t * 1e3 for t in steps]})
+    return out
+
+
+def parse_configs(text: str) -> list:
+    """``"1x4,2x2"`` -> [(1, 4), (2, 2)]."""
+    return [tuple(int(v) for v in c.split("x")) for c in text.split(",") if c]
+
+
+def measure(device: str = "cuda", size: int = 3072, configs=()) -> dict:
     """The three legs on ``device`` (``"cuda"``: the first card for single
-    and batch, every visible card for the mesh); returns the JSON record."""
+    and batch, every visible card for the mesh), and the spatial meshes of
+    ``configs`` ((data, space) pairs); returns the JSON record."""
     import torch
 
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
@@ -130,12 +172,13 @@ def measure(device: str = "cuda", size: int = 3072) -> dict:
     single_gpix = mpix / ms["single"]
     batch_gpix = mpix / ms["batch"]
     mesh_gpix = BATCH * len(mesh) * size * size / median(steps) / 1e9
+    spatial = spatial_leg(cfg, configs, dev)
     return {"metric": "musica_3072_gpix_per_s", "value": max(single_gpix, batch_gpix),
             "unit": "GPix/s", "single_image_gpix": single_gpix, "batch_gpix": batch_gpix,
             "single_image_eager_gpix": mpix / ms["single_eager"],
             "batch_eager_gpix": mpix / ms["batch_eager"],
             "batch_size": BATCH, "mesh_gpix": mesh_gpix, "devices": len(mesh), "size": size,
-            "platform": dev.type, "device": name, "power_limit": power}
+            "spatial": spatial, "platform": dev.type, "device": name, "power_limit": power}
 
 
 def main(argv=None) -> int:
@@ -143,13 +186,15 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default: the visible cards) or cpu")
     ap.add_argument("--size", type=int, default=3072)
+    ap.add_argument("--configs", default="",
+                    help="comma-separated DxS spatial mesh shapes (data x space), e.g. 1x4,2x2")
     args = ap.parse_args(argv)
     import torch
     if args.device != "cpu" and not torch.cuda.is_available():
         print("bench_torch: torch.cuda.is_available() is False: this bench needs a CUDA "
               "GPU (--device cpu runs it on the CPU)", file=sys.stderr)
         return 1
-    print(json.dumps(measure(args.device, args.size)), flush=True)
+    print(json.dumps(measure(args.device, args.size, parse_configs(args.configs))), flush=True)
     return 0
 
 

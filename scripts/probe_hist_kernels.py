@@ -370,7 +370,9 @@ def main() -> int:
                       float(cfg.max_noise_value), stream) == 0
             return h, None
         h, mb, ticket = fh._hist_buffers(L, nb, dev)
-        assert fn(inp["ptrs"], ns, covs, strides, L, h.data_ptr(),
+        # from PR 9 on the entry takes each level's row window (whole here)
+        window = ((ctypes.c_int * L)(*[0] * L), ns) if len(fn.argtypes) == 14 else ()
+        assert fn(inp["ptrs"], ns, covs, strides, *window, L, h.data_ptr(),
                   mb.data_ptr() if argmax else None, ticket.data_ptr(), nb, tile,
                   float(cfg.max_noise_value), stream) == 0
         return h, (mb if argmax else None)
@@ -384,15 +386,20 @@ def main() -> int:
 
     def k3(lib, inp):
         h = torch.zeros(gb, dtype=torch.int32, device=dev)
-        assert lib.musica_grad_hist_relevant(
-            inp["recon"].data_ptr(), nrm.data_ptr(), n, n, wplane.data_ptr(), cnr.shape[-1],
-            n // cnr.shape[-1], cfg.relevant_border, float(cfg.relevant_max_pixel),
-            h.data_ptr(), gb, tile, stream) == 0
+        fn = lib.musica_grad_hist_relevant
+        # from PR 9 on: the row window (whole here) and the plane's rows
+        rows = (0, n) if len(fn.argtypes) == 17 else ()
+        plane = (0, cnr.shape[-2]) if rows else ()
+        assert fn(inp["recon"].data_ptr(), nrm.data_ptr(), n, n, *rows, wplane.data_ptr(),
+                  cnr.shape[-1], *plane, n // cnr.shape[-1], cfg.relevant_border,
+                  float(cfg.relevant_max_pixel), h.data_ptr(), gb, tile, stream) == 0
         return h
 
     def k4(lib, inp):
         h = torch.zeros(gb, dtype=torch.int32, device=dev)
-        assert lib.musica_grad_hist(inp["recon"].data_ptr(), rel.data_ptr(), n, n, h.data_ptr(),
+        rows = (0, n) if len(lib.musica_grad_hist.argtypes) == 10 else ()
+        assert lib.musica_grad_hist(inp["recon"].data_ptr(), rel.data_ptr(), n, n, *rows,
+                                    h.data_ptr(),
                                     gb, tile, stream) == 0
         return h
 

@@ -14,8 +14,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.join(REPO, "scripts", "bench_torch.py")
 KEYS = {"metric", "value", "unit", "single_image_gpix", "batch_gpix", "single_image_eager_gpix",
-        "batch_eager_gpix", "batch_size", "mesh_gpix", "devices", "size", "platform", "device",
-        "power_limit"}
+        "batch_eager_gpix", "batch_size", "mesh_gpix", "devices", "size", "spatial", "platform",
+        "device", "power_limit"}
 
 
 def _run(*args):
@@ -37,6 +37,19 @@ def test_bench_cpu_prints_one_json_line():
               "mesh_gpix"):
         assert rec[k] > 0, k
     assert rec["value"] == max(rec["single_image_gpix"], rec["batch_gpix"])
+    assert rec["spatial"] == []
+
+
+def test_bench_cpu_spatial_configs():
+    """``--configs 1x2,2x2``: one entry per spatial mesh shape, each image's
+    rows split over its mesh row (CPU entries here)."""
+    p = _run("--device", "cpu", "--size", "128", "--configs", "1x2,2x2")
+    assert p.returncode == 0, p.stderr[-2000:]
+    rec = json.loads(p.stdout.strip().splitlines()[-1])
+    assert [(e["data"], e["space"]) for e in rec["spatial"]] == [(1, 2), (2, 2)]
+    for e in rec["spatial"]:
+        assert e["ms_per_img"] > 0 and e["gpix"] > 0 and len(e["steps_ms"]) == 5
+        assert e["devices"] == ["cpu"] * (e["data"] * e["space"])
 
 
 def test_bench_without_a_card_exits_non_zero():

@@ -232,7 +232,7 @@ def test_pipeline_on_card_at_other_histogram_tiles(dev, tile):
     launch.reset_launch_counts()
     out = musica.process(img, cfg, "cuda")
     counts = dict(launch.LAUNCHES)
-    assert counts["noise_hist"] == 1 and "hist_argmax" not in counts
+    assert counts["noise_hist"] == 1 and counts["hist_argmax"] == 0
     # the CNR scale (8 at 512) divides 8 and 32, not 12
     assert counts["grad_hist_relevant" if tile % 8 == 0 else "grad_hist"] == 1
     np.testing.assert_array_equal(out, musica.process(img, cfg, "cpu"))
@@ -260,7 +260,7 @@ def test_pipeline_on_card_matches_cpu_and_launches_kernels(dev, size, anatomy):
     launch.reset_launch_counts()
     out = musica.process(img, cfg, "cuda")
     counts = dict(launch.LAUNCHES)
-    assert counts["noise_hist"] == 1 and "hist_argmax" not in counts
+    assert counts["noise_hist"] == 1 and counts["hist_argmax"] == 0
     # 512 takes the in-kernel relevance; 600 is ragged (relevance image)
     key = "grad_hist_relevant" if size % 16 == 0 else "grad_hist"
     assert counts[key] == 1
@@ -550,7 +550,7 @@ def test_fused_sdev_pipeline_on_card(dev, size, anatomy, storage):
     launch.reset_launch_counts()
     res = musica.musica_forward(x, cfg, fused_sdev=True)
     counts = dict(launch.LAUNCHES)
-    assert counts["sdev_noise_hist"] == 1 and "hist_argmax" not in counts
+    assert counts["sdev_noise_hist"] == 1 and counts["hist_argmax"] == 0
     assert counts["noise_hist"] == 0
     assert torch.equal(res["out_u8"], musica.musica_forward(x, cfg)["out_u8"])
     assert torch.equal(res["out_u8"].cpu(),
@@ -797,3 +797,127 @@ def test_graph_captured_under_the_profiler_replays_exactly(dev):
     want = musica.musica_forward(x, cfg)["out_u8"]
     assert torch.equal(inside, want) and torch.equal(after, want)
     assert graphs.capture_count() and len(graphs.cached_graphs()) == 1
+
+
+# ----------------------------------------------------------------------
+# the spatial path: K1, K3, K4 on row windows, K2 as its own launch
+# ----------------------------------------------------------------------
+
+def _plan_rows(plan, k, i):
+    """Shard i's rows of level k; a level past the sharded ones is scanned
+    whole by the first shard (as spatial.forward does)."""
+    if k < plan.replicated:
+        return plan.rows(k, i)
+    return (0, plan.sizes[k]) if i == 0 else (0, 0)
+
+
+@pytest.mark.parametrize("tile", [8, 12, 16, 32])
+@pytest.mark.parametrize("n,quirks", [(600, True), (256, False)])
+def test_window_kernels_match_plain(dev, tile, n, quirks):
+    """Every shard's K1, K3 and K4 window equals its plain version exactly,
+    the windows sum to the whole image's histograms, and K2's launch on the
+    sum equals the plain argmax and K1's folded one."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
+    cfg = MusicaConfig(image_size=n, quirks=quirks, histogram_area_size=tile)
+    plan = spatial.row_plan(n, 4, cfg)
+    rng = np.random.default_rng(tile)
+    lv = list(cfg.analysis_levels)
+    levels = [torch.from_numpy(a).to(dev)
+              for a in hist_cases.noise_levels(rng, [plan.sizes[k] for k in lv])]
+    recon = torch.from_numpy(hist_cases.gradation_image(rng, n)).to(dev)
+    rel = torch.from_numpy(rng.uniform(0.0, 1.0, (n, n)).astype(np.float32)).to(dev)
+    nrm = torch.from_numpy(rng.uniform(0.0, 1.01, (n, n)).astype(np.float32)).to(dev)
+    cs = -(-n // 8)
+    cnr = torch.from_numpy(rng.uniform(0.0, 0.1, (cs, cs)).astype(np.float32)).to(dev)
+    h1 = torch.zeros((len(lv), cfg.noise_histogram_bins), dtype=torch.int32, device=dev)
+    h3 = torch.zeros(cfg.grad_histogram_bins, dtype=torch.int32, device=dev)
+    h4 = torch.zeros_like(h3)
+    for i in range(4):
+        rows = [_plan_rows(plan, k, i) for k in lv]
+        wins = [sd[a:b] for sd, (a, b) in zip(levels, rows)]
+        r0s = [a for a, _ in rows]
+        got = fh.noise_hists_rows(wins, r0s, cfg)
+        want = fh.noise_hists_rows_plain([w.cpu() for w in wins], r0s, cfg)
+        if got is None:
+            assert not want.any()
+        else:
+            assert torch.equal(got.cpu(), want)
+            h1 += got
+        a, b = plan.rows(0, i)
+        assert torch.equal(fh.grad_hist(recon[a:b], rel[a:b], cfg, a).cpu(),
+                           fh.grad_hist_plain(recon[a:b].cpu(), rel[a:b].cpu(), cfg, a))
+        h4 += fh.grad_hist(recon[a:b], rel[a:b], cfg, a)
+        if tile % 8 == 0:
+            c0, c1 = noise.cnr_rows(cs, n, a, b)
+            got3 = fh.grad_hist_relevant(recon[a:b], nrm[a:b], cnr[c0:c1], cfg, a, c0)
+            assert torch.equal(got3.cpu(), fh.grad_hist_relevant_plain(
+                recon[a:b].cpu(), nrm[a:b].cpu(), cnr[c0:c1].cpu(), cfg, a, c0))
+            h3 += got3
+    whole, mb = fh.noise_hists(levels, cfg)
+    assert torch.equal(h1, whole)
+    launch.reset_launch_counts()
+    k2 = fh.hist_argmax(h1)
+    assert launch.LAUNCHES["hist_argmax"] == 1
+    assert torch.equal(k2, mb) and torch.equal(k2.cpu(), fh.hist_argmax_plain(whole.cpu()))
+    assert torch.equal(h4, fh.grad_hist(recon, rel, cfg))
+    if tile % 8 == 0:
+        assert torch.equal(h3, fh.grad_hist_relevant(recon, nrm, cnr, cfg))
+
+
+def test_hist_argmax_kernel_ties_and_zero_rows(dev):
+    """K2's own launch: the first maximum wins, an all-zero row gives 0."""
+    h = torch.zeros((4, 2048), dtype=torch.int32)
+    h[0, [7, 1500, 2047]] = 5
+    h[2, 2047] = 1
+    h[3] = torch.arange(2048, dtype=torch.int32) % 17
+    got = fh.hist_argmax(h.to(dev)).cpu()
+    assert got.tolist() == [7, 0, 2047, 16]
+    assert torch.equal(got, fh.hist_argmax_plain(h))
+
+
+@pytest.mark.parametrize("n,shape", [(512, (1, 4)), (512, (2, 2)), (600, (1, 4))])
+def test_spatial_path_on_card_equals_eager(dev, n, shape):
+    """process_sharded over mesh entries that are all this card equals the
+    unsharded eager path bit for bit, with K1 once per shard that holds
+    covered rows, K2 once per image and K3 (or K4 at 600) once per shard."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import (
+        sharding, spatial)
+    cfg = MusicaConfig(image_size=n)
+    plan = spatial.row_plan(n, shape[1], cfg)
+    covered = sum(any(_plan_rows(plan, k, i)[0] < min(_plan_rows(plan, k, i)[1],
+                                                      stats.coverage(plan.sizes[k], cfg))
+                      for k in cfg.analysis_levels) for i in range(shape[1]))
+    imgs = np.stack([synthetic_radiograph(n, a) for a in ("thorax", "pelvis")])
+    mesh = sharding.make_mesh(n_data=shape[0], n_space=shape[1], devices=[dev] * 4)
+    want = musica.forward_batch(torch.from_numpy(imgs).to(dev), cfg)
+    sharding.process_sharded(imgs, cfg, mesh)
+    launch.reset_launch_counts()
+    out, recon = sharding.process_sharded(imgs, cfg, mesh, outputs=("out_u8", "recon"))
+    torch.cuda.synchronize()
+    counts = dict(launch.LAUNCHES)
+    assert torch.equal(out.to(dev), want)
+    for i, im in enumerate(imgs):
+        assert torch.equal(recon[i].to(dev),
+                           musica.musica_forward(torch.from_numpy(im).to(dev), cfg)["recon"])
+    s = shape[1]
+    grad = "grad_hist_relevant" if n % 16 == 0 else "grad_hist"
+    assert counts["hist_argmax"] == 2 and counts[grad] == 2 * s, counts
+    assert counts["noise_hist"] == 2 * covered > 0, counts
+
+
+def test_spatial_path_over_every_card(dev):
+    """One image's rows over n_space = every visible card (the halo rows and
+    the histogram partials cross cards) equal the unsharded path; a 2 x 2
+    mesh where there are four cards."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards")
+    cfg = MusicaConfig(image_size=512)
+    imgs = np.stack([synthetic_radiograph(512, a) for a in ("thorax", "pelvis")])
+    want = musica.forward_batch(torch.from_numpy(imgs).to(dev), cfg)
+    out = sharding.process_sharded(imgs[:1], cfg, sharding.make_mesh(n_data=1, n_space=cards))
+    assert out.device == dev and torch.equal(out, want[:1])
+    if cards >= 4:
+        out = sharding.process_sharded(imgs, cfg, sharding.make_mesh(n_data=2, n_space=2))
+        assert torch.equal(out, want)

@@ -97,8 +97,15 @@ def test_a_workers_exception_reaches_the_caller(imgs, monkeypatch):
 def test_make_mesh():
     assert sharding.make_mesh(devices=["cpu", "cpu", "cpu"]) == (CPU,) * 3
     assert sharding.make_mesh(n_data=2, devices=[CPU] * 3) == (CPU,) * 2
-    with pytest.raises(NotImplementedError, match="spatial"):
-        sharding.make_mesh(n_data=2, n_space=4, devices=[CPU] * 8)
+    # n_space > 1: n_data rows of n_space devices, in the order of
+    # np.array(devices).reshape(n_data, n_space)
+    devs = [torch.device("cpu", i) for i in range(8)]
+    assert sharding.make_mesh(n_data=2, n_space=4, devices=devs) == (tuple(devs[:4]),
+                                                                     tuple(devs[4:]))
+    assert sharding.make_mesh(n_space=2, devices=devs[:6]) == tuple(
+        tuple(devs[i:i + 2]) for i in (0, 2, 4))
+    with pytest.raises(ValueError):
+        sharding.make_mesh(n_data=3, n_space=4, devices=devs)
     with pytest.raises(ValueError):
         sharding.make_mesh(n_data=4, devices=[CPU] * 3)
     if torch.cuda.is_available():
