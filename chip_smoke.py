@@ -13,9 +13,11 @@ scans K1, K3 and
 K4 also on adversarial inputs at 3072, 600 and 144 and at histogram tiles 8,
 12 and 32 ([3a]), K5 and K6 also at 8x8 CLAHE tiles and K5 on random LUTs
 with x at the segment edges ([3b]), K7 also with block ranges that cross
-levels ([3d]), K1, K3 and K4 on the row windows of the spatial path's plan
-(3072 over 4 shards; adversarial inputs at 3072, 600 and 144; tiles 8, 12,
-32) and K2 as a launch of its own on the summed histograms ([3e]), drives
+levels ([3d]), K1, K3, K4, K6, K5 and K7 on the row windows of the spatial
+path's plan (3072 over 4 shards; adversarial inputs at 3072, 600 and 144;
+tiles 8, 12, 32; K5 also on windows that start on odd rows; K6's and K7's
+windows summed against the whole image's) and K2 as a launch of its own on
+the summed histograms ([3e]), drives
 the port's main path
 (``process`` on a 3072^2 uint16 radiograph, then the intermediates path of
 ``process --debug-dump``), the CLAHE + linear-gradation variant path
@@ -42,11 +44,13 @@ graph, ``models/graphs.py``) against eager ``musica_forward`` bit for bit in
 every variant, on a second image and on a transposed one, and the graph
 mesh against ``forward_batch`` ([4m]), drives the spatial path
 (``process_sharded`` of two 3072^2 radiographs with each image's rows split
-over 1x4 and 2x2 mesh entries on one card, 600 over 1x4 for K4, and one
+over 1x4 and 2x2 mesh entries on one card, in the main path, the CLAHE +
+linear-gradation variant and with fused-sdev, 600 over 1x4 for K4, and one
 image over every card where there are several) against
 ``process_batch_jit`` bit for bit, counting K1 per shard with covered rows,
-K2 per image and K3 per shard, and times it beside one card's replay
-([4n]), runs a batch of 4 through
+K2 per image and K3 per shard (CLAHE: K4, K6 and K5 per shard; fused-sdev:
+K7 and K3 per shard), and times each beside one card's replay of the same
+variant ([4n]), runs a batch of 4 through
 ``process_batch`` in float32 and in bf16, and times the pipeline paths
 (graph replays against eager) in interleaved windows,
 ``scripts/bench_torch.py``'s measurement, the mesh's worker threads on one
@@ -319,13 +323,13 @@ def unfolded_sdev_noise_hists(bands, cfg):
     sdevs = [torch.empty_like(b) for b in bands]
     h, _, ticket = fh._hist_buffers(L, nb, dev)
     ints = ctypes.c_int * L
+    ns = ints(*[b.shape[-1] for b in bands])
     rc = launch.lib().musica_sdev_noise_hist(
         (ctypes.c_void_p * L)(*[b.data_ptr() for b in bands]),
-        (ctypes.c_void_p * L)(*[s.data_ptr() for s in sdevs]),
-        ints(*[b.shape[-1] for b in bands]),
-        ints(*[stats.coverage(b.shape[-1], cfg) for b in bands]), L, h.data_ptr(), None,
-        ticket.data_ptr(), nb, cfg.histogram_area_size, float(cfg.max_noise_value), 0,
-        launch.stream(dev))
+        (ctypes.c_void_p * L)(*[s.data_ptr() for s in sdevs]), ns,
+        ints(*[stats.coverage(b.shape[-1], cfg) for b in bands]), ints(*[0] * L), ns,
+        ints(*[0] * L), ns, L, h.data_ptr(), None, ticket.data_ptr(), nb,
+        cfg.histogram_area_size, float(cfg.max_noise_value), 0, launch.stream(dev))
     assert rc == 0, rc
     return sdevs, h
 
@@ -543,12 +547,95 @@ def check_windows(rec, cfg, levels, case, space=4, grad=None, relevant=None, cfg
                   fh.grad_hist(*relevant, cfg_grad or cfg))
 
 
-def check_window_kernels(rec, rng, dev, cfg, lv3072, main, var):
-    """[3e]: ``check_windows`` at the 3072 shapes of the spatial plan over 4
-    shards (the thorax's levels, K3 on its recon, K4 on the CLAHE + linear
-    path's squared image), on the adversarial inputs of
-    ``testing/hist_cases.py`` at 3072, 600 and 144 (over 2: 144 holds no 4
-    shards of whole 16-px tiles), and at histogram tiles 8, 12 and 32."""
+def odd_bounds(n, space):
+    """A partition of n rows into ``space`` windows, the inner ones
+    starting on odd rows."""
+    return [0] + [i * n // space + (1 - i * n // space % 2) for i in range(1, space)] + [n]
+
+
+def k7_windows(plan, bands, cfg, i):
+    """K7's arguments on shard i of ``plan``, as ``spatial.forward`` makes
+    them: each analysis level's band rows (the 2-row halos included), their
+    first row, the sdev rows and whether the shard counts the level (a
+    replicated level: whole on every shard, counted by the first)."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import pyramid
+    lv = list(cfg.analysis_levels)
+    rows = [plan.rows(k, i) if k < plan.replicated else (0, plan.sizes[k]) for k in lv]
+    need = [pyramid.needed_rows("img_sdev", b.shape[-1], *r) for b, r in zip(bands, rows)]
+    return ([b[lo:hi] for b, (lo, hi) in zip(bands, need)], [lo for lo, _ in need], rows,
+            [k < plan.replicated or i == 0 for k in lv])
+
+
+def check_variant_windows(rec, cfg, bands, case, space=4, clahe_in=None):
+    """[3e], the variants' kernels on the row windows of
+    ``spatial.row_plan(n, space)``, each against its plain version on the
+    same windows, exactly: K7 (``bands``: the analysis levels' bandpass
+    images) on every shard's windows, its sdev rows also against the
+    whole-image K7's and its histograms summed against the whole image's;
+    with ``clahe_in`` = (recon, relevance, cfg) K6 on every shard's joint
+    bins, summed against the whole joint histogram, and K5 on every shard's
+    rows and on a partition whose inner windows start on odd rows, also
+    against the whole apply's rows."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_apply as k_clahe
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import histogram as k_hist
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
+    n = cfg.image_size
+    plan = spatial.row_plan(n, space, cfg)
+    whole_sd, whole_h, _ = fh.sdev_noise_hists(bands, cfg)
+    total = torch.zeros_like(whole_h)
+    for i in range(space):
+        wins, los, rows, counted = k7_windows(plan, bands, cfg, i)
+        sds, h = fh.sdev_noise_hists_rows(wins, los, rows, cfg, counted)
+        p_sds, p_h = fh.sdev_noise_hists_rows_plain(wins, los, rows, cfg, counted)
+        rec.equal_float("sdev_noise_hist", f"{case}, shard {i} rows {rows}, sdev",
+                        torch.cat([x.flatten() for x in sds]),
+                        torch.cat([x.flatten() for x in p_sds]))
+        rec.equal_float("sdev_noise_hist", f"{case}, shard {i}, sdev vs the whole K7's rows",
+                        torch.cat([x.flatten() for x in sds]),
+                        torch.cat([w[a:b].flatten() for w, (a, b) in zip(whole_sd, rows)]))
+        rec.equal("sdev_noise_hist", f"{case}, shard {i}, histograms", h, p_h)
+        total += h
+    rec.equal("sdev_noise_hist", f"{case}, {space} shards' windows summed vs the whole",
+              total, whole_h)
+    if clahe_in is None:
+        return
+    recon, rel, c = clahe_in
+    t, nb = c.clahe_tiles, c.clahe_tiles ** 2 * c.clahe_bins
+    joint, w = clahe.clahe_joint_bins(recon, rel, c)
+    whole6 = k_hist.histogram(joint, w, nb)
+    px, py = clahe.clahe_curves(whole6.reshape(t, t, -1), c)
+    whole5 = k_clahe.clahe_apply(recon, px, py, c)
+    h6 = torch.zeros_like(whole6)
+    for i in range(space):
+        a, b = plan.rows(0, i)
+        jr, wr = clahe.clahe_joint_bins_rows(recon[a:b], rel[a:b], a, n, c)
+        got = k_hist.histogram(jr, wr, nb)
+        rec.equal("histogram", f"{case}, shard {i} rows [{a}, {b}), {nb} joint bins", got,
+                  k_hist.histogram_plain(jr, wr, nb))
+        h6 += got
+    rec.equal("histogram", f"{case}, {space} shards' joint histograms summed vs the whole", h6,
+              whole6)
+    ob = odd_bounds(n, space)
+    for name, bounds in (("shard", plan.bounds[0]), ("odd window", ob)):
+        for a, b in zip(bounds, bounds[1:]):
+            got = k_clahe.clahe_apply(recon[a:b], px, py, c, a)
+            rec.equal_float("clahe_apply", f"{case}, {name} rows [{a}, {b})", got,
+                            k_clahe.clahe_apply_plain(recon[a:b], px, py, c, a))
+            rec.equal_float("clahe_apply", f"{case}, {name} rows [{a}, {b}) vs the whole "
+                            "apply's", got, whole5[a:b])
+
+
+def check_window_kernels(rec, rng, dev, cfg, lv3072, main, var, var3072):
+    """[3e]: ``check_windows`` and ``check_variant_windows`` at the 3072
+    shapes of the spatial plan over 4 shards (the thorax's levels, K3 on its
+    recon, K4 on the CLAHE + linear path's squared image, K7 on its bands,
+    K6 and K5 on the CLAHE + linear path's recon), on the adversarial
+    inputs of ``testing/hist_cases.py`` at 3072, 600 and 144 (over 2: 144
+    holds no 4 shards of whole 16-px tiles), and at histogram tiles 8, 12
+    and 32."""
     import torch
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import hist_cases
@@ -559,6 +646,9 @@ def check_window_kernels(rec, rng, dev, cfg, lv3072, main, var):
     cfg_var, linear, v_rel = var
     check_windows(rec, cfg, lv3072, "3072 thorax over 4", grad=main,
                   relevant=(linear, v_rel), cfg_grad=cfg_var)
+    b3072, v_recon = var3072
+    check_variant_windows(rec, cfg, b3072, "3072 thorax over 4",
+                          clahe_in=(v_recon, v_rel, cfg_var))
     cases = [(MusicaConfig(image_size=3072), 4), (MusicaConfig(image_size=600), 4),
              (MusicaConfig(image_size=144, quirks=False), 2)]
     cases += [(MusicaConfig(image_size=n, quirks=q, histogram_area_size=tile), s)
@@ -573,24 +663,40 @@ def check_window_kernels(rec, rng, dev, cfg, lv3072, main, var):
         check_windows(rec, c, [t(a) for a in hist_cases.noise_levels(rng, sizes)],
                       f"{n} adversarial, tile {tile}, over {space}", space,
                       grad=(recon, nrm, cnr) if tile % 8 == 0 else None, relevant=(recon, rel))
+        # K7 on adversarial levels as bands, K5 and K6 on the adversarial
+        # gradation image (values past 1.0, exact 1.0, 0.0, negatives) with a
+        # random relevance whose first tile is empty (a NaN LUT)
+        rel_c = (rel > 0.3).to(torch.float32)
+        rel_c[:n // 4, :n // 4] = 0.0
+        check_variant_windows(rec, c, [t(a) for a in hist_cases.noise_levels(rng, sizes)],
+                              f"{n} adversarial, tile {tile}, over {space}", space,
+                              clahe_in=(recon, rel_c, c.with_(enable_clahe=True))
+                              if tile == 16 else None)
 
 
-def check_spatial(imgs, cfg, dev, imgs600):
+def check_spatial(imgs, cfg, dev, imgs600, cfg_var):
     """[4n]: ``process_sharded`` of ``imgs`` over a 1 x 4 and a 2 x 2 mesh
     of entries on ``dev`` (each with a stream of its own) against
     ``process_batch_jit``, bit for bit, with every count set to 0 just
     before each run and read just after (the 1 x 4 run under the profiler,
     its kernel events equal to the counts): K1 once per shard that holds
-    covered rows, K2 once per image, K3 once per shard.  Then ``imgs600``
-    over 1 x 4 (K4), and where two or more cards are visible one image over
-    ``n_space`` = every card.  Times (host clock around a run that ends
-    with the card's synchronisation, medians of 3): the spatial path per
-    image, beside one card's graph replay (CUDA events)."""
+    covered rows, K2 once per image, K3 once per shard.  The same in the
+    CLAHE + linear variant ``cfg_var`` (``out_u8`` against
+    ``process_batch_jit``, ``clahe_graded`` against the unsharded
+    ``musica_forward``'s; K1 per covered shard, K2 per image, K4, K6 and K5
+    per shard) and with ``fused_sdev`` (K7 and K3 per shard, K2 per
+    image).  Then ``imgs600`` over 1 x 4 (K4), and where two or more cards
+    are visible one image over ``n_space`` = every card (a 512^2 image of
+    each variant too).  Times (host clock around a run that ends with the
+    card's synchronisation, medians of 3): the spatial path per image, beside
+    one card's graph replay of the same variant (CUDA events)."""
     import torch
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import stats
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding, spatial
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import (
+        synthetic_radiograph)
 
     def covered(c, space):
         plan = spatial.row_plan(c.image_size, space, c)
@@ -608,33 +714,64 @@ def check_spatial(imgs, cfg, dev, imgs600):
             times.append((time.perf_counter() - t0) * 1e3)
         return sorted(times)[reps // 2], times
 
-    out = {"counts": {}, "ms_per_img": {}}
-    b = len(imgs)
-    want = musica.process_batch_jit(torch.from_numpy(imgs).to(dev), cfg)
-    for d, s in ((1, 4), (2, 2)):
-        mesh = sharding.make_mesh(n_data=d, n_space=s, devices=[dev] * 4)
-        key = f"{d}x{s} on {dev}"
-        run = lambda mesh=mesh: sharding.process_sharded(imgs, cfg, mesh)  # noqa: E731
-        run()  # the entries' streams and their allocator caches
-        if (d, s) == (1, 4):
-            got, counts = profiled_run(run, f"spatial {key}")
+    def expected(c, fused, s):
+        """Each kernel's launches for b images over ``s`` shards."""
+        if fused:
+            return {"sdev_noise_hist": b * s, "hist_argmax": b, "grad_hist_relevant": b * s}
+        want = {"noise_hist": b * covered(c, s), "hist_argmax": b}
+        if c.enable_clahe:
+            want.update({"grad_hist": b * s, "histogram": b * s, "clahe_apply": b * s})
         else:
-            torch.cuda.synchronize()
-            launch.reset_launch_counts()
-            got = run()
-            torch.cuda.synchronize()
-            counts = dict(launch.LAUNCHES)
-        assert torch.equal(got.to(dev), want), f"spatial {key} differs from process_batch_jit"
-        k1 = b * covered(cfg, s)
-        assert (counts["noise_hist"], counts["hist_argmax"], counts["grad_hist_relevant"]) == (
-            k1, b, b * s), (key, counts, k1)
-        assert counts["sdev_noise_hist"] == counts["grad_hist"] == 0, (key, counts)
-        med, runs = host_ms(run)
-        out["counts"][key] = counts
-        out["ms_per_img"][key] = med / b
-        log(f"  {key}: {b} x {cfg.image_size}^2 equal process_batch_jit bit for bit; launches "
-            f"{counts} (K1: {covered(cfg, s)} of {s} shards hold covered rows); "
-            f"{med / b} ms/img (host clock, runs of {b} images, ms: {runs})")
+            want["grad_hist_relevant"] = b * s
+        return want
+
+    out = {"counts": {}, "ms_per_img": {}, "replay_ms": {}}
+    b = len(imgs)
+    x_imgs = torch.from_numpy(imgs).to(dev)
+    variants = (("main", cfg, False, ("out_u8",)),
+                ("CLAHE + linear", cfg_var, False, ("out_u8", "clahe_graded")),
+                ("fused-sdev", cfg, True, ("out_u8",)))
+    for name, c, fused, names in variants:
+        want = musica.process_batch_jit(x_imgs, c, fused)
+        whole = ([musica.musica_forward(x, c, fused_sdev=fused) for x in x_imgs]
+                 if "clahe_graded" in names else None)
+        for d, s in ((1, 4), (2, 2)):
+            mesh = sharding.make_mesh(n_data=d, n_space=s, devices=[dev] * 4)
+            key = f"{name}, {d}x{s} on {dev}"
+
+            def run(mesh=mesh, c=c, fused=fused, names=names):
+                got = sharding.process_sharded(imgs, c, mesh, outputs=names, fused_sdev=fused)
+                return got if isinstance(got, tuple) else (got,)
+            run()  # the entries' streams and their allocator caches
+            if (d, s) == (1, 4):
+                got, counts = profiled_run(run, f"spatial {key}")
+            else:
+                torch.cuda.synchronize()
+                launch.reset_launch_counts()
+                got = run()
+                torch.cuda.synchronize()
+                counts = dict(launch.LAUNCHES)
+            assert torch.equal(got[0].to(dev), want), f"spatial {key} differs from process_batch_jit"
+            if whole is not None:
+                for i, r in enumerate(whole):
+                    torch.testing.assert_close(got[1][i].to(dev), r["clahe_graded"], rtol=0,
+                                               atol=0, equal_nan=True,
+                                               msg=f"spatial {key}: clahe_graded of image {i}")
+            exp = expected(c, fused, s)
+            assert counts == {k: exp.get(k, 0) for k in counts}, (key, counts, exp)
+            med, runs = host_ms(run)
+            out["counts"][key] = counts
+            out["ms_per_img"][key] = med / b
+            log(f"  {key}: {b} x {c.image_size}^2 equal process_batch_jit bit for bit"
+                + (" (clahe_graded equal the unsharded forward's, NaN tiles too)"
+                   if whole is not None else "")
+                + f"; launches {counts} (K1: {covered(c, s)} of {s} shards hold covered rows); "
+                f"{med / b} ms/img (host clock, runs of {b} images, ms: {runs})")
+        x0 = x_imgs[0]
+        out["replay_ms"][name] = cuda_ms(lambda c=c, fused=fused: musica.process_jit(x0, c, fused),
+                                         10, 2)
+        log(f"  {name}: one card's graph replay (process_jit): {out['replay_ms'][name]} ms/img "
+            "(CUDA events)")
     c600 = cfg.with_(image_size=imgs600.shape[-1])
     mesh = sharding.make_mesh(n_data=1, n_space=4, devices=[dev] * 4)
     sharding.process_sharded(imgs600, c600, mesh)
@@ -651,10 +788,9 @@ def check_spatial(imgs, cfg, dev, imgs600):
     out["counts"]["600 1x4"] = counts
     log(f"  {b6} x 600^2 over 1x4 on {dev} equal process_batch_jit; launches {counts} (K4 once "
         "a shard: 600 is no multiple of the 16-px tile)")
-    x0 = torch.from_numpy(imgs[0]).to(dev)
-    out["replay_ms"] = cuda_ms(lambda: musica.process_jit(x0, cfg), 10, 2)
     cards = torch.cuda.device_count()
     if cards > 1:
+        want = musica.process_batch_jit(x_imgs, cfg)
         mesh = sharding.make_mesh(n_data=1, n_space=cards)
         run = lambda: sharding.process_sharded(imgs[:1], cfg, mesh)  # noqa: E731
         run()
@@ -668,9 +804,19 @@ def check_spatial(imgs, cfg, dev, imgs600):
         out["ms_per_img"][key] = med
         log(f"  one image over n_space = {cards} cards equals process_batch_jit; {med} ms/img "
             f"(ms: {runs})")
+        im512 = synthetic_radiograph(512, "thorax")
+        for name, c, fused, names in variants[1:]:
+            c = c.with_(image_size=512)
+            got = sharding.process_sharded(im512[None], c, mesh, outputs=names, fused_sdev=fused)
+            got = got if isinstance(got, tuple) else (got,)
+            r = musica.musica_forward(torch.from_numpy(im512).to(dev), c, fused_sdev=fused)
+            for k, g in zip(names, got):
+                torch.testing.assert_close(g[0].to(dev), r[k], rtol=0, atol=0, equal_nan=True,
+                                           msg=f"{name} over {cards} cards: {k}")
+            log(f"  {name}: one 512^2 image over n_space = {cards} cards equals the unsharded "
+                f"forward ({', '.join(names)})")
     else:
         log("  one image over every card: skipped, one card visible")
-    log(f"  one card's graph replay (process_jit): {out['replay_ms']} ms/img (CUDA events)")
     return out
 
 
@@ -1121,6 +1267,7 @@ def main() -> int:
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_apply as k_clahe
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import histogram as k_hist
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import (
         analysis, campaign, metrics, perturb)
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import (
@@ -1264,11 +1411,12 @@ def main() -> int:
                          f"{n} random stack")
         check_sdev_noise(rec, cfg_n, bands_n, f"{n} {anatomy} stack, 3 blocks", grid=3)
 
-    log("[3e] the spatial path's kernels on row windows: K1, K3, K4 per shard vs their "
-        "plain versions and summed vs the whole image, K2's own launch on the summed "
-        "histograms (exact)")
+    log("[3e] the spatial path's kernels on row windows: K1, K3, K4, K6, K5 and K7 per "
+        "shard vs their plain versions and summed vs the whole image, K2's own launch on "
+        "the summed histograms (exact)")
     check_window_kernels(rec, rng, dev, cfg, lv3072, (recon, nrm, cnr),
-                         (cfg_var, var_inter["intermediates"]["linear"], v_rel))
+                         (cfg_var, var_inter["intermediates"]["linear"], v_rel),
+                         (b3072, v_recon))
 
     # ---- 4. the main path at 3072^2 ----------------------------------------
     log(f"[4] main path: process() on a {SIZE}^2 thorax phantom; a first call captures its "
@@ -1600,8 +1748,8 @@ def main() -> int:
     log(f"[4n] the spatial path: process_sharded of 2 x {SIZE}^2 with each image's rows split "
         f"over the space entries (1x4 and 2x2 on {dev}), against process_batch_jit, bit for bit")
     spatial_run = check_spatial(imgs[:2], cfg, dev, np.stack(
-        [synthetic_radiograph(600, a) for a in ("pelvis", "hand")]))
-    sp_counts = spatial_run["counts"][f"1x4 on {dev}"]
+        [synthetic_radiograph(600, a) for a in ("pelvis", "hand")]), cfg_var)
+    sp_counts = spatial_run["counts"][f"main, 1x4 on {dev}"]
 
     # ---- 5. a batch of 4 ---------------------------------------------------
     for c in (cfg, cfg16):
@@ -1782,12 +1930,34 @@ def main() -> int:
                                 "grad_with_linear_image (one graph replay)"),
                 "sdev_noise_hist": (launches_fused, "process(fused_sdev=True) (one graph "
                                     "replay; the JAX package's hist_method=\"fused_sdev\")")}
-    # the spatial path's own count of each kernel ([4n]: 1x4 at 3072; K4
-    # from the 600 run)
-    spatial_from = {k: (sp_counts, f"process_sharded of 2 x {SIZE}^2 over 1x4 on {dev}")
+    # the spatial path's own count of each kernel ([4n]: 1x4 at 3072, the
+    # main path, the CLAHE + linear variant and fused-sdev)
+    sp_path = f"process_sharded of 2 x {SIZE}^2 over 1x4 on {dev}"
+    spatial_from = {k: (sp_counts, sp_path)
                     for k in ("noise_hist", "hist_argmax", "grad_hist_relevant")}
-    spatial_from["grad_hist"] = (spatial_run["counts"]["600 1x4"],
-                                 f"process_sharded of 2 x 600^2 over 1x4 on {dev}")
+    for k in ("grad_hist", "histogram", "clahe_apply"):
+        spatial_from[k] = (spatial_run["counts"][f"CLAHE + linear, 1x4 on {dev}"],
+                           f"{sp_path}, enable_clahe and grad_with_linear_image")
+    spatial_from["sdev_noise_hist"] = (spatial_run["counts"][f"fused-sdev, 1x4 on {dev}"],
+                                       f"{sp_path}, fused_sdev=True")
+    # one launch on the window of the second of 4 shards at 3072 (its rows
+    # and halos as spatial.forward passes them), per kernel with a window
+    plan4 = spatial.row_plan(SIZE, 4, cfg)
+    a1, b1 = plan4.rows(0, 1)
+    c0, c1 = noise.cnr_rows(cnr.shape[-1], SIZE, a1, b1)
+    lv_rows = [plan4.rows(k, 1) for k in cfg.analysis_levels]
+    lv_wins = [sd[a:b] for sd, (a, b) in zip(lv3072, lv_rows)]
+    jr, wr = clahe.clahe_joint_bins_rows(v_recon[a1:b1], v_rel[a1:b1], a1, SIZE, cfg_var)
+    k7_win = k7_windows(plan4, b3072, cfg, 1)
+    windows = {
+        "noise_hist": lambda: fh.noise_hists_rows(lv_wins, [a for a, _ in lv_rows], cfg),
+        "grad_hist_relevant": lambda: fh.grad_hist_relevant(recon[a1:b1], nrm[a1:b1],
+                                                            cnr[c0:c1], cfg, a1, c0),
+        "grad_hist": lambda: fh.grad_hist(linear[a1:b1], v_rel[a1:b1], cfg_var, a1),
+        "histogram": lambda: k_hist.histogram(jr, wr, nb),
+        "clahe_apply": lambda: k_clahe.clahe_apply(v_recon[a1:b1], v_px, v_py, cfg_var, a1),
+        "sdev_noise_hist": lambda: fh.sdev_noise_hists_rows(*k7_win[:3], cfg, k7_win[3]),
+    }
     h_sum = h3072.clone()
     k2_own_ms = cuda_ms(lambda: fh.hist_argmax(h_sum), 20, 2, device_only=True)
     kernels = []
@@ -1819,9 +1989,12 @@ def main() -> int:
         if name in spatial_from:
             counts, path = spatial_from[name]
             row.update({"spatial_launches": counts[name], "spatial_launched_by": path})
+        if name in windows:
+            row.update({"window_ms": cuda_ms(windows[name], 20, 2, device_only=True),
+                        "window": f"rows [{a1}, {b1}) of {SIZE} (shard 1 of 4)"})
         extra = ", ".join(f"{k} {row[k]}" for k in ("kernel_ms", "weight_plane_ms",
                                                     "k7_argmax_ms", "own_ms",
-                                                    "spatial_launches") if k in row)
+                                                    "spatial_launches", "window_ms") if k in row)
         log(f"  {name}: kernel {k_ms} ms, plain {p_ms} ms, bound {b_ms} ms ({b_by}), "
             f"one PyTorch call {lib_ms} ms" + (f"; {extra}" if extra else ""))
         kernels.append(row)

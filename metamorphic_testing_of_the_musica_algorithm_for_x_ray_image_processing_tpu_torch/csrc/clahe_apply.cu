@@ -37,6 +37,11 @@
 //   wrapper launches this kernel and allocates its output, nothing else.
 // * Four columns per thread, float4 loads and stores where the rows are
 //   16-byte aligned, scalar ones otherwise; every n works.
+// * A window of rows: the kernel reads and writes rows [row0, row0 + rows)
+//   of an [n, n] image (the spatial path's shards), walking the window's
+//   rows while the row attributes, the tile grid and the column attributes
+//   are those of the whole image at the global row.  A whole image is the
+//   window of all its rows.
 //
 // Exactness: the arithmetic is that of the plain version, operation by
 // operation, with explicit round-to-nearest intrinsics and no FMA
@@ -63,15 +68,17 @@ constexpr int kBatch = 32;                     // rows whose attributes a block 
 constexpr int kGroup = 2;                      // items loaded together; kBatch % kGroup == 0
 
 struct ClaheArgs {
-  const float* recon;  // [n, n]
-  float* out;          // [n, n]
+  const float* recon;  // [rows, n]: rows [row0, row0 + rows) of an [n, n] image
+  float* out;          // [rows, n]
   const float* luts;   // [t * t, bins] CDF LUTs
   int n;
+  int row0;            // the window's first global row
+  int rows;            // the window's rows
   int t;
   int bins;
   int vec;             // recon and out rows 16-byte aligned
   float inv_bins;      // 1 / bins where bins is a power of two (exact), else 0
-  long long items;     // chunks * n: item = chunk * n + row
+  long long items;     // chunks * rows: item = chunk * rows + local row
   long long per_block; // items of a block
 };
 
@@ -142,7 +149,7 @@ struct Group {
 };
 
 // Loads the next kGroup items of the block (items past `end` read as 0) and
-// advances the cursor (item, row, chunk).
+// advances the cursor (item, local row, chunk).
 __device__ __forceinline__ void load_group(const ClaheArgs& a, long long end, long long& item,
                                            int& row, int& chunk, Group& g) {
 #pragma unroll
@@ -163,7 +170,7 @@ __device__ __forceinline__ void load_group(const ClaheArgs& a, long long end, lo
     }
     if (item < end) {
       ++item;
-      if (++row == a.n) {
+      if (++row == a.rows) {
         row = 0;
         ++chunk;
       }
@@ -172,7 +179,7 @@ __device__ __forceinline__ void load_group(const ClaheArgs& a, long long end, lo
 }
 
 __global__ void __launch_bounds__(kThreads) clahe_apply_kernel(ClaheArgs a) {
-  const int t = a.t, bins = a.bins, n = a.n;
+  const int t = a.t, bins = a.bins, n = a.n, rows_w = a.rows;
   extern __shared__ float2 tbl[];                                  // [t * t * bins]
   float* x1s = reinterpret_cast<float*>(tbl + (size_t)t * t * bins);  // [bins]
   float* dxs = x1s + bins;                                         // [bins]
@@ -184,9 +191,9 @@ __global__ void __launch_bounds__(kThreads) clahe_apply_kernel(ClaheArgs a) {
   // the block's first pixels are loaded before the tables are built, so the
   // memory works during the build; from then on the next group's loads are
   // in flight while this group is blended (software pipelining)
-  long long item = begin;      // the load cursor: the next item, its chunk and row
-  int chunk = (int)(begin / n);
-  int row = (int)(begin - (long long)chunk * n);
+  long long item = begin;      // the load cursor: the next item, its chunk and local row
+  int chunk = (int)(begin / rows_w);
+  int row = (int)(begin - (long long)chunk * rows_w);
   Group cur, next;
   load_group(a, end, item, row, chunk, cur);
 
@@ -194,9 +201,9 @@ __global__ void __launch_bounds__(kThreads) clahe_apply_kernel(ClaheArgs a) {
   // around its rows and the column tiles around its chunks' columns (a
   // neighbour tile is the base tile +- 1)
   const float grid = (float)(n / t);  // GRID_TILE_SIZE: integer division
-  const int chunk0 = (int)(begin / n), chunk1 = (int)((end - 1) / n);
-  const int r_lo = chunk0 == chunk1 ? (int)(begin % n) : 0;
-  const int r_hi = chunk0 == chunk1 ? (int)((end - 1) % n) : n - 1;
+  const int chunk0 = (int)(begin / rows_w), chunk1 = (int)((end - 1) / rows_w);
+  const int r_lo = a.row0 + (chunk0 == chunk1 ? (int)(begin % rows_w) : 0);
+  const int r_hi = a.row0 + (chunk0 == chunk1 ? (int)((end - 1) % rows_w) : rows_w - 1);
   auto tile_of = [&](int i, int d) {
     return min(max((int)floorf(__fdiv_rn((float)i, grid)) + d, 0), t - 1);
   };
@@ -232,7 +239,7 @@ __global__ void __launch_bounds__(kThreads) clahe_apply_kernel(ClaheArgs a) {
   for (long long b0 = begin; b0 < end; b0 += kBatch) {
     const int nb = (int)min((long long)kBatch, end - b0);
     __syncthreads();  // the tables are built; the last batch's rows are read
-    for (int k = threadIdx.x; k < nb; k += blockDim.x) rows[k] = axis_attr((int)((b0 + k) % n), grid, t);
+    for (int k = threadIdx.x; k < nb; k += blockDim.x) rows[k] = axis_attr(a.row0 + (int)((b0 + k) % rows_w), grid, t);
     __syncthreads();
     for (int k0 = 0; k0 < nb; k0 += kGroup) {
       load_group(a, end, item, row, chunk, next);
@@ -271,11 +278,14 @@ __global__ void __launch_bounds__(kThreads) clahe_apply_kernel(ClaheArgs a) {
 
 extern "C" {
 
-// out [n, n] float32 = the blended CLAHE apply of recon [n, n] with the
-// LUTs [t * t, bins].  Returns a cudaError_t.
-int musica_clahe_apply(const float* recon, float* out, const float* luts, int n, int t,
-                       int bins, void* stream) {
-  if (n < 1 || t < 1 || n < t || bins < 2) return (int)cudaErrorInvalidValue;
+// out [rows, n] float32 = rows [row0, row0 + rows) of the blended CLAHE
+// apply of an [n, n] image with the LUTs [t * t, bins], from those rows of
+// the image, recon [rows, n] (a whole image: row0 = 0, rows = n).  Returns a
+// cudaError_t.
+int musica_clahe_apply(const float* recon, float* out, const float* luts, int n, int row0,
+                       int rows, int t, int bins, void* stream) {
+  if (n < 1 || t < 1 || n < t || bins < 2 || rows < 1 || row0 < 0 || row0 > n - rows)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(t, bins);
   long long wave = 0;
   const int e = wave_blocks(clahe_apply_kernel, kThreads, smem, &wave);
@@ -285,12 +295,14 @@ int musica_clahe_apply(const float* recon, float* out, const float* luts, int n,
   a.out = out;
   a.luts = luts;
   a.n = n;
+  a.row0 = row0;
+  a.rows = rows;
   a.t = t;
   a.bins = bins;
   a.vec = n % 4 == 0 && reinterpret_cast<unsigned long long>(recon) % 16 == 0 &&
           reinterpret_cast<unsigned long long>(out) % 16 == 0;
   a.inv_bins = (bins & (bins - 1)) == 0 ? 1.0f / (float)bins : 0.0f;
-  a.items = (long long)((n + kChunkCols - 1) / kChunkCols) * n;
+  a.items = (long long)((n + kChunkCols - 1) / kChunkCols) * rows;
   a.per_block = (a.items + wave - 1) / wave;
   const long long blocks = (a.items + a.per_block - 1) / a.per_block;
   clahe_apply_kernel<<<(unsigned)blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);

@@ -49,6 +49,16 @@
 // one (cov > n) reads pixels past the edge as 0.0, and a level smaller than
 // one task is one partial task.
 //
+// A window of rows (the spatial path's shards): per level the kernel
+// computes the sdev rows [r0, r1) of an [n, n] level from the band's rows
+// [lo, hi) (at least r0 - 2 .. r1 + 1 inside the level: the halo rows a
+// neighbouring shard holds are real data), zero-filling only what lies
+// outside the level, and its histogram counts the rows [r0, min(r1, cov)).
+// Tasks are numbered over the window's output rows, so a band starts at
+// r0 + 32 k.  A level whose histogram another entry counts passes cov = 0:
+// its sdev is computed and nothing is counted.  A whole image is the window
+// of all its rows.
+//
 // Bound: 8 bytes/px of device traffic (the band in, the sdev out) and per
 // pixel 8 float64 additions, a float64 division, a float64 square root and
 // two conversions, on 64 float64 lanes per SM per clock (chip_smoke.py
@@ -75,10 +85,12 @@ constexpr int kVSeg = 16;       // output rows of a thread's vertical sums
 constexpr int kHSeg = 8;        // output columns of a thread's horizontal sums
 
 struct SdevLevels {
-  const float* band[kMaxLevels];  // [n, n] contiguous
-  float* sdev[kMaxLevels];        // [n, n] contiguous
-  int n[kMaxLevels];
-  int cov[kMaxLevels];            // scanned coverage (stats.coverage)
+  const float* band[kMaxLevels];  // [hi - lo, n] contiguous: the band's rows [lo, hi)
+  float* sdev[kMaxLevels];        // [r1 - r0, n] contiguous: the sdev rows [r0, r1)
+  int n[kMaxLevels];              // the level's size
+  int lo[kMaxLevels], hi[kMaxLevels];
+  int r0[kMaxLevels], r1[kMaxLevels];
+  int cov[kMaxLevels];            // scanned coverage (stats.coverage), 0: not counted
   int col_tasks[kMaxLevels];
   int vec[kMaxLevels];            // 16-byte copies and stores
   int first_task[kMaxLevels + 1];  // prefix sums of the levels' task counts
@@ -133,16 +145,17 @@ __device__ __forceinline__ Task task_of(const SdevLevels& lv, int levels, int t)
   while (k.level + 1 < levels && t >= lv.first_task[k.level + 1]) ++k.level;
   const int local = t - lv.first_task[k.level];
   const int ct = lv.col_tasks[k.level];
-  k.r0 = local / ct * kBand;
+  k.r0 = lv.r0[k.level] + local / ct * kBand;  // a global row
   k.c0 = (local % ct) * lv.width;
   return k;
 }
 
 // Stage task k's band rows r0 - 2 .. r0 + kBand + 1, columns c0 - 4 ..
-// c0 + width + 3, into raw; what lies outside the level is zero-filled.
+// c0 + width + 3, into raw; what lies outside the level is zero-filled (and
+// rows outside the window [lo, hi), which only outputs past r1 read).
 __device__ __forceinline__ void stage(const SdevLevels& lv, const Task& k, const Layout& L,
                                       float* raw) {
-  const int n = lv.n[k.level];
+  const int n = lv.n[k.level], lo = lv.lo[k.level], hi = lv.hi[k.level];
   const float* __restrict__ src = lv.band[k.level];
   const int rows = kBand + 2 * kHalo;
   if (lv.vec[k.level]) {
@@ -151,17 +164,17 @@ __device__ __forceinline__ void stage(const SdevLevels& lv, const Task& k, const
       const int i = e / quads;
       const int r = k.r0 - kHalo + i;
       const int c = k.c0 - 4 + 4 * (e - i * quads);
-      const bool in = r >= 0 && r < n && c >= 0 && c < n;
-      cp_async16(raw + i * L.raw_pitch + (c - k.c0 + 4), in ? src + (long long)r * n + c : src,
-                 in ? 4 * min(4, n - c) : 0);
+      const bool in = r >= lo && r < hi && c >= 0 && c < n;
+      cp_async16(raw + i * L.raw_pitch + (c - k.c0 + 4),
+                 in ? src + (long long)(r - lo) * n + c : src, in ? 4 * min(4, n - c) : 0);
     }
   } else {
     for (int e = threadIdx.x; e < rows * L.raw_pitch; e += blockDim.x) {
       const int i = e / L.raw_pitch;
       const int r = k.r0 - kHalo + i;
       const int c = k.c0 - 4 + (e - i * L.raw_pitch);
-      const bool in = r >= 0 && r < n && c >= 0 && c < n;
-      cp_async4(raw + e, in ? src + (long long)r * n + c : src, in ? 4 : 0);
+      const bool in = r >= lo && r < hi && c >= 0 && c < n;
+      cp_async4(raw + e, in ? src + (long long)(r - lo) * n + c : src, in ? 4 : 0);
     }
   }
 }
@@ -191,15 +204,17 @@ __device__ __forceinline__ void row_sdev(const double* v, int count, float* x) {
 // warp layout (fused_hist.cu): kGroupLanes consecutive lanes hold a group,
 // shuffles give its break mask, and a pixel counts if it comes before the
 // group's first break.  The lanes of a warp run down the rows, so the
-// vertical sums are read without bank conflicts (the pitch is odd).
+// vertical sums are read without bank conflicts (the pitch is odd).  dst
+// holds the level's rows [out0, out1).
 template <int kTile>
 __device__ __forceinline__ void sums_store_scan(const double* vsum, int pitch, const Task& k,
-                                                int n, int cov, int width, float* dst, bool vec,
-                                                int n_bins, float max_noise, int* hist) {
+                                                int n, int out0, int out1, int cov, int width,
+                                                float* dst, bool vec, int n_bins,
+                                                float max_noise, int* hist) {
   static_assert(kTile == 8 || kTile == 16 || kTile == 32, "8 px a thread, whole groups a warp");
   constexpr int kLanePx = 8;
   constexpr int kGroupLanes = kTile / kLanePx;
-  const int scan_rows = min(cov, n);
+  const int scan_rows = min(cov, out1);
   const int groups = cov / kTile;
   const float fbins = (float)n_bins;
   const int part = threadIdx.x % kGroupLanes;  // the lane's place in its group
@@ -211,9 +226,9 @@ __device__ __forceinline__ void sums_store_scan(const double* vsum, int pitch, c
     float x[kLanePx];
     row_sdev<kLanePx>(vsum + i * pitch + seg * kLanePx, kLanePx, x);
 #pragma unroll
-    for (int j = 0; j < kLanePx; ++j) x[j] = r < n && c + j < n ? x[j] : 0.0f;  // padding
-    if (r < n) {
-      float* out = dst + (long long)r * n + c;
+    for (int j = 0; j < kLanePx; ++j) x[j] = r < out1 && c + j < n ? x[j] : 0.0f;  // padding
+    if (r < out1) {
+      float* out = dst + (long long)(r - out0) * n + c;
       if (vec && c < n) {  // n % 4 == 0: a quad is inside or outside
         *reinterpret_cast<float4*>(out) = make_float4(x[0], x[1], x[2], x[3]);
         if (c + 4 < n) *reinterpret_cast<float4*>(out + 4) = make_float4(x[4], x[5], x[6], x[7]);
@@ -243,12 +258,12 @@ __device__ __forceinline__ void sums_store_scan(const double* vsum, int pitch, c
 }
 
 // The noise histogram of a task's sdev tile sd [kBand][pitch] (0.0 past the
-// level's edge) into hist: the rows and groups inside the coverage cov, one
-// thread per group.
-__device__ __forceinline__ void scan_tile(const float* sd, int pitch, const Task& k, int n,
+// level's edge) into hist: the rows before out1 and the rows and groups
+// inside the coverage cov, one thread per group.
+__device__ __forceinline__ void scan_tile(const float* sd, int pitch, const Task& k, int out1,
                                           int cov, int width, int tile, int n_bins,
                                           float max_noise, int* hist) {
-  const int scan_rows = min(cov, n);
+  const int scan_rows = min(cov, out1);
   const int groups = cov / tile;
   const int row_groups = width / tile;
   const float fbins = (float)n_bins;
@@ -325,13 +340,13 @@ sdev_noise_hist_kernel(const __grid_constant__ SdevLevels lv, int levels,
     }
     __syncthreads();
 
-    const int n = lv.n[k.level];
+    const int n = lv.n[k.level], out0 = lv.r0[k.level], out1 = lv.r1[k.level];
     float* __restrict__ dst = lv.sdev[k.level];
     const bool vec = lv.vec[k.level] != 0;
     if constexpr (kTile != 0) {
       // the sdev, its store and its noise scan straight from registers
-      sums_store_scan<kTile>(vsum, L.vsum_pitch, k, n, lv.cov[k.level], width, dst, vec,
-                             n_bins, max_noise, hist);
+      sums_store_scan<kTile>(vsum, L.vsum_pitch, k, n, out0, out1, lv.cov[k.level], width, dst,
+                             vec, n_bins, max_noise, hist);
     } else {
       // the sdev tile in shared memory (a thread walks one row along kHSeg
       // columns, the lanes of a warp on 32 rows), then its store and scan
@@ -342,7 +357,7 @@ sdev_noise_hist_kernel(const __grid_constant__ SdevLevels lv, int levels,
         float x[kHSeg];
         row_sdev<kHSeg>(vsum + i * L.vsum_pitch + j0, min(kHSeg, width - j0), x);
         for (int j = 0; j < kHSeg && j0 + j < width; ++j)
-          sd[i * L.sd_pitch + j0 + j] = k.r0 + i < n && k.c0 + j0 + j < n ? x[j] : 0.0f;
+          sd[i * L.sd_pitch + j0 + j] = k.r0 + i < out1 && k.c0 + j0 + j < n ? x[j] : 0.0f;
       }
       __syncthreads();
       const int quads = width / 4;
@@ -351,19 +366,20 @@ sdev_noise_hist_kernel(const __grid_constant__ SdevLevels lv, int levels,
           const int i = e / quads;
           const int j = 4 * (e - i * quads);
           const int r = k.r0 + i, c = k.c0 + j;
-          if (r >= n || c >= n) continue;
+          if (r >= out1 || c >= n) continue;
           const float* q = sd + i * L.sd_pitch + j;
-          *reinterpret_cast<float4*>(dst + (long long)r * n + c) = make_float4(q[0], q[1], q[2], q[3]);
+          *reinterpret_cast<float4*>(dst + (long long)(r - out0) * n + c) =
+              make_float4(q[0], q[1], q[2], q[3]);
         }
       } else {
         for (int e = threadIdx.x; e < kBand * width; e += blockDim.x) {
           const int i = e / width;
           const int j = e - i * width;
           const int r = k.r0 + i, c = k.c0 + j;
-          if (r < n && c < n) dst[(long long)r * n + c] = sd[i * L.sd_pitch + j];
+          if (r < out1 && c < n) dst[(long long)(r - out0) * n + c] = sd[i * L.sd_pitch + j];
         }
       }
-      scan_tile(sd, L.sd_pitch, k, n, lv.cov[k.level], width, tile, n_bins, max_noise, hist);
+      scan_tile(sd, L.sd_pitch, k, out1, lv.cov[k.level], width, tile, n_bins, max_noise, hist);
     }
 
     // the range crosses into the next level, or ends: flush the histogram
@@ -389,7 +405,7 @@ int launch_sdev(SdevLevels lv, int levels, int* hists, int n_bins, float max_noi
     const int n = lv.n[l];
     lv.col_tasks[l] = (n + lv.width - 1) / lv.width;
     lv.first_task[l] = (int)total;
-    total += (long long)lv.col_tasks[l] * ((n + kBand - 1) / kBand);
+    total += (long long)lv.col_tasks[l] * ((lv.r1[l] - lv.r0[l] + kBand - 1) / kBand);
     if (total > 0x3fffffffLL) return (int)cudaErrorInvalidValue;
     lv.vec[l] = lv.vec[l] && n % 4 == 0 && lv.width % 4 == 0;
   }
@@ -410,23 +426,38 @@ int launch_sdev(SdevLevels lv, int levels, int* hists, int n_bins, float max_noi
 
 extern "C" {
 
-// sdevs[l] receives the sdev image of bands[l] ([n_l, n_l] contiguous
-// float32); hists [levels, n_bins] int32 and *ticket zeroed by the caller;
+// Per level l of size ns[l]: sdevs[l] ([r1s[l] - r0s[l], ns[l]] contiguous
+// float32) receives the sdev rows [r0s[l], r1s[l]) from bands[l], the
+// band's rows [los[l], his[l]) ([his[l] - los[l], ns[l]] contiguous float32,
+// at least the rows r0 - 2 .. r1 + 1 that lie in the level), and hists[l]
+// the noise histogram of the rows [r0, min(r1, covs[l])) (covs[l] = 0:
+// none).  hists [levels, n_bins] int32 and *ticket zeroed by the caller;
 // max_bins [levels] int32 receives each histogram's first-max bin (nullptr:
 // no argmax).  grid: at most that many blocks, 0 for one wave.  Returns a
 // cudaError_t.
-int musica_sdev_noise_hist(const void* const* bands, void* const* sdevs,
-                           const int* ns, const int* covs, int levels, int* hists,
-                           int* max_bins, unsigned* ticket, int n_bins, int tile,
-                           float max_noise, int grid, void* stream) {
+int musica_sdev_noise_hist(const void* const* bands, void* const* sdevs, const int* ns,
+                           const int* covs, const int* los, const int* his, const int* r0s,
+                           const int* r1s, int levels, int* hists, int* max_bins,
+                           unsigned* ticket, int n_bins, int tile, float max_noise, int grid,
+                           void* stream) {
   if (levels < 1 || levels > kMaxLevels || tile < 1 || n_bins < 1 || grid < 0)
     return (int)cudaErrorInvalidValue;
   SdevLevels lv = {};
   for (int l = 0; l < levels; ++l) {
-    if (ns[l] < 1 || covs[l] < 0 || covs[l] % tile != 0) return (int)cudaErrorInvalidValue;
+    const int n = ns[l];
+    // the window holds every row of the level that its outputs read
+    const int need_lo = r0s[l] > kHalo ? r0s[l] - kHalo : 0;
+    const int need_hi = r1s[l] + kHalo < n ? r1s[l] + kHalo : n;
+    if (n < 1 || covs[l] < 0 || covs[l] % tile != 0 || r0s[l] < 0 || r1s[l] <= r0s[l] ||
+        r1s[l] > n || los[l] < 0 || los[l] > need_lo || his[l] < need_hi || his[l] > n)
+      return (int)cudaErrorInvalidValue;
     lv.band[l] = static_cast<const float*>(bands[l]);
     lv.sdev[l] = static_cast<float*>(sdevs[l]);
-    lv.n[l] = ns[l];
+    lv.n[l] = n;
+    lv.lo[l] = los[l];
+    lv.hi[l] = his[l];
+    lv.r0[l] = r0s[l];
+    lv.r1[l] = r1s[l];
     lv.cov[l] = covs[l];
     lv.vec[l] = reinterpret_cast<unsigned long long>(bands[l]) % 16 == 0 &&
                 reinterpret_cast<unsigned long long>(sdevs[l]) % 16 == 0;

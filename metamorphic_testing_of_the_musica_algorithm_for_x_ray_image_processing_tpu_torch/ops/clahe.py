@@ -10,7 +10,9 @@ tiles bilinearly by distance to the tile centres.
 The joint histogram goes through ``stats.fixed_histogram`` (a CUDA kernel on
 the card) and the blended apply through ``ops/cuda/clahe_apply.py`` (a CUDA
 kernel on the card, at every size; ``clahe_apply`` below is its plain
-version).
+version).  The ``*_rows`` forms take a window of rows of an [n, n] image
+(the spatial path's shards) with the tiles and blend attributes of its
+global rows; the whole image is the window of all its rows.
 
 Numerics:
   * every division by a constant divides by a 0-d device tensor (``f32``):
@@ -55,13 +57,23 @@ def clahe_joint_bins(recon: torch.Tensor, relevant: torch.Tensor, cfg):
 
     bin = int(pixel * (bins-1) + 0.5) (clahe_histogram.comp:20); OOB bins
     (pixel outside [0, ~1]) are dropped atomics: weight 0, joint bin 0."""
+    return clahe_joint_bins_rows(recon, relevant, 0, recon.shape[-1], cfg)
+
+
+def clahe_joint_bins_rows(recon_rows: torch.Tensor, relevant_rows: torch.Tensor, row0: int,
+                          n: int, cfg):
+    """``clahe_joint_bins`` of the rows [row0, row0 + rows) of an [n, n]
+    image, held in ``recon_rows`` and ``relevant_rows`` [rows, n]: each
+    row's tile is that of its global row, so the histograms of a partition
+    of the rows sum to the whole image's."""
     t, bins = cfg.clahe_tiles, cfg.clahe_bins
-    b = (recon * float(bins - 1) + 0.5).to(I32)
-    xs = tile_ids(recon.shape[-1], t, recon)
-    tile_id = xs[:, None] * t + xs[None, :]
+    rows = recon_rows.shape[-2]
+    b = (recon_rows * float(bins - 1) + 0.5).to(I32)
+    xs = tile_ids(n, t, recon_rows)
+    tile_id = xs[row0:row0 + rows, None] * t + xs[None, :]
     in_range = (b >= 0) & (b < bins)
     joint = torch.where(in_range, b + tile_id * bins, 0)
-    w = torch.where(in_range, (relevant == 1.0).to(I32), 0)
+    w = torch.where(in_range, (relevant_rows == 1.0).to(I32), 0)
     return joint, w
 
 
@@ -69,8 +81,16 @@ def clahe_histograms(recon: torch.Tensor, relevant: torch.Tensor,
                      cfg) -> torch.Tensor:
     """int32 [tiles, tiles, bins] histogram of the pixels with
     relevant == 1.0 (``clahe_joint_bins`` into ``stats.fixed_histogram``)."""
+    return clahe_histograms_rows(recon, relevant, 0, recon.shape[-1], cfg)
+
+
+def clahe_histograms_rows(recon_rows: torch.Tensor, relevant_rows: torch.Tensor, row0: int,
+                          n: int, cfg) -> torch.Tensor:
+    """The partial ``clahe_histograms`` of the rows [row0, row0 + rows) of
+    an [n, n] image (``clahe_joint_bins_rows`` into one launch of
+    ``stats.fixed_histogram``): the spatial path's per-shard histogram."""
     t, bins = cfg.clahe_tiles, cfg.clahe_bins
-    joint, w = clahe_joint_bins(recon, relevant, cfg)
+    joint, w = clahe_joint_bins_rows(recon_rows, relevant_rows, row0, n, cfg)
     return fixed_histogram(joint, w, t * t * bins).reshape(t, t, bins)
 
 
@@ -143,17 +163,27 @@ def clahe_apply(recon: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     """Bilinear blend of neighbouring tile LUTs
     (clahe_grad_curve_apply.comp:38-160); the plain version of the kernel
     in ``ops/cuda/clahe_apply.py``."""
+    return clahe_apply_rows(recon, px, py, 0, recon.shape[-1], cfg)
+
+
+def clahe_apply_rows(recon_rows: torch.Tensor, px: torch.Tensor, py: torch.Tensor, row0: int,
+                     n: int, cfg) -> torch.Tensor:
+    """Rows [row0, row0 + rows) of ``clahe_apply`` of an [n, n] image, from
+    those rows (``recon_rows`` [rows, n]): the row blend attributes are the
+    global rows', the column attributes the whole image's."""
     t, bins = cfg.clahe_tiles, cfg.clahe_bins
     py_flat = py.reshape(-1)
-    base_i, nb_i, w_base, w_nb, zero = axis_attrs(recon.shape[-1], cfg, recon)
-    bx, nx = base_i[:, None], nb_i[:, None]
+    rows = recon_rows.shape[-2]
+    base_i, nb_i, w_base, w_nb, zero = axis_attrs(n, cfg, recon_rows)
+    win = slice(row0, row0 + rows)
+    bx, nx = base_i[win, None], nb_i[win, None]
     by, ny = base_i[None, :], nb_i[None, :]
-    wbx, wnx = w_base[:, None], w_nb[:, None]
+    wbx, wnx = w_base[win, None], w_nb[win, None]
     wby, wny = w_base[None, :], w_nb[None, :]
-    zx, zy = zero[:, None], zero[None, :]
+    zx, zy = zero[win, None], zero[None, :]
 
     def ev(tx, ty):
-        return _lut_eval(px, py_flat, tx * t + ty, recon, bins)
+        return _lut_eval(px, py_flat, tx * t + ty, recon_rows, bins)
 
     g_bb, g_nb, g_bn, g_nn = ev(bx, by), ev(nx, by), ev(bx, ny), ev(nx, ny)
     v_x0 = wby * g_bb + wny * g_bn  # diff.x == 0: blend along y

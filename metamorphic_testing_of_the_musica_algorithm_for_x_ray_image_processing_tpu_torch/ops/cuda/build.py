@@ -43,10 +43,10 @@ _SIGNATURES = {
     "musica_grad_hist_relevant": ([_VP, _VP, _I, _I, _I, _I, _VP, _I, _I, _I, _I, _I,
                                    ctypes.c_float, _VP, _I, _I, _VP], _I),
     "musica_histogram": ([_VP, _VP, ctypes.c_longlong, _VP, _I, _VP], _I),
-    "musica_clahe_apply": ([_VP, _VP, _VP, _I, _I, _I, _VP], _I),
+    "musica_clahe_apply": ([_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP], _I),
     "musica_sdev_noise_hist": ([ctypes.POINTER(_VP), ctypes.POINTER(_VP),
-                                ctypes.POINTER(_I), ctypes.POINTER(_I), _I, _VP,
-                                _VP, _VP, _I, _I, ctypes.c_float, _I, _VP], _I),
+                                *[ctypes.POINTER(_I)] * 6, _I, _VP, _VP, _VP, _I, _I,
+                                ctypes.c_float, _I, _VP], _I),
 }
 
 _LIB = None  # the loaded library handle

@@ -16,7 +16,10 @@ and then reads one pixel and up to 4 table entries per pixel, with no
 division; it is bound by one read and one write of the image.  So the
 wrapper launches one kernel and allocates its output, and the kernel equals
 the plain version exactly (NaN tiles included).  It runs at every size:
-there is no block-shape condition as on the TPU.
+there is no block-shape condition as on the TPU.  It takes a window of rows
+(the spatial path's shards, ``parallel/spatial.py``): ``row0``, the window's
+first global row, places the row blend attributes; a whole image is the
+window of all its rows.
 """
 
 from __future__ import annotations
@@ -38,34 +41,37 @@ def shared_bytes(t: int, bins: int) -> int:
 
 
 def clahe_apply_plain(recon: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
-                      cfg) -> torch.Tensor:
-    """Plain version: ``ops.clahe.clahe_apply`` (the JAX package's XLA
+                      cfg, row0: int = 0) -> torch.Tensor:
+    """Plain version: ``ops.clahe.clahe_apply_rows`` (the JAX package's XLA
     formulation, gathers into the flattened LUTs)."""
-    return clahe.clahe_apply(recon, px, py, cfg)
+    return clahe.clahe_apply_rows(recon, px, py, row0, recon.shape[-1], cfg)
 
 
 def clahe_apply(recon: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
-                cfg) -> torch.Tensor:
+                cfg, row0: int = 0) -> torch.Tensor:
     """recon [n, n] float32 + per-tile CDF LUTs py [t, t, bins] -> the
     blended CLAHE image [n, n].  ``px`` is the LUTs' x grid from
     ``clahe_curves`` (i / bins, the last point 1.0), which the kernel
-    implies."""
+    implies.  A window: recon [rows, n] holds the rows [row0, row0 + rows)
+    of an [n, n] image, and the result is those rows of the whole apply."""
     dev = launch.device_of([recon, py])
     if dev.type == "cpu":
-        return clahe_apply_plain(recon, px, py, cfg)
+        return clahe_apply_plain(recon, px, py, cfg, row0)
     t, bins = cfg.clahe_tiles, cfg.clahe_bins
-    launch.check_image(recon, "recon")
+    launch.check_rows(recon, "recon")
     if py.dtype != torch.float32 or tuple(py.shape) != (t, t, bins) or not py.is_contiguous():
         raise ValueError(f"py: expected contiguous float32 [{t}, {t}, {bins}], got "
                          f"{py.dtype} {tuple(py.shape)}")
     if bins < 2:
         raise ValueError(f"clahe_bins={bins}: at least 2")
     launch.check_shared(shared_bytes(t, bins), f"clahe_tiles={t}, clahe_bins={bins}")
-    n = recon.shape[-1]
+    rows, n = recon.shape
     if n < t:
         raise ValueError(f"image size {n} < {t} tiles")
+    if rows < 1 or not 0 <= row0 <= n - rows:
+        raise ValueError(f"rows [{row0}, {row0 + rows}) of a {n}-row image")
     out = torch.empty_like(recon)
     lib = launch.lib()
     launch.launch(lib, "musica_clahe_apply", "clahe_apply", dev, recon.data_ptr(),
-                  out.data_ptr(), py.data_ptr(), n, t, bins)
+                  out.data_ptr(), py.data_ptr(), n, row0, rows, t, bins)
     return out

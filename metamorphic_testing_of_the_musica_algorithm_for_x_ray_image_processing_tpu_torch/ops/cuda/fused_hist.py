@@ -20,14 +20,19 @@ wrapper                    replaces (JAX package, ops/pallas/fused_hist.py)
 ``grad_hist``              ``grad_hist_fused`` (``_grad_kernel``)
 ``noise_hists_rows``       ``noise_hist_fused`` on the spatial path: each
                            level's histogram of a shard's rows, no argmax
+``sdev_noise_hists_rows``  ``sdev_noise_hist_fused`` on the spatial path:
+                           each level's sdev rows of a shard (from its
+                           rows and the 2-row halos) and their histograms,
+                           no argmax
 ``hist_argmax``            ``noise_hist_argmax_multi``'s argmax, a launch of
                            its own on the spatial path's summed histograms
 =========================  ==================================================
 
-K1, K3 and K4 take a window of rows of their images (the spatial path's
-shards, ``parallel/spatial.py``): ``row0``, the window's first global row,
-places the coverage, the tiles, the relevance border and the CNR rows, so
-the histograms of a partition of the rows sum to the whole image's; each
+K1, K3, K4 and K7 take a window of rows of their images (the spatial
+path's shards, ``parallel/spatial.py``): ``row0``, the window's first global
+row, places the coverage, the tiles, the relevance border and the CNR rows
+(K7: the sdev rows and the band rows that hold them, the halos included),
+so the histograms of a partition of the rows sum to the whole image's; each
 plain version is the whole-image plain function on the window's rows.  A
 whole image is the window of all its rows.
 
@@ -217,6 +222,17 @@ def sdev_noise_hists_plain(bands, cfg):
     return sdevs, noise_hists_plain(sdevs, cfg)
 
 
+def sdev_noise_hists_rows_plain(bands, band_row0s, out_rows, cfg, counted=None):
+    """Plain version of ``sdev_noise_hists_rows``: ``stats.img_sdev_rows``
+    per level, then ``noise_hists_rows_plain`` of the counted levels'
+    windows."""
+    counted = [True] * len(bands) if counted is None else counted
+    sdevs = [stats.img_sdev_rows(b, lo, b.shape[-1], r0, r1)
+             for b, lo, (r0, r1) in zip(bands, band_row0s, out_rows)]
+    return sdevs, noise_hists_rows_plain([sd if c else sd[:0] for sd, c in zip(sdevs, counted)],
+                                         [r0 for r0, _ in out_rows], cfg)
+
+
 def sdev_noise_hists(bands, cfg, grid: int = 0):
     """(sdev images, list of float32 [n_i, n_i]; noise histograms, int32
     [L, n_bins]; their first-max bins, int32 [L]) of a list of [n_i, n_i]
@@ -228,25 +244,64 @@ def sdev_noise_hists(bands, cfg, grid: int = 0):
     if dev.type == "cpu":
         sdevs, hists = sdev_noise_hists_plain(bands, cfg)
         return sdevs, hists, hist_argmax_plain(hists)
-    nb, tile = cfg.noise_histogram_bins, cfg.histogram_area_size
-    launch.check_bins(nb)
-    launch.check_shared(sdev_shared_bytes(tile, nb), f"noise_histogram_bins={nb}")
-    if not 1 <= len(bands) <= _MAX_LEVELS:
-        raise ValueError(f"{len(bands)} levels, at most {_MAX_LEVELS}")
     for i, b in enumerate(bands):
         launch.check_image(b, f"band {i}")
     L = len(bands)
+    return _launch_sdev(bands, [0] * L, [(0, b.shape[-1]) for b in bands], [True] * L, cfg,
+                        argmax=True, grid=grid)
+
+
+def sdev_noise_hists_rows(bands, band_row0s, out_rows, cfg, counted=None, grid: int = 0):
+    """(sdev windows, list of float32 [r1_j - r0_j, n_j]; partial noise
+    histograms, int32 [L, n_bins]) of windows of rows of bandpass levels,
+    in one launch without the argmax: ``bands[j]`` [rows_j, n_j] holds the
+    rows [band_row0s[j], band_row0s[j] + rows_j) of an [n_j, n_j] level, at
+    least ``pyramid.needed_rows("img_sdev", n_j, r0, r1)``; ``out_rows[j]``
+    = (r0, r1), the sdev rows computed; level j's histogram counts its rows
+    [r0, min(r1, coverage)) where ``counted[j]`` (default: every level), so
+    the histograms of a partition of the rows sum to the whole levels'."""
+    dev = launch.device_of(bands)
+    counted = [True] * len(bands) if counted is None else list(counted)
+    if dev.type == "cpu":
+        return sdev_noise_hists_rows_plain(bands, band_row0s, out_rows, cfg, counted)
+    return _launch_sdev(bands, list(band_row0s), list(out_rows), counted, cfg, argmax=False,
+                        grid=grid)[:2]
+
+
+def _launch_sdev(bands, los, out_rows, counted, cfg, argmax: bool, grid: int = 0):
+    """K7 on CUDA windows of rows: (sdev windows, histograms, first-max bins
+    or None)."""
+    dev = bands[0].device
+    nb, tile = cfg.noise_histogram_bins, cfg.histogram_area_size
+    launch.check_bins(nb)
+    launch.check_shared(sdev_shared_bytes(tile, nb), f"noise_histogram_bins={nb}")
+    L = len(bands)
+    if not 1 <= L <= _MAX_LEVELS:
+        raise ValueError(f"{L} levels, at most {_MAX_LEVELS}")
+    for i, (b, lo, (r0, r1)) in enumerate(zip(bands, los, out_rows)):
+        launch.check_rows(b, f"band {i}")
+        n = b.shape[-1]
+        hi = lo + b.shape[-2]
+        need = (max(r0 - 2, 0), min(r1 + 2, n))
+        if not (0 <= r0 < r1 <= n and 0 <= lo <= need[0] and need[1] <= hi <= n):
+            raise ValueError(f"band {i}: sdev rows [{r0}, {r1}) of a {n}-row level read its "
+                             f"rows {list(need)}, the window holds [{lo}, {hi})")
     lib = launch.lib()
-    sdevs = [torch.empty_like(b) for b in bands]
+    sdevs = [torch.empty((r1 - r0, b.shape[-1]), dtype=torch.float32, device=dev)
+             for b, (r0, r1) in zip(bands, out_rows)]
     hists, max_bins, ticket = _hist_buffers(L, nb, dev)
+    ints = ctypes.c_int * L
     src = (ctypes.c_void_p * L)(*[b.data_ptr() for b in bands])
     dst = (ctypes.c_void_p * L)(*[s.data_ptr() for s in sdevs])
-    ns = (ctypes.c_int * L)(*[b.shape[-1] for b in bands])
-    covs = (ctypes.c_int * L)(*[stats.coverage(b.shape[-1], cfg) for b in bands])
+    ns = ints(*[b.shape[-1] for b in bands])
+    covs = ints(*[stats.coverage(b.shape[-1], cfg) if c else 0
+                  for b, c in zip(bands, counted)])
     launch.launch(lib, "musica_sdev_noise_hist", "sdev_noise_hist", dev, src, dst, ns, covs,
-                  L, hists.data_ptr(), max_bins.data_ptr(), ticket.data_ptr(), nb, tile,
-                  float(cfg.max_noise_value), int(grid))
-    return sdevs, hists, max_bins
+                  ints(*los), ints(*[lo + b.shape[-2] for b, lo in zip(bands, los)]),
+                  ints(*[r0 for r0, _ in out_rows]), ints(*[r1 for _, r1 in out_rows]), L,
+                  hists.data_ptr(), max_bins.data_ptr() if argmax else None, ticket.data_ptr(),
+                  nb, tile, float(cfg.max_noise_value), int(grid))
+    return sdevs, hists, (max_bins if argmax else None)
 
 
 # ----------------------------------------------------------------------

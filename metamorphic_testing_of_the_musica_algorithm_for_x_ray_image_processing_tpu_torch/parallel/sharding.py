@@ -20,8 +20,9 @@ gathered onto the mesh's first device.
 With ``n_space > 1`` (``make_mesh``: ``n_data`` rows of ``n_space``
 devices, the JAX package's ``(data, space)`` mesh) each image's rows are
 split over its mesh row's entries (``parallel/spatial.py``: halo exchanges
-and histogram all-reduces written out); one worker thread per mesh row
-drives its entries, each on a CUDA stream of its own, eagerly.
+and histogram all-reduces written out), in every variant (CLAHE, linear
+gradation, fused-sdev, bf16); one worker thread per mesh row drives its
+entries, each on a CUDA stream of its own, eagerly.
 """
 
 from __future__ import annotations
@@ -150,10 +151,10 @@ def process_sharded(imgs_u16, cfg: MusicaConfig, mesh: Mesh,
         raise ValueError(f"batch of {b} images does not split evenly over {n} devices")
     per = b // n
     if is_spatial(mesh):
-        spatial.check_supported(cfg, fused_sdev)
+        spatial.check_outputs(cfg, outputs)
 
         def rows(i: int, entries):
-            res = [spatial.forward(im, cfg, entries, outputs)
+            res = [spatial.forward(im, cfg, entries, outputs, fused_sdev)
                    for im in imgs[i * per:(i + 1) * per]]
             with entries[0].on():
                 return tuple(torch.stack([r[k] for r in res]) for k in outputs)

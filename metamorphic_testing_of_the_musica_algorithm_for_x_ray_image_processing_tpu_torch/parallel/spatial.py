@@ -22,10 +22,18 @@ at the image's true first and last rows, in the same float64 tap order,
 so the sharded result equals the unsharded one bit for bit.  The
 histograms go through the kernels on row windows: K1 (``noise_hists_rows``)
 on each shard's rows inside each analysis level's coverage (a shard with no
-covered row launches nothing), then a sum of the int32 partials and one
-launch of K2 (``hist_argmax``) for the first-max bins of the image; K3 or
-K4 on each shard's rows under the unsharded path's condition, then a sum
-of the 1,024-bin partials and the tone curve on every entry.
+covered row launches nothing), or with ``fused_sdev`` K7
+(``sdev_noise_hists_rows``: every analysis level's sdev rows of the shard,
+from its band rows and the 2-row halos, and their histograms) once per
+shard, then a sum of the int32 partials and one launch of K2
+(``hist_argmax``) for the first-max bins of the image; K3 or K4 on each
+shard's rows under the unsharded path's condition (K4 under CLAHE, which
+needs the relevance image), then a sum of the 1,024-bin partials and the
+tone curve on every entry.  With ``cfg.enable_clahe`` each shard's joint
+CLAHE histogram at global tiles goes through K6, the partials are summed,
+every entry makes the tile LUTs, and K5 blends each shard's reconstruction
+rows (``clahe_graded``).  A replicated analysis level is computed whole on
+every entry and its histogram counted by the first alone.
 
 Transport is plain tensor copies between entries (``Entry.send``): on the
 sender's stream, the receiver's stream waiting for it; an entry on the same
@@ -34,10 +42,6 @@ receiver's stream.  An all-reduce is a gather of the partials onto the
 row's first entry, a sum there and a copy back.  The same code runs on CPU
 entries (the tests).  The path runs eagerly, one thread driving one mesh
 row's entries in turn; per-entry CUDA graphs are later work (ROADMAP).
-
-Not on this path yet: the CLAHE variant (K5 and K6 on row windows) and the
-fused-sdev analysis (K7 on a row window), ROADMAP's next spatial slices;
-``forward`` raises for them.
 """
 
 from __future__ import annotations
@@ -51,22 +55,22 @@ import torch
 
 from ..config import MusicaConfig
 from ..models.musica import _band_dtype
-from ..ops import curves, gradation, noise, normalize, pyramid, stats
-from ..ops.cuda import fused_hist
+from ..ops import clahe, curves, gradation, noise, normalize, pyramid, stats
+from ..ops.cuda import clahe_apply, fused_hist
 
-OUTPUTS = ("out_u8", "graded", "recon", "cnr")
-NOT_YET = "the ROADMAP queue of spatial slices (CLAHE, then fused-sdev, then CUDA graphs)"
+OUTPUTS = ("out_u8", "graded", "recon", "cnr", "clahe_graded")
+# what the spatial path does not do yet: it runs every variant, eagerly
+NOT_YET = "per-entry CUDA graphs of the spatial path (ROADMAP Queue 1)"
 
 
-def check_supported(cfg: MusicaConfig, fused_sdev: bool) -> None:
-    """Raise for what the spatial path does not run yet (no quiet fallback
-    to an unsharded run)."""
-    if cfg.enable_clahe:
-        raise NotImplementedError("enable_clahe under n_space > 1 (K5 and K6 on row windows) "
-                                  f"is not ported yet: {NOT_YET}")
-    if fused_sdev:
-        raise NotImplementedError("fused_sdev under n_space > 1 (K7 on a row window) is not "
-                                  f"ported yet: {NOT_YET}")
+def check_outputs(cfg: MusicaConfig, outputs: Sequence[str]) -> None:
+    """Raise for an output the spatial path does not give."""
+    bad = set(outputs) - set(OUTPUTS)
+    if bad:
+        raise ValueError(f"outputs {sorted(bad)}: the spatial path gives {OUTPUTS}")
+    if "clahe_graded" in outputs and not cfg.enable_clahe:
+        raise ValueError("outputs ['clahe_graded']: the spatial path gives it only with "
+                         "cfg.enable_clahe")
 
 
 class Entry:
@@ -222,12 +226,10 @@ def forward(img_u16: torch.Tensor, cfg: MusicaConfig, entries: Sequence[Entry],
             outputs: Sequence[str] = ("out_u8",), fused_sdev: bool = False) -> Dict[str, torch.Tensor]:
     """``musica_forward`` of one [n, n] integer image (on any device) with
     its rows split over ``entries``; returns the requested results
-    (``OUTPUTS``), each whole, on the first entry's device.  Equal to
-    ``musica_forward``'s bit for bit."""
-    check_supported(cfg, fused_sdev)
-    bad = set(outputs) - set(OUTPUTS)
-    if bad:
-        raise ValueError(f"outputs {sorted(bad)}: the spatial path gives {OUTPUTS}")
+    (``OUTPUTS``; ``clahe_graded`` with ``cfg.enable_clahe``), each whole,
+    on the first entry's device.  ``fused_sdev`` as in ``musica_forward``.
+    Equal to ``musica_forward``'s bit for bit."""
+    check_outputs(cfg, outputs)
     n = cfg.image_size
     if tuple(img_u16.shape) != (n, n):
         raise ValueError(f"image {tuple(img_u16.shape)} != cfg.image_size {n}")
@@ -280,26 +282,42 @@ def forward(img_u16: torch.Tensor, cfg: MusicaConfig, entries: Sequence[Entry],
     def rows_of(k: int, i: int) -> Tuple[int, int]:
         return plan.rows(k, i) if sharded(k) else (0, sizes[k])
 
-    # ---- analysis: sdev on each shard's rows, K1 partials, K2 on the sum -----
+    # ---- analysis: sdev on each shard's rows, K1 (or K7) partials, K2 on the sum
     levels = list(cfg.analysis_levels)
     bands = {k: row.each(lambda i, k=k: bandpass[k][i].float()) for k in levels}
-    sdevs = {}
-    for k in levels:
-        if sharded(k):
-            def sdev(i, k=k):
-                r0, r1 = plan.rows(k, i)
-                lo, hi = pyramid.needed_rows("img_sdev", sizes[k], r0, r1)
-                win = row.fetch(bandpass[k], k, lo, hi, i).float()
-                return stats.img_sdev_rows(win, lo, sizes[k], r0, r1)
-            sdevs[k] = row.each(sdev)
-        else:
-            sdevs[k] = row.each(lambda i, k=k: stats.img_sdev(bands[k][i]))
 
-    def partial(i):
-        # a replicated level is scanned by the first entry alone
-        wins = [sdevs[k][i] if sharded(k) or i == 0 else sdevs[k][i][:0] for k in levels]
-        return fused_hist.noise_hists_rows(wins, [rows_of(k, i)[0] for k in levels], cfg)
-    parts = row.each(partial)
+    def band_window(k: int, i: int) -> Tuple[torch.Tensor, int]:
+        """The band rows that level k's sdev rows on shard i read, and the
+        first (a replicated level: the whole band)."""
+        if not sharded(k):
+            return bands[k][i], 0
+        lo, hi = pyramid.needed_rows("img_sdev", sizes[k], *plan.rows(k, i))
+        return row.fetch(bandpass[k], k, lo, hi, i).float(), lo
+
+    sdevs = {}
+    if fused_sdev:
+        def k7(i):
+            wins = [band_window(k, i) for k in levels]
+            # a replicated level is counted by the first entry alone
+            return fused_hist.sdev_noise_hists_rows(
+                [w for w, _ in wins], [lo for _, lo in wins], [rows_of(k, i) for k in levels],
+                cfg, [sharded(k) or i == 0 for k in levels])
+        res = row.each(k7)
+        for j, k in enumerate(levels):
+            sdevs[k] = [r[0][j] for r in res]
+        parts = [r[1] for r in res]
+    else:
+        for k in levels:
+            def sdev(i, k=k):
+                win, lo = band_window(k, i)
+                return stats.img_sdev_rows(win, lo, sizes[k], *rows_of(k, i))
+            sdevs[k] = row.each(sdev)
+
+        def partial(i):
+            # a replicated level is scanned by the first entry alone
+            wins = [sdevs[k][i] if sharded(k) or i == 0 else sdevs[k][i][:0] for k in levels]
+            return fused_hist.noise_hists_rows(wins, [rows_of(k, i)[0] for k in levels], cfg)
+        parts = row.each(partial)
     with E[0].on():
         got = [t for t in row.to_first(parts) if t is not None]
         hsum = _sum_int32(got, (len(levels), cfg.noise_histogram_bins), E[0].device)
@@ -371,18 +389,35 @@ def forward(img_u16: torch.Tensor, cfg: MusicaConfig, entries: Sequence[Entry],
                   else recon)
     tile = cfg.histogram_area_size
     scale = int(math.ceil(n / sizes[c]))
-    fused_relevance = tile % scale == 0 and n % tile == 0
+    # CLAHE needs the relevance image itself, so its gradation goes through K4
+    fused_relevance = tile % scale == 0 and n % tile == 0 and not cfg.enable_clahe
+
+    def relevance(i):
+        win, w0 = cnr_window(i, 0)
+        return noise.img_relevant(normalized[i], win, cfg, plan.rows(0, i)[0], w0)
+    relevant = None if fused_relevance else row.each(relevance)
 
     def ghist(i):
-        win, w0 = cnr_window(i, 0)
         r0 = plan.rows(0, i)[0]
         if fused_relevance:
+            win, w0 = cnr_window(i, 0)
             return fused_hist.grad_hist_relevant(grad_input[i], normalized[i], win, cfg, r0, w0)
-        relevant = noise.img_relevant(normalized[i], win, cfg, r0, w0)
-        return fused_hist.grad_hist(grad_input[i], relevant, cfg, r0)
+        return fused_hist.grad_hist(grad_input[i], relevant[i], cfg, r0)
     ghists = row.all_reduce(row.each(ghist), lambda p: _sum_int32(
         p, (cfg.grad_histogram_bins,), E[0].device))
     gcurve = row.each(lambda i: gradation.gradation_curve(ghists[i], cfg))
+
+    # ---- CLAHE: K6 per shard, the partials summed, K5 on each shard's rows ----
+    # (it grades the reconstruction itself, never the squared image)
+    if cfg.enable_clahe:
+        t, cb = cfg.clahe_tiles, cfg.clahe_bins
+        chists = row.all_reduce(
+            row.each(lambda i: clahe.clahe_histograms_rows(recon[i], relevant[i],
+                                                           plan.rows(0, i)[0], n, cfg)),
+            lambda p: _sum_int32(p, (t, t, cb), E[0].device))
+        luts = row.each(lambda i: clahe.clahe_curves(chists[i], cfg))
+        clahe_graded = row.each(lambda i: clahe_apply.clahe_apply(
+            recon[i], *luts[i], cfg, plan.rows(0, i)[0]))
 
     # ---- tone map, crop, gather ---------------------------------------------
     graded = row.each(lambda i: curves.curve_get_y_general(gcurve[i][0], gcurve[i][1],
@@ -394,6 +429,9 @@ def forward(img_u16: torch.Tensor, cfg: MusicaConfig, entries: Sequence[Entry],
         a, b = max(r0, m), min(r1, n - m)
         return curves.curve_apply_u8(graded[i][max(a - r0, 0):max(b - r0, 0), m:n - m])
     out_parts = row.each(crop)
+    sharded_out = {"graded": (graded, 0), "recon": (recon, 0), "cnr": (cnr, c)}
+    if cfg.enable_clahe:
+        sharded_out["clahe_graded"] = (clahe_graded, 0)
     result = {}
     for name in outputs:
         if name == "out_u8":
@@ -403,6 +441,5 @@ def forward(img_u16: torch.Tensor, cfg: MusicaConfig, entries: Sequence[Entry],
         elif name == "cnr" and not sharded(c):
             result[name] = cnr[0]
         else:
-            parts, k = {"graded": (graded, 0), "recon": (recon, 0), "cnr": (cnr, c)}[name]
-            result[name] = row.gather(parts, k)
+            result[name] = row.gather(*sharded_out[name])
     return result

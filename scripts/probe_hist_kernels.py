@@ -407,6 +407,13 @@ def main() -> int:
 
     def k7(lib, inp, argmax=True):
         fn = lib.musica_sdev_noise_hist
+        if len(fn.argtypes) == 17:  # row windows: every level whole
+            h, mb, ticket = fh._hist_buffers(L, nb, dev)
+            zeros = (ctypes.c_int * L)(*[0] * L)
+            assert fn(inp["srcs"], inp["dsts"], ns, covs, zeros, ns, zeros, ns, L, h.data_ptr(),
+                      mb.data_ptr() if argmax else None, ticket.data_ptr(), nb, tile,
+                      float(cfg.max_noise_value), 0, stream) == 0
+            return h
         if len(fn.argtypes) == 13:
             h, mb, ticket = fh._hist_buffers(L, nb, dev)
             assert fn(inp["srcs"], inp["dsts"], ns, covs, L, h.data_ptr(),
@@ -422,7 +429,10 @@ def main() -> int:
     def k5(lib, inp, attrs=None):
         out = torch.empty_like(v_recon)
         fn = lib.musica_clahe_apply
-        if len(fn.argtypes) == 7:
+        if len(fn.argtypes) == 9 and fn.argtypes[3] is ctypes.c_int:  # a row window: all rows
+            assert fn(v_recon.data_ptr(), out.data_ptr(), v_py.data_ptr(), n, 0, n, t, bins,
+                      stream) == 0
+        elif len(fn.argtypes) == 7:
             assert fn(v_recon.data_ptr(), out.data_ptr(), v_py.data_ptr(), n, t, bins,
                       stream) == 0
         else:  # the parent's: blend attributes from its wrapper

@@ -6,6 +6,7 @@
     python3 scripts/profile_torch.py --fused-sdev    # sdev + noise histograms in one kernel
     python3 scripts/profile_torch.py --bf16          # bf16 band storage
     python3 scripts/profile_torch.py --graph         # also the graph replays
+    python3 scripts/profile_torch.py --spatial 1x4   # the spatial path on this card
 
 Runs ``musica_forward`` on a device-resident synthetic radiograph under
 ``torch.profiler`` and prints, with the card's name and power limit:
@@ -23,6 +24,11 @@ before the profiler starts), and prints the same wall time, kernels,
 device busy ms and share, and hand-written kernels for the replays beside
 the eager run's (a replay has no ``musica.<phase>`` spans: they are host
 spans of the capture).
+
+With ``--spatial DxS`` the profiled call is ``process_sharded`` of D
+images over a D x S mesh whose entries are all this card, each on a stream
+of its own (``parallel/spatial.py``, eager; its ops carry no
+``musica.<phase>`` spans), and the times are per image.
 
 A Chrome trace of the run goes to ``DIR/trace.json`` (default
 ``build/profile_torch``), the replays' to ``DIR/trace_graph.json``.
@@ -67,6 +73,9 @@ def main() -> int:
                     help="bf16 storage for the pyramid band streams")
     ap.add_argument("--graph", action="store_true",
                     help="also profile the replays of the captured graph (process_jit)")
+    ap.add_argument("--spatial", default="",
+                    help="DxS: profile process_sharded of D images, each image's rows over S "
+                         "mesh entries on this card")
     args = ap.parse_args()
 
     import torch
@@ -78,6 +87,7 @@ def main() -> int:
         return 1
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import (
         synthetic_radiograph)
 
@@ -88,13 +98,25 @@ def main() -> int:
                        grad_with_linear_image=args.linear_gradation,
                        storage="bfloat16" if args.bf16 else "float32")
     x = torch.from_numpy(synthetic_radiograph(args.size, args.anatomy)).cuda()
+    per_call = 1  # images a profiled call processes
+    if args.spatial:
+        d, s = (int(v) for v in args.spatial.split("x"))
+        mesh = sharding.make_mesh(n_data=d, n_space=s, devices=[x.device] * (d * s))
+        xs, per_call = x.expand(d, -1, -1), d
+
+        def forward():
+            return sharding.process_sharded(xs, cfg, mesh, fused_sdev=args.fused_sdev)
+    else:
+        def forward():
+            return musica.musica_forward(x, cfg, fused_sdev=args.fused_sdev)["out_u8"]
     for _ in range(3):  # warm-up: kernel build, allocator, cuBLAS-free path
-        musica.musica_forward(x, cfg, fused_sdev=args.fused_sdev)["out_u8"]
+        forward()
     torch.cuda.synchronize()
 
-    def profiled(fn):
+    def profiled(fn, imgs=1):
         """(profiler, wall ms/img by CUDA events, kernel events, device busy
-        ms/img, kernels/img) of ``args.reps`` calls of ``fn``."""
+        ms/img, kernels/img) of ``args.reps`` calls of ``fn``, each of
+        ``imgs`` images."""
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             start.record()
@@ -105,18 +127,17 @@ def main() -> int:
         events = prof.key_averages()
         kernels = [e for e in events
                    if e.device_type == DeviceType.CUDA and not e.key.startswith("musica.")]
-        return (prof, start.elapsed_time(end) / args.reps, kernels,
-                sum(e.self_device_time_total for e in kernels) / 1e3 / args.reps,
-                sum(e.count for e in kernels) / args.reps)
+        return (prof, start.elapsed_time(end) / args.reps / imgs, kernels,
+                sum(e.self_device_time_total for e in kernels) / 1e3 / args.reps / imgs,
+                sum(e.count for e in kernels) / args.reps / imgs)
 
-    def hand_written(kernels):
+    def hand_written(kernels, imgs=1):
         for label, pattern in HAND_WRITTEN.items():
             hits = [e for e in kernels if re.search(pattern, e.key)]
-            ms = sum(e.self_device_time_total for e in hits) / 1e3 / args.reps
-            print(f"  {ms:9.3f} {sum(e.count for e in hits) / args.reps:7.1f}  {label}")
+            ms = sum(e.self_device_time_total for e in hits) / 1e3 / args.reps / imgs
+            print(f"  {ms:9.3f} {sum(e.count for e in hits) / args.reps / imgs:7.1f}  {label}")
 
-    prof, wall, kernels, busy, launches = profiled(
-        lambda: musica.musica_forward(x, cfg, fused_sdev=args.fused_sdev)["out_u8"])
+    prof, wall, kernels, busy, launches = profiled(forward, per_call)
     events = prof.key_averages()
     on_gpu = [e for e in events if e.device_type == DeviceType.CUDA]
 
@@ -125,6 +146,8 @@ def main() -> int:
                                          ("linear gradation", args.linear_gradation),
                                          ("fused sdev", args.fused_sdev),
                                          ("bf16 bands", args.bf16)) if on)
+    if args.spatial:
+        variant = f"{variant or 'main path'}; spatial path over {args.spatial} entries on one card"
     print(f"{args.size}^2 {args.anatomy} ({variant or 'main path'}), "
           f"{args.reps} reps under the profiler: "
           f"{wall:.3f} ms/img wall (CUDA events), {launches:.0f} kernels/img, "
@@ -139,11 +162,11 @@ def main() -> int:
         print(f"  {k:20s} {host[k] / 1e3 / args.reps:12.3f} "
               f"{span.get(k, 0.0) / 1e3 / args.reps:13.3f}")
     print("hand-written kernels (ms/img, launches/img):")
-    hand_written(kernels)
+    hand_written(kernels, per_call)
     print("top kernels by device time (ms/img, launches/img):")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"  {e.self_device_time_total / 1e3 / args.reps:9.3f} "
-              f"{e.count / args.reps:7.1f}  {e.key[:110]}")
+        print(f"  {e.self_device_time_total / 1e3 / args.reps / per_call:9.3f} "
+              f"{e.count / args.reps / per_call:7.1f}  {e.key[:110]}")
     os.makedirs(args.out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
     if args.graph:

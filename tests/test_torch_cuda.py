@@ -921,3 +921,127 @@ def test_spatial_path_over_every_card(dev):
     if cards >= 4:
         out = sharding.process_sharded(imgs, cfg, sharding.make_mesh(n_data=2, n_space=2))
         assert torch.equal(out, want)
+
+
+def _odd_bounds(n, space):
+    """A partition of n rows into ``space`` windows, the inner ones
+    starting on odd rows."""
+    return [0] + [i * n // space + (1 - i * n // space % 2) for i in range(1, space)] + [n]
+
+
+@pytest.mark.parametrize("n,tiles", [(600, 4), (512, 8), (144, 4)])
+def test_clahe_window_kernels_match_plain(dev, n, tiles):
+    """K5 on each window of rows (inner windows starting on odd rows, which
+    at 600 keep the rows 16-byte aligned) equals its plain version and the
+    whole apply's rows exactly, NaN masks included; K6 on each window's
+    joint bins equals the plain histogram and the partials sum to the whole
+    image's."""
+    cfg = MusicaConfig(image_size=n, enable_clahe=True, clahe_tiles=tiles)
+    rng = np.random.default_rng(n + tiles)
+    recon = torch.from_numpy(rng.uniform(-0.05, 1.05, (n, n)).astype(np.float32)).to(dev)
+    relevant = torch.from_numpy((rng.uniform(size=(n, n)) < 0.7).astype(np.float32)).to(dev)
+    relevant[: n // 3, : n // 3] = 0.0  # a tile without relevant pixels: NaN LUT
+    whole_h = clahe.clahe_histograms(recon, relevant, cfg)
+    px, py = clahe.clahe_curves(whole_h, cfg)
+    whole = k_clahe.clahe_apply(recon, px, py, cfg)
+    total = torch.zeros_like(whole_h)
+    b = _odd_bounds(n, 4)
+    for r0, r1 in zip(b, b[1:]):
+        win = recon[r0:r1]
+        got = k_clahe.clahe_apply(win, px, py, cfg, r0)
+        torch.testing.assert_close(got, whole[r0:r1], rtol=0, atol=0, equal_nan=True)
+        torch.testing.assert_close(got.cpu(), k_clahe.clahe_apply_plain(
+            win.cpu(), px.cpu(), py.cpu(), cfg, r0), rtol=0, atol=0, equal_nan=True)
+        part = clahe.clahe_histograms_rows(win, relevant[r0:r1], r0, n, cfg)
+        assert torch.equal(part.cpu(), clahe.clahe_histograms_rows(
+            win.cpu(), relevant[r0:r1].cpu(), r0, n, cfg))
+        total += part
+    assert torch.equal(total, whole_h)
+    with pytest.raises(ValueError, match="rows"):
+        k_clahe.clahe_apply(recon[:10], px, py, cfg, n - 5)
+
+
+@pytest.mark.parametrize("tile", [8, 12, 16, 32])
+@pytest.mark.parametrize("n,quirks", [(600, True), (256, False)])
+def test_sdev_noise_window_kernel_matches_plain(dev, tile, n, quirks):
+    """K7 on every shard's windows of a 4-shard plan (band rows with the
+    2-row halos, a replicated level counted by the first shard alone), also
+    with a few blocks whose task ranges cross levels: the sdev rows and the
+    histograms equal the plain version exactly, the sdev rows equal the
+    whole-image K7's, and the histograms sum to the whole image's."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
+    cfg = MusicaConfig(image_size=n, quirks=quirks, histogram_area_size=tile)
+    plan = spatial.row_plan(n, 4, cfg)
+    lv = list(cfg.analysis_levels)
+    rng = np.random.default_rng(3 * tile + n)
+    bands = [torch.from_numpy(a - 0.05).to(dev)
+             for a in hist_cases.noise_levels(rng, [plan.sizes[k] for k in lv])]
+    whole_sd, whole_h, _ = fh.sdev_noise_hists(bands, cfg)
+    for grid in (0, 3):
+        total = torch.zeros_like(whole_h)
+        for i in range(4):
+            rows = [plan.rows(k, i) if k < plan.replicated else (0, plan.sizes[k]) for k in lv]
+            need = [pyramid.needed_rows("img_sdev", b.shape[-1], *r) for b, r in zip(bands, rows)]
+            wins = [b[lo:hi] for b, (lo, hi) in zip(bands, need)]
+            counted = [k < plan.replicated or i == 0 for k in lv]
+            args = (wins, [lo for lo, _ in need], rows, cfg, counted)
+            sds, h = fh.sdev_noise_hists_rows(*args, grid=grid)
+            psds, ph = fh.sdev_noise_hists_rows_plain([w.cpu() for w in wins], *args[1:])
+            assert torch.equal(h.cpu(), ph)
+            for sd, p, w, (r0, r1) in zip(sds, psds, whole_sd, rows):
+                assert torch.equal(sd.cpu(), p) and torch.equal(sd, w[r0:r1])
+            total += h
+        assert torch.equal(total, whole_h)
+    with pytest.raises(ValueError, match="window holds"):
+        fh.sdev_noise_hists_rows([bands[0][4:20]], [4], [(4, 20)], cfg)
+
+
+@pytest.mark.parametrize("variant", ["clahe_linear", "fused_sdev"])
+def test_spatial_variants_on_card_equal_eager(dev, variant):
+    """process_sharded over 1x4 entries on this card in the CLAHE + linear
+    variant (clahe_graded gathered whole) and with fused_sdev equals the
+    unsharded eager path bit for bit; per image K1 once per shard with
+    covered rows, K2 once, K4, K6 and K5 once per shard (CLAHE), or K7 once
+    per shard, K2 once and K3 once per shard (fused-sdev)."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
+    fused = variant == "fused_sdev"
+    cfg = MusicaConfig(image_size=512, enable_clahe=not fused, grad_with_linear_image=not fused)
+    names = ("out_u8",) if fused else ("out_u8", "clahe_graded")
+    imgs = np.stack([synthetic_radiograph(512, a) for a in ("thorax", "pelvis")])
+    mesh = sharding.make_mesh(n_data=1, n_space=4, devices=[dev] * 4)
+    sharding.process_sharded(imgs, cfg, mesh, outputs=names, fused_sdev=fused)
+    launch.reset_launch_counts()
+    got = sharding.process_sharded(imgs, cfg, mesh, outputs=names, fused_sdev=fused)
+    torch.cuda.synchronize()
+    counts = dict(launch.LAUNCHES)
+    got = got if isinstance(got, tuple) else (got,)
+    for i, im in enumerate(imgs):
+        want = musica.musica_forward(torch.from_numpy(im).to(dev), cfg, fused_sdev=fused)
+        for name, g in zip(names, got):
+            torch.testing.assert_close(g[i].to(dev), want[name], rtol=0, atol=0, equal_nan=True)
+    if fused:
+        want_counts = {"sdev_noise_hist": 8, "hist_argmax": 2, "grad_hist_relevant": 8}
+    else:
+        want_counts = {"noise_hist": 8, "hist_argmax": 2, "grad_hist": 8, "histogram": 8,
+                       "clahe_apply": 8}
+    assert counts == {k: want_counts.get(k, 0) for k in counts}, counts
+
+
+def test_spatial_variants_over_every_card(dev):
+    """One 512^2 image of each variant over n_space = every visible card
+    equals the unsharded path."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards")
+    img = synthetic_radiograph(512, "thorax")
+    mesh = sharding.make_mesh(n_data=1, n_space=cards)
+    for cfg, fused, names in ((MusicaConfig(image_size=512, enable_clahe=True,
+                                            grad_with_linear_image=True), False,
+                               ("out_u8", "clahe_graded")),
+                              (MusicaConfig(image_size=512), True, ("out_u8",))):
+        got = sharding.process_sharded(img[None], cfg, mesh, outputs=names, fused_sdev=fused)
+        got = got if isinstance(got, tuple) else (got,)
+        want = musica.musica_forward(torch.from_numpy(img).to(dev), cfg, fused_sdev=fused)
+        for name, g in zip(names, got):
+            torch.testing.assert_close(g[0], want[name], rtol=0, atol=0, equal_nan=True)

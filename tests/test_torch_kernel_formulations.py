@@ -145,17 +145,19 @@ def test_clahe_kernel_axis_attributes_equal_plain(n, t):
 # K7: the task partition of the one-wave grid
 # ----------------------------------------------------------------------
 
-def sdev_partition(ns, covs, tile, wave):
+def sdev_partition(ns, covs, tile, wave, rows=None):
     """Repeat csrc/sdev_noise.cu's launch_sdev and kernel over levels of
-    sizes ``ns`` with scanned coverages ``covs``: returns per level the
+    sizes ``ns`` with scanned coverages ``covs``, each computing its output
+    rows ``rows[l]`` = (r0, r1) (default: every row): returns per level the
     number of tasks holding each output pixel [n, n] and the number of
     scans of each (row, group) of the coverage [min(cov, n), cov // tile],
     and per block its flushes (the levels, in order)."""
     band, width = fh.SDEV_BAND, fh.sdev_task_width(tile)
+    rows = [(0, n) for n in ns] if rows is None else rows
     col_tasks = [-(-n // width) for n in ns]
     first = [0]
-    for n, ct in zip(ns, col_tasks):
-        first.append(first[-1] + ct * -(-n // band))
+    for (r0, r1), ct in zip(rows, col_tasks):
+        first.append(first[-1] + ct * -(-(r1 - r0) // band))
     total = first[-1]
     per_block = -(-total // wave)
     blocks = -(-total // per_block)
@@ -168,7 +170,8 @@ def sdev_partition(ns, covs, tile, wave):
         while level + 1 < len(ns) and t >= first[level + 1]:
             level += 1
         local = t - first[level]
-        return level, local // col_tasks[level] * band, local % col_tasks[level] * width
+        return (level, rows[level][0] + local // col_tasks[level] * band,
+                local % col_tasks[level] * width)
 
     flushes = []
     for b in range(blocks):
@@ -176,10 +179,11 @@ def sdev_partition(ns, covs, tile, wave):
         out = []
         for t in range(begin, end):
             level, r0, c0 = task_of(t)
-            covered[level][r0:r0 + band, c0:c0 + width] += 1
+            r1 = rows[level][1]
+            covered[level][r0:min(r0 + band, r1), c0:c0 + width] += 1
             groups = covs[level] // tile
             g0, g1 = c0 // tile, min(c0 // tile + width // tile, groups)
-            scanned[level][r0:r0 + band, g0:max(g0, g1)] += 1
+            scanned[level][r0:min(r0 + band, r1, covs[level]), g0:max(g0, g1)] += 1
             nxt = task_of(t + 1)[0] if t + 1 < end else level
             if t + 1 == end or nxt != level:
                 out.append(level)
