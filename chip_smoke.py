@@ -45,12 +45,16 @@ every variant, on a second image and on a transposed one, and the graph
 mesh against ``forward_batch`` ([4m]), drives the spatial path
 (``process_sharded`` of two 3072^2 radiographs with each image's rows split
 over 1x4 and 2x2 mesh entries on one card, in the main path, the CLAHE +
-linear-gradation variant and with fused-sdev, 600 over 1x4 for K4, and one
-image over every card where there are several) against
-``process_batch_jit`` bit for bit, counting K1 per shard with covered rows,
-K2 per image and K3 per shard (CLAHE: K4, K6 and K5 per shard; fused-sdev:
-K7 and K3 per shard), and times each beside one card's replay of the same
-variant ([4n]), runs a batch of 4 through
+linear-gradation variant, with fused-sdev and in bf16, 600 over 1x4 for K4,
+and one image over every card where there are several), each image a
+replay of the mesh row's captured graph (``models/graphs.py::SpatialGraph``,
+cut into segments at the exchanges between cards), against the eager
+spatial path and ``process_batch_jit`` bit for bit, counting K1 per shard
+with covered rows, K2 per image and K3 per shard (CLAHE: K4, K6 and K5 per
+shard; fused-sdev: K7 and K3 per shard) against the profiler's kernel
+events, with each graph's capture seconds and pool MB, and times the
+replays beside the eager spatial path and one card's unsharded replay of
+the same variant ([4n]), runs a batch of 4 through
 ``process_batch`` in float32 and in bf16, and times the pipeline paths
 (graph replays against eager) in interleaved windows,
 ``scripts/bench_torch.py``'s measurement, the mesh's worker threads on one
@@ -674,106 +678,181 @@ def check_window_kernels(rec, rng, dev, cfg, lv3072, main, var, var3072):
                               if tile == 16 else None)
 
 
-def check_spatial(imgs, cfg, dev, imgs600, cfg_var):
-    """[4n]: ``process_sharded`` of ``imgs`` over a 1 x 4 and a 2 x 2 mesh
-    of entries on ``dev`` (each with a stream of its own) against
-    ``process_batch_jit``, bit for bit, with every count set to 0 just
-    before each run and read just after (the 1 x 4 run under the profiler,
-    its kernel events equal to the counts): K1 once per shard that holds
-    covered rows, K2 once per image, K3 once per shard.  The same in the
-    CLAHE + linear variant ``cfg_var`` (``out_u8`` against
-    ``process_batch_jit``, ``clahe_graded`` against the unsharded
-    ``musica_forward``'s; K1 per covered shard, K2 per image, K4, K6 and K5
-    per shard) and with ``fused_sdev`` (K7 and K3 per shard, K2 per
-    image).  Then ``imgs600`` over 1 x 4 (K4), and where two or more cards
-    are visible one image over ``n_space`` = every card (a 512^2 image of
-    each variant too).  Times (host clock around a run that ends with the
-    card's synchronisation, medians of 3): the spatial path per image, beside
-    one card's graph replay of the same variant (CUDA events)."""
-    import torch
-    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
+def covered(c, space):
+    """Shards of a ``space``-way plan that hold rows inside some analysis
+    level's histogram coverage (K1 launches on those alone)."""
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import stats
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
+    plan = spatial.row_plan(c.image_size, space, c)
+    return sum(any(plan_rows(plan, k, i)[0] < min(plan_rows(plan, k, i)[1],
+                                                  stats.coverage(plan.sizes[k], c))
+                   for k in c.analysis_levels) for i in range(space))
+
+
+def host_ms(fn, reps=3):
+    """(median, runs): ms of ``fn()`` on the host clock, each run between
+    two synchronisations of the card."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2], times
+
+
+def spatial_launches(c, fused, s, b):
+    """Each kernel's launches on the spatial path for b images over ``s``
+    shards."""
+    if fused:
+        return {"sdev_noise_hist": b * s, "hist_argmax": b, "grad_hist_relevant": b * s}
+    want = {"noise_hist": b * covered(c, s), "hist_argmax": b}
+    if c.enable_clahe:
+        want.update({"grad_hist": b * s, "histogram": b * s, "clahe_apply": b * s})
+    else:
+        want["grad_hist_relevant"] = b * s
+    return want
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def assert_same(got, want, what, dev):
+    """Every tensor of ``got`` equal to ``want``'s on ``dev``, bit for bit
+    (NaN where it has NaN)."""
+    import torch
+    for k, (g, w) in enumerate(zip(got, want)):
+        torch.testing.assert_close(g.to(dev), w.to(dev), rtol=0, atol=0, equal_nan=True,
+                                   msg=f"{what}: output {k}")
+
+
+def first_graph_call(run, key, rows, dev):
+    """The spatial graphs' first call (warm-up, capture, replays) after an
+    eager run filled the allocator's cache: (result, seconds, MB more
+    reserved on ``dev``, the ``rows`` new graphs)."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import graphs
+    torch.cuda.synchronize()
+    reserved, before = torch.cuda.memory_reserved(dev), graphs.capture_count()
+    t0 = time.perf_counter()
+    got = run()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    grown = (torch.cuda.memory_reserved(dev) - reserved) / 2 ** 20
+    assert graphs.capture_count() == before + rows, f"{key}: {rows} captures expected"
+    new = graphs.cached_graphs()[-rows:]
+    assert all(isinstance(g, graphs.SpatialGraph) for g in new), key
+    return got, sec, grown, new
+
+
+def spatial_variants(cfg, cfg_var, cfg16):
+    """[4n]'s variants: (name, cfg, fused_sdev, outputs)."""
+    return (("main", cfg, False, ("out_u8",)),
+            ("CLAHE + linear", cfg_var, False, ("out_u8", "clahe_graded")),
+            ("fused-sdev", cfg, True, ("out_u8",)),
+            ("bf16", cfg16, False, ("out_u8", "recon")))
+
+
+def check_spatial(imgs, cfg, dev, imgs600, cfg_var, cfg16):
+    """[4n]: ``process_sharded`` of ``imgs`` over a 1 x 4 and a 2 x 2 mesh
+    of entries on ``dev`` (each with a stream of its own), each image a
+    replay of its mesh row's captured graph (``graphs.SpatialGraph``; one
+    graph a row on one card), in the main path, the CLAHE + linear variant
+    ``cfg_var``, fused-sdev and bf16 storage ``cfg16``: every output bit
+    for bit against the eager spatial path (``process_sharded_eager``),
+    ``out_u8`` against ``process_batch_jit`` and ``clahe_graded`` against
+    the unsharded ``musica_forward``'s; with every count set to 0 just
+    before a run and read just after (the 1 x 4 run under the profiler, its
+    kernel events equal to the counts, and each kernel's device ms per
+    launch inside the replay): K1 once per shard that holds covered rows,
+    K2 once per image, K3 once per shard (CLAHE: K4, K6 and K5 per shard;
+    fused-sdev: K7 and K3 per shard); a second call captures nothing.
+    Then ``imgs600`` over 1 x 4 (K4), and where two or more cards are
+    visible one image over ``n_space`` = every card (the graph cut into
+    segments at the exchanges between cards; a 512^2 image of each variant
+    too).  Times (host clock around a run that ends with the card's
+    synchronisation, medians of 3): the replays and the eager spatial path
+    per image, beside one card's unsharded replay of the same variant (CUDA
+    events); each graph's first call in seconds and the growth of
+    ``torch.cuda.memory_reserved`` over it after an eager run filled the
+    allocator's cache (its private pools)."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import graphs, musica
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
-    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding, spatial
-    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import (
-        synthetic_radiograph)
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
 
-    def covered(c, space):
-        plan = spatial.row_plan(c.image_size, space, c)
-        return sum(any(plan_rows(plan, k, i)[0] < min(plan_rows(plan, k, i)[1],
-                                                      stats.coverage(plan.sizes[k], c))
-                       for k in c.analysis_levels) for i in range(space))
-
-    def host_ms(fn, reps=3):
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return sorted(times)[reps // 2], times
-
-    def expected(c, fused, s):
-        """Each kernel's launches for b images over ``s`` shards."""
-        if fused:
-            return {"sdev_noise_hist": b * s, "hist_argmax": b, "grad_hist_relevant": b * s}
-        want = {"noise_hist": b * covered(c, s), "hist_argmax": b}
-        if c.enable_clahe:
-            want.update({"grad_hist": b * s, "histogram": b * s, "clahe_apply": b * s})
-        else:
-            want["grad_hist_relevant"] = b * s
-        return want
-
-    out = {"counts": {}, "ms_per_img": {}, "replay_ms": {}}
+    out = {"counts": {}, "ms_per_img": {}, "eager_ms_per_img": {}, "replay_ms": {},
+           "capture": {}, "window_ms": {}}
     b = len(imgs)
     x_imgs = torch.from_numpy(imgs).to(dev)
-    variants = (("main", cfg, False, ("out_u8",)),
-                ("CLAHE + linear", cfg_var, False, ("out_u8", "clahe_graded")),
-                ("fused-sdev", cfg, True, ("out_u8",)))
+    variants = spatial_variants(cfg, cfg_var, cfg16)
     for name, c, fused, names in variants:
         want = musica.process_batch_jit(x_imgs, c, fused)
-        whole = ([musica.musica_forward(x, c, fused_sdev=fused) for x in x_imgs]
-                 if "clahe_graded" in names else None)
+        whole = [musica.musica_forward(x, c, fused_sdev=fused) for x in x_imgs]
+        x0 = x_imgs[0]
+        out["replay_ms"][name] = cuda_ms(lambda c=c, fused=fused: musica.process_jit(x0, c, fused),
+                                         10, 2)
         for d, s in ((1, 4), (2, 2)):
             mesh = sharding.make_mesh(n_data=d, n_space=s, devices=[dev] * 4)
             key = f"{name}, {d}x{s} on {dev}"
 
             def run(mesh=mesh, c=c, fused=fused, names=names):
-                got = sharding.process_sharded(imgs, c, mesh, outputs=names, fused_sdev=fused)
-                return got if isinstance(got, tuple) else (got,)
-            run()  # the entries' streams and their allocator caches
+                return as_tuple(sharding.process_sharded(imgs, c, mesh, outputs=names,
+                                                    fused_sdev=fused))
+
+            def eager(mesh=mesh, c=c, fused=fused, names=names):
+                return as_tuple(sharding.process_sharded_eager(imgs, c, mesh, outputs=names,
+                                                          fused_sdev=fused))
+            want_e = eager()  # the entries' streams and their allocator caches
+            first, first_s, grown, new = first_graph_call(run, key, d, dev)
+            assert all(g.segments == 1 for g in new), f"{key}: one graph a row on one card"
+            captures = graphs.capture_count()
             if (d, s) == (1, 4):
-                got, counts = profiled_run(run, f"spatial {key}")
+                times = {}
+                got, counts = profiled_run(run, f"spatial {key}", times)
+                out["window_ms"][name] = times
             else:
                 torch.cuda.synchronize()
                 launch.reset_launch_counts()
                 got = run()
                 torch.cuda.synchronize()
                 counts = dict(launch.LAUNCHES)
+            assert graphs.capture_count() == captures, f"{key}: a second call captured"
+            assert_same(first, want_e, f"spatial {key}: first call against eager", dev)
+            assert_same(got, want_e, f"spatial {key}: replay against eager", dev)
             assert torch.equal(got[0].to(dev), want), f"spatial {key} differs from process_batch_jit"
-            if whole is not None:
-                for i, r in enumerate(whole):
-                    torch.testing.assert_close(got[1][i].to(dev), r["clahe_graded"], rtol=0,
-                                               atol=0, equal_nan=True,
-                                               msg=f"spatial {key}: clahe_graded of image {i}")
-            exp = expected(c, fused, s)
+            for k, nm in enumerate(names[1:], 1):
+                assert_same(list(got[k]), [r[nm] for r in whole], f"spatial {key}: {nm}",
+                            dev)
+            exp = spatial_launches(c, fused, s, b)
             assert counts == {k: exp.get(k, 0) for k in counts}, (key, counts, exp)
             med, runs = host_ms(run)
+            med_e, runs_e = host_ms(eager)
             out["counts"][key] = counts
             out["ms_per_img"][key] = med / b
-            log(f"  {key}: {b} x {c.image_size}^2 equal process_batch_jit bit for bit"
+            out["eager_ms_per_img"][key] = med_e / b
+            # the first call: a warm-up of one image, the capture, b replays
+            capture_s = first_s - (med_e / b + med) / 1e3
+            out["capture"][key] = {"first_call_s": first_s, "capture_s_about": capture_s,
+                                   "pool_mb": grown, "graphs": d}
+            log(f"  {key}: {b} x {c.image_size}^2, replays equal the eager spatial path "
+                f"({', '.join(names)}) and process_batch_jit bit for bit"
                 + (" (clahe_graded equal the unsharded forward's, NaN tiles too)"
-                   if whole is not None else "")
-                + f"; launches {counts} (K1: {covered(c, s)} of {s} shards hold covered rows); "
-                f"{med / b} ms/img (host clock, runs of {b} images, ms: {runs})")
-        x0 = x_imgs[0]
-        out["replay_ms"][name] = cuda_ms(lambda c=c, fused=fused: musica.process_jit(x0, c, fused),
-                                         10, 2)
-        log(f"  {name}: one card's graph replay (process_jit): {out['replay_ms'][name]} ms/img "
-            "(CUDA events)")
+                   if "clahe_graded" in names else "")
+                + f"; launches {counts} (K1: {covered(c, s)} of {s} shards hold covered rows)"
+                + (" = the profiler's kernel events" if (d, s) == (1, 4) else "")
+                + f"; {d} graph(s) of 1 segment, first call {first_s:.3f} s (capture ~"
+                f"{capture_s:.3f} s), +{grown:.1f} MB reserved; replay {med / b} ms/img "
+                f"(ms: {runs}) against eager {med_e / b} ms/img (ms: {runs_e}) and one "
+                f"card's unsharded replay {out['replay_ms'][name]} ms/img (CUDA events)")
+        log(f"  {name}: each hand-written kernel's device ms per launch inside the 1x4 "
+            f"replay: {out['window_ms'][name]}")
     c600 = cfg.with_(image_size=imgs600.shape[-1])
     mesh = sharding.make_mesh(n_data=1, n_space=4, devices=[dev] * 4)
+    want_e = sharding.process_sharded_eager(imgs600, c600, mesh)
     sharding.process_sharded(imgs600, c600, mesh)
     torch.cuda.synchronize()
     launch.reset_launch_counts()
@@ -782,42 +861,106 @@ def check_spatial(imgs, cfg, dev, imgs600, cfg_var):
     counts = dict(launch.LAUNCHES)
     want600 = musica.process_batch_jit(torch.from_numpy(imgs600).to(dev), c600)
     assert torch.equal(got.to(dev), want600), "spatial 600 differs from process_batch_jit"
+    assert torch.equal(got, want_e), "spatial 600 replay differs from eager"
     b6 = len(imgs600)
     assert (counts["grad_hist"], counts["hist_argmax"], counts["grad_hist_relevant"]) == (
         b6 * 4, b6, 0), counts
     out["counts"]["600 1x4"] = counts
-    log(f"  {b6} x 600^2 over 1x4 on {dev} equal process_batch_jit; launches {counts} (K4 once "
-        "a shard: 600 is no multiple of the 16-px tile)")
-    cards = torch.cuda.device_count()
-    if cards > 1:
-        want = musica.process_batch_jit(x_imgs, cfg)
-        mesh = sharding.make_mesh(n_data=1, n_space=cards)
-        run = lambda: sharding.process_sharded(imgs[:1], cfg, mesh)  # noqa: E731
-        run()
-        launch.reset_launch_counts()
-        got = run()
-        torch.cuda.synchronize()
-        assert torch.equal(got.to(dev), want[:1]), "spatial over every card differs"
-        med, runs = host_ms(run)
-        key = f"1x{cards} over {cards} cards"
-        out["counts"][key] = dict(launch.LAUNCHES)
-        out["ms_per_img"][key] = med
-        log(f"  one image over n_space = {cards} cards equals process_batch_jit; {med} ms/img "
-            f"(ms: {runs})")
-        im512 = synthetic_radiograph(512, "thorax")
-        for name, c, fused, names in variants[1:]:
-            c = c.with_(image_size=512)
-            got = sharding.process_sharded(im512[None], c, mesh, outputs=names, fused_sdev=fused)
-            got = got if isinstance(got, tuple) else (got,)
-            r = musica.musica_forward(torch.from_numpy(im512).to(dev), c, fused_sdev=fused)
-            for k, g in zip(names, got):
-                torch.testing.assert_close(g[0].to(dev), r[k], rtol=0, atol=0, equal_nan=True,
-                                           msg=f"{name} over {cards} cards: {k}")
-            log(f"  {name}: one 512^2 image over n_space = {cards} cards equals the unsharded "
-                f"forward ({', '.join(names)})")
+    log(f"  {b6} x 600^2 over 1x4 on {dev}: replays equal eager and process_batch_jit; "
+        f"launches {counts} (K4 once a shard: 600 is no multiple of the 16-px tile)")
+    if torch.cuda.device_count() > 1:
+        check_spatial_cards(imgs, cfg, dev, variants, out)
     else:
         log("  one image over every card: skipped, one card visible")
     return out
+
+
+def check_spatial_cards(imgs, cfg, dev, variants, out):
+    """[4n] over every visible card: one 3072^2 image over ``n_space`` =
+    every card, replays of its graph's segments (cut at the exchanges
+    between cards) against the eager spatial path and
+    ``process_batch_jit`` bit for bit, launches against the profiler's
+    kernel events, segments, copies, first-call seconds and ms/img beside
+    eager; then a 512^2 image of each variant in ``variants[1:]``.  Adds
+    its numbers to ``out``."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import (
+        synthetic_radiograph)
+    cards = torch.cuda.device_count()
+    x_imgs = torch.from_numpy(imgs).to(dev)
+    want = musica.process_batch_jit(x_imgs, cfg)
+    mesh = sharding.make_mesh(n_data=1, n_space=cards)
+    key = f"1x{cards} over {cards} cards"
+    run = lambda: sharding.process_sharded(imgs[:1], cfg, mesh)  # noqa: E731
+    eager = lambda: sharding.process_sharded_eager(imgs[:1], cfg, mesh)  # noqa: E731
+    want_e = eager()
+    first, first_s, grown, (g,) = first_graph_call(run, key, 1, dev)
+    assert g.segments > cards and len(g.devices) == cards, (g.segments, g.devices)
+    copies = sum(step[0] == "copy" for step in g.steps)
+    got, counts = profiled_run(run, f"spatial {key}")
+    assert torch.equal(got, want_e) and torch.equal(first, want_e), f"{key}: against eager"
+    assert torch.equal(got.to(dev), want[:1]), f"{key}: against process_batch_jit"
+    exp = spatial_launches(cfg, False, cards, 1)
+    assert counts == {k: exp.get(k, 0) for k in counts}, (key, counts, exp)
+    med, runs = host_ms(run)
+    med_e, runs_e = host_ms(eager)
+    out["counts"][key] = counts
+    out["ms_per_img"][key] = med
+    out["eager_ms_per_img"][key] = med_e
+    out["capture"][key] = {"first_call_s": first_s, "segments": g.segments,
+                           "copies": copies, "pool_mb_on_first_card": grown}
+    log(f"  one 3072^2 image over n_space = {cards} cards: the replay of {g.segments} "
+        f"segments and {copies} copies between cards equals eager and process_batch_jit "
+        f"bit for bit; launches {counts} = the profiler's kernel events; first call "
+        f"{first_s:.3f} s, +{grown:.1f} MB reserved on {dev}; replay {med} ms/img (ms: "
+        f"{runs}) against eager {med_e} ms/img (ms: {runs_e})")
+    im512 = synthetic_radiograph(512, "thorax")
+    for name, c, fused, names in variants[1:]:
+        c = c.with_(image_size=512)
+        got = as_tuple(sharding.process_sharded(im512[None], c, mesh, outputs=names,
+                                           fused_sdev=fused))
+        got_e = as_tuple(sharding.process_sharded_eager(im512[None], c, mesh, outputs=names,
+                                                   fused_sdev=fused))
+        r = musica.musica_forward(torch.from_numpy(im512).to(dev), c, fused_sdev=fused)
+        assert_same(got, got_e, f"{name} over {cards} cards against eager", dev)
+        assert_same([g[0] for g in got], [r[k] for k in names], f"{name} over {cards} cards",
+                    dev)
+        log(f"  {name}: one 512^2 image over n_space = {cards} cards, replayed, equals "
+            f"eager and the unsharded forward ({', '.join(names)})")
+
+
+def spatial_over_cards() -> int:
+    """``python3 chip_smoke.py --spatial-over-cards``: [4n]'s part over
+    every visible card alone (``check_spatial_cards``), for a call on
+    several cards; each card's name and power limit, then the numbers as
+    one JSON line.  Exits 1 with fewer than two cards."""
+    import torch
+    if torch.cuda.device_count() < 2:
+        print("chip_smoke: --spatial-over-cards needs two or more CUDA devices", file=sys.stderr)
+        return 1
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import (
+        synthetic_radiograph)
+    t0 = time.perf_counter()
+    launch.lib()
+    log(f"[2] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    for line in subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                "--format=csv,noheader"], capture_output=True, text=True,
+                               check=True, timeout=60).stdout.splitlines():
+        log(f"  card: {line}")
+    cfg = MusicaConfig(image_size=SIZE)
+    variants = spatial_variants(cfg, cfg.with_(enable_clahe=True, grad_with_linear_image=True),
+                                cfg.with_(storage="bfloat16"))
+    imgs = np.stack([synthetic_radiograph(SIZE, a) for a in ("thorax", "pelvis")])
+    out = {"counts": {}, "ms_per_img": {}, "eager_ms_per_img": {}, "capture": {}}
+    log(f"[4n] the spatial path over {torch.cuda.device_count()} cards as replays of a "
+        f"segmented graph, against the eager spatial path and process_batch_jit")
+    check_spatial_cards(imgs, cfg, torch.device("cuda:0"), variants, out)
+    log(json.dumps(out))
+    return 0
 
 
 def bound(n_bytes: float, flops: float = 0.0, rate: float = FP32_PER_S):
@@ -1158,7 +1301,7 @@ def check_data_parallel(imgs, cfg, mesh, dev):
         f"launches {counts}; throughput_step checksum {total} equals the outputs' sum")
 
 
-def profiled_run(fn, what: str):
+def profiled_run(fn, what: str, times=None):
     """One run of a path whose graph is captured already, with every count
     set to 0 just before ``fn()`` and read just after, under
     ``torch.profiler``: ``(fn's result, launches)``, ``launches`` the CUDA
@@ -1166,7 +1309,9 @@ def profiled_run(fn, what: str):
     profiler recorded.  Fails unless they equal ``launch.LAUNCHES``, which
     a replay adds from its capture's tally.  The profiler may record no CUDA
     event for a run (it did so once for one K5 launch): the run is then made
-    once more, and it fails if neither recorded one."""
+    once more, and it fails if neither recorded one.  ``times``, a dict,
+    gets each launched kernel's device ms per launch in this run, from its
+    events' spans."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
@@ -1183,6 +1328,12 @@ def profiled_run(fn, what: str):
     assert names, f"{what}: the profiler recorded no CUDA event in two runs"
     seen = {k: sum(bool(re.search(p, n)) for n in names) for k, p in KERNEL_EVENTS.items()}
     assert seen == counted, f"{what}: the profiler saw {seen}, LAUNCHES counted {counted}"
+    if times is not None:
+        for k, p in KERNEL_EVENTS.items():
+            us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and re.search(p, e.name)]
+            if us:
+                times[k] = sum(us) / len(us) / 1e3
     return out, seen
 
 
@@ -1746,9 +1897,10 @@ def main() -> int:
         f"{torch.cuda.memory_reserved(dev) / 2 ** 30:.2f} GiB reserved on {dev}")
 
     log(f"[4n] the spatial path: process_sharded of 2 x {SIZE}^2 with each image's rows split "
-        f"over the space entries (1x4 and 2x2 on {dev}), against process_batch_jit, bit for bit")
+        f"over the space entries (1x4 and 2x2 on {dev}) as replays of captured graphs, against "
+        f"the eager spatial path and process_batch_jit, bit for bit")
     spatial_run = check_spatial(imgs[:2], cfg, dev, np.stack(
-        [synthetic_radiograph(600, a) for a in ("pelvis", "hand")]), cfg_var)
+        [synthetic_radiograph(600, a) for a in ("pelvis", "hand")]), cfg_var, cfg16)
     sp_counts = spatial_run["counts"][f"main, 1x4 on {dev}"]
 
     # ---- 5. a batch of 4 ---------------------------------------------------
@@ -1992,9 +2144,16 @@ def main() -> int:
         if name in windows:
             row.update({"window_ms": cuda_ms(windows[name], 20, 2, device_only=True),
                         "window": f"rows [{a1}, {b1}) of {SIZE} (shard 1 of 4)"})
+        if name in spatial_from:
+            # device ms per launch inside the 1x4 replay ([4n], profiler spans)
+            variant = {"grad_hist": "CLAHE + linear", "histogram": "CLAHE + linear",
+                       "clahe_apply": "CLAHE + linear",
+                       "sdev_noise_hist": "fused-sdev"}.get(name, "main")
+            row["replay_window_ms"] = spatial_run["window_ms"][variant].get(name)
         extra = ", ".join(f"{k} {row[k]}" for k in ("kernel_ms", "weight_plane_ms",
                                                     "k7_argmax_ms", "own_ms",
-                                                    "spatial_launches", "window_ms") if k in row)
+                                                    "spatial_launches", "window_ms",
+                                                    "replay_window_ms") if k in row)
         log(f"  {name}: kernel {k_ms} ms, plain {p_ms} ms, bound {b_ms} ms ({b_by}), "
             f"one PyTorch call {lib_ms} ms" + (f"; {extra}" if extra else ""))
         kernels.append(row)
@@ -2005,4 +2164,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(spatial_over_cards() if sys.argv[1:] == ["--spatial-over-cards"] else main())

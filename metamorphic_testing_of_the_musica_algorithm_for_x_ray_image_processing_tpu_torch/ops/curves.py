@@ -60,6 +60,31 @@ def contrast_curve(max_bin: torch.Tensor, low_contrast_factor: float,
             torch.cat([seg1[1], seg2[1], seg3[1]]))
 
 
+def curve_get_y(px: torch.Tensor, py: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The GLSL getY scan itself (shaders/contrast_curve_apply.comp:27-36),
+    the JAX package's ``curve_get_y``: for i in [0, count), ``px[i] == x``
+    gives py[i], ``px[i] <= x <= px[i+1]`` the lerp (px[count] reads 0);
+    the first match wins, no match gives 0.0.  One select pair per control
+    point over the whole image; the pipeline takes ``curve_get_y_sorted``
+    and ``curve_get_y_general``, which select the same interval."""
+    n = px.shape[0]
+    zero = px.new_zeros(1)
+    px_e = torch.cat([px, zero])
+    py_e = torch.cat([py, zero])
+    x = x.to(F32)
+    result = torch.zeros_like(x)
+    found = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    for i in range(n):
+        exact = (px_e[i] == x) & ~found
+        result = torch.where(exact, py_e[i], result)
+        found = found | exact
+        seg = (px_e[i] <= x) & (px_e[i + 1] >= x) & ~found
+        m = (py_e[i + 1] - py_e[i]) / (px_e[i + 1] - px_e[i])
+        result = torch.where(seg, m * (x - px_e[i]) + py_e[i], result)
+        found = found | seg
+    return result
+
+
 def curve_get_y_sorted(px: torch.Tensor, py: torch.Tensor,
                        x: torch.Tensor) -> torch.Tensor:
     """The GLSL first-match getY for non-decreasing px.
@@ -109,6 +134,19 @@ def curve_apply_u8(g: torch.Tensor) -> torch.Tensor:
     """``clip(trunc(255 * y))`` as uint8, the truncating output quantization
     (QUIRKS #22)."""
     return torch.clamp(torch.trunc(255.0 * g), 0.0, 255.0).to(torch.uint8)
+
+
+def curve_get_y_adaptive(px: torch.Tensor, py: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """getY for curves whose px may fold back: ``curve_get_y_general``, as
+    the JAX package's alias of the same name."""
+    return curve_get_y_general(px, py, x)
+
+
+def curve_apply_u8_adaptive(px: torch.Tensor, py: torch.Tensor,
+                            x: torch.Tensor) -> torch.Tensor:
+    """``curve_apply_u8(curve_get_y_general(px, py, x))``: the tone map and
+    its quantization, as the JAX package's function of the same name."""
+    return curve_apply_u8(curve_get_y_general(px, py, x))
 
 
 def contrast_curve_apply(bandpass: torch.Tensor, sdev: torch.Tensor,

@@ -35,6 +35,42 @@ def _chain_misaligned(n: int, area: int = 8) -> bool:
     return False
 
 
+def img_sqrt(img_u16: torch.Tensor) -> torch.Tensor:
+    """Variance-stabilizing sqrt (shaders/img_sqrt.comp:15-18), correctly
+    rounded float32."""
+    return _sqrt(img_u16.to(torch.float32))
+
+
+def global_max(sqrt_img: torch.Tensor, quirks: bool = True) -> torch.Tensor:
+    """The max reduce chain: trunc is monotone, so its per-step
+    truncations equal one trunc of the global max (QUIRKS #1), and the
+    out-of-bounds zeros never raise a max of nonnegative values."""
+    m = sqrt_img.amax(dim=(-2, -1))
+    return torch.trunc(m) if quirks else m
+
+
+def global_min(sqrt_img: torch.Tensor, quirks: bool = True) -> torch.Tensor:
+    """The min reduce chain: as ``global_max``, except that a misaligned
+    chain pins the result to 0 (QUIRKS #2, decided from the image size)."""
+    if not quirks:
+        return sqrt_img.amin(dim=(-2, -1))
+    if _chain_misaligned(sqrt_img.shape[-1]) or _chain_misaligned(sqrt_img.shape[-2]):
+        return sqrt_img.new_zeros(sqrt_img.shape[:-2])
+    return torch.trunc(sqrt_img.amin(dim=(-2, -1)))
+
+
+def img_normalize(sqrt_img: torch.Tensor, vmax, vmin, quirks: bool = True) -> torch.Tensor:
+    """(x - min) / (max - min), divided by a tensor; quirks mode does not
+    clamp (QUIRKS #3).  ``vmax``/``vmin``: numbers or (batch-shaped)
+    tensors."""
+    vmax = torch.as_tensor(vmax, dtype=torch.float32, device=sqrt_img.device)[..., None, None]
+    vmin = torch.as_tensor(vmin, dtype=torch.float32, device=sqrt_img.device)[..., None, None]
+    out = (sqrt_img - vmin) / (vmax - vmin)
+    if not quirks:
+        out = out.clamp(0.0, 1.0)
+    return out
+
+
 def normalize_from_u16(img_u16: torch.Tensor, quirks: bool = True, extrema=None):
     """(normalized, vmax, vmin) from an integer image [..., n, n].
 

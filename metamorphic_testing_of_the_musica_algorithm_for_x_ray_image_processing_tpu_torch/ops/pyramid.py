@@ -102,6 +102,11 @@ def _slice(a: torch.Tensor, axis: int, start: int, stop: int, step: int = 1):
     return a[tuple(s)]
 
 
+def downsample(img: torch.Tensor) -> torch.Tensor:
+    """out[x, y] = in[2x, 2y] (shaders/img_downsample.comp:15), a view."""
+    return img[..., ::2, ::2]
+
+
 def smooth_downsample(img: torch.Tensor) -> torch.Tensor:
     """Smooth then decimate, evaluating the smooth only at even coordinates
     (bit-identical to decimating the full smooth)."""

@@ -164,6 +164,20 @@ def sdev_and_noise_histograms(bands, cfg):
             {i: mbs[j] for j, i in enumerate(levels)})
 
 
+def sdev_and_noise_histogram(band: torch.Tensor, cfg, fused_sdev: bool = False):
+    """(sdev, noise histogram) of one bandpass level, the JAX package's
+    function of the same name: ``img_sdev`` and K1, or with ``fused_sdev``
+    K7 (both outputs in one launch), as ``sdev_and_noise_histograms`` does
+    for every level.  Equal either way."""
+    if fused_sdev:
+        from .cuda import fused_hist
+
+        sds, hs, _ = fused_hist.sdev_noise_hists([band], cfg)
+        return sds[0], hs[0]
+    sd = img_sdev(band)
+    return sd, noise_histogram(sd, cfg)
+
+
 def noise_histogram(sdev: torch.Tensor, cfg) -> torch.Tensor:
     """One level's noise histogram (int32 [n_bins])."""
     from .cuda import fused_hist

@@ -22,7 +22,13 @@ devices, the JAX package's ``(data, space)`` mesh) each image's rows are
 split over its mesh row's entries (``parallel/spatial.py``: halo exchanges
 and histogram all-reduces written out), in every variant (CLAHE, linear
 gradation, fused-sdev, bf16); one worker thread per mesh row drives its
-entries, each on a CUDA stream of its own, eagerly.
+entries, each on a CUDA stream of its own.  On CUDA entries each image is a
+replay of the row's ``SpatialGraph`` (``models/graphs.py``: one graph for a
+row on one card, segments cut at the exchanges between cards), the
+counterpart of the JAX package's jitted ``shard_map``; CPU entries, which a
+caller gets only by asking for the CPU, run ``spatial.forward`` eagerly.
+``process_sharded_eager`` runs the eager schedule on any entries: the
+reference that the replays are held to.
 """
 
 from __future__ import annotations
@@ -87,8 +93,11 @@ def _on_rows(rows, fn: Callable[[int, list], object]) -> list:
     ``spatial.Entry``\\ s, on a CUDA device each with a stream of its own
     (``_worker_stream``), which first waits for the caller's current stream
     there (the inputs were made on it) and which the worker waits for before
-    it returns.  Returns the results in mesh order; the first worker's
-    exception, in mesh order, is raised here once every worker has ended."""
+    it returns.  A spatial graph replays on each device's first entry
+    stream of the row, so its copy-in follows the caller's work and the
+    worker's wait covers its copy-out.  Returns the results in mesh order;
+    the first worker's exception, in mesh order, is raised here once every
+    worker has ended."""
     devs = {d for row in rows for d in row}
     callers = {d: torch.cuda.current_stream(d) for d in devs if d.type == "cuda"}
     if callers:
@@ -133,6 +142,20 @@ def _gather(parts, dev: torch.device) -> torch.Tensor:
     return torch.cat([t.to(dev) for t in parts])
 
 
+def _spatial_rows(imgs: torch.Tensor, cfg: MusicaConfig, entries, outputs, fused_sdev: bool,
+                  eager: bool) -> Tuple[torch.Tensor, ...]:
+    """``spatial.forward`` of each image of ``imgs`` over one mesh row's
+    ``entries``: replays of its graph (``graphs.run_spatial``; eagerly on
+    CPU entries), or with ``eager`` the eager schedule."""
+    if not eager:
+        bounds = spatial.row_plan(cfg.image_size, len(entries), cfg).bounds[0]
+        return graphs.run_spatial(spatial.forward, imgs, cfg, entries, bounds, fused_sdev,
+                                  outputs)
+    res = [spatial.forward(im, cfg, entries, outputs, fused_sdev) for im in imgs]
+    with entries[0].on():
+        return tuple(torch.stack([r[k] for r in res]) for k in outputs)
+
+
 def process_sharded(imgs_u16, cfg: MusicaConfig, mesh: Mesh,
                     outputs: Sequence[str] = ("out_u8",), fused_sdev: bool = False):
     """Batched pipeline with the batch split over the mesh.  Input [B, n, n]
@@ -141,25 +164,34 @@ def process_sharded(imgs_u16, cfg: MusicaConfig, mesh: Mesh,
     (``musica_forward``'s results), on the mesh's first device: one tensor
     for one name, else a tuple in order.  ``fused_sdev`` as in
     ``musica_forward``.  On a spatial mesh each image's rows are split over
-    its mesh row (``spatial.forward``; ``outputs`` among ``spatial.OUTPUTS``,
-    each gathered whole)."""
+    its mesh row (``spatial.forward``, replayed as its graph on CUDA
+    entries; ``outputs`` among ``spatial.OUTPUTS``, each gathered whole)."""
+    return _process_sharded(imgs_u16, cfg, mesh, tuple(outputs), fused_sdev, eager=False)
+
+
+def process_sharded_eager(imgs_u16, cfg: MusicaConfig, mesh: Mesh,
+                          outputs: Sequence[str] = ("out_u8",), fused_sdev: bool = False):
+    """``process_sharded`` on a spatial mesh with each image's schedule
+    issued eagerly op by op, also on CUDA entries: the reference that the
+    graph replays are held to (tests, ``chip_smoke.py``,
+    ``scripts/profile_torch.py --spatial``)."""
+    if not is_spatial(mesh):
+        raise ValueError("process_sharded_eager: a spatial mesh (n_space > 1)")
+    return _process_sharded(imgs_u16, cfg, mesh, tuple(outputs), fused_sdev, eager=True)
+
+
+def _process_sharded(imgs_u16, cfg: MusicaConfig, mesh: Mesh, outputs: tuple, fused_sdev: bool,
+                     eager: bool):
     imgs = imgs_u16 if isinstance(imgs_u16, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(imgs_u16))
-    outputs = tuple(outputs)
     n, b = len(mesh), imgs.shape[0]
     if b % n:
         raise ValueError(f"batch of {b} images does not split evenly over {n} devices")
     per = b // n
     if is_spatial(mesh):
         spatial.check_outputs(cfg, outputs)
-
-        def rows(i: int, entries):
-            res = [spatial.forward(im, cfg, entries, outputs, fused_sdev)
-                   for im in imgs[i * per:(i + 1) * per]]
-            with entries[0].on():
-                return tuple(torch.stack([r[k] for r in res]) for k in outputs)
-
-        parts = _on_rows(mesh, rows)
+        parts = _on_rows(mesh, lambda i, entries: _spatial_rows(
+            imgs[i * per:(i + 1) * per], cfg, entries, outputs, fused_sdev, eager))
         first = mesh[0][0]
     else:
         def shard(i: int, dev: torch.device):
@@ -191,9 +223,9 @@ def throughput_step(cfg: MusicaConfig, mesh: Mesh, batch_per_device: int = 1):
     def step(shares) -> torch.Tensor:
         if is_spatial(mesh):
             def rows(i: int, entries):
-                outs = [spatial.forward(im, cfg, entries)["out_u8"] for im in shares[i]]
+                (outs,) = _spatial_rows(shares[i], cfg, entries, ("out_u8",), False, eager=False)
                 with entries[0].on():
-                    return sum(o.sum(dtype=torch.int64) for o in outs).reshape(1)
+                    return outs.sum(dtype=torch.int64).reshape(1)
             sums = _on_rows(mesh, rows)
         else:
             def local(i: int, dev: torch.device):

@@ -40,8 +40,15 @@ sender's stream, the receiver's stream waiting for it; an entry on the same
 device and another stream passes the tensor itself, marked as used by the
 receiver's stream.  An all-reduce is a gather of the partials onto the
 row's first entry, a sum there and a copy back.  The same code runs on CPU
-entries (the tests).  The path runs eagerly, one thread driving one mesh
-row's entries in turn; per-entry CUDA graphs are later work (ROADMAP).
+entries (the tests).
+
+``forward`` runs the schedule through a ``Transport``: which entry's device
+and stream are current (``on``) and how a tensor reaches another entry
+(``send``).  The default runs it eagerly, one thread driving a mesh row's
+entries in turn; ``models/graphs.py::SpatialGraph`` passes one that captures
+the same schedule into CUDA graphs, cut at the exchanges between devices.
+Every op of the schedule runs inside ``on`` of an entry, so a capture sees
+them all on the entries' streams.
 """
 
 from __future__ import annotations
@@ -59,8 +66,6 @@ from ..ops import clahe, curves, gradation, noise, normalize, pyramid, stats
 from ..ops.cuda import clahe_apply, fused_hist
 
 OUTPUTS = ("out_u8", "graded", "recon", "cnr", "clahe_graded")
-# what the spatial path does not do yet: it runs every variant, eagerly
-NOT_YET = "per-entry CUDA graphs of the spatial path (ROADMAP Queue 1)"
 
 
 def check_outputs(cfg: MusicaConfig, outputs: Sequence[str]) -> None:
@@ -162,20 +167,40 @@ def row_plan(n: int, space: int, cfg: MusicaConfig) -> RowPlan:
     return RowPlan(n, space, tuple(sizes), tuple(bounds))
 
 
+class Transport:
+    """How ``forward`` runs on a mesh row's entries: eagerly.  ``on(i)``
+    makes entry i current; ``send(t, i, j)`` gives entry j the tensor ``t``
+    made on entry i."""
+
+    def __init__(self, entries: Sequence[Entry]):
+        self.e = list(entries)
+
+    def on(self, i: int):
+        return self.e[i].on()
+
+    def send(self, t: torch.Tensor, i: int, j: int) -> torch.Tensor:
+        return self.e[i].send(t, self.e[j])
+
+
 class _Row:
     """One image's run on one mesh row: the entries and the transport
     between them."""
 
-    def __init__(self, entries: Sequence[Entry], plan: RowPlan):
+    def __init__(self, entries: Sequence[Entry], plan: RowPlan, transport: Transport):
         self.e = list(entries)
         self.plan = plan
         self.S = len(self.e)
+        self.t = transport
+
+    def on(self, i: int):
+        """Entry i's device and stream current."""
+        return self.t.on(i)
 
     def each(self, fn) -> list:
         """``fn(i)`` on every entry, with that entry current."""
         out = []
-        for i, e in enumerate(self.e):
-            with e.on():
+        for i in range(self.S):
+            with self.on(i):
                 out.append(fn(i))
         return out
 
@@ -189,25 +214,25 @@ class _Row:
             a, b = max(lo, r0), min(hi, r1)
             if a < b:
                 piece = parts[i].narrow(-2, a - r0, b - a)
-                pieces.append(piece if i == dst else self.e[i].send(piece, self.e[dst]))
+                pieces.append(piece if i == dst else self.t.send(piece, i, dst))
         if len(pieces) == 1:
             return pieces[0]
-        with self.e[dst].on():
+        with self.on(dst):
             return torch.cat(pieces, dim=-2)
 
     def to_first(self, parts) -> list:
         """Each entry's tensor (None: nothing) sent to the first entry."""
-        return [None if t is None else self.e[i].send(t, self.e[0]) for i, t in enumerate(parts)]
+        return [None if t is None else self.t.send(t, i, 0) for i, t in enumerate(parts)]
 
     def broadcast(self, t: torch.Tensor) -> list:
         """``t`` (on the first entry) for every entry."""
-        return [t if i == 0 else self.e[0].send(t, self.e[i]) for i in range(self.S)]
+        return [t if i == 0 else self.t.send(t, 0, i) for i in range(self.S)]
 
     def all_reduce(self, parts, op) -> list:
         """``op`` over the entries' tensors (None: no part), on the first
         entry, then copied to every entry."""
         got = [t for t in self.to_first(parts) if t is not None]
-        with self.e[0].on():
+        with self.on(0):
             total = op(got)
         return self.broadcast(total)
 
@@ -222,24 +247,36 @@ def _sum_int32(parts, like_shape, dev):
     return torch.stack(parts).sum(0, dtype=torch.int32)
 
 
-def forward(img_u16: torch.Tensor, cfg: MusicaConfig, entries: Sequence[Entry],
-            outputs: Sequence[str] = ("out_u8",), fused_sdev: bool = False) -> Dict[str, torch.Tensor]:
+def forward(img_u16, cfg: MusicaConfig, entries: Sequence[Entry],
+            outputs: Sequence[str] = ("out_u8",), fused_sdev: bool = False,
+            transport: Optional[Transport] = None) -> Dict[str, torch.Tensor]:
     """``musica_forward`` of one [n, n] integer image (on any device) with
     its rows split over ``entries``; returns the requested results
     (``OUTPUTS``; ``clahe_graded`` with ``cfg.enable_clahe``), each whole,
     on the first entry's device.  ``fused_sdev`` as in ``musica_forward``.
-    Equal to ``musica_forward``'s bit for bit."""
+    Equal to ``musica_forward``'s bit for bit.  ``img_u16`` may instead be
+    a list of each entry's level-0 rows (``row_plan(n, S, cfg).rows(0, i)``),
+    contiguous on that entry's device, which the run reads in place (a
+    graph's static input).  ``transport``: ``Transport(entries)`` when
+    None."""
     check_outputs(cfg, outputs)
     n = cfg.image_size
-    if tuple(img_u16.shape) != (n, n):
-        raise ValueError(f"image {tuple(img_u16.shape)} != cfg.image_size {n}")
     plan = row_plan(n, len(entries), cfg)
-    row = _Row(entries, plan)
+    if isinstance(img_u16, (list, tuple)):
+        shapes = [tuple(t.shape) for t in img_u16]
+        if shapes != [(b - a, n) for a, b in zip(plan.bounds[0], plan.bounds[0][1:])]:
+            raise ValueError(f"row blocks {shapes} do not match the plan {list(plan.bounds[0])}")
+    elif tuple(img_u16.shape) != (n, n):
+        raise ValueError(f"image {tuple(img_u16.shape)} != cfg.image_size {n}")
+    row = _Row(entries, plan, Transport(entries) if transport is None else transport)
     sd, L, R, S = _band_dtype(cfg), cfg.pyramid_levels, plan.replicated, len(entries)
     sizes, E = plan.sizes, row.e
 
     # ---- normalize: the extrema all-reduced over the shards -----------------
-    x = row.each(lambda i: img_u16[slice(*plan.rows(0, i))].to(E[i].device).contiguous())
+    if isinstance(img_u16, (list, tuple)):
+        x = list(img_u16)
+    else:
+        x = row.each(lambda i: img_u16[slice(*plan.rows(0, i))].to(E[i].device).contiguous())
     ext = row.each(lambda i: torch.stack([x[i].to(torch.float32).amax(),
                                           x[i].to(torch.float32).amin()]))
     ext = row.all_reduce(ext, lambda p: torch.stack([torch.stack(p)[:, 0].amax(),
@@ -273,7 +310,7 @@ def forward(img_u16: torch.Tensor, cfg: MusicaConfig, entries: Sequence[Entry],
                 cur[i] - pyramid.upsample_smooth(dn[i], h)[slice(*plan.rows(k, i))]).to(sd)))
             coarse = row.each(lambda i, dn=dn: pyramid.reduce_ladder(dn[i], L - R))
             for j in range(L - R):
-                bandpass.append([c[0][j].to(sd) for c in coarse])
+                bandpass.append(row.each(lambda i, j=j: coarse[i][0][j].to(sd)))
             top = [c[1][-1] if L > R else d for c, d in zip(coarse, dn)]  # downs[L - 1]
 
     def sharded(k: int) -> bool:
@@ -318,8 +355,8 @@ def forward(img_u16: torch.Tensor, cfg: MusicaConfig, entries: Sequence[Entry],
             wins = [sdevs[k][i] if sharded(k) or i == 0 else sdevs[k][i][:0] for k in levels]
             return fused_hist.noise_hists_rows(wins, [rows_of(k, i)[0] for k in levels], cfg)
         parts = row.each(partial)
-    with E[0].on():
-        got = [t for t in row.to_first(parts) if t is not None]
+    got = [t for t in row.to_first(parts) if t is not None]
+    with row.on(0):
         hsum = _sum_int32(got, (len(levels), cfg.noise_histogram_bins), E[0].device)
         mb_first = fused_hist.hist_argmax(hsum)
     max_bins = row.broadcast(mb_first)
@@ -436,7 +473,7 @@ def forward(img_u16: torch.Tensor, cfg: MusicaConfig, entries: Sequence[Entry],
     for name in outputs:
         if name == "out_u8":
             got = [t for t in row.to_first(out_parts) if t.shape[0]]
-            with E[0].on():
+            with row.on(0):
                 result[name] = torch.cat(got) if len(got) > 1 else got[0]
         elif name == "cnr" and not sharded(c):
             result[name] = cnr[0]

@@ -149,6 +149,12 @@ def measure_row(alt, unalt_t: torch.Tensor, ref_t: torch.Tensor):
             float(vals[2]), float(vals[3]), _euclid_from_counts(ca, cr)]
 
 
+def measure_row_device(alt, unalt_t: torch.Tensor, ref_t: torch.Tensor):
+    """The JAX package's name for ``measure_row``: the same 6 floats, mse
+    and SSIM on ``unalt_t``'s device."""
+    return measure_row(alt, unalt_t, ref_t)
+
+
 def _euclid_from_counts(ca: np.ndarray, cb: np.ndarray) -> float:
     """hist_similarity's normalized euclidean metric from exact per-value
     counts -- bit-equal to np.histogram on the images (quirk #26 range)."""

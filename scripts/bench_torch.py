@@ -2,35 +2,37 @@
 """Throughput of the PyTorch port's main path on CUDA GPUs.
 
     python3 scripts/bench_torch.py                  # one line of JSON, on the card(s)
-    python3 scripts/bench_torch.py --device cpu --size 256   # the tests' CPU run
+    python3 scripts/bench_torch.py --device cpu --size 256 --windows 1 --calls 1
+                                                    # a light run on the CPU
     python3 scripts/bench_torch.py --configs 1x4,2x2        # also spatial meshes
 
 Input: a device-resident ``synthetic_radiograph(size, "thorax")`` (uint16),
 the image of the JAX package's ``bench.py``.  Warm-up: the kernel build and
-the graphs' capture, then 3 runs.  The legs, in GPix/s (size² pixels per
-image), measure the production entries, which replay captured CUDA graphs
-(``models/graphs.py``):
+the graphs' capture, then 3 runs (as many as ``--windows`` where it is
+fewer).  The legs, in GPix/s (size² pixels per image), measure the
+production entries, which replay captured CUDA graphs (``models/graphs.py``):
 
-* single image: ``process_jit`` one call after another, 5 windows of 10
-  calls between CUDA events (the host's issue time included), the median
-  window;
+* single image: ``process_jit`` one call after another, 5 windows
+  (``--windows``) of 10 calls (``--calls``) between CUDA events (the host's
+  issue time included), the median window;
 * batch: ``process_batch_jit`` of 4 copies of the image, 5 windows of 2
-  calls, the median window;
+  calls (a fifth of ``--calls``, at least 1), the median window;
 * mesh: ``parallel.sharding.throughput_step`` over every visible card, 4
-  random images per card, the host clock around 5 steps (each ends with its
-  checksum on the host), the median step;
+  random images per card, the host clock around 5 steps (``--windows``;
+  each ends with its checksum on the host), the median step;
 * ``single_image_eager_gpix`` and ``batch_eager_gpix``: the same single and
   batch windows of eager ``musica_forward`` and ``forward_batch``, the
   legs the bench measured before the graphs.  The four single and batch
   legs run in interleaved windows, so the host's drift falls on all;
 * ``spatial``: per ``--configs`` mesh shape DxS (``scripts/bench_mesh.py``'s
   flag), ``throughput_step`` over ``make_mesh(n_data=D, n_space=S)``, each
-  image's rows split over S entries (one image a data row a step), the host
-  clock around 5 steps, the median step: ``ms_per_img`` (a step over D
-  images, so the latency of one image at D = 1) and ``gpix``.  The entries
-  take the visible cards in order and wrap around where there are fewer
-  cards than entries (several entries on one card, each on its stream);
-  ``devices`` names them.
+  image's rows split over S entries (one image a data row a step, a replay
+  of the row's captured graph, ``graphs.SpatialGraph``), the host clock
+  around 5 steps (whatever ``--windows`` says), the median step:
+  ``ms_per_img`` (a step over D images, so the latency of one image at
+  D = 1) and ``gpix``.  The entries take the visible cards in order and
+  wrap around where there are fewer cards than entries (several entries on
+  one card, each on its stream); ``devices`` names them.
 
 ``value`` is the better of the single-image and batch rates, one card's
 rate as in ``bench.py``; the mesh rate is that of all the cards together.
@@ -55,8 +57,9 @@ if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
 BATCH = 4
-WINDOWS = 5
-SINGLE_CALLS, BATCH_CALLS = 10, 2
+WINDOWS = 5  # the single, batch and mesh legs' windows (--windows)
+SINGLE_CALLS = 10  # calls a single-image window (--calls); a batch window: a fifth
+SPATIAL_STEPS = 5
 
 
 def card() -> tuple[str, float]:
@@ -91,8 +94,8 @@ def median(xs):
 
 
 def spatial_leg(cfg, configs, dev) -> list:
-    """The ``spatial`` entries: per (data, space) shape, the median of 5
-    throughput steps over that mesh (after one warm-up step)."""
+    """The ``spatial`` entries: per (data, space) shape, the median of
+    ``SPATIAL_STEPS`` throughput steps over that mesh (after one warm-up step)."""
     import torch
 
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
@@ -106,7 +109,7 @@ def spatial_leg(cfg, configs, dev) -> list:
         step, example = sharding.throughput_step(cfg, sharding.make_mesh(d, s, devices))
         int(step(example))
         steps = []
-        for _ in range(WINDOWS):
+        for _ in range(SPATIAL_STEPS):
             t0 = time.perf_counter()
             int(step(example))
             steps.append(time.perf_counter() - t0)
@@ -122,10 +125,13 @@ def parse_configs(text: str) -> list:
     return [tuple(int(v) for v in c.split("x")) for c in text.split(",") if c]
 
 
-def measure(device: str = "cuda", size: int = 3072, configs=()) -> dict:
+def measure(device: str = "cuda", size: int = 3072, configs=(), windows: int = WINDOWS,
+            calls: int = SINGLE_CALLS) -> dict:
     """The three legs on ``device`` (``"cuda"``: the first card for single
-    and batch, every visible card for the mesh), and the spatial meshes of
-    ``configs`` ((data, space) pairs); returns the JSON record."""
+    and batch, every visible card for the mesh), ``windows`` windows of
+    ``calls`` single-image calls each (a batch window: ``calls // 5``, at
+    least 1), and the spatial meshes of ``configs`` ((data, space) pairs);
+    returns the JSON record."""
     import torch
 
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
@@ -149,22 +155,23 @@ def measure(device: str = "cuda", size: int = 3072, configs=()) -> dict:
     xb = torch.stack([x] * BATCH)
     step, example = sharding.throughput_step(cfg, mesh, batch_per_device=BATCH)
 
-    legs = {"single": (lambda: musica.process_jit(x, cfg), SINGLE_CALLS, 1),
-            "single_eager": (lambda: musica.musica_forward(x, cfg)["out_u8"], SINGLE_CALLS, 1),
-            "batch": (lambda: musica.process_batch_jit(xb, cfg), BATCH_CALLS, BATCH),
-            "batch_eager": (lambda: musica.forward_batch(xb, cfg), BATCH_CALLS, BATCH)}
-    for _ in range(3):
+    batch_calls = max(1, calls // 5)
+    legs = {"single": (lambda: musica.process_jit(x, cfg), calls, 1),
+            "single_eager": (lambda: musica.musica_forward(x, cfg)["out_u8"], calls, 1),
+            "batch": (lambda: musica.process_batch_jit(xb, cfg), batch_calls, BATCH),
+            "batch_eager": (lambda: musica.forward_batch(xb, cfg), batch_calls, BATCH)}
+    for _ in range(min(3, windows)):
         for fn, _, _ in legs.values():
             fn()
     int(step(example))
 
-    windows = {k: [] for k in legs}
-    for _ in range(WINDOWS):
-        for k, (fn, calls, images) in legs.items():
-            windows[k].append(window_ms(fn, calls, dev) / images)
-    ms = {k: median(w) for k, w in windows.items()}
+    times = {k: [] for k in legs}
+    for _ in range(windows):
+        for k, (fn, n_calls, images) in legs.items():
+            times[k].append(window_ms(fn, n_calls, dev) / images)
+    ms = {k: median(w) for k, w in times.items()}
     steps = []
-    for _ in range(WINDOWS):
+    for _ in range(windows):
         t0 = time.perf_counter()
         int(step(example))  # the checksum on the host: every device has finished
         steps.append(time.perf_counter() - t0)
@@ -188,13 +195,22 @@ def main(argv=None) -> int:
     ap.add_argument("--size", type=int, default=3072)
     ap.add_argument("--configs", default="",
                     help="comma-separated DxS spatial mesh shapes (data x space), e.g. 1x4,2x2")
+    ap.add_argument("--windows", type=int, default=WINDOWS,
+                    help=f"windows of the single, batch and mesh legs (default {WINDOWS}; "
+                         f"the spatial leg always takes {SPATIAL_STEPS} steps)")
+    ap.add_argument("--calls", type=int, default=SINGLE_CALLS,
+                    help=f"calls a single-image window (default {SINGLE_CALLS}); a batch "
+                         "window makes a fifth as many, at least 1")
     args = ap.parse_args(argv)
     import torch
     if args.device != "cpu" and not torch.cuda.is_available():
         print("bench_torch: torch.cuda.is_available() is False: this bench needs a CUDA "
               "GPU (--device cpu runs it on the CPU)", file=sys.stderr)
         return 1
-    print(json.dumps(measure(args.device, args.size, parse_configs(args.configs))), flush=True)
+    if args.windows < 1 or args.calls < 1:
+        ap.error("--windows and --calls take at least 1")
+    print(json.dumps(measure(args.device, args.size, parse_configs(args.configs), args.windows,
+                             args.calls)), flush=True)
     return 0
 
 

@@ -6,7 +6,7 @@
     python3 scripts/profile_torch.py --fused-sdev    # sdev + noise histograms in one kernel
     python3 scripts/profile_torch.py --bf16          # bf16 band storage
     python3 scripts/profile_torch.py --graph         # also the graph replays
-    python3 scripts/profile_torch.py --spatial 1x4   # the spatial path on this card
+    python3 scripts/profile_torch.py --spatial 1x4   # the spatial path on this card (eager, graphs)
 
 Runs ``musica_forward`` on a device-resident synthetic radiograph under
 ``torch.profiler`` and prints, with the card's name and power limit:
@@ -25,10 +25,12 @@ device busy ms and share, and hand-written kernels for the replays beside
 the eager run's (a replay has no ``musica.<phase>`` spans: they are host
 spans of the capture).
 
-With ``--spatial DxS`` the profiled call is ``process_sharded`` of D
+With ``--spatial DxS`` the profiled call is ``process_sharded_eager`` of D
 images over a D x S mesh whose entries are all this card, each on a stream
-of its own (``parallel/spatial.py``, eager; its ops carry no
-``musica.<phase>`` spans), and the times are per image.
+of its own (``parallel/spatial.py``, its schedule issued op by op; its ops
+carry no ``musica.<phase>`` spans), then, as with ``--graph``,
+``process_sharded``, whose images are replays of each mesh row's captured
+graph (``models/graphs.py::SpatialGraph``); the times are per image.
 
 A Chrome trace of the run goes to ``DIR/trace.json`` (default
 ``build/profile_torch``), the replays' to ``DIR/trace_graph.json``.
@@ -105,10 +107,16 @@ def main() -> int:
         xs, per_call = x.expand(d, -1, -1), d
 
         def forward():
+            return sharding.process_sharded_eager(xs, cfg, mesh, fused_sdev=args.fused_sdev)
+
+        def replay():
             return sharding.process_sharded(xs, cfg, mesh, fused_sdev=args.fused_sdev)
     else:
         def forward():
             return musica.musica_forward(x, cfg, fused_sdev=args.fused_sdev)["out_u8"]
+
+        def replay():
+            return musica.process_jit(x, cfg, args.fused_sdev)
     for _ in range(3):  # warm-up: kernel build, allocator, cuBLAS-free path
         forward()
     torch.cuda.synchronize()
@@ -169,19 +177,19 @@ def main() -> int:
               f"{e.count / args.reps / per_call:7.1f}  {e.key[:110]}")
     os.makedirs(args.out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
-    if args.graph:
+    if args.graph or args.spatial:
         for _ in range(3):  # the capture, then replays
-            musica.process_jit(x, cfg, args.fused_sdev)
+            replay()
         torch.cuda.synchronize()
-        g_prof, g_wall, g_kernels, g_busy, g_launches = profiled(
-            lambda: musica.process_jit(x, cfg, args.fused_sdev))
-        print(f"graph replays (process_jit), {args.reps} reps under the profiler: "
+        g_prof, g_wall, g_kernels, g_busy, g_launches = profiled(replay, per_call)
+        what = "process_sharded" if args.spatial else "process_jit"
+        print(f"graph replays ({what}), {args.reps} reps under the profiler: "
               f"{g_wall:.3f} ms/img wall (CUDA events), {g_launches:.0f} kernels/img, "
               f"device busy {g_busy:.3f} ms/img = {100 * g_busy / g_wall:.1f} % "
               f"(eager: {wall:.3f} ms/img wall, {launches:.0f} kernels/img, "
               f"busy {busy:.3f} ms/img = {100 * busy / wall:.1f} %)")
         print("hand-written kernels in the replays (ms/img, launches/img):")
-        hand_written(g_kernels)
+        hand_written(g_kernels, per_call)
         g_prof.export_chrome_trace(os.path.join(args.out, "trace_graph.json"))
     return 0
 

@@ -1,4 +1,5 @@
-"""``scripts/bench_torch.py`` on the CPU: ``--device cpu --size 256``
+"""``scripts/bench_torch.py`` on the CPU: ``--device cpu --size 256`` (one
+window of one call, ``--windows 1 --calls 1``, so the run stays light)
 prints one JSON line with the bench's keys (the production entries' legs
 and the eager ones beside them); without ``--device cpu`` and
 without a card it exits non-zero and prints no result."""
@@ -24,7 +25,7 @@ def _run(*args):
 
 
 def test_bench_cpu_prints_one_json_line():
-    p = _run("--device", "cpu", "--size", "256")
+    p = _run("--device", "cpu", "--size", "256", "--windows", "1", "--calls", "1")
     assert p.returncode == 0, p.stderr[-2000:]
     lines = p.stdout.strip().splitlines()
     assert len(lines) == 1
@@ -43,7 +44,8 @@ def test_bench_cpu_prints_one_json_line():
 def test_bench_cpu_spatial_configs():
     """``--configs 1x2,2x2``: one entry per spatial mesh shape, each image's
     rows split over its mesh row (CPU entries here)."""
-    p = _run("--device", "cpu", "--size", "128", "--configs", "1x2,2x2")
+    p = _run("--device", "cpu", "--size", "128", "--configs", "1x2,2x2", "--windows", "1",
+             "--calls", "1")
     assert p.returncode == 0, p.stderr[-2000:]
     rec = json.loads(p.stdout.strip().splitlines()[-1])
     assert [(e["data"], e["space"]) for e in rec["spatial"]] == [(1, 2), (2, 2)]

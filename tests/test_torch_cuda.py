@@ -890,7 +890,8 @@ def test_spatial_path_on_card_equals_eager(dev, n, shape):
     imgs = np.stack([synthetic_radiograph(n, a) for a in ("thorax", "pelvis")])
     mesh = sharding.make_mesh(n_data=shape[0], n_space=shape[1], devices=[dev] * 4)
     want = musica.forward_batch(torch.from_numpy(imgs).to(dev), cfg)
-    sharding.process_sharded(imgs, cfg, mesh)
+    # the first call captures (the outputs are part of the graph's key)
+    sharding.process_sharded(imgs, cfg, mesh, outputs=("out_u8", "recon"))
     launch.reset_launch_counts()
     out, recon = sharding.process_sharded(imgs, cfg, mesh, outputs=("out_u8", "recon"))
     torch.cuda.synchronize()
@@ -1045,3 +1046,107 @@ def test_spatial_variants_over_every_card(dev):
         want = musica.musica_forward(torch.from_numpy(img).to(dev), cfg, fused_sdev=fused)
         for name, g in zip(names, got):
             torch.testing.assert_close(g[0], want[name], rtol=0, atol=0, equal_nan=True)
+
+
+SPATIAL_VARIANTS = {
+    "main": ({}, False, ("out_u8", "recon")),
+    "clahe_linear": (dict(enable_clahe=True, grad_with_linear_image=True), False,
+                     ("out_u8", "clahe_graded")),
+    "fused_sdev": ({}, True, ("out_u8", "cnr")),
+    "bf16": (dict(storage="bfloat16"), False, ("out_u8",)),
+}
+
+
+def _tup(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _same(got, want, what):
+    for k, (g, w) in enumerate(zip(got, want)):
+        torch.testing.assert_close(g, w.to(g.device), rtol=0, atol=0, equal_nan=True,
+                                   msg=f"{what}: output {k}")
+
+
+@pytest.mark.parametrize("variant", sorted(SPATIAL_VARIANTS))
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_spatial_graph_replays_equal_eager_and_process_batch_jit(dev, variant, shape):
+    """process_sharded over entries that are all this card replays one
+    captured graph per mesh row (one segment each): bit-equal to the eager
+    spatial path and to process_batch_jit; a second call captures nothing
+    and its launches are twice the graph's tally."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
+    over, fused, names = SPATIAL_VARIANTS[variant]
+    cfg = MusicaConfig(image_size=512, **over)
+    imgs = np.stack([synthetic_radiograph(512, a) for a in ("thorax", "pelvis")])
+    mesh = sharding.make_mesh(n_data=shape[0], n_space=shape[1], devices=[dev] * 4)
+    graphs.release_graphs()  # earlier tests may have cached these keys
+    before = graphs.capture_count()
+    first = _tup(sharding.process_sharded(imgs, cfg, mesh, outputs=names, fused_sdev=fused))
+    assert graphs.capture_count() == before + shape[0]
+    new = graphs.cached_graphs()[-shape[0]:]
+    assert all(isinstance(g, graphs.SpatialGraph) and g.segments == 1 for g in new)
+    launch.reset_launch_counts()
+    got = _tup(sharding.process_sharded(imgs, cfg, mesh, outputs=names, fused_sdev=fused))
+    torch.cuda.synchronize()
+    assert graphs.capture_count() == before + shape[0]
+    tally = {k: sum(g.tally.get(k, 0) for g in new) for k in launch.LAUNCHES}
+    per_row = 2 // shape[0]
+    assert launch.LAUNCHES == {k: per_row * n for k, n in tally.items()}
+    eager = _tup(sharding.process_sharded_eager(imgs, cfg, mesh, outputs=names, fused_sdev=fused))
+    _same(first, eager, f"{variant} {shape}: first call")
+    _same(got, eager, f"{variant} {shape}: replay")
+    x = torch.from_numpy(imgs).to(dev)
+    assert torch.equal(got[0], musica.process_batch_jit(x, cfg, fused))
+    for i, im in enumerate(x):
+        want = musica.musica_forward(im, cfg, fused_sdev=fused)
+        _same([g[i] for g in got], [want[k] for k in names], f"{variant} {shape}: image {i}")
+
+
+def test_spatial_graph_cut_at_every_exchange_on_card(dev):
+    """The segmented replay on one card (a cut at every exchange between
+    entries, as between cards): bit-equal to the eager spatial path."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import (
+        sharding, spatial)
+    for over, fused, names in SPATIAL_VARIANTS.values():
+        cfg = MusicaConfig(image_size=512, **over)
+        imgs = torch.from_numpy(np.stack([synthetic_radiograph(512, a)
+                                          for a in ("hand", "knee")])).to(dev)
+        mesh = sharding.make_mesh(n_data=1, n_space=4, devices=[dev] * 4)
+
+        def on_row(i, entries, imgs=imgs, cfg=cfg, fused=fused, names=names):
+            return graphs.run_spatial(spatial.forward, imgs, cfg, entries,
+                                      spatial.row_plan(512, 4, cfg).bounds[0], fused, names,
+                                      cut_every=True)
+        (got,) = sharding._on_rows(mesh, on_row)
+        g = graphs.cached_graphs()[-1]
+        assert isinstance(g, graphs.SpatialGraph) and g.segments > 4
+        want = _tup(sharding.process_sharded_eager(imgs, cfg, mesh, outputs=names,
+                                                   fused_sdev=fused))
+        _same(got, want, f"{over} {fused}: cut at every exchange")
+
+
+def test_spatial_graph_over_every_card(dev):
+    """One image's rows over n_space = every visible card: the graph's
+    segments (cut at the exchanges between cards) replay bit-equal to the
+    eager spatial path and to process_batch_jit, in every variant, without
+    a recapture."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards")
+    mesh = sharding.make_mesh(n_data=1, n_space=cards)
+    img = synthetic_radiograph(512, "thorax")[None]
+    for over, fused, names in SPATIAL_VARIANTS.values():
+        cfg = MusicaConfig(image_size=512, **over)
+        got = _tup(sharding.process_sharded(img, cfg, mesh, outputs=names, fused_sdev=fused))
+        g = graphs.cached_graphs()[-1]
+        assert g.segments > cards and len(g.devices) == cards
+        before = graphs.capture_count()
+        again = _tup(sharding.process_sharded(img, cfg, mesh, outputs=names, fused_sdev=fused))
+        assert graphs.capture_count() == before
+        eager = _tup(sharding.process_sharded_eager(img, cfg, mesh, outputs=names,
+                                                    fused_sdev=fused))
+        _same(got, eager, f"{over} {fused} over {cards} cards")
+        _same(again, eager, f"{over} {fused} over {cards} cards, again")
+        assert torch.equal(got[0], musica.process_batch_jit(torch.from_numpy(img).to(dev), cfg,
+                                                            fused))
