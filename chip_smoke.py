@@ -17,7 +17,10 @@ levels ([3d]), K1, K3, K4, K6, K5 and K7 on the row windows of the spatial
 path's plan (3072 over 4 shards; adversarial inputs at 3072, 600 and 144;
 tiles 8, 12, 32; K5 also on windows that start on odd rows; K6's and K7's
 windows summed against the whole image's) and K2 as a launch of its own on
-the summed histograms ([3e]), drives
+the summed histograms ([3e]), the pyramid kernels KP1 and KP2 (every mode,
+a bf16 band too) bit for bit at every level of 3072, 600 and 144 on
+adversarial inputs, on the thorax's ladder and expand and on every row
+window of the spatial plans at 3072, 600 and 144 over 4 shards ([3f]), drives
 the port's main path
 (``process`` on a 3072^2 uint16 radiograph, then the intermediates path of
 ``process --debug-dump``), the CLAHE + linear-gradation variant path
@@ -63,7 +66,8 @@ its bound (bytes
 over the HBM rate, operations over the peak rate, at this run's inputs)
 and, where one exists, the one PyTorch call that computes the same function
 (``torch.argmax`` for the argmax, ``torch.bincount`` for the generic
-histogram), with CUDA events; the folded argmax also as the difference
+histogram, float64 ``F.conv2d`` and ``F.conv_transpose2d`` for the pyramid
+steps), with CUDA events; the folded argmax also as the difference
 between K1 (and K7) with and without it.
 
 Every phase prints one line; any failure raises and exits non-zero.  The
@@ -92,10 +96,13 @@ PKG = "metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tp
 PALLAS_DIR = ("metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_"
               "processing_tpu/ops/pallas")
 PALLAS = f"{PALLAS_DIR}/fused_hist.py"
+JAX_PYRAMID = ("metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_"
+               "processing_tpu/ops/pyramid.py")
 SOURCES = {"noise_hist": "fused_hist.cu", "hist_argmax": "hist_argmax.cuh",
            "grad_hist_relevant": "fused_hist.cu", "grad_hist": "fused_hist.cu",
            "histogram": "histogram.cu", "clahe_apply": "clahe_apply.cu",
-           "sdev_noise_hist": "sdev_noise.cu"}
+           "sdev_noise_hist": "sdev_noise.cu", "pyramid_down": "pyramid.cu",
+           "pyramid_up": "pyramid.cu"}
 REPLACES = {
     "noise_hist": f"{PALLAS}:139 (_noise_kernel of noise_hist_fused; also the "
                   f"histogram of _noise_multi_kernel, :181)",
@@ -111,6 +118,11 @@ REPLACES = {
                    f"clahe_apply_fused, pallas_call :188)",
     "sdev_noise_hist": f"{PALLAS}:262 (_sdev_noise_kernel of "
                        f"sdev_noise_hist_fused, pallas_call :334)",
+    # counterparts of XLA code, not of Pallas kernels
+    "pyramid_down": f"{JAX_PYRAMID}:85 (smooth_downsample, XLA, no Pallas kernel; also the "
+                    f"down half of reduce_step_split, :213)",
+    "pyramid_up": f"{JAX_PYRAMID}:310 (upsample_smooth, XLA, no Pallas kernel; with "
+                  f"reduce_ladder's subtraction, :261, and models/musica.py:155's expand add)",
 }
 # each hand-written kernel's CUDA kernel events as the profiler names them
 # (scripts/profile_torch.py matches them alike)
@@ -122,6 +134,8 @@ KERNEL_EVENTS = {
     "histogram": r"(?<![A-Za-z_])histogram_kernel\b",
     "clahe_apply": r"clahe_apply_kernel\b",
     "sdev_noise_hist": r"sdev_noise_hist_kernel\b",
+    "pyramid_down": r"smooth_downsample_kernel\b",
+    "pyramid_up": r"upsample_smooth_kernel<\d>",
 }
 # clahe_graded against the port's CPU path: the LUTs are order-stable sums
 # and the apply is exact, so only a recon that differs could move it; the
@@ -197,6 +211,20 @@ class KernelRecord:
         self.err[kernel] = err if prev is None else max(prev, err)
         log(f"  {kernel} [{case}]: max |kernel - plain| = {err}")
         assert err == 0, f"{kernel} [{case}] differs from its plain version"
+
+    def equal_bits(self, kernel: str, case: str, got, want) -> bool:
+        """float32 images equal bit for bit (-0.0 is not +0.0); records
+        max |kernel - plain| without a line of its own."""
+        import torch
+        assert got.shape == want.shape and got.dtype == want.dtype == torch.float32, \
+            (kernel, case, got.shape, want.shape, got.dtype, want.dtype)
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        err = 0.0 if same else float((got.double() - want.double()).abs().nan_to_num(
+            float("inf")).max())
+        prev = self.err[kernel]
+        self.err[kernel] = err if prev is None else max(prev, err)
+        assert same, f"{kernel} [{case}] differs from its plain version (max |d| {err})"
+        return same
 
     def equal_float(self, kernel: str, case: str, got, want) -> None:
         """Equal NaN masks and max |kernel - plain| = 0 on finite values."""
@@ -678,6 +706,81 @@ def check_window_kernels(rec, rng, dev, cfg, lv3072, main, var, var3072):
                               if tile == 16 else None)
 
 
+def check_pyramid(rec, rng, dev, nrm, cfg):
+    """[3f]: KP1 (``smooth_downsample``) and KP2 (``upsample_smooth``,
+    ``upsample_subtract``, ``upsample_add``, a bf16 band too) against their
+    plain versions bit for bit: at every level of 3072, 600 and 144 on
+    adversarial inputs (+-0, denormals, +-1e30) and constant planes (-0.0,
+    1e30, 3.0, the denormal 3e-39); the 3072 thorax's ladder (``reduce_ladder``) and an expand
+    of its bands; every row window of the spatial plans at 3072 and 600
+    (16-px tiles) and 144 (12-px tiles) over 4 shards, windows that start
+    on odd rows among them."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import pyramid
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import pyramid as kp
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import pyramid_cases as pc
+
+    def data(shape, case="mixed"):
+        return torch.from_numpy(pc.adversarial(rng, shape, case)).to(dev)
+    L = cfg.pyramid_levels
+    bands, downs = pyramid.reduce_ladder(nrm, L)
+    p_bands, p_downs = pyramid.reduce_ladder_plain(nrm, L)
+    for i in range(L):
+        rec.equal_bits("pyramid_down", f"3072 thorax ladder, level {i}", downs[i], p_downs[i])
+        rec.equal_bits("pyramid_up", f"3072 thorax ladder, band {i}", bands[i], p_bands[i])
+    recon, p_recon = downs[-1], p_downs[-1]
+    for lvl in range(L - 1, -1, -1):
+        recon = pyramid.upsample_add(recon, bands[lvl])
+        p_recon = kp.upsample_add_plain(p_recon, bands[lvl])
+        rec.equal_bits("pyramid_up", f"3072 thorax expand, level {lvl}", recon, p_recon)
+    log(f"  the 3072 thorax: reduce_ladder's {L} downs and bands and an expand of {L} steps "
+        f"equal the plain versions bit for bit")
+    for n in (SIZE, 600, 144):
+        count = 0
+        for h in pc.level_sizes(n):
+            src = -(-h // 2)
+            for case in pc.CASES:
+                x, small = data((h, h), case), data((src, src), case)
+                what = f"{n}: level {h}, {case}"
+                rec.equal_bits("pyramid_down", what, kp.smooth_downsample(x),
+                               kp.smooth_downsample_plain(x))
+                rec.equal_bits("pyramid_up", what, kp.upsample_smooth(small, h),
+                               pyramid.upsample_smooth_plain(small, h))
+                rec.equal_bits("pyramid_up", what + ", subtract", kp.upsample_subtract(x, small),
+                               kp.upsample_subtract_plain(x, small))
+                for band in (x, x.to(torch.bfloat16)):
+                    rec.equal_bits("pyramid_up", f"{what}, add {band.dtype}",
+                                   kp.upsample_add(small, band), kp.upsample_add_plain(small, band))
+                count += 5
+        log(f"  every level of {n} ({len(pc.level_sizes(n))} levels) on {len(pc.CASES)} inputs "
+            f"each: {count} "
+            f"launches equal their plain versions bit for bit")
+    for n, tile in ((SIZE, 16), (600, 16), (144, 12)):
+        wins = pc.shard_windows(n, tile)
+        images = {}
+        for op, h, (lo, hi), (a, b) in wins:
+            if h not in images:
+                images[h] = data((h, h)), data((-(-h // 2),) * 2)
+            x, small = images[h]
+            what = f"{n} over 4, level {h}, rows [{a}, {b})"
+            if op == "down":
+                rec.equal_bits("pyramid_down", what, kp.smooth_downsample_rows(x[lo:hi], lo, h, a, b),
+                               kp.smooth_downsample_rows_plain(x[lo:hi], lo, h, a, b))
+                continue
+            s = small[lo:hi]
+            rec.equal_bits("pyramid_up", what, kp.upsample_smooth_rows(s, lo, h, a, b),
+                           kp.upsample_rows_plain(s, lo, h, a, b))
+            cur = x[a:b]
+            rec.equal_bits("pyramid_up", what + ", subtract", kp.upsample_subtract(cur, s, lo, a),
+                           kp.upsample_subtract_plain(cur, s, lo, a))
+            band = cur.to(torch.bfloat16)
+            rec.equal_bits("pyramid_up", what + ", add", kp.upsample_add(s, band, lo, a),
+                           kp.upsample_add_plain(s, band, lo, a))
+        odd = sum(b[0] % 2 for *_, b in wins)
+        log(f"  {n} over 4 shards ({tile}-px tiles): {len(wins)} windows ({odd} starting on odd "
+            f"rows), each kernel and mode equal to its plain row-window version")
+
+
 def covered(c, space):
     """Shards of a ``space``-way plan that hold rows inside some analysis
     level's histogram coverage (K1 launches on those alone)."""
@@ -706,9 +809,12 @@ def host_ms(fn, reps=3):
 def spatial_launches(c, fused, s, b):
     """Each kernel's launches on the spatial path for b images over ``s``
     shards."""
+    # KP1 once a level and KP2 once a band and once an expand step, on every
+    # shard (the replicated levels on every entry)
+    pyr = {"pyramid_down": b * s * c.pyramid_levels, "pyramid_up": 2 * b * s * c.pyramid_levels}
     if fused:
-        return {"sdev_noise_hist": b * s, "hist_argmax": b, "grad_hist_relevant": b * s}
-    want = {"noise_hist": b * covered(c, s), "hist_argmax": b}
+        return {"sdev_noise_hist": b * s, "hist_argmax": b, "grad_hist_relevant": b * s, **pyr}
+    want = {"noise_hist": b * covered(c, s), "hist_argmax": b, **pyr}
     if c.enable_clahe:
         want.update({"grad_hist": b * s, "histogram": b * s, "clahe_apply": b * s})
     else:
@@ -1074,6 +1180,45 @@ def fp64_sass_lengths():
     return out["probe_ddiv"], out["probe_dsqrt"]
 
 
+def fp64_rate():
+    """(float64 instructions a second, SMs, MHz): 64 a clock on every SM at
+    the card's largest SM clock."""
+    import torch
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return FP64_PER_SM_CLOCK * sms * mhz * 1e6, sms, mhz
+
+
+def pyramid_work(sizes):
+    """(bytes, float64 instructions) of KP1 and KP2 on a ladder whose levels
+    are ``sizes`` px square (level 0 first): each input read once and each
+    output written once, and the float64 products and sums of the plain
+    path's stencils (KP1: 9 a vertical sum at each even row and every
+    column, 9 a horizontal sum at each output; KP2: 5 or 3 a vertical phase
+    at each output row and small column, 5 or 3 a horizontal phase at each
+    output, 4 on average).  Keys: ``down`` and ``up`` at level 0 (mode 0),
+    ``subtract`` and ``add`` at level 0 (cur or the band read too),
+    ``ladder`` (KP1 and a band on every level) and ``expand`` (an expand
+    step on every level)."""
+    def down(h):
+        dh = -(-h // 2)
+        return 4 * h * h + 4 * dh * dh, 9 * dh * h + 9 * dh * dh
+
+    def up(h, reads):
+        src = -(-h // 2)
+        return 4 * src * src + 4 * h * h * (1 + reads), 4 * h * src + 4 * h * h
+
+    ladder = [a + b for a, b in zip(*[
+        [sum(w[i] for w in works) for i in (0, 1)]
+        for works in ([down(h) for h in sizes], [up(h, 1) for h in sizes])])]
+    expand = [sum(up(h, 1)[i] for h in sizes) for i in (0, 1)]
+    n = sizes[0]
+    return {"down": down(n), "up": up(n, 0), "subtract": up(n, 1), "add": up(n, 1),
+            "ladder": tuple(ladder), "expand": tuple(expand)}
+
+
 def kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b3072):
     """Per kernel (ms, "bytes" or "operations"): the bound at this run's
     main-path inputs.  Where a scan stops early (K1, K3, K4) only the
@@ -1121,17 +1266,19 @@ def kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b
     px7 = sum(b.numel() for b in b3072)
     n_div, n_sqrt = fp64_sass_lengths()
     per_px = 8 + 2 + n_div + n_sqrt
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate64, sms, mhz = fp64_rate()
     t_bytes = (8 * px7 + 4 * L * nbn) / HBM_BYTES_PER_S * 1e3
-    t_fp64 = px7 * per_px / (FP64_PER_SM_CLOCK * sms * mhz * 1e6) * 1e3
+    t_fp64 = px7 * per_px / rate64 * 1e3
     log(f"  K7's bound: bytes {t_bytes} ms ({8 * px7 + 4 * L * nbn} B); float64 issue {t_fp64} "
         f"ms ({per_px} FP64 instructions a pixel: 8 additions, 2 conversions, __ddiv_rn "
         f"{n_div}, __dsqrt_rn {n_sqrt} in their SASS; {px7} px at 64 a clock on {sms} SMs "
         f"at {mhz:.0f} MHz)")
     out["sdev_noise_hist"] = (max(t_bytes, t_fp64), "bytes" if t_bytes >= t_fp64 else "operations")
+    # KP1 and KP2 at level 0 (the rows' own function; the ladder's and the
+    # expand's sums in pyramid_work)
+    work = pyramid_work([recon.shape[-1]])
+    out["pyramid_down"] = bound(*work["down"], rate=rate64)
+    out["pyramid_up"] = bound(*work["up"], rate=rate64)
     return out
 
 
@@ -1200,7 +1347,13 @@ def check_host_surface(img, cfg, dev):
     if dev.type == "cuda":
         assert launches_cli["noise_hist"] == launches_cli["grad_hist_relevant"] == 1, launches_cli
         assert launches_rep["noise_hist"] == launches_rep["grad_hist"] == 1, launches_rep
-        assert sum(launches_rep.values()) == 2, launches_rep
+        hist = {k: v for k, v in launches_rep.items() if not k.startswith("pyramid")}
+        assert sum(hist.values()) == 2, launches_rep
+        # report runs with intermediates: KP1 a level, KP2 a band, an
+        # exp_lowpass and an expand step a level
+        L = cfg.pyramid_levels
+        assert (launches_rep["pyramid_down"], launches_rep["pyramid_up"]) == (L, 3 * L), \
+            launches_rep
     log(f"  BMP equals musica_forward on the transposed raw; the re-saved raw is the loaded "
         f"(transposed) raw byte for byte; the CNR BMP equals clip(cnr x 255); with --profile "
         f"(its own process) the same three files, and trace.json names noise_hist_kernel, "
@@ -1413,8 +1566,10 @@ def main() -> int:
 
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig, cli
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import graphs, musica
-    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe, noise, stats
+    import torch.nn.functional as F
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe, noise, pyramid, stats
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import build, launch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import pyramid as k_pyr
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_apply as k_clahe
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import histogram as k_hist
@@ -1569,6 +1724,10 @@ def main() -> int:
                          (cfg_var, var_inter["intermediates"]["linear"], v_rel),
                          (b3072, v_recon))
 
+    log("[3f] the pyramid kernels KP1 (smooth_downsample_kernel) and KP2 "
+        "(upsample_smooth_kernel<mode>) vs their plain versions, bit for bit")
+    check_pyramid(rec, rng, dev, nrm, cfg)
+
     # ---- 4. the main path at 3072^2 ----------------------------------------
     log(f"[4] main path: process() on a {SIZE}^2 thorax phantom; a first call captures its "
         f"graph (eager warm-up, capture, one replay), the next (one replay) is counted")
@@ -1584,6 +1743,9 @@ def main() -> int:
     # K1 + K2: one launch, which takes the argmaxes too
     assert launches["noise_hist"] == 1 and launches["hist_argmax"] == 0, launches
     assert launches["sdev_noise_hist"] == 0, "the default analysis launched K7"
+    # KP1 once a level, KP2 once a band and once an expand step
+    L = cfg.pyramid_levels
+    assert (launches["pyramid_down"], launches["pyramid_up"]) == (L, 2 * L), launches
     m = cfg.out_margin
     assert out_gpu.shape == (SIZE - 2 * m, SIZE - 2 * m) and out_gpu.dtype == np.uint8
     assert 0 < int(out_gpu.max()) and int(out_gpu.min()) < 255, "degenerate output"
@@ -1601,6 +1763,8 @@ def main() -> int:
     log(f"  launches: {launches_dbg}")
     for k in ("noise_hist", "grad_hist"):
         assert launches_dbg[k] > 0, f"the intermediates path did not launch {k}"
+    # and KP2 once more a level for exp_lowpass_{i}
+    assert (launches_dbg["pyramid_down"], launches_dbg["pyramid_up"]) == (L, 3 * L), launches_dbg
     assert np.array_equal(dbg["out_u8"].cpu().numpy(), out_gpu)
     assert all(bool(torch.isfinite(v).all()) for v in dbg["intermediates"].values()
                if isinstance(v, torch.Tensor) and v.is_floating_point())
@@ -1624,6 +1788,7 @@ def main() -> int:
     assert np.array_equal(var_replay, var_out), "the variant's replay differs from musica_forward"
     for k in ("noise_hist", "grad_hist", "histogram", "clahe_apply"):
         assert launches_var[k] == 1, f"the variant's replay launched {k} {launches_var[k]} times"
+    assert (launches_var["pyramid_down"], launches_var["pyramid_up"]) == (L, 2 * L), launches_var
     assert var_out.shape == out_gpu.shape and var_out.dtype == np.uint8
     assert 0 < int(var_out.max()) and int(var_out.min()) < 255, "degenerate output"
     assert var_clahe.shape == (SIZE, SIZE) and bool(torch.isfinite(var_clahe).any())
@@ -1693,6 +1858,8 @@ def main() -> int:
     assert launches_fused["sdev_noise_hist"] == launches_fused["grad_hist_relevant"] == 1, \
         launches_fused
     assert launches_fused["noise_hist"] == 0, "the fused-sdev replay launched K1"
+    assert (launches_fused["pyramid_down"], launches_fused["pyramid_up"]) == (L, 2 * L), \
+        launches_fused
     f_out, f_times = musica.timed_process(img, cfg, "cuda", fused_sdev=True)
     assert np.array_equal(f_out, out_gpu), "timed_process(fused_sdev=True) out_u8"
     log("  out_u8, recon and cnr equal the default path's on the card bit for bit; "
@@ -2021,6 +2188,7 @@ def main() -> int:
     nb = cfg_var.clahe_tiles ** 2 * cfg_var.clahe_bins
     linear = var_inter["intermediates"]["linear"]
     h3072, mb3072 = fh.noise_hists(lv3072, cfg)
+    dn0 = k_pyr.smooth_downsample(nrm)
     wplane = fh.relevance_weight_plane(cnr, cfg).contiguous()
     cases = {
         "noise_hist": (lambda: fh.noise_hists(lv3072, cfg),
@@ -2037,6 +2205,12 @@ def main() -> int:
                         lambda: k_clahe.clahe_apply_plain(v_recon, v_px, v_py, cfg_var)),
         "sdev_noise_hist": (lambda: fh.sdev_noise_hists(b3072, cfg),
                             lambda: fh.sdev_noise_hists_plain(b3072, cfg)),
+        # level 0 of the thorax's ladder: the normalized image down, its
+        # next level up (mode 0)
+        "pyramid_down": (lambda: k_pyr.smooth_downsample(nrm),
+                         lambda: k_pyr.smooth_downsample_plain(nrm)),
+        "pyramid_up": (lambda: k_pyr.upsample_smooth(dn0, SIZE),
+                       lambda: pyramid.upsample_smooth_plain(dn0, SIZE)),
     }
     # one PyTorch call computing the same function, where there is one
     # (timed as a yardstick only; the port never calls it)
@@ -2048,6 +2222,60 @@ def main() -> int:
     assert torch.equal(unfolded_noise_hists(lv3072, cfg), h3072)
     library = {"hist_argmax": lambda: torch.argmax(h3072, dim=1),
                "histogram": lambda: torch.bincount(joint_flat, weights=w_flat, minlength=nb)}
+    # the pyramid steps as one float64 convolution each (zero borders and
+    # another order of sums, so a time only; the float64 copies are made
+    # beforehand): stride 2 with the 5x5 outer product of the taps, and its
+    # transpose with 4 x that kernel
+    w64 = torch.tensor(pyramid._W, dtype=torch.float64, device=dev)
+    k55 = torch.outer(w64, w64)[None, None]
+    nrm64, dn64 = nrm.double()[None, None], dn0.double()[None, None]
+    library["pyramid_down"] = lambda: F.conv2d(nrm64, k55, stride=2, padding=2)
+    library["pyramid_up"] = lambda: F.conv_transpose2d(dn64, 4 * k55, stride=2, padding=2,
+                                                       output_padding=1)
+    assert library["pyramid_down"]().shape[-2:] == dn0.shape
+    assert library["pyramid_up"]().shape[-2:] == nrm.shape
+    # the ladder (KP1 and a band a level) and an expand (a step a level) of
+    # the thorax, kernels and plain versions, with their bounds
+    L = cfg.pyramid_levels
+    lad_bands, lad_downs = pyramid.reduce_ladder(nrm, L)
+
+    def expand(add):
+        recon = lad_downs[-1]
+        for lvl in range(L - 1, -1, -1):
+            recon = add(recon, lad_bands[lvl])
+        return recon
+    # the launches of one ladder and of one expand, counted around them
+    launch.reset_launch_counts()
+    pyramid.reduce_ladder(nrm, L)
+    torch.cuda.synchronize()
+    ladder_launches = {k: launch.LAUNCHES[k] for k in ("pyramid_down", "pyramid_up")}
+    launch.reset_launch_counts()
+    expand(k_pyr.upsample_add)
+    torch.cuda.synchronize()
+    expand_launches = launch.LAUNCHES["pyramid_up"]
+    assert ladder_launches == {"pyramid_down": L, "pyramid_up": L}, ladder_launches
+    assert (expand_launches, launch.LAUNCHES["pyramid_down"]) == (L, 0), launch.LAUNCHES
+    pyr_extra = {
+        "pyramid_down": {
+            "ladder_ms": cuda_ms(lambda: pyramid.reduce_ladder(nrm, L), 10, 2, device_only=True),
+            "ladder_plain_ms": cuda_ms(lambda: pyramid.reduce_ladder_plain(nrm, L), 3, 1,
+                                       device_only=True),
+            "ladder_launches": ladder_launches},
+        "pyramid_up": {
+            "subtract_ms": cuda_ms(lambda: k_pyr.upsample_subtract(nrm, dn0), 20, 2,
+                                   device_only=True),
+            "add_ms": cuda_ms(lambda: k_pyr.upsample_add(dn0, nrm), 20, 2, device_only=True),
+            "expand_ms": cuda_ms(lambda: expand(k_pyr.upsample_add), 10, 2, device_only=True),
+            "expand_plain_ms": cuda_ms(lambda: expand(k_pyr.upsample_add_plain), 3, 1,
+                                       device_only=True),
+            "expand_launches": expand_launches},
+    }
+    # the bounds of the ladder, a band step and the expand, from the level
+    # sizes of the tensors timed above (logged, not in the kernels line)
+    work = pyramid_work([t.shape[-1] for t in (nrm, *lad_downs[:-1])])
+    rate64 = fp64_rate()[0]
+    log("  pyramid bounds, ms: " + ", ".join(
+        f"{k} {bound(*work[k], rate=rate64)[0]}" for k in ("ladder", "subtract", "expand")))
     # K3's kernel alone and its wrapper's weight-plane ops alone
     k3_parts = {"kernel_ms": lambda: fh._launch_grad_hist_relevant(recon, nrm, wplane, cfg),
                 "weight_plane_ms": lambda: fh.relevance_weight_plane(cnr, cfg)}
@@ -2081,12 +2309,15 @@ def main() -> int:
                 "clahe_apply": (launches_var, "process with enable_clahe and "
                                 "grad_with_linear_image (one graph replay)"),
                 "sdev_noise_hist": (launches_fused, "process(fused_sdev=True) (one graph "
-                                    "replay; the JAX package's hist_method=\"fused_sdev\")")}
+                                    "replay; the JAX package's hist_method=\"fused_sdev\")"),
+                "pyramid_down": (launches, "process (one graph replay)"),
+                "pyramid_up": (launches, "process (one graph replay)")}
     # the spatial path's own count of each kernel ([4n]: 1x4 at 3072, the
     # main path, the CLAHE + linear variant and fused-sdev)
     sp_path = f"process_sharded of 2 x {SIZE}^2 over 1x4 on {dev}"
-    spatial_from = {k: (sp_counts, sp_path)
-                    for k in ("noise_hist", "hist_argmax", "grad_hist_relevant")}
+    spatial_from = {k: (sp_counts, sp_path) for k in ("noise_hist", "hist_argmax",
+                                                      "grad_hist_relevant", "pyramid_down",
+                                                      "pyramid_up")}
     for k in ("grad_hist", "histogram", "clahe_apply"):
         spatial_from[k] = (spatial_run["counts"][f"CLAHE + linear, 1x4 on {dev}"],
                            f"{sp_path}, enable_clahe and grad_with_linear_image")
@@ -2101,6 +2332,11 @@ def main() -> int:
     lv_wins = [sd[a:b] for sd, (a, b) in zip(lv3072, lv_rows)]
     jr, wr = clahe.clahe_joint_bins_rows(v_recon[a1:b1], v_rel[a1:b1], a1, SIZE, cfg_var)
     k7_win = k7_windows(plan4, b3072, cfg, 1)
+    # KP1: level 1's rows of shard 1 from level 0's; KP2: shard 1's level-0
+    # rows from level 1's
+    d0, d1 = plan4.rows(1, 1)
+    dlo, dhi = pyramid.needed_rows("smooth_downsample", SIZE, d0, d1)
+    ulo, uhi = pyramid.needed_rows("upsample_smooth", SIZE, a1, b1)
     windows = {
         "noise_hist": lambda: fh.noise_hists_rows(lv_wins, [a for a, _ in lv_rows], cfg),
         "grad_hist_relevant": lambda: fh.grad_hist_relevant(recon[a1:b1], nrm[a1:b1],
@@ -2109,6 +2345,8 @@ def main() -> int:
         "histogram": lambda: k_hist.histogram(jr, wr, nb),
         "clahe_apply": lambda: k_clahe.clahe_apply(v_recon[a1:b1], v_px, v_py, cfg_var, a1),
         "sdev_noise_hist": lambda: fh.sdev_noise_hists_rows(*k7_win[:3], cfg, k7_win[3]),
+        "pyramid_down": lambda: k_pyr.smooth_downsample_rows(nrm[dlo:dhi], dlo, SIZE, d0, d1),
+        "pyramid_up": lambda: k_pyr.upsample_smooth_rows(dn0[ulo:uhi], ulo, SIZE, a1, b1),
     }
     h_sum = h3072.clone()
     k2_own_ms = cuda_ms(lambda: fh.hist_argmax(h_sum), 20, 2, device_only=True)
@@ -2133,6 +2371,7 @@ def main() -> int:
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
         if name == "grad_hist_relevant":
             row.update({k: cuda_ms(fn, 20, 2, device_only=True) for k, fn in k3_parts.items()})
+        row.update(pyr_extra.get(name, {}))
         if kern is None:
             row.update(fold)
             row["k7_argmax_ms"] = fold["k7_ms"] - fold["k7_without_argmax_ms"]
@@ -2152,6 +2391,7 @@ def main() -> int:
             row["replay_window_ms"] = spatial_run["window_ms"][variant].get(name)
         extra = ", ".join(f"{k} {row[k]}" for k in ("kernel_ms", "weight_plane_ms",
                                                     "k7_argmax_ms", "own_ms",
+                                                    *pyr_extra.get(name, {}),
                                                     "spatial_launches", "window_ms",
                                                     "replay_window_ms") if k in row)
         log(f"  {name}: kernel {k_ms} ms, plain {p_ms} ms, bound {b_ms} ms ({b_by}), "

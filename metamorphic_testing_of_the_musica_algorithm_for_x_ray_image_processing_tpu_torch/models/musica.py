@@ -5,8 +5,9 @@ the CLAHE and linear-gradation variants, bf16 band storage (``cfg.storage``)
 and the opt-in fused-sdev analysis.
 
 PyTorch runs eagerly, so the function below is the schedule: each stage is
-a handful of device ops, and the histograms and the CLAHE apply go through
-the CUDA kernels of ``ops/cuda`` when the image is on a CUDA device.  Histogram
+a handful of device ops, and the pyramid's steps, the histograms and the
+CLAHE apply go through the CUDA kernels of ``ops/cuda`` when the image is
+on a CUDA device.  Histogram
 argmaxes, curve points and t0/ta/t1 stay on the device as small tensors:
 nothing in ``musica_forward`` waits for the host.  Each phase is a
 ``torch.profiler`` span named ``musica.<phase>`` (no cost without a
@@ -14,11 +15,13 @@ profiler; scripts/profile_torch.py reads them).
 
 Phase map (reference -> here):
   2. normalize        -> ops.normalize (sqrt + quirk-exact global max/min)
-  3. pyramid reduce   -> ops.pyramid (fused smooth+decimate; polyphase expand)
+  3. pyramid reduce   -> ops.pyramid (fused smooth+decimate; polyphase expand
+                         and band subtraction; on a CUDA device the kernels
+                         of csrc/pyramid.cu)
   4. image analysis   -> ops.stats (sdev, noise histograms + argmax; with
                          fused_sdev one kernel for sdev + histograms) + curves
   5. apply            -> ops.curves (contrast gain), ops.noise (CNR, NR)
-  6. pyramid expand   -> ops.pyramid
+  6. pyramid expand   -> ops.pyramid (expand + band in one step)
   7. gradation        -> ops.gradation (relevance-weighted histogram, curve);
                          ENABLE_CLAHE: ops.clahe (per-tile LUTs, blended apply)
   output              -> margin crop + x255 truncating u8 cast
@@ -173,11 +176,10 @@ def _forward(img_u16: torch.Tensor, cfg: MusicaConfig, want_intermediates: bool,
         recon = downs[L - 1]
         for i in range(L):
             lvl = L - 1 - i
-            low = pyramid.upsample_smooth(recon, bandpass[lvl].shape[-1])
             band = nr_bandpass[lvl] if lvl < cfg.cnr_level - 1 else exp_bandpass[lvl]
-            recon = low + band.float()
             if want_intermediates:
-                inter[f"exp_lowpass_{i}"] = low
+                inter[f"exp_lowpass_{i}"] = pyramid.upsample_smooth(recon, band.shape[-1])
+            recon = pyramid.upsample_add(recon, band)
 
     # ---- phase 7: gradation -------------------------------------------------
     # GRAD_WITH_LINEAR_IMAGE (shaders/img_linear.comp): the gradation

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "musica_sdev_noise_hist": ([ctypes.POINTER(_VP), ctypes.POINTER(_VP),
                                 *[ctypes.POINTER(_I)] * 6, _I, _VP, _VP, _VP, _I, _I,
                                 ctypes.c_float, _I, _VP], _I),
+    "musica_smooth_downsample": ([_VP, _I, _I, _I, _I, _VP, _I, _I, _VP], _I),
+    "musica_upsample_smooth": ([_VP, _I, _I, _I, _VP, _I, _I, _I, _VP, _I, _VP], _I),
 }
 
 _LIB = None  # the loaded library handle

@@ -28,7 +28,8 @@ import torch
 # tally (``recorded_launches``), and each replay of the graph adds the tally
 # (``add_launches``), so the counts mean kernels that ran on either path.
 LAUNCHES = {"noise_hist": 0, "hist_argmax": 0, "grad_hist_relevant": 0, "grad_hist": 0,
-            "histogram": 0, "clahe_apply": 0, "sdev_noise_hist": 0}
+            "histogram": 0, "clahe_apply": 0, "sdev_noise_hist": 0,
+            "pyramid_down": 0, "pyramid_up": 0}
 _COUNT_LOCK = threading.Lock()
 _CAPTURING = threading.local()  # .tally: this thread's capture tally, if any
 
@@ -91,9 +92,11 @@ def check_image(t: torch.Tensor, name: str, dtype=torch.float32) -> None:
 
 
 def check_rows(t: torch.Tensor, name: str, dtype=torch.float32) -> None:
-    """A contiguous [rows, n] window of rows of an [n, n] image, of ``dtype``."""
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    """A contiguous [rows, n] window of rows of an [n, n] image, of ``dtype``
+    (a dtype or a tuple of them)."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: expected {' or '.join(map(str, dtypes))}, got {t.dtype}")
     if t.ndim != 2 or t.shape[0] > t.shape[1]:
         raise ValueError(f"{name}: expected [rows, n] rows of an [n, n] image, got "
                          f"{tuple(t.shape)}")

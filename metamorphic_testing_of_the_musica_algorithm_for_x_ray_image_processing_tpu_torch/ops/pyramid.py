@@ -24,6 +24,13 @@ from a window of its input rows (the spatial path's shards,
 taken at the image's true first and last rows, so the window equals the
 whole op's rows bit for bit.  ``needed_rows`` says which input rows a
 window reads.
+
+The functions named ``*_plain`` are the plain versions.  The public names
+(``smooth_downsample``, ``upsample_smooth``, their ``*_rows`` forms,
+``reduce_ladder`` and the fused ``upsample_subtract`` / ``upsample_add``)
+dispatch by device through ``ops/cuda/pyramid.py``: a CPU tensor runs the
+plain version, a CUDA tensor launches the hand-written kernels of
+``csrc/pyramid.cu`` (the same sums in the same order) or raises.
 """
 
 from __future__ import annotations
@@ -107,7 +114,7 @@ def downsample(img: torch.Tensor) -> torch.Tensor:
     return img[..., ::2, ::2]
 
 
-def smooth_downsample(img: torch.Tensor) -> torch.Tensor:
+def smooth_downsample_plain(img: torch.Tensor) -> torch.Tensor:
     """Smooth then decimate, evaluating the smooth only at even coordinates
     (bit-identical to decimating the full smooth)."""
     h, w = img.shape[-2], img.shape[-1]
@@ -188,7 +195,13 @@ def _phase_conv(a: torch.Tensor, axis: int, n: int, edge: int):
     return ph0, ph1
 
 
-def upsample_smooth(img: torch.Tensor, out_size: int) -> torch.Tensor:
+def polyphase(n: int) -> bool:
+    """Whether the expand of a ceil(n/2)-px image to n px takes the
+    polyphase form; below it, ``smooth(upsample(img, n), 4.0)``."""
+    return n >= 6 and -(-n // 2) >= 3
+
+
+def upsample_smooth_plain(img: torch.Tensor, out_size: int) -> torch.Tensor:
     """Zero-stuff then smooth with x4 gain (the pyramid expand step), in
     polyphase form: three of every five taps land on stuffed zeros, so each
     output phase is a 3- or 2-tap stencil on the small image.  Bit-exact to
@@ -196,7 +209,7 @@ def upsample_smooth(img: torch.Tensor, out_size: int) -> torch.Tensor:
     products and ``x + 0`` additions."""
     n = out_size
     src = -(-n // 2)
-    if n < 6 or img.shape[-1] < 3 or img.shape[-2] < 3:
+    if not polyphase(n) or img.shape[-1] < 3 or img.shape[-2] < 3:
         return smooth(upsample(img, out_size), gain=4.0)
     r = img[..., :src, :src].double()
     # boundary extension on the small grid: up-grid mirror(-2) = 2 -> r[1];
@@ -212,13 +225,13 @@ def upsample_smooth(img: torch.Tensor, out_size: int) -> torch.Tensor:
     return _interleave(rows_even, rows_odd, ra, n)
 
 
-def reduce_ladder(normalized: torch.Tensor, levels: int):
+def reduce_ladder_plain(normalized: torch.Tensor, levels: int):
     """The pyramid-reduce ladder: (bandpass list, downs list)."""
     bandpass, downs = [], []
     cur = normalized
     for _ in range(levels):
-        dn = smooth_downsample(cur)
-        bandpass.append(cur - upsample_smooth(dn, cur.shape[-1]))
+        dn = smooth_downsample_plain(cur)
+        bandpass.append(cur - upsample_smooth_plain(dn, cur.shape[-1]))
         downs.append(dn)
         cur = dn
     return bandpass, downs
@@ -282,7 +295,8 @@ def needed_rows(op: str, size: int, r0: int, r1: int) -> tuple:
     raise ValueError(op)
 
 
-def smooth_downsample_rows(x: torch.Tensor, x0: int, h: int, j0: int, j1: int) -> torch.Tensor:
+def smooth_downsample_rows_plain(x: torch.Tensor, x0: int, h: int, j0: int,
+                                 j1: int) -> torch.Tensor:
     """Rows [j0, j1) of ``smooth_downsample`` of an [h, w] image, from ``x``,
     its rows [x0, x0 + x.shape[-2]) (at least ``needed_rows``), all its
     columns.  Bit-equal to the whole op's rows in either of its forms: the
@@ -307,8 +321,8 @@ def smooth_downsample_rows(x: torch.Tensor, x0: int, h: int, j0: int, j1: int) -
     return _decimate_axis(tmp, ca, w, dw).to(x.dtype)
 
 
-def upsample_smooth_rows(small: torch.Tensor, s0: int, out_size: int, r0: int,
-                         r1: int) -> torch.Tensor:
+def upsample_smooth_rows_plain(small: torch.Tensor, s0: int, out_size: int, r0: int,
+                               r1: int) -> torch.Tensor:
     """Rows [r0, r1) of ``upsample_smooth(img, out_size)``, from ``small``,
     the rows [s0, ...) of the ceil(out_size/2)-px small image (at least
     ``needed_rows``), all its columns.  Only the polyphase form (the whole
@@ -316,7 +330,7 @@ def upsample_smooth_rows(small: torch.Tensor, s0: int, out_size: int, r0: int,
     shards no level below that."""
     n = out_size
     src = -(-n // 2)
-    if n < 6 or src < 3 or small.shape[-1] != src:
+    if not polyphase(n) or small.shape[-1] != src:
         raise ValueError(f"upsample_smooth_rows: out_size {n}, small width {small.shape[-1]}: "
                          "only the polyphase form takes row windows")
     edge = n - 1 - src
@@ -333,3 +347,106 @@ def upsample_smooth_rows(small: torch.Tensor, s0: int, out_size: int, r0: int,
     rows_even = _interleave(a00, a01, ca, n)
     rows_odd = _interleave(a10, a11, ca, n)
     return _interleave(rows_even, rows_odd, ra, 2 * cnt).narrow(ra, r0 - 2 * ja, r1 - r0)
+
+
+def upsample_rows_plain(small: torch.Tensor, s0: int, n: int, r0: int, r1: int) -> torch.Tensor:
+    """Rows [r0, r1) of ``upsample_smooth_plain(img, n)`` from ``small``,
+    the rows [s0, ...) of img: the whole op for the whole image, else the
+    polyphase form's window (``upsample_smooth_rows_plain``), else the
+    whole op's rows, which needs the whole small image."""
+    src = -(-n // 2)
+    whole = s0 == 0 and small.shape[-2] >= src
+    if whole and (r0, r1) == (0, n):
+        return upsample_smooth_plain(small, n)
+    if polyphase(n):
+        return upsample_smooth_rows_plain(small, s0, n, r0, r1)
+    if not whole:
+        raise ValueError(f"upsample to {n} px below the polyphase form: the window needs the "
+                         f"whole small image, got rows [{s0}, {s0 + small.shape[-2]})")
+    return upsample_smooth_plain(small, n)[..., r0:r1, :]
+
+
+def upsample_subtract_plain(cur: torch.Tensor, small: torch.Tensor, s0: int = 0,
+                            r0: int = 0) -> torch.Tensor:
+    """``cur`` less the same rows of the expand of ``small`` (as
+    ``upsample_subtract``), unfused."""
+    return cur - upsample_rows_plain(small, s0, cur.shape[-1], r0, r0 + cur.shape[-2])
+
+
+def upsample_add_plain(small: torch.Tensor, band: torch.Tensor, s0: int = 0,
+                       r0: int = 0) -> torch.Tensor:
+    """The expand of ``small`` on band's rows plus ``band`` as float32 (as
+    ``upsample_add``), unfused."""
+    return upsample_rows_plain(small, s0, band.shape[-1], r0, r0 + band.shape[-2]) + band.float()
+
+
+# ----------------------------------------------------------------------
+# the public steps: the plain versions above on the CPU, the kernels of
+# csrc/pyramid.cu on a CUDA device (ops/cuda/pyramid.py)
+# ----------------------------------------------------------------------
+
+def smooth_downsample(img: torch.Tensor) -> torch.Tensor:
+    """Smooth then decimate: [h, w] -> [ceil(h/2), ceil(w/2)]."""
+    from .cuda import pyramid as kp
+
+    return kp.smooth_downsample(img)
+
+
+def smooth_downsample_rows(x: torch.Tensor, x0: int, h: int, j0: int, j1: int) -> torch.Tensor:
+    """Rows [j0, j1) of ``smooth_downsample`` of an [h, w] image from ``x``,
+    its rows [x0, x0 + x.shape[-2]) (``smooth_downsample_rows_plain``)."""
+    from .cuda import pyramid as kp
+
+    return kp.smooth_downsample_rows(x, x0, h, j0, j1)
+
+
+def upsample_smooth(img: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Zero-stuff x2 then smooth with x4 gain: the pyramid's expand of a
+    ceil(out_size/2)-px image to [out_size, out_size]."""
+    from .cuda import pyramid as kp
+
+    return kp.upsample_smooth(img, out_size)
+
+
+def upsample_smooth_rows(small: torch.Tensor, s0: int, out_size: int, r0: int,
+                         r1: int) -> torch.Tensor:
+    """Rows [r0, r1) of ``upsample_smooth(img, out_size)`` from ``small``,
+    the small image's rows [s0, ...) (``upsample_smooth_rows_plain``)."""
+    from .cuda import pyramid as kp
+
+    return kp.upsample_smooth_rows(small, s0, out_size, r0, r1)
+
+
+def upsample_subtract(cur: torch.Tensor, small: torch.Tensor, s0: int = 0,
+                      r0: int = 0) -> torch.Tensor:
+    """A band of the reduce ladder: ``cur`` less the expand of ``small``
+    (the next level), on cur's rows [r0, r0 + cur.shape[-2]) of an image
+    cur.shape[-1] px wide; ``small`` holds the small image's rows [s0, ...).
+    One kernel launch on a CUDA device."""
+    from .cuda import pyramid as kp
+
+    return kp.upsample_subtract(cur, small, s0, r0)
+
+
+def upsample_add(small: torch.Tensor, band: torch.Tensor, s0: int = 0,
+                 r0: int = 0) -> torch.Tensor:
+    """An expand step: the expand of ``small`` plus ``band`` (float32 or
+    bf16, read as float32), on band's rows [r0, r0 + band.shape[-2]) of an
+    image band.shape[-1] px wide; ``small`` holds the small image's rows
+    [s0, ...).  One kernel launch on a CUDA device."""
+    from .cuda import pyramid as kp
+
+    return kp.upsample_add(small, band, s0, r0)
+
+
+def reduce_ladder(normalized: torch.Tensor, levels: int):
+    """The pyramid-reduce ladder: (bandpass list, downs list), equal to
+    ``reduce_ladder_plain``'s; on a CUDA device two launches a level."""
+    bandpass, downs = [], []
+    cur = normalized
+    for _ in range(levels):
+        dn = smooth_downsample(cur)
+        bandpass.append(upsample_subtract(cur, dn))
+        downs.append(dn)
+        cur = dn
+    return bandpass, downs

@@ -20,6 +20,9 @@ relevance and nearest-upsample ops): it computes exactly the rows it owns
 from its own rows and its halo rows, with the mirror or zero boundary only
 at the image's true first and last rows, in the same float64 tap order,
 so the sharded result equals the unsharded one bit for bit.  The
+pyramid's steps (``pyramid.smooth_downsample_rows``, ``upsample_subtract``,
+``upsample_add`` on windows) go through KP1 and KP2 (``csrc/pyramid.cu``)
+on a CUDA device, as in the unsharded path.  The
 histograms go through the kernels on row windows: K1 (``noise_hists_rows``)
 on each shard's rows inside each analysis level's coverage (a shard with no
 covered row launches nothing), or with ``fused_sdev`` K7
@@ -299,15 +302,15 @@ def forward(img_u16, cfg: MusicaConfig, entries: Sequence[Entry],
             def band(i, k=k, h=h, cur=cur, dn=dn):
                 r0, r1 = plan.rows(k, i)
                 lo, hi = pyramid.needed_rows("upsample_smooth", h, r0, r1)
-                up = pyramid.upsample_smooth_rows(row.fetch(dn, k + 1, lo, hi, i), lo, h, r0, r1)
-                return (cur[i] - up).to(sd)
+                return pyramid.upsample_subtract(cur[i], row.fetch(dn, k + 1, lo, hi, i), lo,
+                                                 r0).to(sd)
             bandpass.append(row.each(band))
             cur = dn
         else:
             whole = [row.fetch(cur, k, 0, h, i) for i in range(S)]
             dn = row.each(lambda i, whole=whole: pyramid.smooth_downsample(whole[i]))
-            bandpass.append(row.each(lambda i, k=k, h=h, cur=cur, dn=dn: (
-                cur[i] - pyramid.upsample_smooth(dn[i], h)[slice(*plan.rows(k, i))]).to(sd)))
+            bandpass.append(row.each(lambda i, k=k, cur=cur, dn=dn: pyramid.upsample_subtract(
+                cur[i], dn[i], 0, plan.rows(k, i)[0]).to(sd)))
             coarse = row.each(lambda i, dn=dn: pyramid.reduce_ladder(dn[i], L - R))
             for j in range(L - R):
                 bandpass.append(row.each(lambda i, j=j: coarse[i][0][j].to(sd)))
@@ -401,24 +404,24 @@ def forward(img_u16, cfg: MusicaConfig, entries: Sequence[Entry],
 
     # ---- expand: the coarse end whole, then down through the sharded levels --
     def band_of(k: int, i: int) -> torch.Tensor:
-        return (nr_bandpass[k] if k < cfg.cnr_level - 1 else exp_bandpass[k])[i].float()
+        """Level k's band on entry i, in its storage dtype (the expand reads
+        it as float32)."""
+        return (nr_bandpass[k] if k < cfg.cnr_level - 1 else exp_bandpass[k])[i]
 
     def coarse(i):
         recon = top[i]
         for k in range(L - 1, R - 1, -1):
-            recon = pyramid.upsample_smooth(recon, sizes[k]) + band_of(k, i)
+            recon = pyramid.upsample_add(recon, band_of(k, i))
         return recon
     recon_w = row.each(coarse)
     k = R - 1
-    recon = row.each(lambda i: pyramid.upsample_smooth(recon_w[i], sizes[k])[
-        slice(*plan.rows(k, i))] + band_of(k, i))
+    recon = row.each(lambda i: pyramid.upsample_add(recon_w[i], band_of(k, i), 0,
+                                                    plan.rows(k, i)[0]))
     for k in range(R - 2, -1, -1):
         def up(i, k=k, finer=recon):
             r0, r1 = plan.rows(k, i)
             lo, hi = pyramid.needed_rows("upsample_smooth", sizes[k], r0, r1)
-            low = pyramid.upsample_smooth_rows(row.fetch(finer, k + 1, lo, hi, i), lo,
-                                               sizes[k], r0, r1)
-            return low + band_of(k, i)
+            return pyramid.upsample_add(row.fetch(finer, k + 1, lo, hi, i), band_of(k, i), lo, r0)
         recon = row.each(up)
 
     # ---- gradation: K3 or K4 per shard, the partials summed -------------------

@@ -7,6 +7,7 @@
     python3 scripts/profile_torch.py --bf16          # bf16 band storage
     python3 scripts/profile_torch.py --graph         # also the graph replays
     python3 scripts/profile_torch.py --spatial 1x4   # the spatial path on this card (eager, graphs)
+    python3 scripts/profile_torch.py --graph --root DIR   # another checkout's package
 
 Runs ``musica_forward`` on a device-resident synthetic radiograph under
 ``torch.profiler`` and prints, with the card's name and power limit:
@@ -15,15 +16,29 @@ Runs ``musica_forward`` on a device-resident synthetic radiograph under
   the device's busy share (sum of kernel times over wall time);
 * per ``musica.<phase>`` span, the host time spent issuing its ops and its
   span on the device timeline;
-* the device time and launches of each hand-written kernel (K1-K7);
-* the kernels with the most device time.
+* the device time and launches of each hand-written kernel (K1-K7, KP1,
+  KP2);
+* the kernels with the most device time, each by a label (its kernel
+  template with the vector width, its functor or lambda with the types,
+  without namespaces, argument lists and iterator plumbing; never cut),
+  with the ``musica.<phase>`` spans its launches fall in: a kernel belongs
+  to the span whose device-side range holds its start.
 
 With ``--graph`` it then profiles ``process_jit``, the replay of
 ``musica_forward``'s captured CUDA graph (``models/graphs.py``; captured
 before the profiler starts), and prints the same wall time, kernels,
-device busy ms and share, and hand-written kernels for the replays beside
-the eager run's (a replay has no ``musica.<phase>`` spans: they are host
-spans of the capture).
+device busy ms and share, hand-written kernels and top kernels for the
+replays beside the eager run's (a replay has no ``musica.<phase>`` spans:
+they are host spans of the capture; its top kernels name the phases of the
+same labels in the eager run).  Before the profiler starts, it times 5
+windows of ``--reps`` replays between CUDA events and prints their median
+ms/img: the replay's time without the profiler's cost.
+
+``--root DIR`` imports the package of another checkout of this repository
+(e.g. the parent commit, unpacked with ``git archive`` into a directory
+that ``.gitignore`` lists), which builds its own kernels.  Run on both
+checkouts in turn, in the order parent, this, this, parent, it
+gives a change's before and after on the same card.
 
 With ``--spatial DxS`` the profiled call is ``process_sharded_eager`` of D
 images over a D x S mesh whose entries are all this card, each on a stream
@@ -33,13 +48,16 @@ carry no ``musica.<phase>`` spans), then, as with ``--graph``,
 graph (``models/graphs.py::SpatialGraph``); the times are per image.
 
 A Chrome trace of the run goes to ``DIR/trace.json`` (default
-``build/profile_torch``), the replays' to ``DIR/trace_graph.json``.
+``build/profile_torch``), the replays' to ``DIR/trace_graph.json``, and
+the top kernels with their full names to ``DIR/top_kernels.json``.
 Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import json
 import os
 import re
 import subprocess
@@ -56,7 +74,59 @@ HAND_WRITTEN = {
     "K5 clahe_apply_kernel": r"clahe_apply_kernel\b",
     "K6 histogram_kernel": r"(?<![A-Za-z_])histogram_kernel\b",
     "K7 sdev_noise_hist_kernel": r"sdev_noise_hist_kernel\b",
+    "KP1 smooth_downsample_kernel": r"smooth_downsample_kernel\b",
+    "KP2 upsample_smooth_kernel<mode>": r"upsample_smooth_kernel<\d>",
 }
+TOP = 15  # rows of the top-kernel tables
+
+# the iterator plumbing of PyTorch's elementwise kernels, dropped from labels
+_PLUMBING = (r"array<char\*, \d+ul>", r"(Trivial)?OffsetCalculator<[^<>]*>",
+             r"LoadWithoutCast", r"StoreWithoutCast")
+
+
+def _strip_call(name: str) -> str:
+    """``name`` without its trailing argument list."""
+    if not name.endswith(")"):
+        return name
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            return name[:i]
+    return name
+
+
+def label(name: str) -> str:
+    """A kernel's short identity from its demangled name: the kernel and its
+    template arguments (vector width, functor or lambda with its types),
+    without ``void``, the argument list, namespaces and iterator plumbing.
+    ``void at::native::vectorized_elementwise_kernel<4,
+    at::native::CUDAFunctor_add<double>, std::array<char*, 3ul> >(int, ...)``
+    gives ``vectorized_elementwise_kernel<4, CUDAFunctor_add<double>>``."""
+    s = _strip_call(name.removeprefix("void "))
+    s = s.replace("::operator()() const", "").replace("(anonymous namespace)::", "")
+    while ")::" in s:  # a lambda's enclosing function's parameters
+        end = s.index(")::")
+        s = _strip_call(s[:end + 1]) + s[end + 1:]
+    s = re.sub(r"::\{lambda\(\)#\d+\}", "", s)          # lambdas without parameters
+    s = re.sub(r"::\{lambda\(([^()]*)\)#\d+\}", r" lambda(\1)", s)
+    s = re.sub(r"\b[A-Za-z_]\w*::", "", s)
+    for p in _PLUMBING:
+        s = re.sub(rf",\s*{p}", "", s)
+    return re.sub(r">\s+>", ">>", re.sub(r">\s+>", ">>", s)).strip()
+
+
+def phase_of(events, DeviceType):
+    """For each CUDA kernel event of ``events``, the ``musica.<phase>`` span
+    whose device-side range holds its start (``-`` for none)."""
+    spans = [(e.time_range.start, e.time_range.end, e.name[len("musica."):]) for e in events
+             if e.device_type == DeviceType.CUDA and e.name.startswith("musica.")]
+    out = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("musica."):
+            t = e.time_range.start
+            out[id(e)] = next((p for a, b, p in spans if a <= t <= b), "-")
+    return out
 
 
 def main() -> int:
@@ -78,7 +148,10 @@ def main() -> int:
     ap.add_argument("--spatial", default="",
                     help="DxS: profile process_sharded of D images, each image's rows over S "
                          "mesh entries on this card")
+    ap.add_argument("--root", default=REPO,
+                    help="the checkout whose package to profile (default: this one)")
     args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
 
     import torch
     from torch.autograd import DeviceType
@@ -92,6 +165,9 @@ def main() -> int:
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import (
         synthetic_radiograph)
+    # musica.py lies in <root>/<package>/models
+    assert os.path.abspath(musica.__file__).rsplit(os.sep, 3)[0] == os.path.abspath(args.root), \
+        musica.__file__
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -139,6 +215,40 @@ def main() -> int:
                 sum(e.self_device_time_total for e in kernels) / 1e3 / args.reps / imgs,
                 sum(e.count for e in kernels) / args.reps / imgs)
 
+    def by_label(prof, imgs=1):
+        """Every kernel label of ``prof``'s run: {label: {ms, launches (per
+        image), phases {phase: [ms, launches] per image}, names}}."""
+        events = prof.events()
+        phase = phase_of(events, DeviceType)
+        scale = 1.0 / args.reps / imgs
+        rows = collections.defaultdict(lambda: {"ms": 0.0, "launches": 0.0, "phases": {},
+                                                "names": set()})
+        for e in events:
+            if id(e) not in phase:
+                continue
+            r = rows[label(e.name)]
+            ms = e.time_range.elapsed_us() / 1e3 * scale
+            r["ms"] += ms
+            r["launches"] += scale
+            p = r["phases"].setdefault(phase[id(e)], [0.0, 0.0])
+            p[0] += ms
+            p[1] += scale
+            r["names"].add(e.name)
+        return rows
+
+    def print_top(rows, phases_from=None):
+        """The TOP labels by device time; each with the phases its launches
+        fall in (``phases_from``: the eager run's, for a replay)."""
+        top = sorted(rows.items(), key=lambda kv: -kv[1]["ms"])[:TOP]
+        for name, r in top:
+            ph = (phases_from or rows).get(name, {}).get("phases", {})
+            where = ", ".join(f"{p} {v[0]:.3f}/{v[1]:.0f}" for p, v in
+                              sorted(ph.items(), key=lambda kv: -kv[1][0]))
+            print(f"  {r['ms']:9.3f} {r['launches']:7.1f}  {name}  [{where}]")
+        return [{"label": name, "ms_per_img": r["ms"], "launches_per_img": r["launches"],
+                 "phases": (phases_from or rows).get(name, {}).get("phases", {}),
+                 "names": sorted(r["names"])} for name, r in top]
+
     def hand_written(kernels, imgs=1):
         for label, pattern in HAND_WRITTEN.items():
             hits = [e for e in kernels if re.search(pattern, e.key)]
@@ -171,16 +281,27 @@ def main() -> int:
               f"{span.get(k, 0.0) / 1e3 / args.reps:13.3f}")
     print("hand-written kernels (ms/img, launches/img):")
     hand_written(kernels, per_call)
-    print("top kernels by device time (ms/img, launches/img):")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"  {e.self_device_time_total / 1e3 / args.reps / per_call:9.3f} "
-              f"{e.count / args.reps / per_call:7.1f}  {e.key[:110]}")
+    print("top kernels by device time (ms/img, launches/img, label [phase ms/img/launches "
+          "per img, ...]):")
+    eager_rows = by_label(prof, per_call)
+    tops = {"eager": print_top(eager_rows)}
     os.makedirs(args.out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
     if args.graph or args.spatial:
         for _ in range(3):  # the capture, then replays
             replay()
         torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        windows = []
+        for _ in range(5):
+            start.record()
+            for _ in range(args.reps):
+                replay()
+            end.record()
+            torch.cuda.synchronize()
+            windows.append(start.elapsed_time(end) / args.reps / per_call)
+        print(f"graph replays without the profiler: {sorted(windows)[2]} ms/img (median of 5 "
+              f"windows of {args.reps}; ms/img: {windows}); package {args.root}")
         g_prof, g_wall, g_kernels, g_busy, g_launches = profiled(replay, per_call)
         what = "process_sharded" if args.spatial else "process_jit"
         print(f"graph replays ({what}), {args.reps} reps under the profiler: "
@@ -190,7 +311,12 @@ def main() -> int:
               f"busy {busy:.3f} ms/img = {100 * busy / wall:.1f} %)")
         print("hand-written kernels in the replays (ms/img, launches/img):")
         hand_written(g_kernels, per_call)
+        print("top kernels in the replays (ms/img, launches/img, label [the eager run's phases "
+              "of the label]):")
+        tops["replay"] = print_top(by_label(g_prof, per_call), eager_rows)
         g_prof.export_chrome_trace(os.path.join(args.out, "trace_graph.json"))
+    with open(os.path.join(args.out, "top_kernels.json"), "w") as f:
+        json.dump({"card": card, **tops}, f, indent=1)
     return 0
 
 

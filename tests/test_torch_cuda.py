@@ -20,7 +20,8 @@ from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import histogram as k_hist
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
-from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import hist_cases
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import pyramid as k_pyr
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import hist_cases, pyramid_cases
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import synthetic_radiograph
 
 pytestmark = pytest.mark.gpu
@@ -1025,6 +1026,9 @@ def test_spatial_variants_on_card_equal_eager(dev, variant):
     else:
         want_counts = {"noise_hist": 8, "hist_argmax": 2, "grad_hist": 8, "histogram": 8,
                        "clahe_apply": 8}
+    # KP1 once a level, KP2 once a band and once an expand step, per shard
+    L = cfg.pyramid_levels
+    want_counts.update({"pyramid_down": 8 * L, "pyramid_up": 16 * L})
     assert counts == {k: want_counts.get(k, 0) for k in counts}, counts
 
 
@@ -1150,3 +1154,132 @@ def test_spatial_graph_over_every_card(dev):
         _same(again, eager, f"{over} {fused} over {cards} cards, again")
         assert torch.equal(got[0], musica.process_batch_jit(torch.from_numpy(img).to(dev), cfg,
                                                             fused))
+
+
+# ----------------------------------------------------------------------
+# the pyramid kernels KP1 and KP2 (csrc/pyramid.cu)
+# ----------------------------------------------------------------------
+
+def _pyramid_data(rng, shape, case, dev):
+    return torch.from_numpy(pyramid_cases.adversarial(rng, shape, case)).to(dev)
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [3072, 600, 144])
+def test_pyramid_kernels_equal_plain_at_every_level(dev, n):
+    """KP1 and KP2 in each mode (a bf16 band too) equal their plain versions
+    bit for bit (-0.0 is not +0.0) at every level of an n-px ladder, on
+    data with +-0, denormals and 1e30 and on constant planes (a denormal one
+    too)."""
+    rng = np.random.default_rng(n)
+    for h in pyramid_cases.level_sizes(n):
+        src = -(-h // 2)
+        for case in pyramid_cases.CASES:
+            x = _pyramid_data(rng, (h, h), case, dev)
+            small = _pyramid_data(rng, (src, src), case, dev)
+            assert _same_bits(k_pyr.smooth_downsample(x), k_pyr.smooth_downsample_plain(x)), (h, case)
+            assert _same_bits(k_pyr.upsample_smooth(small, h),
+                              pyramid.upsample_smooth_plain(small, h)), (h, case)
+            assert _same_bits(k_pyr.upsample_subtract(x, small),
+                              k_pyr.upsample_subtract_plain(x, small)), (h, case)
+            for band in (x, x.to(torch.bfloat16)):
+                assert _same_bits(k_pyr.upsample_add(small, band),
+                                  k_pyr.upsample_add_plain(small, band)), (h, case, band.dtype)
+
+
+@pytest.mark.parametrize("n,tile", [(3072, 16), (600, 16), (144, 12)])
+def test_pyramid_kernels_equal_plain_on_spatial_windows(dev, n, tile):
+    """KP1 and KP2 (each mode) on every row window of the spatial plan over
+    4 shards, from the rows the window reads, equal the plain row-window
+    versions bit for bit; some windows start on odd rows."""
+    rng = np.random.default_rng(n + tile)
+    wins = pyramid_cases.shard_windows(n, tile)
+    assert any(r[0] % 2 for *_, r in wins)
+    images = {}
+    for op, h, (lo, hi), (a, b) in wins:
+        if h not in images:
+            src = -(-h // 2)
+            images[h] = (_pyramid_data(rng, (h, h), "mixed", dev),
+                         _pyramid_data(rng, (src, src), "mixed", dev))
+        x, small = images[h]
+        if op == "down":
+            assert _same_bits(k_pyr.smooth_downsample_rows(x[lo:hi], lo, h, a, b),
+                              k_pyr.smooth_downsample_rows_plain(x[lo:hi], lo, h, a, b)), (h, a)
+            continue
+        s = small[lo:hi]
+        assert _same_bits(k_pyr.upsample_smooth_rows(s, lo, h, a, b),
+                          k_pyr.upsample_rows_plain(s, lo, h, a, b)), (h, a)
+        assert _same_bits(k_pyr.upsample_subtract(x[a:b], s, lo, a),
+                          k_pyr.upsample_subtract_plain(x[a:b], s, lo, a)), (h, a)
+        band = x[a:b].to(torch.bfloat16)
+        assert _same_bits(k_pyr.upsample_add(s, band, lo, a),
+                          k_pyr.upsample_add_plain(s, band, lo, a)), (h, a)
+
+
+def test_pyramid_kernels_on_the_main_path(dev):
+    """A replay launches KP1 once a level and KP2 twice (a band, an expand
+    step); the intermediates path KP2 once more a level; the ladder equals
+    its plain version on the thorax."""
+    cfg = MusicaConfig(image_size=512)
+    L = cfg.pyramid_levels
+    x = torch.from_numpy(synthetic_radiograph(512, "thorax")).to(dev)
+    musica.process_jit(x, cfg)
+    launch.reset_launch_counts()
+    musica.process_jit(x, cfg)
+    torch.cuda.synchronize()
+    assert (launch.LAUNCHES["pyramid_down"], launch.LAUNCHES["pyramid_up"]) == (L, 2 * L)
+    launch.reset_launch_counts()
+    res = musica.musica_forward(x, cfg, want_intermediates=True)
+    assert (launch.LAUNCHES["pyramid_down"], launch.LAUNCHES["pyramid_up"]) == (L, 3 * L)
+    nrm = res["intermediates"]["normalized"]
+    for got, want in zip(sum(pyramid.reduce_ladder(nrm, L), []),
+                         sum(pyramid.reduce_ladder_plain(nrm, L), [])):
+        assert _same_bits(got, want)
+
+
+def test_pyramid_kernels_on_every_card(dev):
+    """On each visible card, KP1 and KP2 (each mode, a bf16 band too)
+    launch on their tensors' card, count one launch each, and equal their
+    plain versions on the CPU bit for bit, on a whole level and on a row
+    window that starts on an odd row."""
+    rng = np.random.default_rng(11)
+    n, src, (a, b) = 600, 300, (151, 450)
+    x_np = pyramid_cases.adversarial(rng, (n, n))
+    s_np = pyramid_cases.adversarial(rng, (src, src))
+    lo, hi = pyramid.needed_rows("upsample_smooth", n, a, b)
+    dlo, dhi = pyramid.needed_rows("smooth_downsample", n, 76, 225)
+
+    def steps(x, small):
+        band = x.to(torch.bfloat16)
+        return (k_pyr.smooth_downsample(x), k_pyr.smooth_downsample_rows(x[dlo:dhi].contiguous(),
+                                                                          dlo, n, 76, 225),
+                k_pyr.upsample_smooth(small, n), k_pyr.upsample_subtract(x, small),
+                k_pyr.upsample_add(small, band),
+                k_pyr.upsample_add(small[lo:hi].contiguous(), band[a:b].contiguous(), lo, a))
+    want = steps(torch.from_numpy(x_np), torch.from_numpy(s_np))
+    for k in range(torch.cuda.device_count()):
+        card = torch.device("cuda", k)
+        launch.reset_launch_counts()
+        got = steps(torch.from_numpy(x_np).to(card), torch.from_numpy(s_np).to(card))
+        torch.cuda.synchronize(card)
+        assert (launch.LAUNCHES["pyramid_down"], launch.LAUNCHES["pyramid_up"]) == (2, 4), k
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.device == card and _same_bits(g.cpu(), w), (k, i)
+
+
+def test_pyramid_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = torch.rand(40, 40, device=dev)
+    dn = torch.rand(20, 20, device=dev)
+    with pytest.raises(TypeError):
+        k_pyr.smooth_downsample(x.double())
+    with pytest.raises(ValueError):
+        k_pyr.smooth_downsample(x.T)
+    with pytest.raises(ValueError):
+        k_pyr.smooth_downsample_rows(x[6:30], 6, 40, 3, 12)  # misses row 4
+    with pytest.raises(TypeError):
+        k_pyr.upsample_subtract(x.to(torch.bfloat16), dn)
+    with pytest.raises(ValueError):
+        k_pyr.upsample_smooth_rows(dn[5:15], 5, 40, 9, 26)  # misses row 4
