@@ -17,10 +17,12 @@ levels ([3d]), K1, K3, K4, K6, K5 and K7 on the row windows of the spatial
 path's plan (3072 over 4 shards; adversarial inputs at 3072, 600 and 144;
 tiles 8, 12, 32; K5 also on windows that start on odd rows; K6's and K7's
 windows summed against the whole image's) and K2 as a launch of its own on
-the summed histograms ([3e]), the pyramid kernels KP1 and KP2 (every mode,
-a bf16 band too) bit for bit at every level of 3072, 600 and 144 on
-adversarial inputs, on the thorax's ladder and expand and on every row
-window of the spatial plans at 3072, 600 and 144 over 4 shards ([3f]), drives
+the summed histograms ([3e]), the pyramid kernels KP1 (the fused reduce
+step and the down step alone), KP2 (every mode, a bf16 band too) and the
+ladder's and the expand's tails (``pyramid_tail``) bit for bit at every level of 3072,
+600 and 144 on adversarial inputs, on the thorax's ladder and expand and on
+every row window of the spatial plans at 3072, 600 and 144 over 4 shards
+([3f]), drives
 the port's main path
 (``process`` on a 3072^2 uint16 radiograph, then the intermediates path of
 ``process --debug-dump``), the CLAHE + linear-gradation variant path
@@ -102,7 +104,7 @@ SOURCES = {"noise_hist": "fused_hist.cu", "hist_argmax": "hist_argmax.cuh",
            "grad_hist_relevant": "fused_hist.cu", "grad_hist": "fused_hist.cu",
            "histogram": "histogram.cu", "clahe_apply": "clahe_apply.cu",
            "sdev_noise_hist": "sdev_noise.cu", "pyramid_down": "pyramid.cu",
-           "pyramid_up": "pyramid.cu"}
+           "pyramid_up": "pyramid.cu", "pyramid_tail": "pyramid.cu"}
 REPLACES = {
     "noise_hist": f"{PALLAS}:139 (_noise_kernel of noise_hist_fused; also the "
                   f"histogram of _noise_multi_kernel, :181)",
@@ -119,10 +121,12 @@ REPLACES = {
     "sdev_noise_hist": f"{PALLAS}:262 (_sdev_noise_kernel of "
                        f"sdev_noise_hist_fused, pallas_call :334)",
     # counterparts of XLA code, not of Pallas kernels
-    "pyramid_down": f"{JAX_PYRAMID}:85 (smooth_downsample, XLA, no Pallas kernel; also the "
-                    f"down half of reduce_step_split, :213)",
+    "pyramid_down": f"{JAX_PYRAMID}:213 (reduce_step_split, XLA, no Pallas kernel: a level's "
+                    f"down and band in one step; the down alone: smooth_downsample, :85)",
     "pyramid_up": f"{JAX_PYRAMID}:310 (upsample_smooth, XLA, no Pallas kernel; with "
                   f"reduce_ladder's subtraction, :261, and models/musica.py:155's expand add)",
+    "pyramid_tail": f"{JAX_PYRAMID}:261 (reduce_ladder's per-level tail, XLA, no Pallas kernel; "
+                    f"and models/musica.py:150-157's expand loop on the coarse levels)",
 }
 # each hand-written kernel's CUDA kernel events as the profiler names them
 # (scripts/profile_torch.py matches them alike)
@@ -134,8 +138,9 @@ KERNEL_EVENTS = {
     "histogram": r"(?<![A-Za-z_])histogram_kernel\b",
     "clahe_apply": r"clahe_apply_kernel\b",
     "sdev_noise_hist": r"sdev_noise_hist_kernel\b",
-    "pyramid_down": r"smooth_downsample_kernel\b",
+    "pyramid_down": r"reduce_step_kernel<(true|false)>",
     "pyramid_up": r"upsample_smooth_kernel<\d>",
+    "pyramid_tail": r"pyramid_tail_kernel<(true|false)>",
 }
 # clahe_graded against the port's CPU path: the LUTs are order-stable sums
 # and the apply is exact, so only a recon that differs could move it; the
@@ -707,14 +712,18 @@ def check_window_kernels(rec, rng, dev, cfg, lv3072, main, var, var3072):
 
 
 def check_pyramid(rec, rng, dev, nrm, cfg):
-    """[3f]: KP1 (``smooth_downsample``) and KP2 (``upsample_smooth``,
-    ``upsample_subtract``, ``upsample_add``, a bf16 band too) against their
-    plain versions bit for bit: at every level of 3072, 600 and 144 on
-    adversarial inputs (+-0, denormals, +-1e30) and constant planes (-0.0,
-    1e30, 3.0, the denormal 3e-39); the 3072 thorax's ladder (``reduce_ladder``) and an expand
-    of its bands; every row window of the spatial plans at 3072 and 600
-    (16-px tiles) and 144 (12-px tiles) over 4 shards, windows that start
-    on odd rows among them."""
+    """[3f]: KP1 (the fused ``reduce_step`` and ``smooth_downsample``), KP2
+    (``upsample_smooth``, ``upsample_subtract``, ``upsample_add``, a bf16
+    band too) and the tails (``reduce_tail``, ``expand_tail`` with float32
+    and bf16 bands) against their plain versions bit for bit: at every level
+    of 3072, 600 and 144 on adversarial inputs (+-0, denormals, +-1e30) and
+    constant planes (-0.0, 1e30, 3.0, the denormal 3e-39), the fused step
+    at every level of the expand's polyphase size, the tails from every
+    level they hold down through 1 px and back; the 3072 thorax's ladder
+    (``reduce_ladder``) and expand (``expand_ladder``, and an
+    ``upsample_add`` a level); every row window of the spatial plans at
+    3072 and 600 (16-px tiles) and 144 (12-px tiles) over 4 shards, windows
+    that start on odd rows among them."""
     import torch
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import pyramid
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import pyramid as kp
@@ -733,15 +742,36 @@ def check_pyramid(rec, rng, dev, nrm, cfg):
         recon = pyramid.upsample_add(recon, bands[lvl])
         p_recon = kp.upsample_add_plain(p_recon, bands[lvl])
         rec.equal_bits("pyramid_up", f"3072 thorax expand, level {lvl}", recon, p_recon)
-    log(f"  the 3072 thorax: reduce_ladder's {L} downs and bands and an expand of {L} steps "
-        f"equal the plain versions bit for bit")
+    for b in (bands, [t.to(torch.bfloat16) for t in bands]):
+        rec.equal_bits("pyramid_tail", f"3072 thorax expand_ladder, {b[0].dtype} bands",
+                       pyramid.expand_ladder(downs[-1], b), kp.expand_ladder_plain(downs[-1], b))
+    log(f"  the 3072 thorax: reduce_ladder's {L} downs and bands, an expand of {L} steps and "
+        f"expand_ladder (float32 and bf16 bands) equal the plain versions bit for bit")
     for n in (SIZE, 600, 144):
         count = 0
-        for h in pc.level_sizes(n):
+        sizes = pc.level_sizes(n)
+        for i, h in enumerate(sizes):
             src = -(-h // 2)
             for case in pc.CASES:
                 x, small = data((h, h), case), data((src, src), case)
                 what = f"{n}: level {h}, {case}"
+                if pyramid.polyphase(h):
+                    p_band, p_dn = kp.reduce_step_plain(x)
+                    band, dn = kp.reduce_step(x)
+                    rec.equal_bits("pyramid_down", what + ", fused step band", band, p_band)
+                    rec.equal_bits("pyramid_down", what + ", fused step down", dn, p_dn)
+                    count += 1
+                if h <= kp.TAIL_MAX:
+                    levels = len(sizes) - i
+                    t_bands, t_downs = kp.reduce_tail(x, levels)
+                    p_bands, p_downs = kp.reduce_tail_plain(x, levels)
+                    for j, (g, w) in enumerate(zip(t_bands + t_downs, p_bands + p_downs)):
+                        rec.equal_bits("pyramid_tail", f"{what}, ladder tail output {j}", g, w)
+                    top = data(tuple(p_downs[-1].shape), case)
+                    for b in (p_bands, [t.to(torch.bfloat16) for t in p_bands]):
+                        rec.equal_bits("pyramid_tail", f"{what}, expand tail {b[0].dtype}",
+                                       kp.expand_tail(top, b), kp.expand_tail_plain(top, b))
+                    count += 3
                 rec.equal_bits("pyramid_down", what, kp.smooth_downsample(x),
                                kp.smooth_downsample_plain(x))
                 rec.equal_bits("pyramid_up", what, kp.upsample_smooth(small, h),
@@ -809,9 +839,18 @@ def host_ms(fn, reps=3):
 def spatial_launches(c, fused, s, b):
     """Each kernel's launches on the spatial path for b images over ``s``
     shards."""
-    # KP1 once a level and KP2 once a band and once an expand step, on every
-    # shard (the replicated levels on every entry)
-    pyr = {"pyramid_down": b * s * c.pyramid_levels, "pyramid_up": 2 * b * s * c.pyramid_levels}
+    # on every shard at each of the plan's R sharded levels, the down step
+    # and a band, and an expand step on the way back; each entry's coarse
+    # levels (whole on every entry) a fused step and an expand step above
+    # the tails' cut, and one ladder tail and one expand tail below it
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import pyramid as kp
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
+    plan = spatial.row_plan(c.image_size, s, c)
+    coarse = plan.sizes[plan.replicated:c.pyramid_levels]
+    big = sum(h > kp.TAIL_CUT for h in coarse)
+    pyr = {"pyramid_down": b * s * (plan.replicated + big),
+           "pyramid_up": b * s * (2 * plan.replicated + big),
+           "pyramid_tail": 2 * b * s * (big < len(coarse))}
     if fused:
         return {"sdev_noise_hist": b * s, "hist_argmax": b, "grad_hist_relevant": b * s, **pyr}
     want = {"noise_hist": b * covered(c, s), "hist_argmax": b, **pyr}
@@ -1191,17 +1230,22 @@ def fp64_rate():
     return FP64_PER_SM_CLOCK * sms * mhz * 1e6, sms, mhz
 
 
-def pyramid_work(sizes):
-    """(bytes, float64 instructions) of KP1 and KP2 on a ladder whose levels
-    are ``sizes`` px square (level 0 first): each input read once and each
-    output written once, and the float64 products and sums of the plain
-    path's stencils (KP1: 9 a vertical sum at each even row and every
-    column, 9 a horizontal sum at each output; KP2: 5 or 3 a vertical phase
-    at each output row and small column, 5 or 3 a horizontal phase at each
-    output, 4 on average).  Keys: ``down`` and ``up`` at level 0 (mode 0),
-    ``subtract`` and ``add`` at level 0 (cur or the band read too),
-    ``ladder`` (KP1 and a band on every level) and ``expand`` (an expand
-    step on every level)."""
+def pyramid_work(sizes, tail_from=None):
+    """(bytes, float64 instructions) of the pyramid kernels on a ladder whose
+    levels are ``sizes`` px square (level 0 first): each input read once
+    and each output written once, and the float64 products and sums of the
+    plain path's stencils (the down step: 9 a vertical sum at each even row
+    and every column, 9 a horizontal sum at each output; the expand: 5 or 3
+    a vertical phase at each output row and small column, 5 or 3 a
+    horizontal phase at each output, 4 on average).  Keys: ``down``
+    (the down step alone), ``step`` (the fused step: cur read, the band and
+    the down written), ``up`` (mode 0), ``subtract`` and ``add`` (cur or the
+    band read too), all at level 0; ``ladder`` (a fused step's bytes at
+    every level: each level read, its band and down written) and ``expand``
+    (an expand step's at every level: the small image and the band read,
+    the result written); ``tail`` and ``expand_tail``: the tails from level
+    ``tail_from`` on (the first level read, each band and down written; the
+    top and each band read, the result written)."""
     def down(h):
         dh = -(-h // 2)
         return 4 * h * h + 4 * dh * dh, 9 * dh * h + 9 * dh * dh
@@ -1210,13 +1254,23 @@ def pyramid_work(sizes):
         src = -(-h // 2)
         return 4 * src * src + 4 * h * h * (1 + reads), 4 * h * src + 4 * h * h
 
-    ladder = [a + b for a, b in zip(*[
-        [sum(w[i] for w in works) for i in (0, 1)]
-        for works in ([down(h) for h in sizes], [up(h, 1) for h in sizes])])]
-    expand = [sum(up(h, 1)[i] for h in sizes) for i in (0, 1)]
+    def step(h):
+        return 4 * h * h + down(h)[0], down(h)[1] + up(h, 1)[1]
+
+    def total(works):
+        return tuple(sum(w[i] for w in works) for i in (0, 1))
     n = sizes[0]
-    return {"down": down(n), "up": up(n, 0), "subtract": up(n, 1), "add": up(n, 1),
-            "ladder": tuple(ladder), "expand": tuple(expand)}
+    out = {"down": down(n), "step": step(n), "up": up(n, 0), "subtract": up(n, 1),
+           "add": up(n, 1), "ladder": total([step(h) for h in sizes]),
+           "expand": total([up(h, 1) for h in sizes])}
+    if tail_from is not None:
+        tail = sizes[tail_from:]
+        s0, top = tail[0], -(-tail[-1] // 2)
+        ops = total([step(h) for h in tail])[1]
+        out["tail"] = (4 * s0 * s0 + sum(4 * h * h + 4 * (-(-h // 2)) ** 2 for h in tail), ops)
+        out["expand_tail"] = (4 * top * top + sum(4 * h * h for h in tail) + 4 * s0 * s0,
+                              total([up(h, 1) for h in tail])[1])
+    return out
 
 
 def kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b3072):
@@ -1274,11 +1328,15 @@ def kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b
         f"{n_div}, __dsqrt_rn {n_sqrt} in their SASS; {px7} px at 64 a clock on {sms} SMs "
         f"at {mhz:.0f} MHz)")
     out["sdev_noise_hist"] = (max(t_bytes, t_fp64), "bytes" if t_bytes >= t_fp64 else "operations")
-    # KP1 and KP2 at level 0 (the rows' own function; the ladder's and the
-    # expand's sums in pyramid_work)
-    work = pyramid_work([recon.shape[-1]])
+    # KP1 (the down step alone) and KP2 (mode 0) at level 0, the rows' own
+    # functions; the ladder's tail from the cut (the fused step's, the
+    # ladder's and the expand's sums in pyramid_work, logged in [6])
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import pyramid as kp
+    sizes = [-(-recon.shape[-1] // 2 ** k) for k in range(cfg.pyramid_levels)]
+    work = pyramid_work(sizes, next(i for i, h in enumerate(sizes) if h <= kp.TAIL_CUT))
     out["pyramid_down"] = bound(*work["down"], rate=rate64)
     out["pyramid_up"] = bound(*work["up"], rate=rate64)
+    out["pyramid_tail"] = bound(*work["tail"], rate=rate64)
     return out
 
 
@@ -1309,9 +1367,9 @@ def check_host_surface(img, cfg, dev):
         assert cli.main(["process", *common, "--save-last-raw", paths["last.raw"],
                          "--cnr-out", paths["cnr.bmp"], raw, paths["out.bmp"]]) == 0
         launches_cli = dict(launch.LAUNCHES)
-        launch.reset_launch_counts()
-        assert cli.main(["report", *common, raw, paths["rep"]]) == 0
-        launches_rep = dict(launch.LAUNCHES)
+        rc, launches_rep = profiled_run(lambda: cli.main(["report", *common, raw, paths["rep"]]),
+                                        "cli report")
+        assert rc == 0
         prof = os.path.join(tmp, "prof")
         args = ["process", *common, "--save-last-raw", prof + ".raw",
                 "--cnr-out", prof + "_cnr.bmp", "--profile", prof, raw, prof + ".bmp"]
@@ -1349,11 +1407,10 @@ def check_host_surface(img, cfg, dev):
         assert launches_rep["noise_hist"] == launches_rep["grad_hist"] == 1, launches_rep
         hist = {k: v for k, v in launches_rep.items() if not k.startswith("pyramid")}
         assert sum(hist.values()) == 2, launches_rep
-        # report runs with intermediates: KP1 a level, KP2 a band, an
-        # exp_lowpass and an expand step a level
-        L = cfg.pyramid_levels
-        assert (launches_rep["pyramid_down"], launches_rep["pyramid_up"]) == (L, 3 * L), \
-            launches_rep
+        # report runs with intermediates: the ladder (the fused step at
+        # 3072 .. 96 px, one tail from 48 px), then an exp_lowpass and an
+        # expand step at each of the 12 levels
+        assert pyramid_counts(launches_rep) == (6, 24, 1), launches_rep
     log(f"  BMP equals musica_forward on the transposed raw; the re-saved raw is the loaded "
         f"(transposed) raw byte for byte; the CNR BMP equals clip(cnr x 255); with --profile "
         f"(its own process) the same three files, and trace.json names noise_hist_kernel, "
@@ -1452,6 +1509,11 @@ def check_data_parallel(imgs, cfg, mesh, dev):
     assert total == want_sum, (total, want_sum)
     log(f"  mesh {[str(d) for d in mesh]}: out_u8 and cnr equal forward_batch's bit for bit; "
         f"launches {counts}; throughput_step checksum {total} equals the outputs' sum")
+
+
+def pyramid_counts(launches):
+    """(fused or down steps, expand steps, tails) of a run's counts."""
+    return tuple(launches[k] for k in ("pyramid_down", "pyramid_up", "pyramid_tail"))
 
 
 def profiled_run(fn, what: str, times=None):
@@ -1724,8 +1786,9 @@ def main() -> int:
                          (cfg_var, var_inter["intermediates"]["linear"], v_rel),
                          (b3072, v_recon))
 
-    log("[3f] the pyramid kernels KP1 (smooth_downsample_kernel) and KP2 "
-        "(upsample_smooth_kernel<mode>) vs their plain versions, bit for bit")
+    log("[3f] the pyramid kernels KP1 (reduce_step_kernel<band>), KP2 "
+        "(upsample_smooth_kernel<mode>) and the tails (pyramid_tail_kernel<expand>) vs their "
+        "plain versions, bit for bit")
     check_pyramid(rec, rng, dev, nrm, cfg)
 
     # ---- 4. the main path at 3072^2 ----------------------------------------
@@ -1743,9 +1806,10 @@ def main() -> int:
     # K1 + K2: one launch, which takes the argmaxes too
     assert launches["noise_hist"] == 1 and launches["hist_argmax"] == 0, launches
     assert launches["sdev_noise_hist"] == 0, "the default analysis launched K7"
-    # KP1 once a level, KP2 once a band and once an expand step
+    # the fused step at 3072 .. 96 px, the ladder's tail from 48 px, the
+    # expand's tail up to 48 px, an expand step at 96 .. 3072
     L = cfg.pyramid_levels
-    assert (launches["pyramid_down"], launches["pyramid_up"]) == (L, 2 * L), launches
+    assert pyramid_counts(launches) == (6, 6, 2), launches
     m = cfg.out_margin
     assert out_gpu.shape == (SIZE - 2 * m, SIZE - 2 * m) and out_gpu.dtype == np.uint8
     assert 0 < int(out_gpu.max()) and int(out_gpu.min()) < 255, "degenerate output"
@@ -1763,8 +1827,9 @@ def main() -> int:
     log(f"  launches: {launches_dbg}")
     for k in ("noise_hist", "grad_hist"):
         assert launches_dbg[k] > 0, f"the intermediates path did not launch {k}"
-    # and KP2 once more a level for exp_lowpass_{i}
-    assert (launches_dbg["pyramid_down"], launches_dbg["pyramid_up"]) == (L, 3 * L), launches_dbg
+    # the ladder's 6 fused steps and tail, then an exp_lowpass_{i} and an
+    # expand step at each of the 12 levels
+    assert pyramid_counts(launches_dbg) == (6, 24, 1), launches_dbg
     assert np.array_equal(dbg["out_u8"].cpu().numpy(), out_gpu)
     assert all(bool(torch.isfinite(v).all()) for v in dbg["intermediates"].values()
                if isinstance(v, torch.Tensor) and v.is_floating_point())
@@ -1788,7 +1853,7 @@ def main() -> int:
     assert np.array_equal(var_replay, var_out), "the variant's replay differs from musica_forward"
     for k in ("noise_hist", "grad_hist", "histogram", "clahe_apply"):
         assert launches_var[k] == 1, f"the variant's replay launched {k} {launches_var[k]} times"
-    assert (launches_var["pyramid_down"], launches_var["pyramid_up"]) == (L, 2 * L), launches_var
+    assert pyramid_counts(launches_var) == (6, 6, 2), launches_var
     assert var_out.shape == out_gpu.shape and var_out.dtype == np.uint8
     assert 0 < int(var_out.max()) and int(var_out.min()) < 255, "degenerate output"
     assert var_clahe.shape == (SIZE, SIZE) and bool(torch.isfinite(var_clahe).any())
@@ -1858,8 +1923,7 @@ def main() -> int:
     assert launches_fused["sdev_noise_hist"] == launches_fused["grad_hist_relevant"] == 1, \
         launches_fused
     assert launches_fused["noise_hist"] == 0, "the fused-sdev replay launched K1"
-    assert (launches_fused["pyramid_down"], launches_fused["pyramid_up"]) == (L, 2 * L), \
-        launches_fused
+    assert pyramid_counts(launches_fused) == (6, 6, 2), launches_fused
     f_out, f_times = musica.timed_process(img, cfg, "cuda", fused_sdev=True)
     assert np.array_equal(f_out, out_gpu), "timed_process(fused_sdev=True) out_u8"
     log("  out_u8, recon and cnr equal the default path's on the card bit for bit; "
@@ -2205,12 +2269,15 @@ def main() -> int:
                         lambda: k_clahe.clahe_apply_plain(v_recon, v_px, v_py, cfg_var)),
         "sdev_noise_hist": (lambda: fh.sdev_noise_hists(b3072, cfg),
                             lambda: fh.sdev_noise_hists_plain(b3072, cfg)),
-        # level 0 of the thorax's ladder: the normalized image down, its
-        # next level up (mode 0)
+        # level 0 of the thorax's ladder: the normalized image down (the
+        # down step alone), its next level up (mode 0); the ladder's tail
+        # from the cut (48 px, 6 levels)
         "pyramid_down": (lambda: k_pyr.smooth_downsample(nrm),
                          lambda: k_pyr.smooth_downsample_plain(nrm)),
         "pyramid_up": (lambda: k_pyr.upsample_smooth(dn0, SIZE),
                        lambda: pyramid.upsample_smooth_plain(dn0, SIZE)),
+        "pyramid_tail": (lambda: k_pyr.reduce_tail(tail_in, tail_levels),
+                         lambda: k_pyr.reduce_tail_plain(tail_in, tail_levels)),
     }
     # one PyTorch call computing the same function, where there is one
     # (timed as a yardstick only; the port never calls it)
@@ -2234,48 +2301,68 @@ def main() -> int:
                                                        output_padding=1)
     assert library["pyramid_down"]().shape[-2:] == dn0.shape
     assert library["pyramid_up"]().shape[-2:] == nrm.shape
-    # the ladder (KP1 and a band a level) and an expand (a step a level) of
-    # the thorax, kernels and plain versions, with their bounds
+    # the ladder (a fused step a level down to the cut, one tail) and the
+    # expand (one tail, an expand step a level) of the thorax, kernels and
+    # plain versions, with their bounds
     L = cfg.pyramid_levels
     lad_bands, lad_downs = pyramid.reduce_ladder(nrm, L)
-
-    def expand(add):
-        recon = lad_downs[-1]
-        for lvl in range(L - 1, -1, -1):
-            recon = add(recon, lad_bands[lvl])
-        return recon
+    sizes = [t.shape[-1] for t in (nrm, *lad_downs[:-1])]
+    cut = next(i for i, h in enumerate(sizes) if h <= k_pyr.TAIL_CUT)
+    tail_in, tail_levels = lad_downs[cut - 1], L - cut
     # the launches of one ladder and of one expand, counted around them
     launch.reset_launch_counts()
     pyramid.reduce_ladder(nrm, L)
     torch.cuda.synchronize()
-    ladder_launches = {k: launch.LAUNCHES[k] for k in ("pyramid_down", "pyramid_up")}
+    ladder_launches = dict(zip(("pyramid_down", "pyramid_up", "pyramid_tail"),
+                               pyramid_counts(launch.LAUNCHES)))
     launch.reset_launch_counts()
-    expand(k_pyr.upsample_add)
+    pyramid.expand_ladder(lad_downs[-1], lad_bands)
     torch.cuda.synchronize()
-    expand_launches = launch.LAUNCHES["pyramid_up"]
-    assert ladder_launches == {"pyramid_down": L, "pyramid_up": L}, ladder_launches
-    assert (expand_launches, launch.LAUNCHES["pyramid_down"]) == (L, 0), launch.LAUNCHES
+    expand_launches = dict(zip(("pyramid_down", "pyramid_up", "pyramid_tail"),
+                               pyramid_counts(launch.LAUNCHES)))
+    # 3072 .. 96 px in fused steps (expand steps), 48 .. 2 in one tail
+    assert list(ladder_launches.values()) == [6, 0, 1], ladder_launches
+    assert list(expand_launches.values()) == [0, 6, 1], expand_launches
+    work = pyramid_work(sizes, cut)
+    rate64 = fp64_rate()[0]
+
+    def b_ms(key):
+        return bound(*work[key], rate=rate64)[0]
+    top = lad_downs[-1]
     pyr_extra = {
         "pyramid_down": {
+            "step_ms": cuda_ms(lambda: k_pyr.reduce_step(nrm), 20, 2, device_only=True),
+            "step_plain_ms": cuda_ms(lambda: k_pyr.reduce_step_plain(nrm), 3, 1,
+                                     device_only=True),
+            "step_bound_ms": b_ms("step"),
+            "last_step_px": sizes[cut - 1],
+            "last_step_ms": cuda_ms(lambda: k_pyr.reduce_step(lad_downs[cut - 2]), 20, 2,
+                                   device_only=True),
             "ladder_ms": cuda_ms(lambda: pyramid.reduce_ladder(nrm, L), 10, 2, device_only=True),
             "ladder_plain_ms": cuda_ms(lambda: pyramid.reduce_ladder_plain(nrm, L), 3, 1,
                                        device_only=True),
-            "ladder_launches": ladder_launches},
+            "ladder_bound_ms": b_ms("ladder"), "ladder_launches": ladder_launches},
         "pyramid_up": {
             "subtract_ms": cuda_ms(lambda: k_pyr.upsample_subtract(nrm, dn0), 20, 2,
                                    device_only=True),
             "add_ms": cuda_ms(lambda: k_pyr.upsample_add(dn0, nrm), 20, 2, device_only=True),
-            "expand_ms": cuda_ms(lambda: expand(k_pyr.upsample_add), 10, 2, device_only=True),
-            "expand_plain_ms": cuda_ms(lambda: expand(k_pyr.upsample_add_plain), 3, 1,
+            "add_bound_ms": b_ms("add"),
+            "expand_ms": cuda_ms(lambda: pyramid.expand_ladder(top, lad_bands), 10, 2,
+                                 device_only=True),
+            "expand_plain_ms": cuda_ms(lambda: k_pyr.expand_ladder_plain(top, lad_bands), 3, 1,
                                        device_only=True),
-            "expand_launches": expand_launches},
+            "expand_bound_ms": b_ms("expand"), "expand_launches": expand_launches},
+        "pyramid_tail": {
+            "tail_from_px": sizes[cut], "tail_levels": tail_levels,
+            "expand_tail_ms": cuda_ms(lambda: k_pyr.expand_tail(top, lad_bands[cut:]), 20, 2,
+                                      device_only=True),
+            "expand_tail_plain_ms": cuda_ms(lambda: k_pyr.expand_tail_plain(top, lad_bands[cut:]),
+                                            3, 1, device_only=True),
+            "expand_tail_bound_ms": b_ms("expand_tail")},
     }
-    # the bounds of the ladder, a band step and the expand, from the level
-    # sizes of the tensors timed above (logged, not in the kernels line)
-    work = pyramid_work([t.shape[-1] for t in (nrm, *lad_downs[:-1])])
-    rate64 = fp64_rate()[0]
     log("  pyramid bounds, ms: " + ", ".join(
-        f"{k} {bound(*work[k], rate=rate64)[0]}" for k in ("ladder", "subtract", "expand")))
+        f"{k} {b_ms(k)}" for k in ("step", "ladder", "subtract", "add", "expand", "tail",
+                                   "expand_tail")))
     # K3's kernel alone and its wrapper's weight-plane ops alone
     k3_parts = {"kernel_ms": lambda: fh._launch_grad_hist_relevant(recon, nrm, wplane, cfg),
                 "weight_plane_ms": lambda: fh.relevance_weight_plane(cnr, cfg)}
@@ -2311,13 +2398,14 @@ def main() -> int:
                 "sdev_noise_hist": (launches_fused, "process(fused_sdev=True) (one graph "
                                     "replay; the JAX package's hist_method=\"fused_sdev\")"),
                 "pyramid_down": (launches, "process (one graph replay)"),
-                "pyramid_up": (launches, "process (one graph replay)")}
+                "pyramid_up": (launches, "process (one graph replay)"),
+                "pyramid_tail": (launches, "process (one graph replay)")}
     # the spatial path's own count of each kernel ([4n]: 1x4 at 3072, the
     # main path, the CLAHE + linear variant and fused-sdev)
     sp_path = f"process_sharded of 2 x {SIZE}^2 over 1x4 on {dev}"
     spatial_from = {k: (sp_counts, sp_path) for k in ("noise_hist", "hist_argmax",
                                                       "grad_hist_relevant", "pyramid_down",
-                                                      "pyramid_up")}
+                                                      "pyramid_up", "pyramid_tail")}
     for k in ("grad_hist", "histogram", "clahe_apply"):
         spatial_from[k] = (spatial_run["counts"][f"CLAHE + linear, 1x4 on {dev}"],
                            f"{sp_path}, enable_clahe and grad_with_linear_image")

@@ -6,11 +6,16 @@
 // Counterparts of XLA code, not of Pallas kernels: the JAX package computes
 // these steps as XLA ops (ops/pyramid.py):
 //
-//   smooth_downsample_kernel      <- smooth_downsample (:85) and the down
-//                                    half of reduce_step_split (:213)
+//   reduce_step_kernel<true>      <- reduce_step_split (:213): a level's down
+//                                    and its band cur - up(down) in one step
+//   reduce_step_kernel<false>     <- smooth_downsample (:85)
 //   upsample_smooth_kernel<mode>  <- upsample_smooth (:310), with
 //                                    reduce_ladder's subtraction (:261) and
 //                                    models/musica.py's expand add (:155)
+//   pyramid_tail_kernel<kExpand>  <- reduce_ladder's small, odd tail (:261,
+//                                    the per-level path) and the expand loop
+//                                    of models/musica.py (:150-157) on the
+//                                    coarse levels
 //
 // Exactness.  The port's plain path (ops/pyramid.py) sums each stencil's
 // taps left to right in float64 and rounds to float32 once, because a
@@ -19,46 +24,83 @@
 // products and sums with explicit round-to-nearest intrinsics (the file is
 // built with -fmad=false; a contracted product in the second pass, whose
 // products round, would change bits), every sum started with its first
-// product (0.0 + -0.0 is +0.0), the taps in the plain path's order:
+// product (0.0 + -0.0 is +0.0), the taps in the plain path's order.  Where
+// both factors are float32 values (a float32 tap times an input pixel or a
+// down pixel), the product is exact in float64, so a fused multiply-add
+// (__fma_rn) rounds the same sum as the product and the addition:
 //
-// * smooth_downsample_kernel: the vertical pass at even rows over every
-//   column, then the horizontal pass at even columns, each
-//   W0*p0 + W1*p1 + ... + W4*p4 from the first product on, rounded once.
-//   Taps follow GLSL mirror() with one reflection, and a tap still out of
-//   range reads 0.0 (QUIRKS #4).  The plain path's small form (an axis
-//   under 8 px: mirror-padded slices) and its strided form (first and last
-//   outputs through mirrored taps, the interior as slices) give these same
-//   sums, so one kernel covers every size down to 1x1.
-// * upsample_smooth_kernel at n >= 6 and a small image of >= 3 px: the
-//   polyphase form.  The small grid is extended by e[-1] = r[1] and
-//   e[src] = r[n - 1 - src]; the even phase is (WE0*e0 + WE1*e1) + WE2*e2,
-//   the odd phase WO0*e1 + WO1*e2, rows first and then columns, rounded to
-//   float32 and multiplied by 4.0f in float32.  Below that size the plain
-//   path runs smooth(upsample(img, n), 4.0): the 5-tap sums on the
-//   zero-stuffed n x n grid, zero products included, and the gain in
-//   float64 before the one rounding; the kernel then does the same, one
-//   thread an output pixel (at most 5x5).
-// * mode 0 writes the upsampled image, mode 1 cur - up (a band of the
-//   reduce ladder), mode 2 up + band (an expand step; a bf16 band is read
-//   as its exact float32 value), in float32.
+// * the down step: the vertical pass at even rows over every column, then
+//   the horizontal pass at even columns, each W0*p0 + W1*p1 + ... + W4*p4
+//   from the first product on, rounded once.  Taps follow GLSL mirror()
+//   with one reflection, and a tap still out of range reads 0.0 (QUIRKS
+//   #4).  The plain path's small form (an axis under 8 px: mirror-padded
+//   slices) and its strided form (first and last outputs through mirrored
+//   taps, the interior as slices) give these same sums, so one formulation
+//   covers every size down to 1x1.
+// * the expand step at n >= 6 (a small image of >= 3 px): the polyphase
+//   form.  The small grid is extended by e[-1] = r[1] and e[src] =
+//   r[n - 1 - src]; the even phase is (WE0*e0 + WE1*e1) + WE2*e2, the odd
+//   phase WO0*e1 + WO1*e2, rows first and then columns, rounded to float32
+//   and multiplied by 4.0f in float32.  Below that size the plain path runs
+//   smooth(upsample(img, n), 4.0): the 5-tap sums on the zero-stuffed n x n
+//   grid, zero products included, and the gain in float64 before the one
+//   rounding; the kernels do the same, one thread an output pixel.
+// * a band is cur - up, an expand step up + band (a bf16 band read as its
+//   exact float32 value), in float32.
 //
-// Layout.  A block computes an output tile of 16 rows by 64 columns: its
-// vertical pass goes from device memory into a float64 tile in shared
-// memory (16 x 131 doubles down, 16 x 34 up), which the neighbouring
-// columns' horizontal taps share, and the horizontal pass stores
-// consecutive columns from consecutive threads.  A window of rows (the
-// spatial path's shards, parallel/spatial.py): the input holds the image's
-// rows [x0, x0 + rows) (up: the small image's [s0, s0 + rows)) and the
-// output is rows [j0, j1) (up: [r0, r1)), the mirror taken at the image's
-// true first and last rows; a whole image is the window of all its rows.
+// Layout.  At the large levels the bytes bound these steps; a block's
+// chain of dependent float64 operations and shared-memory loads, between
+// its barriers, sets the rest (a 192 px level is a few dozen blocks, and
+// every level waits for the one before it).  So each kernel stages its input
+// with cp.async once, reads taps through small tables of staged rows and
+// columns that resolve the mirror and the extension once a block (a tap out
+// of range reads a zero row or column; a block inside the image takes the
+// tables' linear form without them), keeps the sums that a stride-2 stencil
+// reads in column-parity planes (consecutive threads, consecutive words),
+// and writes four adjacent outputs a thread with 16-byte stores:
 //
-// Bound: one read of the input and one write of the output (modes 1 and 2
-// also read cur or the band): at 3072^2 level 0, 47 MB down and 85 MB up
-// and subtract.  The float64 instructions (9 per vertical and 9 per
-// horizontal sum down, 3 or 5 each up) issue in a fraction of that time at
-// 64 per SM per clock.
+// * reduce_step_kernel<true> (the big levels of the ladder): a block owns
+//   a 16 x 32 tile of the down image and the 32 x 64 tile of the band above
+//   it.  It stages the 40 x 72 input pixels that these read into shared
+//   memory once (16-byte copies where the row width and alignment allow),
+//   computes the float64 vertical sums at each row of the down tile and of a
+//   one-pixel ring around it (the halo that the band's expand reads; these
+//   sums are redundant across blocks and deterministically equal), the down
+//   tile with its ring (written: the block's own pixels), the expand's
+//   vertical phase on that tile, and the band from the staged input: 4 B read
+//   and 4 + 1 B written per input pixel, where a separate down and band step
+//   read the input twice.  <false> is the down step alone, on a whole image
+//   or on a window of rows (the spatial path's shards, parallel/spatial.py),
+//   without the ring.
+// * upsample_smooth_kernel<mode> (the big levels of the expand, and every
+//   level of the intermediates path and of the shards): a block stages the
+//   small image's rows and columns that its 32 x 64 output tile reads and
+//   that tile of cur or the band, computes the vertical phase into a float64
+//   tile, then the outputs.
+// * pyramid_tail_kernel<kExpand> (the coarse levels, ops/cuda/pyramid.py's
+//   TAIL_CUT and below): one block of 1024 threads walks every level from
+//   the cut down to the last (the ladder) or from the top up to the cut (the
+//   expand) with the images in shared memory as float64, one __syncthreads()
+//   between passes, writing each band and down (the ladder) or only the
+//   result (the expand) to device memory; the expand stages all its bands
+//   at the start.  One launch where there were two (three) a level.  A
+//   small level still costs a block's latency (about 1.5 us on the H100),
+//   and a level above the cut more on one SM than as a step over many.
+//
+// A window of rows: the input holds the image's rows [x0, x0 + rows) (up:
+// the small image's [s0, s0 + rows)) and the output is rows [j0, j1) (up:
+// [r0, r1)), the mirror taken at the image's true first and last rows; a
+// whole image is the window of all its rows.
+//
+// Bound: one read of each input and one write of each output.  At 3072^2
+// level 0 the fused step moves 85 MB and the expand step 85 MB (mode 2);
+// the float64 instructions issue in less time at 64 per SM per clock.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "grid.cuh"
 
 namespace {
 
@@ -68,10 +110,22 @@ constexpr double kW1 = (double)(float)0.25;
 constexpr double kW2 = (double)(float)0.3;
 
 constexpr int kThreads = 256;
-constexpr int kOutH = 16;                     // output rows of a block's tile
-constexpr int kOutW = 64;                     // output columns of a block's tile
-constexpr int kDownCols = 2 * kOutW + 3;      // input columns of a down tile
-constexpr int kUpCols = kOutW / 2 + 2;        // small-image columns of an up tile
+// reduce_step_kernel: the down tile a block owns, the input it stages (down
+// positions D0 - 1 .. D0 + 16 read input positions 2 D0 - 4 .. 2 D0 + 34),
+// and the down tile's slots with the ring
+constexpr int kDH = 16, kDW = 32;
+constexpr int kCurRows = 2 * kDH + 8, kCurCols = 2 * kDW + 8;
+constexpr int kSlotRows = kDH + 2, kSlotCols = kDW + 2;
+// upsample_smooth_kernel: the output tile, the small image it stages (rows
+// of positions r/2 - 1 .. r/2 + 1, columns aligned down to 4 for cp.async)
+constexpr int kUpH = 32, kUpW = 64;
+constexpr int kSmallRows = kUpH / 2 + 3, kSmallCols = kUpW / 2 + 8;
+constexpr int kUpSlots = kUpW / 2 + 2;
+// pyramid_tail_kernel: 32 x 32 threads, at most 16 levels, tables for
+// levels up to kTailMax px
+constexpr int kTailThreads = 1024;
+constexpr int kMaxTail = 16;
+constexpr int kTailMax = 256;
 
 __device__ __forceinline__ double weight(int m) {
   return m == 0 || m == 4 ? kW0 : m == 2 ? kW2 : kW1;
@@ -88,175 +142,683 @@ __device__ __forceinline__ int mirror(int p, int n) {
   return v >= 0 && v <= n - 1 ? v : -1;
 }
 
-// W0*p[0] + W1*p[1] + ... + W4*p[4], left to right in float64
-__device__ __forceinline__ double taps5(const double* p) {
-  double acc = __dmul_rn(kW0, p[0]);
-#pragma unroll
-  for (int m = 1; m < 5; ++m) acc = __dadd_rn(acc, __dmul_rn(weight(m), p[m]));
-  return acc;
+// the polyphase form's extension of a src-px small grid expanded to n px:
+// position -1 .. src -> row/column
+__device__ __forceinline__ int extend(int p, int src, int n) {
+  return p < 0 ? 1 : p >= src ? n - 1 - src : p;
 }
 
-struct DownArgs {
-  const float* x;  // rows [x0, x0 + xrows) of the [h, w] image
-  float* out;      // rows [j0, j1) of the [ceil(h/2), ceil(w/2)] result
-  int x0, xrows, h, w, j0, j1, dw;
-};
+__device__ __forceinline__ bool polyphase(int n) { return n >= 6 && (n + 1) / 2 >= 3; }
 
-__global__ void __launch_bounds__(kThreads) smooth_downsample_kernel(DownArgs a) {
-  __shared__ double vsum[kOutH][kDownCols];
-  const int jb = a.j0 + blockIdx.y * kOutH;
-  const int cb = blockIdx.x * kOutW;
-  // vertical pass: output row jb + r, input column position 2cb - 2 + i
-  for (int t = threadIdx.x; t < kOutH * kDownCols; t += kThreads) {
-    const int r = t / kDownCols, i = t - r * kDownCols;
-    const int j = jb + r;
-    const int col = mirror(2 * cb - 2 + i, a.w);
-    double s = 0.0;  // an out-of-range column: a zero column's sum, +0.0
-    if (j < a.j1 && col >= 0) {
-      double p[5];
+// W0*p0 + W1*p1 + ... + W4*p4, left to right in float64
+__device__ __forceinline__ double taps5(double p0, double p1, double p2, double p3, double p4) {
+  double acc = __dmul_rn(kW0, p0);
+  acc = __dadd_rn(acc, __dmul_rn(kW1, p1));
+  acc = __dadd_rn(acc, __dmul_rn(kW2, p2));
+  acc = __dadd_rn(acc, __dmul_rn(kW1, p3));
+  return __dadd_rn(acc, __dmul_rn(kW0, p4));
+}
+
+// The same sum where every p is a float32 value: a float32 tap times a
+// float32 value is exact in float64 (48 significant bits), so the fused
+// multiply-add rounds the same sum as the product followed by the addition,
+// in one float64 instruction instead of two.
+__device__ __forceinline__ double taps5_f32(double p0, double p1, double p2, double p3,
+                                            double p4) {
+  double acc = __dmul_rn(kW0, p0);
+  acc = __fma_rn(kW1, p1, acc);
+  acc = __fma_rn(kW2, p2, acc);
+  acc = __fma_rn(kW1, p3, acc);
+  return __fma_rn(kW0, p4, acc);
+}
+
+// the expand's phases: even (WE0*e0 + WE1*e1) + WE2*e2, odd WO0*e1 + WO1*e2
+__device__ __forceinline__ double phase_even(double e0, double e1, double e2) {
+  return __dadd_rn(__dadd_rn(__dmul_rn(kW0, e0), __dmul_rn(kW2, e1)), __dmul_rn(kW0, e2));
+}
+__device__ __forceinline__ double phase_odd(double e1, double e2) {
+  return __dadd_rn(__dmul_rn(kW1, e1), __dmul_rn(kW1, e2));
+}
+// the same on float32 values (exact products, as taps5_f32)
+__device__ __forceinline__ double phase_even_f32(double e0, double e1, double e2) {
+  return __fma_rn(kW0, e2, __fma_rn(kW2, e1, __dmul_rn(kW0, e0)));
+}
+__device__ __forceinline__ double phase_odd_f32(double e1, double e2) {
+  return __fma_rn(kW1, e2, __dmul_rn(kW1, e1));
+}
+__device__ __forceinline__ float gain4(double s) {
+  return __fmul_rn(__double2float_rn(s), 4.0f);
+}
+
+__device__ __forceinline__ float bf16_bits(unsigned short u) {
+  return __uint_as_float((unsigned)u << 16);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Starts copying rows [r_lo, r_hi) x columns [c_lo, c_hi) of a row-major
+// image of pitch w (its row `row0` at `src`) into dst at (row - rbase, col -
+// cbase), pitch `pitch` (a multiple of 4; cbase a multiple of 4), through
+// cp.async: 16 bytes where four columns are in range and `vec` (w a
+// multiple of 4 and src 16-byte aligned), else 4 bytes a pixel.
+__device__ __forceinline__ void stage(float* dst, int pitch, int rbase, int cbase,
+                                      const float* src, int row0, int w, int r_lo, int r_hi,
+                                      int c_lo, int c_hi, bool vec) {
+  const int quads = pitch / 4;
+  for (int t = threadIdx.x; t < (r_hi - r_lo) * quads; t += blockDim.x) {
+    const int r = r_lo + t / quads, c = cbase + 4 * (t % quads);
+    float* d = dst + (r - rbase) * pitch + (c - cbase);
+    const long long off = (long long)(r - row0) * w + c;
+    if (vec && c >= c_lo && c + 4 <= c_hi) {
+      cp_async16(d, src + off);
+    } else {
 #pragma unroll
-      for (int m = 0; m < 5; ++m) {
-        const int row = mirror(2 * j + m - 2, a.h);
-        p[m] = row >= 0 ? (double)a.x[(size_t)(row - a.x0) * a.w + col] : 0.0;
-      }
-      s = taps5(p);
+      for (int e = 0; e < 4; ++e)
+        if (c + e >= c_lo && c + e < c_hi) cp_async4(d + e, src + off + e);
     }
-    vsum[r][i] = s;
-  }
-  __syncthreads();
-  // horizontal pass at even columns, consecutive threads on consecutive columns
-  for (int t = threadIdx.x; t < kOutH * kOutW; t += kThreads) {
-    const int r = t / kOutW, c = t - r * kOutW;
-    const int j = jb + r, col = cb + c;
-    if (j >= a.j1 || col >= a.dw) continue;
-    a.out[(size_t)(j - a.j0) * a.dw + col] = __double2float_rn(taps5(&vsum[r][2 * c]));
-  }
-}
-
-struct UpArgs {
-  const float* small;  // rows [s0, s0 + srows) of the [src, src] small image
-  float* out;          // rows [r0, r1) of the [n, n] result
-  const void* other;   // mode 1: cur, mode 2: the band, both rows [r0, r1)
-  int s0, srows, n, src, edge, r0, r1, poly, other_bf16;
-};
-
-__device__ __forceinline__ float small_at(const UpArgs& a, int row, int col) {
-  return a.small[(size_t)(row - a.s0) * a.src + col];
-}
-
-// the polyphase form's extension of the small grid: position -> row/column
-__device__ __forceinline__ int extend(const UpArgs& a, int p) {
-  return p < 0 ? 1 : p >= a.src ? a.edge : p;
-}
-
-template <int kMode>
-__device__ __forceinline__ void store(const UpArgs& a, int row, int col, float up) {
-  const size_t idx = (size_t)(row - a.r0) * a.n + col;
-  if (kMode == 0) {
-    a.out[idx] = up;
-  } else if (kMode == 1) {
-    a.out[idx] = __fsub_rn(static_cast<const float*>(a.other)[idx], up);
-  } else {
-    const float band =
-        a.other_bf16
-            ? __uint_as_float((unsigned)static_cast<const unsigned short*>(a.other)[idx] << 16)
-            : static_cast<const float*>(a.other)[idx];
-    a.out[idx] = __fadd_rn(up, band);
   }
 }
 
 // smooth(upsample(small, n), 4.0) at one output pixel (the plain path's
-// form below n = 6): the 5-tap vertical sums on the zero-stuffed grid at
-// the 5 mirrored columns, then the horizontal sum, the gain in float64
-__device__ float upsample_pixel_small(const UpArgs& a, int row, int col) {
+// form below n = 6; small: the whole ceil(n/2)-px image, pitch src): the
+// 5-tap vertical sums on the zero-stuffed grid at the 5 mirrored columns,
+// then the horizontal sum, the gain in float64
+template <typename T>
+__device__ float upsample_pixel_small(const T* small, int src, int n, int row, int col) {
   double acc = 0.0;
 #pragma unroll
   for (int k = 0; k < 5; ++k) {
-    const int vc = mirror(col + k - 2, a.n);
-    double tk = 0.0;  // a zero column's sum
-    if (vc >= 0) {
-      double p[5];
+    const int vc = mirror(col + k - 2, n);
+    double p[5];
 #pragma unroll
-      for (int m = 0; m < 5; ++m) {
-        const int u = mirror(row + m - 2, a.n);
-        p[m] = u >= 0 && (u & 1) == 0 && (vc & 1) == 0
-                   ? (double)small_at(a, u >> 1, vc >> 1) : 0.0;
-      }
-      tk = taps5(p);
+    for (int m = 0; m < 5; ++m) {
+      const int u = mirror(row + m - 2, n);
+      const bool ok = u >= 0 && (u & 1) == 0 && vc >= 0 && (vc & 1) == 0;
+      const double v = (double)small[ok ? (u >> 1) * src + (vc >> 1) : 0];
+      p[m] = ok ? v : 0.0;
     }
+    // a zero column's sum is +0.0
+    const double tk = vc >= 0 ? taps5_f32(p[0], p[1], p[2], p[3], p[4]) : 0.0;
     const double prod = __dmul_rn(weight(k), tk);
     acc = k == 0 ? prod : __dadd_rn(acc, prod);
   }
   return __double2float_rn(__dmul_rn(acc, 4.0));
 }
 
+// ----------------------------------------------------------------------
+// the big levels of the ladder: the fused reduce step
+// ----------------------------------------------------------------------
+
+struct StepArgs {
+  const float* x;  // rows [x0, x0 + xrows) of the [h, w] image
+  float* dn;       // rows [j0, j1) of the [dh, dw] down image
+  float* band;     // <true>: the [h, w] band (a square whole image)
+  int x0, xrows, h, w, j0, j1, dh, dw, vec_in, vec_out;
+};
+
+// byte m of a packed tap table entry
+__device__ __forceinline__ int tap(uint2 t, int m) {
+  return m < 4 ? (t.x >> (8 * m)) & 0xff : t.y & 0xff;
+}
+
+// Column-parity planes: [.][0][i / 2] holds the even columns, [.][1][i / 2]
+// the odd ones, so that threads reading every second column (a stride-2
+// stencil's taps) read consecutive words.
+constexpr int kVsHalf = (kCurCols + 2) / 2;   // staged columns and a zero column
+constexpr int kUvHalf = kSlotCols / 2;
+
+template <bool kBand>
+__global__ void __launch_bounds__(kThreads) reduce_step_kernel(StepArgs a) {
+  __shared__ __align__(16) float cs[kCurRows + 1][kCurCols];  // staged input; a zero row last
+  // the vertical sums (the zero column at 2 kVsHalf - 2), then the expand's
+  // vertical phase [2 kDH][2][kUvHalf]
+  __shared__ double vsuv[kSlotRows * 2 * kVsHalf];
+  __shared__ double dt[kSlotRows][kSlotCols];   // the down tile (float32 values)
+  __shared__ uint2 rt[kSlotRows], ct[kSlotCols];  // each slot's 5 taps: staged rows, columns
+  double(*vs)[2][kVsHalf] = reinterpret_cast<double(*)[2][kVsHalf]>(vsuv);
+  double(*uv)[2][kUvHalf] = reinterpret_cast<double(*)[2][kUvHalf]>(vsuv);
+  static_assert(2 * kDH * 2 * kUvHalf <= kSlotRows * 2 * kVsHalf, "uv fits in vs");
+  const int D0 = a.j0 + blockIdx.y * kDH, E0 = blockIdx.x * kDW;
+  const int rbase = 2 * D0 - 4, cbase = 2 * E0 - 4;
+  // slot s is down position p0 + s (<true>: the ring first), valid up to
+  // pmax (<true>: dh, the extension's last position)
+  const int p0 = kBand ? D0 - 1 : D0, q0 = kBand ? E0 - 1 : E0;
+  constexpr int n_rows = kBand ? kSlotRows : kDH, n_cols = kBand ? kSlotCols : kDW;
+  const int pmax = kBand ? a.dh : a.j1 - 1, qmax = kBand ? a.dw : a.dw - 1;
+  // an interior block: every slot a down row or column of the image (no
+  // extension) whose taps are in the image (no mirror), so slot s's taps are
+  // staged rows (columns) 2 s + m + off, the tables' identity
+  constexpr int off = kBand ? 0 : 2;
+  const bool inner_r = p0 >= 1 && p0 + n_rows - 1 <= min(pmax, a.dh - 1) &&
+                       2 * (p0 + n_rows - 1) + 2 <= a.h - 1;
+  const bool inner_c = q0 >= 1 && q0 + n_cols - 1 <= min(qmax, a.dw - 1) &&
+                       2 * (q0 + n_cols - 1) + 2 <= a.w - 1;
+
+  stage(&cs[0][0], kCurCols, rbase, cbase, a.x, a.x0, a.w, max(rbase, a.x0),
+        min(rbase + kCurRows, a.x0 + a.xrows), max(cbase, 0), min(cbase + kCurCols, a.w),
+        a.vec_in);
+  // while the copies land: the zero row, and the tap tables (a tap out of
+  // range, or any tap of a slot past the image, reads the zero row or column)
+  for (int t = threadIdx.x; t < kCurCols + n_rows + n_cols; t += kThreads) {
+    if (t < kCurCols) {
+      cs[kCurRows][t] = 0.0f;
+      continue;
+    }
+    const bool is_row = t < kCurCols + n_rows;
+    const int s = t - kCurCols - (is_row ? 0 : n_rows);
+    const int p = (is_row ? p0 : q0) + s, n = is_row ? a.h : a.w;
+    const bool ok = p <= (is_row ? pmax : qmax);
+    const int k = !ok ? 0 : kBand ? (is_row ? extend(p, a.dh, a.h) : extend(p, a.dw, a.w)) : p;
+    unsigned b[5];
+#pragma unroll
+    for (int m = 0; m < 5; ++m) {
+      const int v = ok ? mirror(2 * k + m - 2, n) : -1;
+      b[m] = v >= 0 ? v - (is_row ? rbase : cbase) : is_row ? kCurRows : kCurCols;
+    }
+    const uint2 packed = make_uint2(b[0] | b[1] << 8 | b[2] << 16 | b[3] << 24, b[4]);
+    if (is_row) {
+      rt[s] = packed;
+    } else {
+      ct[s] = packed;
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // vertical sums: the slot's down row, at every staged column; an interior
+  // block takes two slots a thread (rows 2 s .. 2 s + 6, seven loads)
+  if (inner_r) {
+    for (int t = threadIdx.x; t < n_rows / 2 * (kCurCols + 1); t += kThreads) {
+      const int s = 2 * (t / (kCurCols + 1)), i = t - s / 2 * (kCurCols + 1);
+      double v0 = 0.0, v1 = 0.0;
+      if (i < kCurCols) {
+        const float* c = &cs[2 * s + off][i];
+        const double r2 = c[2 * kCurCols], r3 = c[3 * kCurCols], r4 = c[4 * kCurCols];
+        v0 = taps5_f32(c[0], c[kCurCols], r2, r3, r4);
+        v1 = taps5_f32(r2, r3, r4, c[5 * kCurCols], c[6 * kCurCols]);
+      }
+      vs[s][i & 1][i >> 1] = v0;
+      vs[s + 1][i & 1][i >> 1] = v1;
+    }
+  } else {
+    for (int t = threadIdx.x; t < n_rows * (kCurCols + 1); t += kThreads) {
+      const int s = t / (kCurCols + 1), i = t - s * (kCurCols + 1);
+      double v = 0.0;
+      if (i < kCurCols) {
+        const uint2 r = rt[s];
+        v = taps5_f32(cs[tap(r, 0)][i], cs[tap(r, 1)][i], cs[tap(r, 2)][i], cs[tap(r, 3)][i],
+                      cs[tap(r, 4)][i]);
+      }
+      vs[s][i & 1][i >> 1] = v;
+    }
+  }
+  __syncthreads();
+
+  // the down tile (with its ring): horizontal sums at even columns
+  for (int t = threadIdx.x; t < n_rows * n_cols; t += kThreads) {
+    const int s = t / n_cols, b = t - s * n_cols;
+    double h[5];
+    if (inner_c) {
+#pragma unroll
+      for (int m = 0; m < 5; ++m) h[m] = vs[s][m & 1][b + ((m + off) >> 1)];
+    } else {
+      const uint2 c = ct[b];
+#pragma unroll
+      for (int m = 0; m < 5; ++m) {
+        const int i = tap(c, m);
+        h[m] = vs[s][i & 1][i >> 1];
+      }
+    }
+    const float d = __double2float_rn(taps5(h[0], h[1], h[2], h[3], h[4]));
+    const int p = p0 + s, q = q0 + b;
+    const bool own = kBand ? (s >= 1 && s <= kDH && b >= 1 && b <= kDW && p < a.dh && q < a.dw)
+                           : (p <= pmax && q <= qmax);
+    if (own) a.dn[(size_t)(p - a.j0) * a.dw + q] = d;
+    if (kBand) dt[s][b] = (double)d;
+  }
+  if (!kBand) return;
+  __syncthreads();
+
+  // the expand's vertical phase of band row 2 D0 + rr at each slot column:
+  // positions j - 1, j, j + 1 (j = D0 + rr / 2) are slots rr / 2 .. + 2
+  for (int t = threadIdx.x; t < 2 * kDH * kSlotCols; t += kThreads) {
+    const int rr = t / kSlotCols, b = t - rr * kSlotCols, s = rr >> 1;
+    const double e1 = dt[s + 1][b], e2 = dt[s + 2][b];
+    uv[rr][b & 1][b >> 1] = (rr & 1) ? phase_odd_f32(e1, e2) : phase_even_f32(dt[s][b], e1, e2);
+  }
+  __syncthreads();
+
+  // the band, four adjacent columns a thread: output column 2 E0 + 4 qd + i
+  // reads slots 2 qd + i / 2 .. + 2
+  constexpr int kQuads = 2 * kDW / 4;
+  for (int t = threadIdx.x; t < 2 * kDH * kQuads; t += kThreads) {
+    const int rr = t / kQuads, qd = t - rr * kQuads;
+    const int row = 2 * D0 + rr, col = 2 * E0 + 4 * qd;
+    if (row >= a.h || col >= a.w) continue;
+    const double e0 = uv[rr][0][qd], e1 = uv[rr][1][qd], e2 = uv[rr][0][qd + 1],
+                 e3 = uv[rr][1][qd + 1];
+    const float up[4] = {gain4(phase_even(e0, e1, e2)), gain4(phase_odd(e1, e2)),
+                         gain4(phase_even(e1, e2, e3)), gain4(phase_odd(e2, e3))};
+    const float* cur = &cs[rr + 4][4 * qd + 4];
+    float* out = a.band + (size_t)row * a.w + col;
+    if (a.vec_out && col + 4 <= a.w) {
+      const float4 c4 = *reinterpret_cast<const float4*>(cur);
+      *reinterpret_cast<float4*>(out) =
+          make_float4(__fsub_rn(c4.x, up[0]), __fsub_rn(c4.y, up[1]), __fsub_rn(c4.z, up[2]),
+                      __fsub_rn(c4.w, up[3]));
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (col + i < a.w) out[i] = __fsub_rn(cur[i], up[i]);
+    }
+  }
+}
+
+// ----------------------------------------------------------------------
+// the expand step (modes 0, 1, 2), whole images and row windows
+// ----------------------------------------------------------------------
+
+struct UpArgs {
+  const float* small;  // rows [s0, s0 + srows) of the [src, src] small image
+  float* out;          // rows [r0, r1) of the [n, n] result
+  const void* other;   // mode 1: cur, mode 2: the band, both rows [r0, r1)
+  int s0, srows, n, src, r0, r1, poly, other_bf16, vec_in, vec_out, vec_other;
+};
+
+// out = up (mode 0), cur - up (1) or up + band (2) at four adjacent columns,
+// the band or cur at `x`
+template <int kMode>
+__device__ __forceinline__ void store4(const UpArgs& a, size_t idx, int valid, const float* up,
+                                       const float* x) {
+  float o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    o[i] = kMode == 0 ? up[i] : kMode == 1 ? __fsub_rn(x[i], up[i]) : __fadd_rn(up[i], x[i]);
+  if (a.vec_out && valid == 4) {
+    *reinterpret_cast<float4*>(a.out + idx) = make_float4(o[0], o[1], o[2], o[3]);
+  } else {
+    for (int i = 0; i < valid; ++i) a.out[idx + i] = o[i];
+  }
+}
+
 template <int kMode>
 __global__ void __launch_bounds__(kThreads) upsample_smooth_kernel(UpArgs a) {
-  const int rb = a.r0 + blockIdx.y * kOutH;
-  const int cb = blockIdx.x * kOutW;  // even
+  const int rb = a.r0 + blockIdx.y * kUpH;
+  const int cb = blockIdx.x * kUpW;  // even
+  const int rend = min(rb + kUpH, a.r1);
+  constexpr int kQuads = kUpW / 4;
   if (!a.poly) {
-    for (int t = threadIdx.x; t < kOutH * kOutW; t += kThreads) {
-      const int row = rb + t / kOutW, col = cb + t % kOutW;
-      if (row < a.r1 && col < a.n) store<kMode>(a, row, col, upsample_pixel_small(a, row, col));
+    // below the polyphase size: the whole small image (s0 = 0), one pixel a
+    // thread's quad column
+    for (int t = threadIdx.x; t < kUpH * kQuads; t += kThreads) {
+      const int row = rb + t / kQuads, col = cb + 4 * (t % kQuads);
+      if (row >= rend || col >= a.n) continue;
+      float up[4] = {0.f, 0.f, 0.f, 0.f}, x[4] = {0.f, 0.f, 0.f, 0.f};
+      const int valid = min(4, a.n - col);
+      const size_t idx = (size_t)(row - a.r0) * a.n + col;
+      for (int i = 0; i < valid; ++i) {
+        up[i] = upsample_pixel_small(a.small, a.src, a.n, row, col + i);
+        if (kMode != 0)
+          x[i] = kMode == 2 && a.other_bf16
+                     ? bf16_bits(static_cast<const unsigned short*>(a.other)[idx + i])
+                     : static_cast<const float*>(a.other)[idx + i];
+      }
+      store4<kMode>(a, idx, valid, up, x);
     }
     return;
   }
-  __shared__ double vsum[kOutH][kUpCols];
-  // vertical phase of output row rb + r at small column position cb/2 - 1 + i
-  for (int t = threadIdx.x; t < kOutH * kUpCols; t += kThreads) {
-    const int r = t / kUpCols, i = t - r * kUpCols;
-    const int row = rb + r, q = cb / 2 - 1 + i;
-    double s = 0.0;
-    if (row < a.r1 && q <= a.src) {
-      const int col = extend(a, q), j = row >> 1;
-      if ((row & 1) == 0) {
-        s = __dmul_rn(kW0, (double)small_at(a, extend(a, j - 1), col));
-        s = __dadd_rn(s, __dmul_rn(kW2, (double)small_at(a, extend(a, j), col)));
-        s = __dadd_rn(s, __dmul_rn(kW0, (double)small_at(a, extend(a, j + 1), col)));
+  __shared__ __align__(16) float ss[kSmallRows][kSmallCols];
+  __shared__ double uv[kUpH][2][kUpSlots / 2];
+  // mode 1 or 2: the tile of cur or the band (float32, or bf16 bits)
+  __shared__ __align__(16) unsigned char ot[kMode == 0 ? 16 : kUpH * kUpW * 4];
+  __shared__ unsigned rtab[kUpH];
+  __shared__ unsigned char ctab[kUpSlots];
+  // small row positions P0 .. P1 and column positions Q0 .. Q0 + 33 that the
+  // tile reads; their rows and columns through the extension lie in the
+  // staged ranges (-1 -> 1, src -> n - 1 - src >= P0)
+  const int P0 = (rb >> 1) - 1, P1 = ((rend - 1) >> 1) + 1, Q0 = cb / 2 - 1;
+  const int rbase = max(P0, 0), cbase = max(Q0, 0) & ~3;
+  const int cend = min(cb + kUpW, a.n);
+  stage(&ss[0][0], kSmallCols, rbase, cbase, a.small, a.s0, a.src, max(rbase, a.s0),
+        min(min(P1 + 1, a.src), a.s0 + a.srows), max(Q0, 0),
+        min(min(Q0 + kUpSlots, a.src), cbase + kSmallCols), a.vec_in);
+  if (kMode == 1 || (kMode == 2 && !a.other_bf16)) {
+    stage(reinterpret_cast<float*>(ot), kUpW, rb, cb, static_cast<const float*>(a.other), a.r0,
+          a.n, rb, rend, cb, cend, a.vec_other);
+  } else if (kMode == 2) {
+    // bf16: 16 bytes (8 pixels) where the row width and alignment allow
+    unsigned short* dst = reinterpret_cast<unsigned short*>(ot);
+    const unsigned short* src = static_cast<const unsigned short*>(a.other);
+    for (int t = threadIdx.x; t < (rend - rb) * (kUpW / 8); t += kThreads) {
+      const int r = rb + t / (kUpW / 8), c = cb + 8 * (t % (kUpW / 8));
+      const size_t off = (size_t)(r - a.r0) * a.n + c;
+      unsigned short* d = dst + (r - rb) * kUpW + (c - cb);
+      if (a.vec_other && c + 8 <= cend) {
+        cp_async16(d, src + off);
       } else {
-        s = __dmul_rn(kW1, (double)small_at(a, extend(a, j), col));
-        s = __dadd_rn(s, __dmul_rn(kW1, (double)small_at(a, extend(a, j + 1), col)));
+        for (int e = 0; e < 8 && c + e < cend; ++e) d[e] = src[off + e];
       }
     }
-    vsum[r][i] = s;
+  }
+  // while the copies land: output row rb + rr reads staged rows rtab[rr]
+  // (bytes 0, 1, 2: positions j - 1, j, j + 1), slot column b (position
+  // Q0 + b) staged column ctab[b]
+  for (int t = threadIdx.x; t < kUpH + kUpSlots; t += kThreads) {
+    if (t < kUpH) {
+      const int j = (rb + t) >> 1;
+      unsigned packed = 0;
+      if (rb + t < rend)
+        for (int m = 0; m < 3; ++m) packed |= (unsigned)(extend(j - 1 + m, a.src, a.n) - rbase) << (8 * m);
+      rtab[t] = packed;
+    } else {
+      const int q = Q0 + t - kUpH;
+      ctab[t - kUpH] = (unsigned char)(q <= a.src ? extend(q, a.src, a.n) - cbase : 0);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  // vertical phase of output row rb + rr at slot column b
+  for (int t = threadIdx.x; t < kUpH * kUpSlots; t += kThreads) {
+    const int rr = t / kUpSlots, b = t - rr * kUpSlots, c = ctab[b];
+    const unsigned r = rtab[rr];
+    const double e1 = ss[(r >> 8) & 0xff][c], e2 = ss[(r >> 16) & 0xff][c];
+    uv[rr][b & 1][b >> 1] = ((rb + rr) & 1) ? phase_odd_f32(e1, e2)
+                                            : phase_even_f32(ss[r & 0xff][c], e1, e2);
   }
   __syncthreads();
-  // horizontal phase: column col reads positions k - 1, k, k + 1 (k = col / 2)
-  for (int t = threadIdx.x; t < kOutH * kOutW; t += kThreads) {
-    const int r = t / kOutW, c = t - r * kOutW;
-    const int row = rb + r, col = cb + c;
-    if (row >= a.r1 || col >= a.n) continue;
-    const double* e = &vsum[r][c >> 1];
-    double s;
-    if ((col & 1) == 0) {
-      s = __dmul_rn(kW0, e[0]);
-      s = __dadd_rn(s, __dmul_rn(kW2, e[1]));
-      s = __dadd_rn(s, __dmul_rn(kW0, e[2]));
-    } else {
-      s = __dmul_rn(kW1, e[1]);
-      s = __dadd_rn(s, __dmul_rn(kW1, e[2]));
+  // horizontal phase, four adjacent columns a thread: column cb + 4 qd + i
+  // reads slots 2 qd + i / 2 .. + 2
+  for (int t = threadIdx.x; t < kUpH * kQuads; t += kThreads) {
+    const int rr = t / kQuads, qd = t - rr * kQuads;
+    const int row = rb + rr, col = cb + 4 * qd;
+    if (row >= rend || col >= a.n) continue;
+    const double e0 = uv[rr][0][qd], e1 = uv[rr][1][qd], e2 = uv[rr][0][qd + 1],
+                 e3 = uv[rr][1][qd + 1];
+    const float up[4] = {gain4(phase_even(e0, e1, e2)), gain4(phase_odd(e1, e2)),
+                         gain4(phase_even(e1, e2, e3)), gain4(phase_odd(e2, e3))};
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (kMode == 1 || (kMode == 2 && !a.other_bf16)) {
+      const float* o = reinterpret_cast<const float*>(ot) + rr * kUpW + 4 * qd;
+      x[0] = o[0], x[1] = o[1], x[2] = o[2], x[3] = o[3];
+    } else if (kMode == 2) {
+      const unsigned short* o = reinterpret_cast<const unsigned short*>(ot) + rr * kUpW + 4 * qd;
+      x[0] = bf16_bits(o[0]), x[1] = bf16_bits(o[1]), x[2] = bf16_bits(o[2]), x[3] = bf16_bits(o[3]);
     }
-    store<kMode>(a, row, col, __fmul_rn(__double2float_rn(s), 4.0f));
+    store4<kMode>(a, (size_t)(row - a.r0) * a.n + col, min(4, a.n - col), up, x);
   }
 }
+
+// ----------------------------------------------------------------------
+// the coarse levels: one block through the ladder's or the expand's tail
+// ----------------------------------------------------------------------
+
+struct TailArgs {
+  const float* src;              // ladder: the level at the cut; expand: the top
+  float* bands[kMaxTail];        // ladder: each level's band, the cut's first
+  float* downs[kMaxTail];        // ladder: each level's down
+  const void* adds[kMaxTail];    // expand: each level's band, the largest first
+  float* recon;                  // expand: the result, [size, size]
+  int size, levels, bf16_mask;   // size: the cut level's (the largest) px
+};
+
+// a level's maps: mt[p + 2] = mirror(p, n) for p in [-2, n + 1], et[p + 1] =
+// extend(p, ceil(n/2), n) for p in [-1, ceil(n/2)]
+struct TailTables {
+  short mt[kTailMax + 4];
+  short et[kTailMax / 2 + 2];
+};
+
+__device__ __forceinline__ void tail_tables(int n, TailTables& tb) {
+  const int src = (n + 1) / 2;
+  for (int t = threadIdx.x; t < n + 4 + src + 2; t += blockDim.x) {
+    if (t < n + 4) {
+      tb.mt[t] = (short)mirror(t - 2, n);
+    } else {
+      tb.et[t - n - 4] = (short)extend(t - n - 5, src, n);
+    }
+  }
+}
+
+// the vertical sum of the s x s image c at down row j, column col
+__device__ __forceinline__ double tail_vsum(const double* c, int s, const short* mt, int j,
+                                            int col) {
+  const short* r = mt + 2 * j;  // rows of positions 2j - 2 .. 2j + 2
+  double q[5];
+#pragma unroll
+  for (int m = 0; m < 5; ++m) {
+    const double v = c[max((int)r[m], 0) * s + col];
+    q[m] = r[m] >= 0 ? v : 0.0;
+  }
+  return taps5_f32(q[0], q[1], q[2], q[3], q[4]);
+}
+
+// the down step of the s x s image c (shared, float64) into d (shared,
+// float64 of the float32 result) and down (device memory); vs: ceil(s/2) x
+// s doubles
+__device__ void tail_down(const double* c, int s, const TailTables& tb, double* vs, double* d,
+                          float* down) {
+  const int ds = (s + 1) / 2, tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int j = ty; j < ds; j += 32)
+    for (int col = tx; col < s; col += 32) vs[j * s + col] = tail_vsum(c, s, tb.mt, j, col);
+  __syncthreads();
+  for (int j = ty; j < ds; j += 32) {
+    for (int k = tx; k < ds; k += 32) {
+      const short* cc = tb.mt + 2 * k;  // columns of positions 2k - 2 .. 2k + 2
+      double h[5];
+#pragma unroll
+      for (int m = 0; m < 5; ++m) {
+        const double v = vs[j * s + max((int)cc[m], 0)];
+        h[m] = cc[m] >= 0 ? v : 0.0;
+      }
+      const float v = __double2float_rn(taps5(h[0], h[1], h[2], h[3], h[4]));
+      d[j * ds + k] = (double)v;
+      down[j * ds + k] = v;
+    }
+  }
+  __syncthreads();
+}
+
+// the expand of the ceil(n/2)-px image sm (shared, float64) to n px: out
+// (row, col, up) takes each pixel; uv: n x ceil(n/2) doubles; `next`, when
+// not null, gets the next level's tables during the last pass
+template <typename Out>
+__device__ void tail_up(const double* sm, int n, const TailTables& tb, double* uv, Out out,
+                        int next_n, TailTables* next) {
+  const int src = (n + 1) / 2, tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const bool poly = polyphase(n);
+  if (poly) {
+    for (int row = ty; row < n; row += 32) {
+      const short* r = tb.et + (row >> 1);  // rows of positions j - 1, j, j + 1
+      for (int q = tx; q < src; q += 32) {
+        const double e1 = sm[r[1] * src + q], e2 = sm[r[2] * src + q];
+        uv[row * src + q] =
+            (row & 1) ? phase_odd_f32(e1, e2) : phase_even_f32(sm[r[0] * src + q], e1, e2);
+      }
+    }
+    __syncthreads();
+  }
+  if (next != nullptr) tail_tables(next_n, *next);
+  for (int row = ty; row < n; row += 32) {
+    for (int col = tx; col < n; col += 32) {
+      float up;
+      if (poly) {
+        const double* e = uv + row * src;
+        const short* c = tb.et + (col >> 1);
+        const double e1 = e[c[1]], e2 = e[c[2]];
+        up = gain4((col & 1) ? phase_odd(e1, e2) : phase_even(e[c[0]], e1, e2));
+      } else {
+        up = upsample_pixel_small(sm, src, n, row, col);
+      }
+      out(row, col, up);
+    }
+  }
+  __syncthreads();
+}
+
+// dynamic shared memory: [doubles: ceil(size/2) x size][A][B][tables x 2]
+// (the expand: [its bands, each at a 16-byte boundary] after them), A and B
+// float64 images: the ladder's A holds size^2 and B ceil(size/2)^2 (the
+// levels alternate between them), the expand's both ceil(size/2)^2.  The
+// input lands as float32 in the first buffer (cp.async) and is converted.
+struct TailLayout {
+  size_t a, b, tables, bands, total;
+};
+
+__host__ __device__ inline size_t round16(size_t n) { return (n + 15) / 16 * 16; }
+
+__host__ __device__ inline TailLayout tail_layout(int size, bool expand, size_t band_bytes) {
+  const size_t ds = (size_t)(size + 1) / 2;
+  TailLayout l;
+  l.a = 8 * ds * size;
+  l.b = l.a + 8 * (expand ? ds * ds : (size_t)size * size);
+  l.tables = l.b + 8 * ds * ds;
+  l.bands = round16(l.tables + 2 * sizeof(TailTables));
+  l.total = l.bands + band_bytes;
+  return l;
+}
+
+template <bool kExpand>
+__global__ void __launch_bounds__(kTailThreads) pyramid_tail_kernel(TailArgs a, size_t band_bytes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TailLayout l = tail_layout(a.size, kExpand, band_bytes);
+  double* work = reinterpret_cast<double*>(smem);
+  double* A = reinterpret_cast<double*>(smem + l.a);
+  double* B = reinterpret_cast<double*>(smem + l.b);
+  TailTables* tables = reinterpret_cast<TailTables*>(smem + l.tables);
+  float* staged = reinterpret_cast<float*>(work);
+  if (!kExpand) {
+    const int n_in = a.size * a.size;
+    for (int t = threadIdx.x; t < n_in; t += blockDim.x) cp_async4(staged + t, a.src + t);
+    tail_tables(a.size, tables[0]);
+    cp_async_wait_all();
+    __syncthreads();
+    for (int t = threadIdx.x; t < n_in; t += blockDim.x) A[t] = (double)staged[t];
+    __syncthreads();
+    double *c = A, *d = B;
+    int s = a.size;
+    for (int l = 0; l < a.levels; ++l) {
+      const TailTables& tb = tables[l & 1];
+      const int ds = (s + 1) / 2;
+      tail_down(c, s, tb, work, d, a.downs[l]);
+      float* band = a.bands[l];
+      const double* cur = c;
+      tail_up(d, s, tb, work,
+              [=](int row, int col, float up) {
+                band[row * s + col] = __fsub_rn(__double2float_rn(cur[row * s + col]), up);
+              },
+              ds, l + 1 < a.levels ? &tables[(l + 1) & 1] : nullptr);
+      double* t = c;
+      c = d;
+      d = t;
+      s = ds;
+    }
+    return;
+  }
+  // the expand: the levels' sizes from the largest, the top's; the top and
+  // every band staged at the start
+  int sizes[kMaxTail];
+  sizes[0] = a.size;
+  for (int l = 1; l < a.levels; ++l) sizes[l] = (sizes[l - 1] + 1) / 2;
+  const int top = (sizes[a.levels - 1] + 1) / 2;
+  for (int t = threadIdx.x; t < top * top; t += blockDim.x) cp_async4(staged + t, a.src + t);
+  unsigned char* bands = smem + l.bands;
+  size_t off = 0;
+  const void* band_at[kMaxTail];
+  for (int l = 0; l < a.levels; ++l) {
+    const int n = sizes[l] * sizes[l];
+    const bool bf16 = (a.bf16_mask >> l) & 1;
+    band_at[l] = bands + off;
+    if (!bf16) {
+      for (int t = threadIdx.x; t < n; t += blockDim.x)
+        cp_async4(reinterpret_cast<float*>(bands + off) + t, static_cast<const float*>(a.adds[l]) + t);
+    } else {
+      unsigned short* dst = reinterpret_cast<unsigned short*>(bands + off);
+      const unsigned short* src = static_cast<const unsigned short*>(a.adds[l]);
+      const bool words = (reinterpret_cast<uintptr_t>(src) & 3) == 0;
+      const int pairs = words ? n / 2 : 0;
+      for (int t = threadIdx.x; t < pairs; t += blockDim.x) cp_async4(dst + 2 * t, src + 2 * t);
+      for (int t = 2 * pairs + threadIdx.x; t < n; t += blockDim.x) dst[t] = src[t];
+    }
+    off += round16((size_t)n * (bf16 ? 2 : 4));
+  }
+  tail_tables(sizes[a.levels - 1], tables[(a.levels - 1) & 1]);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int t = threadIdx.x; t < top * top; t += blockDim.x) A[t] = (double)staged[t];
+  __syncthreads();
+  double *sm = A, *o = B;
+  for (int l = a.levels - 1; l >= 0; --l) {
+    const int n = sizes[l];
+    const bool bf16 = (a.bf16_mask >> l) & 1;
+    const void* band = band_at[l];
+    const auto add = [=](int row, int col) {
+      const int i = row * n + col;
+      return bf16 ? bf16_bits(static_cast<const unsigned short*>(band)[i])
+                  : static_cast<const float*>(band)[i];
+    };
+    TailTables* next = l > 0 ? &tables[(l - 1) & 1] : nullptr;
+    const int next_n = l > 0 ? sizes[l - 1] : 0;
+    if (l == 0) {
+      float* recon = a.recon;
+      tail_up(sm, n, tables[l & 1], work,
+              [=](int row, int col, float up) { recon[row * n + col] = __fadd_rn(up, add(row, col)); },
+              next_n, next);
+    } else {
+      double* dst = o;
+      tail_up(sm, n, tables[l & 1], work,
+              [=](int row, int col, float up) {
+                dst[row * n + col] = (double)__fadd_rn(up, add(row, col));
+              },
+              next_n, next);
+    }
+    double* t = sm;
+    sm = o;
+    o = t;
+  }
+}
+
+bool aligned(const void* p, size_t n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
 
 }  // namespace
 
 extern "C" {
 
-// out [j1 - j0, ceil(w/2)] float32 = rows [j0, j1) of smooth_downsample of an
+// dn [j1 - j0, ceil(w/2)] float32 = rows [j0, j1) of smooth_downsample of an
 // [h, w] float32 image, from x [xrows, w], its rows [x0, x0 + xrows), which
 // must hold every row the window's taps read (ops/pyramid.py::needed_rows).
-// Returns a cudaError_t.
-int musica_smooth_downsample(const float* x, int x0, int xrows, int h, int w, float* out,
-                             int j0, int j1, void* stream) {
+// With band (a [h, w] float32 output): the fused step of a whole square
+// image at the expand's polyphase size (x0 = 0, xrows = h = w >= 6, j0 = 0,
+// j1 = ceil(h/2)), band = x - upsample_smooth(dn, h).  Returns a
+// cudaError_t.
+int musica_reduce_step(const float* x, int x0, int xrows, int h, int w, float* dn, int j0, int j1,
+                       float* band, void* stream) {
   const int dh = (h + 1) / 2, dw = (w + 1) / 2;
   if (h < 1 || w < 1 || j0 < 0 || j1 <= j0 || j1 > dh || x0 < 0 || xrows < 1 ||
       x0 + xrows > h)
     return (int)cudaErrorInvalidValue;
-  DownArgs a = {x, out, x0, xrows, h, w, j0, j1, dw};
-  const dim3 grid((dw + kOutW - 1) / kOutW, (j1 - j0 + kOutH - 1) / kOutH);
-  smooth_downsample_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  if (band != nullptr &&
+      (h != w || !(h >= 6) || x0 != 0 || xrows != h || j0 != 0 || j1 != dh))
+    return (int)cudaErrorInvalidValue;
+  StepArgs a = {x, dn, band, x0, xrows, h, w, j0, j1, dh, dw,
+                w % 4 == 0 && aligned(x, 16), w % 4 == 0 && aligned(band, 16)};
+  const dim3 grid((dw + kDW - 1) / kDW, (j1 - j0 + kDH - 1) / kDH);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (band != nullptr) {
+    reduce_step_kernel<true><<<grid, kThreads, 0, s>>>(a);
+  } else {
+    reduce_step_kernel<false><<<grid, kThreads, 0, s>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -270,12 +832,16 @@ int musica_upsample_smooth(const float* small, int s0, int srows, int n, float* 
                            int r1, int mode, const void* other, int other_bf16,
                            void* stream) {
   const int src = (n + 1) / 2;
+  const bool poly = n >= 6 && src >= 3;
   if (n < 1 || r0 < 0 || r1 <= r0 || r1 > n || s0 < 0 || srows < 1 || s0 + srows > src ||
-      mode < 0 || mode > 2 || (mode != 0 && other == nullptr))
+      mode < 0 || mode > 2 || (mode != 0 && other == nullptr) ||
+      (!poly && (s0 != 0 || srows != src)))
     return (int)cudaErrorInvalidValue;
-  UpArgs a = {small, out, other, s0, srows, n, src, n - 1 - src, r0, r1,
-              n >= 6 && src >= 3, other_bf16};
-  const dim3 grid((n + kOutW - 1) / kOutW, (r1 - r0 + kOutH - 1) / kOutH);
+  // 16-byte copies of cur or the band: 4 float32 or 8 bf16 pixels
+  const bool vec_other = mode != 0 && n % (other_bf16 ? 8 : 4) == 0 && aligned(other, 16);
+  UpArgs a = {small, out, other, s0, srows, n, src, r0, r1, poly, other_bf16,
+              src % 4 == 0 && aligned(small, 16), n % 4 == 0 && aligned(out, 16), vec_other};
+  const dim3 grid((n + kUpW - 1) / kUpW, (r1 - r0 + kUpH - 1) / kUpH);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == 0) {
     upsample_smooth_kernel<0><<<grid, kThreads, 0, s>>>(a);
@@ -284,6 +850,57 @@ int musica_upsample_smooth(const float* small, int s0, int srows, int n, float* 
   } else {
     upsample_smooth_kernel<2><<<grid, kThreads, 0, s>>>(a);
   }
+  return (int)cudaGetLastError();
+}
+
+// The ladder's tail: `levels` levels from cur [size, size] float32, level l
+// writing its band [s_l, s_l] to bands[l] and its down [s_{l+1}, s_{l+1}]
+// to downs[l] (s_0 = size, s_{l+1} = ceil(s_l / 2)); one block, the levels
+// in shared memory.  Returns a cudaError_t.
+int musica_reduce_tail(const float* cur, int size, int levels, float* const* bands,
+                       float* const* downs, void* stream) {
+  if (size < 1 || size > kTailMax || levels < 1 || levels > kMaxTail)
+    return (int)cudaErrorInvalidValue;
+  TailArgs a = {};
+  a.src = cur;
+  a.size = size;
+  a.levels = levels;
+  for (int l = 0; l < levels; ++l) {
+    a.bands[l] = bands[l];
+    a.downs[l] = downs[l];
+  }
+  const size_t smem = tail_layout(size, false, 0).total;
+  int e = allow_shared(pyramid_tail_kernel<false>, smem);
+  if (e != (int)cudaSuccess) return e;
+  pyramid_tail_kernel<false><<<1, kTailThreads, smem, static_cast<cudaStream_t>(stream)>>>(a, 0);
+  return (int)cudaGetLastError();
+}
+
+// The expand's tail: recon [size, size] float32 from top [t, t] through
+// `levels` bands, adds[l] [s_l, s_l] (s_0 = size, s_{l+1} = ceil(s_l / 2),
+// t = ceil(s_{levels-1} / 2)), the coarsest first: recon_l = up(recon_{l+1})
+// + adds[l], a bf16 band where bit l of bf16_mask is set.  One block, the
+// levels in shared memory.  Returns a cudaError_t.
+int musica_expand_tail(const float* top, int size, int levels, const void* const* adds,
+                       int bf16_mask, float* recon, void* stream) {
+  if (size < 1 || size > kTailMax || levels < 1 || levels > kMaxTail)
+    return (int)cudaErrorInvalidValue;
+  TailArgs a = {};
+  a.src = top;
+  a.recon = recon;
+  a.size = size;
+  a.levels = levels;
+  a.bf16_mask = bf16_mask;
+  size_t band_bytes = 0;
+  for (int l = 0, s = size; l < levels; ++l, s = (s + 1) / 2) {
+    a.adds[l] = adds[l];
+    band_bytes += round16((size_t)s * s * ((bf16_mask >> l) & 1 ? 2 : 4));
+  }
+  const size_t smem = tail_layout(size, true, band_bytes).total;
+  int e = allow_shared(pyramid_tail_kernel<true>, smem);
+  if (e != (int)cudaSuccess) return e;
+  pyramid_tail_kernel<true><<<1, kTailThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      a, band_bytes);
   return (int)cudaGetLastError();
 }
 

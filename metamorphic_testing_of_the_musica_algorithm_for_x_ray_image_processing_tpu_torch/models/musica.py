@@ -173,13 +173,17 @@ def _forward(img_u16: torch.Tensor, cfg: MusicaConfig, want_intermediates: bool,
     # ---- phase 6: pyramid expand -------------------------------------------
     # only levels < cnr_level - 1 consume the noise-reduced bandpass
     with phase("expand"):
-        recon = downs[L - 1]
-        for i in range(L):
-            lvl = L - 1 - i
-            band = nr_bandpass[lvl] if lvl < cfg.cnr_level - 1 else exp_bandpass[lvl]
-            if want_intermediates:
+        bands_in = [nr_bandpass[lvl] if lvl < cfg.cnr_level - 1 else exp_bandpass[lvl]
+                    for lvl in range(L)]
+        if want_intermediates:
+            # exp_lowpass_{i} needs every level's expand: a step a level
+            recon = downs[L - 1]
+            for i in range(L):
+                band = bands_in[L - 1 - i]
                 inter[f"exp_lowpass_{i}"] = pyramid.upsample_smooth(recon, band.shape[-1])
-            recon = pyramid.upsample_add(recon, band)
+                recon = pyramid.upsample_add(recon, band)
+        else:
+            recon = pyramid.expand_ladder(downs[L - 1], bands_in)
 
     # ---- phase 7: gradation -------------------------------------------------
     # GRAD_WITH_LINEAR_IMAGE (shaders/img_linear.comp): the gradation

@@ -27,10 +27,10 @@ window reads.
 
 The functions named ``*_plain`` are the plain versions.  The public names
 (``smooth_downsample``, ``upsample_smooth``, their ``*_rows`` forms,
-``reduce_ladder`` and the fused ``upsample_subtract`` / ``upsample_add``)
-dispatch by device through ``ops/cuda/pyramid.py``: a CPU tensor runs the
-plain version, a CUDA tensor launches the hand-written kernels of
-``csrc/pyramid.cu`` (the same sums in the same order) or raises.
+``reduce_ladder``, ``expand_ladder`` and the fused ``upsample_subtract`` /
+``upsample_add``) dispatch by device through ``ops/cuda/pyramid.py``: a CPU
+tensor runs the plain version, a CUDA tensor launches the hand-written
+kernels of ``csrc/pyramid.cu`` (the same sums in the same order) or raises.
 """
 
 from __future__ import annotations
@@ -237,6 +237,16 @@ def reduce_ladder_plain(normalized: torch.Tensor, levels: int):
     return bandpass, downs
 
 
+def expand_ladder_plain(top: torch.Tensor, bands) -> torch.Tensor:
+    """The pyramid-expand ladder: ``top`` (the reduce ladder's last down)
+    expanded through ``bands`` (level 0 first, float32 or bf16), an expand
+    and a float32 addition a level, the coarsest first."""
+    recon = top
+    for band in reversed(list(bands)):
+        recon = upsample_smooth_plain(recon, band.shape[-1]) + band.float()
+    return recon
+
+
 # ----------------------------------------------------------------------
 # row windows (the spatial path)
 # ----------------------------------------------------------------------
@@ -441,12 +451,19 @@ def upsample_add(small: torch.Tensor, band: torch.Tensor, s0: int = 0,
 
 def reduce_ladder(normalized: torch.Tensor, levels: int):
     """The pyramid-reduce ladder: (bandpass list, downs list), equal to
-    ``reduce_ladder_plain``'s; on a CUDA device two launches a level."""
-    bandpass, downs = [], []
-    cur = normalized
-    for _ in range(levels):
-        dn = smooth_downsample(cur)
-        bandpass.append(upsample_subtract(cur, dn))
-        downs.append(dn)
-        cur = dn
-    return bandpass, downs
+    ``reduce_ladder_plain``'s; on a CUDA device one fused launch a level
+    down to the coarse levels, which one more launch takes."""
+    from .cuda import pyramid as kp
+
+    return kp.reduce_ladder(normalized, levels)
+
+
+def expand_ladder(top: torch.Tensor, bands) -> torch.Tensor:
+    """The pyramid-expand ladder: ``top`` (the reduce ladder's last down)
+    expanded through ``bands`` (level 0 first, float32 or bf16) into the
+    reconstruction, equal to ``expand_ladder_plain``'s and to an
+    ``upsample_add`` a level; on a CUDA device one launch for the coarse
+    levels, then one a level."""
+    from .cuda import pyramid as kp
+
+    return kp.expand_ladder(top, bands)

@@ -408,12 +408,8 @@ def forward(img_u16, cfg: MusicaConfig, entries: Sequence[Entry],
         it as float32)."""
         return (nr_bandpass[k] if k < cfg.cnr_level - 1 else exp_bandpass[k])[i]
 
-    def coarse(i):
-        recon = top[i]
-        for k in range(L - 1, R - 1, -1):
-            recon = pyramid.upsample_add(recon, band_of(k, i))
-        return recon
-    recon_w = row.each(coarse)
+    recon_w = row.each(lambda i: pyramid.expand_ladder(top[i], [band_of(k, i)
+                                                                 for k in range(R, L)]))
     k = R - 1
     recon = row.each(lambda i: pyramid.upsample_add(recon_w[i], band_of(k, i), 0,
                                                     plan.rows(k, i)[0]))

@@ -1026,9 +1026,12 @@ def test_spatial_variants_on_card_equal_eager(dev, variant):
     else:
         want_counts = {"noise_hist": 8, "hist_argmax": 2, "grad_hist": 8, "histogram": 8,
                        "clahe_apply": 8}
-    # KP1 once a level, KP2 once a band and once an expand step, per shard
-    L = cfg.pyramid_levels
-    want_counts.update({"pyramid_down": 8 * L, "pyramid_up": 16 * L})
+    # per image over 1x4 (R = 7 sharded levels of L = 9): the down step and
+    # a band on each shard at the 7 sharded levels, an expand step on each
+    # at the 7 on the way back; the 2 coarse levels (4 and 2 px) one ladder
+    # tail and one expand tail on each entry
+    want_counts.update({"pyramid_down": 2 * 4 * 7, "pyramid_up": 2 * 2 * 4 * 7,
+                        "pyramid_tail": 2 * 2 * 4})
     assert counts == {k: want_counts.get(k, 0) for k in counts}, counts
 
 
@@ -1219,10 +1222,16 @@ def test_pyramid_kernels_equal_plain_on_spatial_windows(dev, n, tile):
                           k_pyr.upsample_add_plain(s, band, lo, a)), (h, a)
 
 
+def _pyramid_counts():
+    return tuple(launch.LAUNCHES[k] for k in ("pyramid_down", "pyramid_up", "pyramid_tail"))
+
+
 def test_pyramid_kernels_on_the_main_path(dev):
-    """A replay launches KP1 once a level and KP2 twice (a band, an expand
-    step); the intermediates path KP2 once more a level; the ladder equals
-    its plain version on the thorax."""
+    """At 512 (9 levels) a replay launches the fused step at 512 .. 64 px,
+    one ladder tail from 32 px, one expand tail up to 32 px and an expand
+    step at 64 .. 512; the intermediates path the ladder's five and an
+    expand and an expand step a level; the ladder and the expand equal
+    their plain versions on the thorax."""
     cfg = MusicaConfig(image_size=512)
     L = cfg.pyramid_levels
     x = torch.from_numpy(synthetic_radiograph(512, "thorax")).to(dev)
@@ -1230,21 +1239,54 @@ def test_pyramid_kernels_on_the_main_path(dev):
     launch.reset_launch_counts()
     musica.process_jit(x, cfg)
     torch.cuda.synchronize()
-    assert (launch.LAUNCHES["pyramid_down"], launch.LAUNCHES["pyramid_up"]) == (L, 2 * L)
+    assert _pyramid_counts() == (4, 4, 2)
     launch.reset_launch_counts()
     res = musica.musica_forward(x, cfg, want_intermediates=True)
-    assert (launch.LAUNCHES["pyramid_down"], launch.LAUNCHES["pyramid_up"]) == (L, 3 * L)
+    assert _pyramid_counts() == (4, 18, 1)
     nrm = res["intermediates"]["normalized"]
-    for got, want in zip(sum(pyramid.reduce_ladder(nrm, L), []),
-                         sum(pyramid.reduce_ladder_plain(nrm, L), [])):
+    bands, downs = pyramid.reduce_ladder(nrm, L)
+    p_bands, p_downs = pyramid.reduce_ladder_plain(nrm, L)
+    for got, want in zip(bands + downs, p_bands + p_downs):
         assert _same_bits(got, want)
+    for b in (bands, [t.to(torch.bfloat16) for t in bands]):
+        assert _same_bits(pyramid.expand_ladder(downs[-1], b),
+                          pyramid.expand_ladder_plain(downs[-1], b))
+
+
+@pytest.mark.parametrize("n", [3072, 600, 144])
+def test_fused_step_and_tails_equal_plain_at_every_level(dev, n):
+    """The fused step (reduce_step_kernel<true>) at every level of an
+    n-px ladder at the expand's polyphase size, and both tails
+    (pyramid_tail_kernel) from every level they hold down through 1 px and
+    back (f32 and bf16 bands), equal their plain versions bit for bit on
+    the adversarial inputs and constant planes."""
+    rng = np.random.default_rng(n + 1)
+    sizes = pyramid_cases.level_sizes(n)
+    for i, h in enumerate(sizes):
+        for case in pyramid_cases.CASES:
+            x = _pyramid_data(rng, (h, h), case, dev)
+            if pyramid.polyphase(h):
+                for got, want in zip(k_pyr.reduce_step(x), k_pyr.reduce_step_plain(x)):
+                    assert _same_bits(got, want), (h, case)
+            if h > k_pyr.TAIL_MAX:
+                continue
+            levels = len(sizes) - i
+            bands, downs = k_pyr.reduce_tail(x, levels)
+            p_bands, p_downs = k_pyr.reduce_tail_plain(x, levels)
+            for got, want in zip(bands + downs, p_bands + p_downs):
+                assert _same_bits(got, want), (h, case, "ladder tail")
+            top = _pyramid_data(rng, tuple(downs[-1].shape), case, dev)
+            for b in (p_bands, [t.to(torch.bfloat16) for t in p_bands]):
+                assert _same_bits(k_pyr.expand_tail(top, b), k_pyr.expand_tail_plain(top, b)), \
+                    (h, case, "expand tail")
 
 
 def test_pyramid_kernels_on_every_card(dev):
-    """On each visible card, KP1 and KP2 (each mode, a bf16 band too)
-    launch on their tensors' card, count one launch each, and equal their
-    plain versions on the CPU bit for bit, on a whole level and on a row
-    window that starts on an odd row."""
+    """On each visible card, the down step, the fused step, the expand step
+    (each mode, a bf16 band too) and both tails launch on their tensors'
+    card, count one launch each, and equal their plain versions on the CPU
+    bit for bit, on a whole level and on a row window that starts on an odd
+    row."""
     rng = np.random.default_rng(11)
     n, src, (a, b) = 600, 300, (151, 450)
     x_np = pyramid_cases.adversarial(rng, (n, n))
@@ -1254,18 +1296,20 @@ def test_pyramid_kernels_on_every_card(dev):
 
     def steps(x, small):
         band = x.to(torch.bfloat16)
+        tb, td = k_pyr.reduce_tail(small[:75, :75].contiguous(), 8)
         return (k_pyr.smooth_downsample(x), k_pyr.smooth_downsample_rows(x[dlo:dhi].contiguous(),
                                                                           dlo, n, 76, 225),
                 k_pyr.upsample_smooth(small, n), k_pyr.upsample_subtract(x, small),
                 k_pyr.upsample_add(small, band),
-                k_pyr.upsample_add(small[lo:hi].contiguous(), band[a:b].contiguous(), lo, a))
+                k_pyr.upsample_add(small[lo:hi].contiguous(), band[a:b].contiguous(), lo, a),
+                *k_pyr.reduce_step(x), *tb, *td, k_pyr.expand_tail(td[-1], tb))
     want = steps(torch.from_numpy(x_np), torch.from_numpy(s_np))
     for k in range(torch.cuda.device_count()):
         card = torch.device("cuda", k)
         launch.reset_launch_counts()
         got = steps(torch.from_numpy(x_np).to(card), torch.from_numpy(s_np).to(card))
         torch.cuda.synchronize(card)
-        assert (launch.LAUNCHES["pyramid_down"], launch.LAUNCHES["pyramid_up"]) == (2, 4), k
+        assert _pyramid_counts() == (3, 4, 2), k
         for i, (g, w) in enumerate(zip(got, want)):
             assert g.device == card and _same_bits(g.cpu(), w), (k, i)
 
@@ -1283,3 +1327,9 @@ def test_pyramid_wrappers_reject_what_the_kernels_do_not_take(dev):
         k_pyr.upsample_subtract(x.to(torch.bfloat16), dn)
     with pytest.raises(ValueError):
         k_pyr.upsample_smooth_rows(dn[5:15], 5, 40, 9, 26)  # misses row 4
+    with pytest.raises(ValueError):
+        k_pyr.reduce_step(x[:5, :5].contiguous())  # below the polyphase size
+    with pytest.raises(ValueError):
+        k_pyr.reduce_tail(torch.rand(161, 161, device=dev), 2)  # past 227 KB
+    with pytest.raises(ValueError):
+        k_pyr.expand_tail(dn, [x, x])  # a 40-px band under a 40-px one
