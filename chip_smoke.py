@@ -22,7 +22,12 @@ step and the down step alone), KP2 (every mode, a bf16 band too) and the
 ladder's and the expand's tails (``pyramid_tail``) bit for bit at every level of 3072,
 600 and 144 on adversarial inputs, on the thorax's ladder and expand and on
 every row window of the spatial plans at 3072, 600 and 144 over 4 shards
-([3f]), drives
+([3f]), the tone map KT (graded bit for bit, NaN included, and out_u8
+equal) and the default analysis path's sdev KS (bit for bit) at 3072, 600
+and 144 on the gradation curves of every path, on adversarial curves and
+inputs, its tables against the plain version's, and on every shard window
+of the 1x4 and 2x2 plans, KS at every analysis level and on the shards'
+row windows ([3g]), drives
 the port's main path
 (``process`` on a 3072^2 uint16 radiograph, then the intermediates path of
 ``process --debug-dump``), the CLAHE + linear-gradation variant path
@@ -69,8 +74,9 @@ over the HBM rate, operations over the peak rate, at this run's inputs)
 and, where one exists, the one PyTorch call that computes the same function
 (``torch.argmax`` for the argmax, ``torch.bincount`` for the generic
 histogram, float64 ``F.conv2d`` and ``F.conv_transpose2d`` for the pyramid
-steps), with CUDA events; the folded argmax also as the difference
-between K1 (and K7) with and without it.
+steps, float64 ``F.avg_pool2d`` of the squares for KS), with CUDA events;
+the folded argmax also as the difference between K1 (and K7) with and
+without it.
 
 Every phase prints one line; any failure raises and exits non-zero.  The
 line before the last is a JSON object with one entry per kernel; the last
@@ -100,11 +106,15 @@ PALLAS_DIR = ("metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_"
 PALLAS = f"{PALLAS_DIR}/fused_hist.py"
 JAX_PYRAMID = ("metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_"
                "processing_tpu/ops/pyramid.py")
+JAX_OPS = "metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu/ops"
+JAX_MUSICA = ("metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_"
+              "processing_tpu/models/musica.py")
 SOURCES = {"noise_hist": "fused_hist.cu", "hist_argmax": "hist_argmax.cuh",
            "grad_hist_relevant": "fused_hist.cu", "grad_hist": "fused_hist.cu",
            "histogram": "histogram.cu", "clahe_apply": "clahe_apply.cu",
            "sdev_noise_hist": "sdev_noise.cu", "pyramid_down": "pyramid.cu",
-           "pyramid_up": "pyramid.cu", "pyramid_tail": "pyramid.cu"}
+           "pyramid_up": "pyramid.cu", "pyramid_tail": "pyramid.cu",
+           "sdev": "sdev_noise.cu", "tone_map": "tonemap.cu"}
 REPLACES = {
     "noise_hist": f"{PALLAS}:139 (_noise_kernel of noise_hist_fused; also the "
                   f"histogram of _noise_multi_kernel, :181)",
@@ -127,6 +137,10 @@ REPLACES = {
                   f"reduce_ladder's subtraction, :261, and models/musica.py:155's expand add)",
     "pyramid_tail": f"{JAX_PYRAMID}:261 (reduce_ladder's per-level tail, XLA, no Pallas kernel; "
                     f"and models/musica.py:150-157's expand loop on the coarse levels)",
+    "sdev": f"{JAX_OPS}/stats.py:27 (img_sdev, XLA, no Pallas kernel: every analysis level's "
+            f"sdev on the default path, {JAX_MUSICA}:106)",
+    "tone_map": f"{JAX_OPS}/curves.py:151 (curve_get_y_general, XLA, no Pallas kernel) with "
+                f"curve_apply_u8_adaptive, :221, as {JAX_MUSICA}:186-190 calls them",
 }
 # each hand-written kernel's CUDA kernel events as the profiler names them
 # (scripts/profile_torch.py matches them alike)
@@ -138,6 +152,8 @@ KERNEL_EVENTS = {
     "histogram": r"(?<![A-Za-z_])histogram_kernel\b",
     "clahe_apply": r"clahe_apply_kernel\b",
     "sdev_noise_hist": r"sdev_noise_hist_kernel\b",
+    "sdev": r"(?<![A-Za-z_])sdev_kernel\b",
+    "tone_map": r"tone_map_kernel<(true|false)>",
     "pyramid_down": r"reduce_step_kernel<(true|false)>",
     "pyramid_up": r"upsample_smooth_kernel<\d>",
     "pyramid_tail": r"pyramid_tail_kernel<(true|false)>",
@@ -230,6 +246,16 @@ class KernelRecord:
         self.err[kernel] = err if prev is None else max(prev, err)
         assert same, f"{kernel} [{case}] differs from its plain version (max |d| {err})"
         return same
+
+    def equal_bytes(self, kernel: str, case: str, got, want) -> None:
+        """Integer tensors exactly equal; records max |kernel - plain|
+        without a line of its own."""
+        import torch
+        assert got.shape == want.shape and got.dtype == want.dtype, (kernel, case)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
+        prev = self.err[kernel]
+        self.err[kernel] = err if prev is None else max(prev, err)
+        assert err == 0, f"{kernel} [{case}] differs from its plain version"
 
     def equal_float(self, kernel: str, case: str, got, want) -> None:
         """Equal NaN masks and max |kernel - plain| = 0 on finite values."""
@@ -811,6 +837,111 @@ def check_pyramid(rec, rng, dev, nrm, cfg):
             f"rows), each kernel and mode equal to its plain row-window version")
 
 
+def tone_inputs(x_dev, c, fused):
+    """(gradation input, gpx, gpy) of ``musica_forward`` of ``x_dev`` under
+    ``c``: the input its tone map reads and its gradation curve."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
+    res = musica.musica_forward(x_dev, c, want_intermediates=True, fused_sdev=fused)
+    gpx, gpy, _ = res["intermediates"]["grad_curve"]
+    return res["intermediates"].get("linear", res["recon"]), gpx, gpy
+
+
+# [3g]'s curves on row windows: two paths' and three adversarial ones
+WINDOW_CURVES = ("main", "CLAHE + linear", "fold-back", "infinite slope", "63 random")
+
+
+def check_tone_sdev(rec, rng, dev, variants):
+    """[3g]: KT (``tonemap.tone_map``) against its plain version: ``graded``
+    bit for bit (NaN where it has NaN) and ``out_u8`` equal, at 3072, 600
+    and 144 on the gradation input and curve of every path in ``variants``
+    (name, cfg, fused_sdev) and on the adversarial curves of
+    ``testing/tone_cases.py`` over images that hit every knot, its 1-ulp
+    neighbours and the special values (denormals too); the tables the
+    kernel's first block builds against ``curves.general_tables``; every
+    shard window of the 1x4 and 2x2 plans (4 and 2 shards; 12-px tiles at
+    144) and windows starting on odd rows and inside the margins, each
+    against its plain window and all put together against the whole.  KS
+    (``fused_hist.sdevs``) against ``img_sdev`` at every analysis level of
+    3072, 600 and 144 (a phantom's bands and random bands, also with a few
+    blocks whose task ranges cross levels) and on every shard's row
+    windows of the 4-shard plan (``img_sdev_rows``)."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import curves, stats
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import tonemap
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import tone_cases
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import (
+        synthetic_radiograph)
+
+    def same(got, want, what):
+        rec.equal_bits("tone_map", f"{what}, graded", got[0], want[0])
+        rec.equal_bytes("tone_map", f"{what}, out_u8", got[1], want[1])
+
+    for n, anatomy in ((SIZE, "thorax"), (600, "pelvis"), (144, "hand")):
+        m = 10
+        x_dev = torch.from_numpy(synthetic_radiograph(n, anatomy)).to(dev)
+        cases = [(name, *tone_inputs(x_dev, c.with_(image_size=n, quirks=n > 144), fused))
+                 for name, c, fused in variants]
+        for name, (px, py) in tone_cases.adversarial_curves(rng).items():
+            cases.append((name, torch.from_numpy(tone_cases.image(rng, (n, n), px)).to(dev),
+                          torch.from_numpy(px).to(dev), torch.from_numpy(py).to(dev)))
+        nan = 0
+        for name, x, gpx, gpy in cases:
+            what = f"{n} {anatomy}, {name} curve ({gpx.shape[0]} points)"
+            got = tonemap.tone_map(x, gpx, gpy, m)
+            same(got, tonemap.tone_map_plain(x, gpx, gpy, m), what)
+            g, o, tab = tonemap.tone_tables(x, gpx, gpy, m)
+            same((g, o), got, what + ", with its tables")
+            for j, w in enumerate(curves.general_tables(gpx, gpy)):
+                rec.equal_bits("tone_map", f"{what}, table {j}", tab[j, :w.shape[0]].contiguous(),
+                               w)
+            nan += int(torch.isnan(got[0]).sum())
+        log(f"  KT at {n}: {len(cases)} curves (the paths' {', '.join(v[0] for v in variants)}; "
+            f"{', '.join(c[0] for c in cases[len(variants):])}): graded bit for bit ({nan} NaN "
+            f"px in all), out_u8 equal, the block's tables equal curves.general_tables")
+        tile = 16 if n > 144 else 12
+        cfg_n = MusicaConfig(image_size=n, quirks=n > 144, histogram_area_size=tile)
+        windows = 0
+        for bounds in (spatial.row_plan(n, 4, cfg_n).bounds[0],
+                       spatial.row_plan(n, 2, cfg_n).bounds[0],
+                       (0, 5, 11, n // 2 + 1, n - 9, n)):
+            for name, x, gpx, gpy in [c for c in cases if c[0] in WINDOW_CURVES]:
+                whole = tonemap.tone_map(x, gpx, gpy, m)
+                parts = []
+                for a, b in zip(bounds, bounds[1:]):
+                    got = tonemap.tone_map(x[a:b], gpx, gpy, m, a)
+                    same(got, tonemap.tone_map_plain(x[a:b], gpx, gpy, m, a),
+                         f"{n} {name}, rows [{a}, {b})")
+                    parts.append(got)
+                    windows += 1
+                same((torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])), whole,
+                     f"{n} {name}, windows {list(bounds)} put together")
+        log(f"  KT at {n}: {windows} row windows (1x4, 2x2 and odd rows, {tile}-px tiles) equal "
+            f"their plain versions and, put together, the whole image and its crop")
+        # KS: every analysis level in one launch
+        lv = list(cfg_n.analysis_levels)
+        for label, bands in ((anatomy, analysis_bands(synthetic_radiograph(n, anatomy), cfg_n,
+                                                      dev)),
+                             ("random", random_bands(rng, [-(-n // 2 ** i) for i in lv], dev))):
+            want = [stats.img_sdev(b) for b in bands]
+            for grid in (0, 3):
+                for j, (g, w) in enumerate(zip(fh.sdevs(bands, grid=grid), want)):
+                    rec.equal_bits("sdev", f"{n} {label}, level {lv[j]}, grid {grid}", g, w)
+            plan = spatial.row_plan(n, 4, cfg_n)
+            for i in range(4):
+                wins, los, rows, _ = k7_windows(plan, bands, cfg_n, i)
+                got = fh.sdevs_rows(wins, los, rows)
+                for j, (g, p, w) in enumerate(zip(got, fh.sdevs_rows_plain(wins, los, rows), want)):
+                    rec.equal_bits("sdev", f"{n} {label}, shard {i}, level {lv[j]}", g, p)
+                    rec.equal_bits("sdev", f"{n} {label}, shard {i}, level {lv[j]} vs the whole",
+                                   g, w[rows[j][0]:rows[j][1]].contiguous())
+        log(f"  KS at {n}: levels {[b.shape[-1] for b in bands]} of the {anatomy} and of random "
+            f"bands (one wave and 3 blocks) and every shard's windows over 4 equal img_sdev / "
+            f"img_sdev_rows bit for bit")
+
+
 def covered(c, space):
     """Shards of a ``space``-way plan that hold rows inside some analysis
     level's histogram coverage (K1 launches on those alone)."""
@@ -851,9 +982,11 @@ def spatial_launches(c, fused, s, b):
     pyr = {"pyramid_down": b * s * (plan.replicated + big),
            "pyramid_up": b * s * (2 * plan.replicated + big),
            "pyramid_tail": 2 * b * s * (big < len(coarse))}
+    # KT on every shard's rows; KS every level's sdev rows of a shard
+    pyr["tone_map"] = b * s
     if fused:
         return {"sdev_noise_hist": b * s, "hist_argmax": b, "grad_hist_relevant": b * s, **pyr}
-    want = {"noise_hist": b * covered(c, s), "hist_argmax": b, **pyr}
+    want = {"noise_hist": b * covered(c, s), "hist_argmax": b, "sdev": b * s, **pyr}
     if c.enable_clahe:
         want.update({"grad_hist": b * s, "histogram": b * s, "clahe_apply": b * s})
     else:
@@ -1273,11 +1406,11 @@ def pyramid_work(sizes, tail_from=None):
     return out
 
 
-def kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b3072):
+def kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b3072, gpx):
     """Per kernel (ms, "bytes" or "operations"): the bound at this run's
-    main-path inputs.  Where a scan stops early (K1, K3, K4) only the
-    32-byte sectors holding a pixel that the reference's scan reaches
-    count."""
+    main-path inputs (``gpx``: the tone map's curve).  Where a scan stops
+    early (K1, K3, K4) only the 32-byte sectors holding a pixel that the
+    reference's scan reaches count."""
     import torch
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
     L, nbn, gb = len(lv3072), cfg.noise_histogram_bins, cfg.grad_histogram_bins
@@ -1328,6 +1461,19 @@ def kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b
         f"{n_div}, __dsqrt_rn {n_sqrt} in their SASS; {px7} px at 64 a clock on {sms} SMs "
         f"at {mhz:.0f} MHz)")
     out["sdev_noise_hist"] = (max(t_bytes, t_fp64), "bytes" if t_bytes >= t_fp64 else "operations")
+    # KS: K7's without the histograms
+    t_bytes_s = 8 * px7 / HBM_BYTES_PER_S * 1e3
+    log(f"  KS's bound: bytes {t_bytes_s} ms ({8 * px7} B); float64 issue {t_fp64} ms")
+    out["sdev"] = (max(t_bytes_s, t_fp64), "bytes" if t_bytes_s >= t_fp64 else "operations")
+    # KT: recon in and graded out (4 bytes each a pixel), the cropped u8 out;
+    # per pixel two float32 compares an interval, the nonfinite test, the
+    # lerp's three operations and the quantization's product, trunc and
+    # clamp (two)
+    k, m = gpx.shape[0], cfg.out_margin
+    n = recon.shape[-1]
+    tone_bytes = 8 * n * n + (n - 2 * m) ** 2
+    out["tone_map"] = bound(tone_bytes, (2 * k + 7) * n * n)
+    log(f"  KT's bound: {tone_bytes} B, {(2 * k + 7) * n * n} float32 operations ({k} points)")
     # KP1 (the down step alone) and KP2 (mode 0) at level 0, the rows' own
     # functions; the ladder's tail from the cut (the fused step's, the
     # ladder's and the expand's sums in pyramid_work, logged in [6])
@@ -1405,8 +1551,12 @@ def check_host_surface(img, cfg, dev):
     if dev.type == "cuda":
         assert launches_cli["noise_hist"] == launches_cli["grad_hist_relevant"] == 1, launches_cli
         assert launches_rep["noise_hist"] == launches_rep["grad_hist"] == 1, launches_rep
-        hist = {k: v for k, v in launches_rep.items() if not k.startswith("pyramid")}
+        hist = {k: v for k, v in launches_rep.items()
+                if not k.startswith("pyramid") and k not in ("sdev", "tone_map")}
         assert sum(hist.values()) == 2, launches_rep
+        # KS: the analysis levels' sdev; KT: the tone map
+        assert launches_cli["sdev"] == launches_cli["tone_map"] == 1, launches_cli
+        assert launches_rep["sdev"] == launches_rep["tone_map"] == 1, launches_rep
         # report runs with intermediates: the ladder (the fused step at
         # 3072 .. 96 px, one tail from 48 px), then an exp_lowpass and an
         # expand step at each of the 12 levels
@@ -1635,6 +1785,7 @@ def main() -> int:
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_apply as k_clahe
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import histogram as k_hist
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import tonemap as k_tone
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import (
         analysis, campaign, metrics, perturb)
@@ -1791,6 +1942,12 @@ def main() -> int:
         "plain versions, bit for bit")
     check_pyramid(rec, rng, dev, nrm, cfg)
 
+    log("[3g] the tone map KT (tone_map_kernel) and the default path's sdev KS (sdev_kernel) "
+        "vs their plain versions, bit for bit")
+    cfg16 = cfg.with_(storage="bfloat16")
+    check_tone_sdev(rec, rng, dev, [("main", cfg, False), ("CLAHE + linear", cfg_var, False),
+                                    ("fused-sdev", cfg, True), ("bf16", cfg16, False)])
+
     # ---- 4. the main path at 3072^2 ----------------------------------------
     log(f"[4] main path: process() on a {SIZE}^2 thorax phantom; a first call captures its "
         f"graph (eager warm-up, capture, one replay), the next (one replay) is counted")
@@ -1806,6 +1963,8 @@ def main() -> int:
     # K1 + K2: one launch, which takes the argmaxes too
     assert launches["noise_hist"] == 1 and launches["hist_argmax"] == 0, launches
     assert launches["sdev_noise_hist"] == 0, "the default analysis launched K7"
+    # KS: the four analysis levels' sdev in one launch; KT: the tone map
+    assert launches["sdev"] == launches["tone_map"] == 1, launches
     # the fused step at 3072 .. 96 px, the ladder's tail from 48 px, the
     # expand's tail up to 48 px, an expand step at 96 .. 3072
     L = cfg.pyramid_levels
@@ -1851,7 +2010,7 @@ def main() -> int:
     log(f"  launches (process, one replay: the profiler's kernel events, equal to LAUNCHES): "
         f"{launches_var}")
     assert np.array_equal(var_replay, var_out), "the variant's replay differs from musica_forward"
-    for k in ("noise_hist", "grad_hist", "histogram", "clahe_apply"):
+    for k in ("noise_hist", "grad_hist", "histogram", "clahe_apply", "sdev", "tone_map"):
         assert launches_var[k] == 1, f"the variant's replay launched {k} {launches_var[k]} times"
     assert pyramid_counts(launches_var) == (6, 6, 2), launches_var
     assert var_out.shape == out_gpu.shape and var_out.dtype == np.uint8
@@ -1923,6 +2082,7 @@ def main() -> int:
     assert launches_fused["sdev_noise_hist"] == launches_fused["grad_hist_relevant"] == 1, \
         launches_fused
     assert launches_fused["noise_hist"] == 0, "the fused-sdev replay launched K1"
+    assert launches_fused["sdev"] == 0 and launches_fused["tone_map"] == 1, launches_fused
     assert pyramid_counts(launches_fused) == (6, 6, 2), launches_fused
     f_out, f_times = musica.timed_process(img, cfg, "cuda", fused_sdev=True)
     assert np.array_equal(f_out, out_gpu), "timed_process(fused_sdev=True) out_u8"
@@ -1933,14 +2093,20 @@ def main() -> int:
 
     log(f"[4f] bf16 band storage: process --bf16 (storage=\"bfloat16\") on the {SIZE}^2 "
         f"thorax phantom")
-    cfg16 = cfg.with_(storage="bfloat16")
     launch.reset_launch_counts()
     out16 = musica.process(img, cfg16, "cuda")
     torch.cuda.synchronize()
     launches_bf16 = dict(launch.LAUNCHES)
     log(f"  launches: {launches_bf16}")
-    for k in ("noise_hist", "grad_hist_relevant"):
+    for k in ("noise_hist", "grad_hist_relevant", "sdev", "tone_map"):
         assert launches_bf16[k] > 0, f"the bf16 path did not launch {k}"
+    replay16, launches_bf16 = profiled_run(lambda: musica.process(img, cfg16, "cuda"), "bf16")
+    log(f"  launches (process, one replay: the profiler's kernel events, equal to LAUNCHES): "
+        f"{launches_bf16}")
+    assert np.array_equal(replay16, out16), "the bf16 replay differs from its first call"
+    for k in ("noise_hist", "grad_hist_relevant", "sdev", "tone_map"):
+        assert launches_bf16[k] == 1, f"the bf16 replay launched {k} {launches_bf16[k]} times"
+    assert pyramid_counts(launches_bf16) == (6, 6, 2), launches_bf16
     assert out16.shape == out_gpu.shape and out16.dtype == np.uint8
     t0 = time.perf_counter()
     out16_cpu = musica.process(img, cfg16, "cpu")
@@ -2253,6 +2419,9 @@ def main() -> int:
     linear = var_inter["intermediates"]["linear"]
     h3072, mb3072 = fh.noise_hists(lv3072, cfg)
     dn0 = k_pyr.smooth_downsample(nrm)
+    # the main path's tone map: its gradation input (recon) and curve
+    gpx, gpy, _ = inter["intermediates"]["grad_curve"]
+    m = cfg.out_margin
     wplane = fh.relevance_weight_plane(cnr, cfg).contiguous()
     cases = {
         "noise_hist": (lambda: fh.noise_hists(lv3072, cfg),
@@ -2278,6 +2447,10 @@ def main() -> int:
                        lambda: pyramid.upsample_smooth_plain(dn0, SIZE)),
         "pyramid_tail": (lambda: k_pyr.reduce_tail(tail_in, tail_levels),
                          lambda: k_pyr.reduce_tail_plain(tail_in, tail_levels)),
+        # the four analysis levels' sdev of the thorax; its tone map
+        "sdev": (lambda: fh.sdevs(b3072), lambda: fh.sdevs_plain(b3072)),
+        "tone_map": (lambda: k_tone.tone_map(recon, gpx, gpy, m),
+                     lambda: k_tone.tone_map_plain(recon, gpx, gpy, m)),
     }
     # one PyTorch call computing the same function, where there is one
     # (timed as a yardstick only; the port never calls it)
@@ -2301,6 +2474,12 @@ def main() -> int:
                                                        output_padding=1)
     assert library["pyramid_down"]().shape[-2:] == dn0.shape
     assert library["pyramid_up"]().shape[-2:] == nrm.shape
+    # KS: a 5x5 mean of the float64 squares a level (zero padding, another
+    # order of sums and no square root, so a time only; the squares are made
+    # beforehand)
+    sq64 = [(b.double() * b.double())[None, None] for b in b3072]
+    library["sdev"] = lambda: [F.avg_pool2d(q, 5, stride=1, padding=2) for q in sq64]
+    assert [t.shape for t in library["sdev"]()] == [q.shape for q in sq64]
     # the ladder (a fused step a level down to the cut, one tail) and the
     # expand (one tail, an expand step a level) of the thorax, kernels and
     # plain versions, with their bounds
@@ -2384,7 +2563,8 @@ def main() -> int:
     fold = {k: sorted(v)[2] for k, v in fold_runs.items()}
     log(f"  the argmax folded into K1 and K7, ms (medians of 5 interleaved rounds): {fold}; "
         f"in run order: {fold_runs}")
-    bounds = kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b3072)
+    bounds = kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b3072,
+                           gpx)
     # each count: the profiler's kernel events over one process call (one
     # graph replay), checked equal to LAUNCHES ([4], [4c], [4e])
     from_run = {"noise_hist": (launches, "process (one graph replay)"),
@@ -2399,13 +2579,16 @@ def main() -> int:
                                     "replay; the JAX package's hist_method=\"fused_sdev\")"),
                 "pyramid_down": (launches, "process (one graph replay)"),
                 "pyramid_up": (launches, "process (one graph replay)"),
-                "pyramid_tail": (launches, "process (one graph replay)")}
+                "pyramid_tail": (launches, "process (one graph replay)"),
+                "sdev": (launches, "process (one graph replay)"),
+                "tone_map": (launches, "process (one graph replay)")}
     # the spatial path's own count of each kernel ([4n]: 1x4 at 3072, the
     # main path, the CLAHE + linear variant and fused-sdev)
     sp_path = f"process_sharded of 2 x {SIZE}^2 over 1x4 on {dev}"
     spatial_from = {k: (sp_counts, sp_path) for k in ("noise_hist", "hist_argmax",
                                                       "grad_hist_relevant", "pyramid_down",
-                                                      "pyramid_up", "pyramid_tail")}
+                                                      "pyramid_up", "pyramid_tail", "sdev",
+                                                      "tone_map")}
     for k in ("grad_hist", "histogram", "clahe_apply"):
         spatial_from[k] = (spatial_run["counts"][f"CLAHE + linear, 1x4 on {dev}"],
                            f"{sp_path}, enable_clahe and grad_with_linear_image")
@@ -2435,6 +2618,8 @@ def main() -> int:
         "sdev_noise_hist": lambda: fh.sdev_noise_hists_rows(*k7_win[:3], cfg, k7_win[3]),
         "pyramid_down": lambda: k_pyr.smooth_downsample_rows(nrm[dlo:dhi], dlo, SIZE, d0, d1),
         "pyramid_up": lambda: k_pyr.upsample_smooth_rows(dn0[ulo:uhi], ulo, SIZE, a1, b1),
+        "sdev": lambda: fh.sdevs_rows(*k7_win[:3]),
+        "tone_map": lambda: k_tone.tone_map(recon[a1:b1], gpx, gpy, m, a1),
     }
     h_sum = h3072.clone()
     k2_own_ms = cuda_ms(lambda: fh.hist_argmax(h_sum), 20, 2, device_only=True)

@@ -59,6 +59,14 @@
 // its sdev is computed and nothing is counted.  A whole image is the window
 // of all its rows.
 //
+// KS, the default analysis path's sdev (sdev_kernel): the same tasks,
+// staging and float64 sums with the noise scan, the histogram and the
+// argmax compiled out (sdev_tasks<kTile, false>), every analysis level in
+// one launch; it replaces the port's plain float64 op chain of
+// ops/stats.py::img_sdev (the JAX package's ops/stats.py::img_sdev, :27,
+// XLA code, no Pallas kernel) and img_sdev_rows on the spatial path.  Its
+// outputs equal img_sdev bit for bit, as K7's sdev does.
+//
 // Bound: 8 bytes/px of device traffic (the band in, the sdev out) and per
 // pixel 8 float64 additions, a float64 division, a float64 square root and
 // two conversions, on 64 float64 lanes per SM per clock (chip_smoke.py
@@ -83,6 +91,7 @@ constexpr int kHalo = 2;        // the 5x5 stencil's reach
 constexpr int kThreads = 256;
 constexpr int kVSeg = 16;       // output rows of a thread's vertical sums
 constexpr int kHSeg = 8;        // output columns of a thread's horizontal sums
+constexpr int kSdevTile = 8;    // KS's warp layout (sums_store_scan's, without the scan)
 
 struct SdevLevels {
   const float* band[kMaxLevels];  // [hi - lo, n] contiguous: the band's rows [lo, hi)
@@ -112,8 +121,10 @@ struct Layout {
     return sizeof(float) * (kBand + 2 * kHalo) * raw_pitch;
   }
   __host__ __device__ size_t sd_bytes() const { return sizeof(float) * kBand * sd_pitch; }
-  size_t total(int n_bins) const {
-    return vsum_bytes() + 2 * raw_bytes() + sd_bytes() + sizeof(int) * (size_t)n_bins;
+  // hist: the sdev tile and the histogram too (K7)
+  size_t total(int n_bins, bool hist) const {
+    return vsum_bytes() + 2 * raw_bytes() +
+           (hist ? sd_bytes() + sizeof(int) * (size_t)n_bins : 0);
   }
 };
 
@@ -205,8 +216,9 @@ __device__ __forceinline__ void row_sdev(const double* v, int count, float* x) {
 // shuffles give its break mask, and a pixel counts if it comes before the
 // group's first break.  The lanes of a warp run down the rows, so the
 // vertical sums are read without bank conflicts (the pitch is odd).  dst
-// holds the level's rows [out0, out1).
-template <int kTile>
+// holds the level's rows [out0, out1).  Without kScan (KS) the values are
+// only stored.
+template <int kTile, bool kScan>
 __device__ __forceinline__ void sums_store_scan(const double* vsum, int pitch, const Task& k,
                                                 int n, int out0, int out1, int cov, int width,
                                                 float* dst, bool vec, int n_bins,
@@ -238,22 +250,24 @@ __device__ __forceinline__ void sums_store_scan(const double* vsum, int pitch, c
           if (c + j < n) out[j] = x[j];
       }
     }
-    const bool on = r < scan_rows && c / kTile < groups;
-    int bin[kLanePx];
-    unsigned brk = 0;
+    if constexpr (kScan) {
+      const bool on = r < scan_rows && c / kTile < groups;
+      int bin[kLanePx];
+      unsigned brk = 0;
 #pragma unroll
-    for (int q = 0; q < kLanePx; ++q) {
-      bin[q] = noise_bin(x[q], fbins, max_noise);
-      brk |= (unsigned)(bin[q] == 0) << q;
+      for (int q = 0; q < kLanePx; ++q) {
+        bin[q] = noise_bin(x[q], fbins, max_noise);
+        brk |= (unsigned)(bin[q] == 0) << q;
+      }
+      unsigned m = brk << (kLanePx * part);
+#pragma unroll
+      for (int o = 1; o < kGroupLanes; o <<= 1) m |= __shfl_xor_sync(kFull, m, o);
+      const int first = m ? __ffs(m) - 1 : kTile;  // the group's first break
+#pragma unroll
+      for (int q = 0; q < kLanePx; ++q)
+        if (on && bin[q] > 0 && bin[q] < n_bins && kLanePx * part + q < first)
+          atomicAdd(&hist[bin[q]], 1);
     }
-    unsigned m = brk << (kLanePx * part);
-#pragma unroll
-    for (int o = 1; o < kGroupLanes; o <<= 1) m |= __shfl_xor_sync(kFull, m, o);
-    const int first = m ? __ffs(m) - 1 : kTile;  // the group's first break
-#pragma unroll
-    for (int q = 0; q < kLanePx; ++q)
-      if (on && bin[q] > 0 && bin[q] < n_bins && kLanePx * part + q < first)
-        atomicAdd(&hist[bin[q]], 1);
   }
 }
 
@@ -286,11 +300,14 @@ __device__ __forceinline__ void flush_hist(int* hist, int* out, int n_bins) {
   }
 }
 
-template <int kTile>
-__global__ void __launch_bounds__(kThreads)
-sdev_noise_hist_kernel(const __grid_constant__ SdevLevels lv, int levels,
-                       int* __restrict__ hists, int n_bins, float max_noise,
-                       unsigned* ticket, int* max_bins) {
+// A block's range of tasks: the sdev of each, with kHist (K7) its noise
+// scan into the block's histogram, flushed where the range crosses into the
+// next level and at its end, and the last block's argmax.
+template <int kTile, bool kHist>
+__device__ __forceinline__ void sdev_tasks(const SdevLevels& lv, int levels,
+                                           int* __restrict__ hists, int n_bins, float max_noise,
+                                           unsigned* ticket, int* max_bins) {
+  static_assert(kHist || kTile != 0, "KS takes the warp layout");
   const int width = kTile ? kWidth : lv.width;
   const int tile = kTile ? kTile : lv.tile;
   const Layout L(width);
@@ -303,7 +320,8 @@ sdev_noise_hist_kernel(const __grid_constant__ SdevLevels lv, int levels,
 
   const int begin = (int)blockIdx.x * lv.per_block;
   const int end = min(begin + lv.per_block, lv.first_task[levels]);
-  for (int i = threadIdx.x; i < n_bins; i += blockDim.x) hist[i] = 0;
+  if constexpr (kHist)
+    for (int i = threadIdx.x; i < n_bins; i += blockDim.x) hist[i] = 0;
   Task k = task_of(lv, levels, begin);
   stage(lv, k, L, raw0);
   cp_async_commit();
@@ -345,8 +363,8 @@ sdev_noise_hist_kernel(const __grid_constant__ SdevLevels lv, int levels,
     const bool vec = lv.vec[k.level] != 0;
     if constexpr (kTile != 0) {
       // the sdev, its store and its noise scan straight from registers
-      sums_store_scan<kTile>(vsum, L.vsum_pitch, k, n, out0, out1, lv.cov[k.level], width, dst,
-                             vec, n_bins, max_noise, hist);
+      sums_store_scan<kTile, kHist>(vsum, L.vsum_pitch, k, n, out0, out1, lv.cov[k.level], width,
+                                    dst, vec, n_bins, max_noise, hist);
     } else {
       // the sdev tile in shared memory (a thread walks one row along kHSeg
       // columns, the lanes of a warp on 32 rows), then its store and scan
@@ -383,16 +401,65 @@ sdev_noise_hist_kernel(const __grid_constant__ SdevLevels lv, int levels,
     }
 
     // the range crosses into the next level, or ends: flush the histogram
-    if (t + 1 == end || next.level != k.level) {
-      __syncthreads();
-      flush_hist(hist, hists + (long long)k.level * n_bins, n_bins);
+    if constexpr (kHist) {
+      if (t + 1 == end || next.level != k.level) {
+        __syncthreads();
+        flush_hist(hist, hists + (long long)k.level * n_bins, n_bins);
+      }
     }
     k = next;
   }
   // the vertical sums (kBand rows of doubles) are no longer needed: their
   // first kArgmaxScratchBytes are the argmax's scratch
-  last_block_argmax(hists, levels, n_bins, ticket, max_bins,
-                    reinterpret_cast<unsigned long long*>(vsum));
+  if constexpr (kHist)
+    last_block_argmax(hists, levels, n_bins, ticket, max_bins,
+                      reinterpret_cast<unsigned long long*>(vsum));
+}
+
+// K7: the sdev, noise histogram and first-max bin of every level
+template <int kTile>
+__global__ void __launch_bounds__(kThreads)
+sdev_noise_hist_kernel(const __grid_constant__ SdevLevels lv, int levels,
+                       int* __restrict__ hists, int n_bins, float max_noise,
+                       unsigned* ticket, int* max_bins) {
+  sdev_tasks<kTile, true>(lv, levels, hists, n_bins, max_noise, ticket, max_bins);
+}
+
+// KS: the sdev of every level alone
+__global__ void __launch_bounds__(kThreads)
+sdev_kernel(const __grid_constant__ SdevLevels lv, int levels) {
+  sdev_tasks<kSdevTile, false>(lv, levels, nullptr, 0, 0.0f, nullptr, nullptr);
+}
+
+// The prefix table of tasks of lv.width columns (set by the caller) over
+// every level's output rows; false where it does not fit an int.
+bool plan_tasks(SdevLevels& lv, int levels) {
+  long long total = 0;
+  for (int l = 0; l < levels; ++l) {
+    const int n = lv.n[l];
+    lv.col_tasks[l] = (n + lv.width - 1) / lv.width;
+    lv.first_task[l] = (int)total;
+    total += (long long)lv.col_tasks[l] * ((lv.r1[l] - lv.r0[l] + kBand - 1) / kBand);
+    if (total > 0x3fffffffLL) return false;
+    lv.vec[l] = lv.vec[l] && n % 4 == 0 && lv.width % 4 == 0;
+  }
+  lv.first_task[levels] = (int)total;
+  return true;
+}
+
+// *blocks of `kernel` (one wave, or at most `grid` > 0) and lv.per_block,
+// the tasks of each, for the planned tasks.
+template <typename Kernel>
+int split_tasks(Kernel kernel, size_t smem, int grid, int levels, SdevLevels& lv,
+                long long* blocks) {
+  long long wave = 0;
+  const int e = wave_blocks(kernel, kThreads, smem, &wave);
+  if (e != (int)cudaSuccess) return e;
+  if (grid > 0) wave = grid;
+  const long long total = lv.first_task[levels];
+  lv.per_block = (int)((total + wave - 1) / wave);
+  *blocks = (total + lv.per_block - 1) / lv.per_block;
+  return (int)cudaSuccess;
 }
 
 template <int kTile>
@@ -400,26 +467,43 @@ int launch_sdev(SdevLevels lv, int levels, int* hists, int n_bins, float max_noi
                 int grid, unsigned* ticket, int* max_bins, cudaStream_t stream) {
   const int tile = lv.tile;
   lv.width = kTile ? kWidth : (tile >= kWidth ? tile : tile * ((kWidth + tile - 1) / tile));
-  long long total = 0;
-  for (int l = 0; l < levels; ++l) {
-    const int n = lv.n[l];
-    lv.col_tasks[l] = (n + lv.width - 1) / lv.width;
-    lv.first_task[l] = (int)total;
-    total += (long long)lv.col_tasks[l] * ((lv.r1[l] - lv.r0[l] + kBand - 1) / kBand);
-    if (total > 0x3fffffffLL) return (int)cudaErrorInvalidValue;
-    lv.vec[l] = lv.vec[l] && n % 4 == 0 && lv.width % 4 == 0;
-  }
-  lv.first_task[levels] = (int)total;
-  const size_t smem = Layout(lv.width).total(n_bins);
-  long long wave = 0;
-  const int e = wave_blocks(sdev_noise_hist_kernel<kTile>, kThreads, smem, &wave);
+  if (!plan_tasks(lv, levels)) return (int)cudaErrorInvalidValue;
+  const size_t smem = Layout(lv.width).total(n_bins, true);
+  long long blocks = 0;
+  const int e = split_tasks(sdev_noise_hist_kernel<kTile>, smem, grid, levels, lv, &blocks);
   if (e != (int)cudaSuccess) return e;
-  if (grid > 0) wave = grid;
-  lv.per_block = (int)((total + wave - 1) / wave);
-  const long long blocks = (total + lv.per_block - 1) / lv.per_block;
   sdev_noise_hist_kernel<kTile><<<(unsigned)blocks, kThreads, smem, stream>>>(
       lv, levels, hists, n_bins, max_noise, ticket, max_bins);
   return (int)cudaGetLastError();
+}
+
+// The levels' arguments into lv (covs nullptr: none counted); false where a
+// window does not hold every row its outputs read.
+bool fill_levels(SdevLevels& lv, const void* const* bands, void* const* sdevs, const int* ns,
+                 const int* covs, const int* los, const int* his, const int* r0s,
+                 const int* r1s, int levels, int tile) {
+  for (int l = 0; l < levels; ++l) {
+    const int n = ns[l];
+    const int cov = covs != nullptr ? covs[l] : 0;
+    // the window holds every row of the level that its outputs read
+    const int need_lo = r0s[l] > kHalo ? r0s[l] - kHalo : 0;
+    const int need_hi = r1s[l] + kHalo < n ? r1s[l] + kHalo : n;
+    if (n < 1 || cov < 0 || cov % tile != 0 || r0s[l] < 0 || r1s[l] <= r0s[l] ||
+        r1s[l] > n || los[l] < 0 || los[l] > need_lo || his[l] < need_hi || his[l] > n)
+      return false;
+    lv.band[l] = static_cast<const float*>(bands[l]);
+    lv.sdev[l] = static_cast<float*>(sdevs[l]);
+    lv.n[l] = n;
+    lv.lo[l] = los[l];
+    lv.hi[l] = his[l];
+    lv.r0[l] = r0s[l];
+    lv.r1[l] = r1s[l];
+    lv.cov[l] = cov;
+    lv.vec[l] = reinterpret_cast<unsigned long long>(bands[l]) % 16 == 0 &&
+                reinterpret_cast<unsigned long long>(sdevs[l]) % 16 == 0;
+  }
+  lv.tile = tile;
+  return true;
 }
 
 }  // namespace
@@ -443,26 +527,8 @@ int musica_sdev_noise_hist(const void* const* bands, void* const* sdevs, const i
   if (levels < 1 || levels > kMaxLevels || tile < 1 || n_bins < 1 || grid < 0)
     return (int)cudaErrorInvalidValue;
   SdevLevels lv = {};
-  for (int l = 0; l < levels; ++l) {
-    const int n = ns[l];
-    // the window holds every row of the level that its outputs read
-    const int need_lo = r0s[l] > kHalo ? r0s[l] - kHalo : 0;
-    const int need_hi = r1s[l] + kHalo < n ? r1s[l] + kHalo : n;
-    if (n < 1 || covs[l] < 0 || covs[l] % tile != 0 || r0s[l] < 0 || r1s[l] <= r0s[l] ||
-        r1s[l] > n || los[l] < 0 || los[l] > need_lo || his[l] < need_hi || his[l] > n)
-      return (int)cudaErrorInvalidValue;
-    lv.band[l] = static_cast<const float*>(bands[l]);
-    lv.sdev[l] = static_cast<float*>(sdevs[l]);
-    lv.n[l] = n;
-    lv.lo[l] = los[l];
-    lv.hi[l] = his[l];
-    lv.r0[l] = r0s[l];
-    lv.r1[l] = r1s[l];
-    lv.cov[l] = covs[l];
-    lv.vec[l] = reinterpret_cast<unsigned long long>(bands[l]) % 16 == 0 &&
-                reinterpret_cast<unsigned long long>(sdevs[l]) % 16 == 0;
-  }
-  lv.tile = tile;
+  if (!fill_levels(lv, bands, sdevs, ns, covs, los, his, r0s, r1s, levels, tile))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tile) {
     case 8:
@@ -474,6 +540,26 @@ int musica_sdev_noise_hist(const void* const* bands, void* const* sdevs, const i
     default:
       return launch_sdev<0>(lv, levels, hists, n_bins, max_noise, grid, ticket, max_bins, s);
   }
+}
+
+// KS: musica_sdev_noise_hist's sdev alone (no histogram, no argmax), with
+// its tasks and their order.  Returns a cudaError_t.
+int musica_sdev(const void* const* bands, void* const* sdevs, const int* ns, const int* los,
+                const int* his, const int* r0s, const int* r1s, int levels, int grid,
+                void* stream) {
+  if (levels < 1 || levels > kMaxLevels || grid < 0) return (int)cudaErrorInvalidValue;
+  SdevLevels lv = {};
+  if (!fill_levels(lv, bands, sdevs, ns, nullptr, los, his, r0s, r1s, levels, kSdevTile))
+    return (int)cudaErrorInvalidValue;
+  lv.width = kWidth;
+  if (!plan_tasks(lv, levels)) return (int)cudaErrorInvalidValue;
+  const size_t smem = Layout(lv.width).total(0, false);
+  long long blocks = 0;
+  const int e = split_tasks(sdev_kernel, smem, grid, levels, lv, &blocks);
+  if (e != (int)cudaSuccess) return e;
+  sdev_kernel<<<(unsigned)blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(lv,
+                                                                                      levels);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -18,13 +18,15 @@ Phase map (reference -> here):
   3. pyramid reduce   -> ops.pyramid (fused smooth+decimate; polyphase expand
                          and band subtraction; on a CUDA device the kernels
                          of csrc/pyramid.cu)
-  4. image analysis   -> ops.stats (sdev, noise histograms + argmax; with
-                         fused_sdev one kernel for sdev + histograms) + curves
+  4. image analysis   -> ops.stats (sdev of every level in one kernel, noise
+                         histograms + argmax; with fused_sdev one kernel for
+                         sdev + histograms) + curves
   5. apply            -> ops.curves (contrast gain), ops.noise (CNR, NR)
   6. pyramid expand   -> ops.pyramid (expand + band in one step)
   7. gradation        -> ops.gradation (relevance-weighted histogram, curve);
                          ENABLE_CLAHE: ops.clahe (per-tile LUTs, blended apply)
-  output              -> margin crop + x255 truncating u8 cast
+  output              -> tone map, margin crop + x255 truncating u8 cast
+                         (one kernel on a CUDA device: ops.cuda.tonemap)
 
 The production entries ``process_jit`` and ``process_batch_jit`` (and
 ``process``, ``process_batch`` on top of them) replay ``musica_forward`` as a
@@ -45,6 +47,7 @@ from torch.profiler import record_function
 
 from .. import MusicaConfig
 from ..ops import clahe, curves, gradation, noise, normalize, pyramid, stats
+from ..ops.cuda import tonemap
 from . import graphs
 
 
@@ -145,7 +148,7 @@ def _forward(img_u16: torch.Tensor, cfg: MusicaConfig, want_intermediates: bool,
         if fused_sdev:
             sdevs, hists, max_bins = stats.sdev_and_noise_histograms(bands, cfg)
         else:
-            sdevs = {i: stats.img_sdev(b) for i, b in bands.items()}
+            sdevs = stats.analysis_sdevs(bands)
             hists, max_bins = stats.analysis_noise_hists(sdevs, cfg)
         no_bin = torch.zeros((), dtype=torch.int32, device=dev)
         curve_list = [curves.contrast_curve(max_bins.get(i, no_bin), lcf, hcf, cfg)
@@ -208,9 +211,7 @@ def _forward(img_u16: torch.Tensor, cfg: MusicaConfig, want_intermediates: bool,
 
     # the tone map is elementwise, so cropping the graded image commutes
     with phase("tonemap"):
-        graded = curves.curve_get_y_general(gpx, gpy, grad_input)
-        m = cfg.out_margin
-        out_u8 = curves.curve_apply_u8(graded[m:n - m, m:n - m])
+        graded, out_u8 = tonemap.tone_map(grad_input, gpx, gpy, cfg.out_margin)
     result.update({"graded": graded, "out_u8": out_u8, "recon": recon, "cnr": cnr})
     if want_intermediates:
         inter.update({

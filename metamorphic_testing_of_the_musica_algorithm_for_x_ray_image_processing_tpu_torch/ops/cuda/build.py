@@ -47,6 +47,9 @@ _SIGNATURES = {
     "musica_sdev_noise_hist": ([ctypes.POINTER(_VP), ctypes.POINTER(_VP),
                                 *[ctypes.POINTER(_I)] * 6, _I, _VP, _VP, _VP, _I, _I,
                                 ctypes.c_float, _I, _VP], _I),
+    "musica_sdev": ([ctypes.POINTER(_VP), ctypes.POINTER(_VP), *[ctypes.POINTER(_I)] * 5, _I,
+                     _I, _VP], _I),
+    "musica_tone_map": ([_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP], _I),
     "musica_reduce_step": ([_VP, _I, _I, _I, _I, _VP, _I, _I, _VP, _VP], _I),
     "musica_upsample_smooth": ([_VP, _I, _I, _I, _VP, _I, _I, _I, _VP, _I, _VP], _I),
     "musica_reduce_tail": ([_VP, _I, _I, ctypes.POINTER(_VP), ctypes.POINTER(_VP), _VP], _I),

@@ -24,6 +24,11 @@ wrapper                    replaces (JAX package, ops/pallas/fused_hist.py)
                            each level's sdev rows of a shard (from its
                            rows and the 2-row halos) and their histograms,
                            no argmax
+``sdevs``, ``sdevs_rows``  no Pallas kernel: ``ops/stats.py::img_sdev``
+                           (XLA in the JAX package) on the default
+                           analysis path, every level in one launch of
+                           KS (``sdev_kernel``: K7's tasks without the
+                           noise scan), whole or on a shard's rows
 ``hist_argmax``            ``noise_hist_argmax_multi``'s argmax, a launch of
                            its own on the spatial path's summed histograms
 =========================  ==================================================
@@ -222,13 +227,23 @@ def sdev_noise_hists_plain(bands, cfg):
     return sdevs, noise_hists_plain(sdevs, cfg)
 
 
+def sdevs_plain(bands):
+    """Plain version of ``sdevs``: ``stats.img_sdev`` per level."""
+    return [stats.img_sdev(b) for b in bands]
+
+
+def sdevs_rows_plain(bands, band_row0s, out_rows):
+    """Plain version of ``sdevs_rows``: ``stats.img_sdev_rows`` per level."""
+    return [stats.img_sdev_rows(b, lo, b.shape[-1], r0, r1)
+            for b, lo, (r0, r1) in zip(bands, band_row0s, out_rows)]
+
+
 def sdev_noise_hists_rows_plain(bands, band_row0s, out_rows, cfg, counted=None):
     """Plain version of ``sdev_noise_hists_rows``: ``stats.img_sdev_rows``
     per level, then ``noise_hists_rows_plain`` of the counted levels'
     windows."""
     counted = [True] * len(bands) if counted is None else counted
-    sdevs = [stats.img_sdev_rows(b, lo, b.shape[-1], r0, r1)
-             for b, lo, (r0, r1) in zip(bands, band_row0s, out_rows)]
+    sdevs = sdevs_rows_plain(bands, band_row0s, out_rows)
     return sdevs, noise_hists_rows_plain([sd if c else sd[:0] for sd, c in zip(sdevs, counted)],
                                          [r0 for r0, _ in out_rows], cfg)
 
@@ -268,13 +283,12 @@ def sdev_noise_hists_rows(bands, band_row0s, out_rows, cfg, counted=None, grid: 
                         grid=grid)[:2]
 
 
-def _launch_sdev(bands, los, out_rows, counted, cfg, argmax: bool, grid: int = 0):
-    """K7 on CUDA windows of rows: (sdev windows, histograms, first-max bins
-    or None)."""
+def _sdev_windows(bands, los, out_rows):
+    """Checks of K7's and KS's windows of rows; returns (the sdev windows,
+    allocated, and the C arguments of the levels: the bands, the sdev
+    windows, their sizes, and per level an int array each of the first
+    band row, the end of the band rows, r0 and r1)."""
     dev = bands[0].device
-    nb, tile = cfg.noise_histogram_bins, cfg.histogram_area_size
-    launch.check_bins(nb)
-    launch.check_shared(sdev_shared_bytes(tile, nb), f"noise_histogram_bins={nb}")
     L = len(bands)
     if not 1 <= L <= _MAX_LEVELS:
         raise ValueError(f"{L} levels, at most {_MAX_LEVELS}")
@@ -286,22 +300,70 @@ def _launch_sdev(bands, los, out_rows, counted, cfg, argmax: bool, grid: int = 0
         if not (0 <= r0 < r1 <= n and 0 <= lo <= need[0] and need[1] <= hi <= n):
             raise ValueError(f"band {i}: sdev rows [{r0}, {r1}) of a {n}-row level read its "
                              f"rows {list(need)}, the window holds [{lo}, {hi})")
-    lib = launch.lib()
     sdevs = [torch.empty((r1 - r0, b.shape[-1]), dtype=torch.float32, device=dev)
              for b, (r0, r1) in zip(bands, out_rows)]
-    hists, max_bins, ticket = _hist_buffers(L, nb, dev)
     ints = ctypes.c_int * L
     src = (ctypes.c_void_p * L)(*[b.data_ptr() for b in bands])
     dst = (ctypes.c_void_p * L)(*[s.data_ptr() for s in sdevs])
     ns = ints(*[b.shape[-1] for b in bands])
-    covs = ints(*[stats.coverage(b.shape[-1], cfg) if c else 0
-                  for b, c in zip(bands, counted)])
+    rows = (ints(*los), ints(*[lo + b.shape[-2] for b, lo in zip(bands, los)]),
+            ints(*[r0 for r0, _ in out_rows]), ints(*[r1 for _, r1 in out_rows]))
+    return sdevs, (src, dst, ns), rows
+
+
+def _launch_sdev(bands, los, out_rows, counted, cfg, argmax: bool, grid: int = 0):
+    """K7 on CUDA windows of rows: (sdev windows, histograms, first-max bins
+    or None)."""
+    dev = bands[0].device
+    nb, tile = cfg.noise_histogram_bins, cfg.histogram_area_size
+    launch.check_bins(nb)
+    launch.check_shared(sdev_shared_bytes(tile, nb), f"noise_histogram_bins={nb}")
+    sdevs, (src, dst, ns), rows = _sdev_windows(bands, los, out_rows)
+    L = len(bands)
+    lib = launch.lib()
+    hists, max_bins, ticket = _hist_buffers(L, nb, dev)
+    covs = (ctypes.c_int * L)(*[stats.coverage(b.shape[-1], cfg) if c else 0
+                                for b, c in zip(bands, counted)])
     launch.launch(lib, "musica_sdev_noise_hist", "sdev_noise_hist", dev, src, dst, ns, covs,
-                  ints(*los), ints(*[lo + b.shape[-2] for b, lo in zip(bands, los)]),
-                  ints(*[r0 for r0, _ in out_rows]), ints(*[r1 for _, r1 in out_rows]), L,
-                  hists.data_ptr(), max_bins.data_ptr() if argmax else None, ticket.data_ptr(),
-                  nb, tile, float(cfg.max_noise_value), int(grid))
+                  *rows, L, hists.data_ptr(), max_bins.data_ptr() if argmax else None,
+                  ticket.data_ptr(), nb, tile, float(cfg.max_noise_value), int(grid))
     return sdevs, hists, (max_bins if argmax else None)
+
+
+# ----------------------------------------------------------------------
+# KS: the default analysis path's sdev (no Pallas kernel in the JAX package)
+# ----------------------------------------------------------------------
+
+def sdevs(bands, grid: int = 0):
+    """``stats.img_sdev`` of each of a list of [n_i, n_i] float32 bandpass
+    levels (list of float32 [n_i, n_i]), in one launch: K7's tasks and sums
+    without its noise scan.  ``grid`` as in ``sdev_noise_hists``."""
+    dev = launch.device_of(bands)
+    if dev.type == "cpu":
+        return sdevs_plain(bands)
+    for i, b in enumerate(bands):
+        launch.check_image(b, f"band {i}")
+    return _launch_sdevs(bands, [0] * len(bands), [(0, b.shape[-1]) for b in bands], grid)
+
+
+def sdevs_rows(bands, band_row0s, out_rows, grid: int = 0):
+    """``stats.img_sdev_rows`` of windows of rows of bandpass levels (list of
+    float32 [r1_j - r0_j, n_j]), in one launch: ``bands[j]``, its first row
+    ``band_row0s[j]`` and the sdev rows ``out_rows[j]`` = (r0, r1) as in
+    ``sdev_noise_hists_rows``."""
+    dev = launch.device_of(bands)
+    if dev.type == "cpu":
+        return sdevs_rows_plain(bands, band_row0s, out_rows)
+    return _launch_sdevs(bands, list(band_row0s), list(out_rows), grid)
+
+
+def _launch_sdevs(bands, los, out_rows, grid: int = 0):
+    """KS on CUDA windows of rows: the sdev windows."""
+    dev = bands[0].device
+    sdevs_out, (src, dst, ns), rows = _sdev_windows(bands, los, out_rows)
+    launch.launch(launch.lib(), "musica_sdev", "sdev", dev, src, dst, ns, *rows, len(bands),
+                  int(grid))
+    return sdevs_out
 
 
 # ----------------------------------------------------------------------

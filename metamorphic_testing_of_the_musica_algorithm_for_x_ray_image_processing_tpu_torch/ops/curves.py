@@ -104,6 +104,22 @@ def curve_get_y_sorted(px: torch.Tensor, py: torch.Tensor,
     return torch.where(cnt == n, 0.0, result)
 
 
+def general_tables(px: torch.Tensor, py: torch.Tensor):
+    """``curve_get_y_general``'s tables of a k-point curve: (px_e, py_e) the
+    points with a zero appended [k + 1], m_tab [k + 1] the slope of each
+    pair (0 on a non-increasing pair, and at index k, the no-match entry)
+    and px_hi [k] the interval's upper end (px[i] on a non-increasing
+    pair)."""
+    zero = px.new_zeros(1)
+    px_e = torch.cat([px, zero])
+    py_e = torch.cat([py, zero])
+    ms = (py_e[1:] - py_e[:-1]) / (px_e[1:] - px_e[:-1])
+    nonmono = px_e[1:] <= px_e[:-1]
+    m_tab = torch.cat([torch.where(nonmono, 0.0, ms), zero])  # [n] = no match
+    px_hi = torch.where(nonmono, px_e[:-1], px_e[1:])
+    return px_e, py_e, m_tab, px_hi
+
+
 def curve_get_y_general(px: torch.Tensor, py: torch.Tensor,
                         x: torch.Tensor) -> torch.Tensor:
     """First-match getY for ARBITRARY px (the gradation curve's second bezier
@@ -113,16 +129,11 @@ def curve_get_y_general(px: torch.Tensor, py: torch.Tensor,
     Nonfinite x is redirected to a finite sentinel that matches nothing.
 
     The chain selects an interval index; one gather per scalar and one lerp
-    follow."""
+    follow.  On a CUDA device the pipeline runs this function as one kernel
+    (``ops/cuda/tonemap.py``, KT), which builds the same tables."""
     n = px.shape[0]
-    zero = px.new_zeros(1)
-    px_e = torch.cat([px, zero])
-    py_e = torch.cat([py, zero])
+    px_e, py_e, m_tab, px_hi = general_tables(px, py)
     x = torch.where(torch.isfinite(x), x, 3.0e38)
-    ms = (py_e[1:] - py_e[:-1]) / (px_e[1:] - px_e[:-1])
-    nonmono = px_e[1:] <= px_e[:-1]
-    m_tab = torch.cat([torch.where(nonmono, 0.0, ms), zero])  # [n] = no match
-    px_hi = torch.where(nonmono, px_e[:-1], px_e[1:])
     sel = torch.full(x.shape, n, dtype=torch.int64, device=x.device)
     for i in range(n - 1, -1, -1):
         sel = torch.where((px_e[i] <= x) & (x <= px_hi[i]), i, sel)

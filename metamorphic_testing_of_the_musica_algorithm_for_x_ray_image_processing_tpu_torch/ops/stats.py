@@ -1,10 +1,10 @@
 """Local statistics + histograms: sdev (5x5 RMS), the noise histogram with
 the reference's per-tile-column ``break`` semantics, and histogram argmax.
 Port of the JAX package's ``ops/stats.py`` without its histogram-method zoo:
-the noise histograms (and, on the fused-sdev path, the sdev with them) go
-through ``ops/cuda/fused_hist.py`` and ``fixed_histogram`` through
-``ops/cuda/histogram.py``; each launches its CUDA kernel for a CUDA tensor
-and runs its plain version for a CPU tensor.
+the analysis levels' sdev, the noise histograms (and, on the fused-sdev
+path, the sdev with them) go through ``ops/cuda/fused_hist.py`` and
+``fixed_histogram`` through ``ops/cuda/histogram.py``; each launches its
+CUDA kernel for a CUDA tensor and runs its plain version for a CPU tensor.
 
 The ``break`` quirk (shaders/noise_hist.comp:30-40): each GPU thread scans
 16-pixel groups along axis -1 ("tile columns"); the first pixel of a group
@@ -128,6 +128,16 @@ def fixed_histogram(bins_idx: torch.Tensor, weights: torch.Tensor,
     from .cuda import histogram
 
     return histogram.histogram(bins_idx, weights, n_bins)
+
+
+def analysis_sdevs(bands: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
+    """``img_sdev`` of every analysis level's float32 bandpass image
+    (``bands`` keyed by level), keyed by level: one kernel launch (KS) on a
+    CUDA device, ``img_sdev`` a level on the CPU; equal bit for bit."""
+    from .cuda import fused_hist
+
+    levels = list(bands)
+    return dict(zip(levels, fused_hist.sdevs([bands[i] for i in levels])))
 
 
 def analysis_noise_hists(sdevs: Dict[int, torch.Tensor], cfg):

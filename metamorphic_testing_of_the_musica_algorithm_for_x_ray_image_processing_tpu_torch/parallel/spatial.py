@@ -22,7 +22,10 @@ at the image's true first and last rows, in the same float64 tap order,
 so the sharded result equals the unsharded one bit for bit.  The
 pyramid's steps (``pyramid.smooth_downsample_rows``, ``upsample_subtract``,
 ``upsample_add`` on windows) go through KP1 and KP2 (``csrc/pyramid.cu``)
-on a CUDA device, as in the unsharded path.  The
+on a CUDA device, as in the unsharded path, and so does the analysis
+levels' sdev (``fused_hist.sdevs_rows``, KS: every level's sdev rows of the
+shard in one launch) and the tone map (``tonemap.tone_map``, KT: the
+shard's graded rows and its rows of the crop).  The
 histograms go through the kernels on row windows: K1 (``noise_hists_rows``)
 on each shard's rows inside each analysis level's coverage (a shard with no
 covered row launches nothing), or with ``fused_sdev`` K7
@@ -65,8 +68,8 @@ import torch
 
 from ..config import MusicaConfig
 from ..models.musica import _band_dtype
-from ..ops import clahe, curves, gradation, noise, normalize, pyramid, stats
-from ..ops.cuda import clahe_apply, fused_hist
+from ..ops import clahe, curves, gradation, noise, normalize, pyramid
+from ..ops.cuda import clahe_apply, fused_hist, tonemap
 
 OUTPUTS = ("out_u8", "graded", "recon", "cnr", "clahe_graded")
 
@@ -347,11 +350,13 @@ def forward(img_u16, cfg: MusicaConfig, entries: Sequence[Entry],
             sdevs[k] = [r[0][j] for r in res]
         parts = [r[1] for r in res]
     else:
-        for k in levels:
-            def sdev(i, k=k):
-                win, lo = band_window(k, i)
-                return stats.img_sdev_rows(win, lo, sizes[k], *rows_of(k, i))
-            sdevs[k] = row.each(sdev)
+        def sdev(i):
+            wins = [band_window(k, i) for k in levels]
+            return fused_hist.sdevs_rows([w for w, _ in wins], [lo for _, lo in wins],
+                                         [rows_of(k, i) for k in levels])
+        res = row.each(sdev)
+        for j, k in enumerate(levels):
+            sdevs[k] = [r[j] for r in res]
 
         def partial(i):
             # a replicated level is scanned by the first entry alone
@@ -456,15 +461,11 @@ def forward(img_u16, cfg: MusicaConfig, entries: Sequence[Entry],
             recon[i], *luts[i], cfg, plan.rows(0, i)[0]))
 
     # ---- tone map, crop, gather ---------------------------------------------
-    graded = row.each(lambda i: curves.curve_get_y_general(gcurve[i][0], gcurve[i][1],
-                                                           grad_input[i]))
-    m = cfg.out_margin
-
-    def crop(i):
-        r0, r1 = plan.rows(0, i)
-        a, b = max(r0, m), min(r1, n - m)
-        return curves.curve_apply_u8(graded[i][max(a - r0, 0):max(b - r0, 0), m:n - m])
-    out_parts = row.each(crop)
+    # each shard's graded rows and its rows of the crop, one KT launch
+    tm = row.each(lambda i: tonemap.tone_map(grad_input[i], gcurve[i][0], gcurve[i][1],
+                                             cfg.out_margin, plan.rows(0, i)[0]))
+    graded = [g for g, _ in tm]
+    out_parts = [o for _, o in tm]
     sharded_out = {"graded": (graded, 0), "recon": (recon, 0), "cnr": (cnr, c)}
     if cfg.enable_clahe:
         sharded_out["clahe_graded"] = (clahe_graded, 0)

@@ -17,7 +17,7 @@ Runs ``musica_forward`` on a device-resident synthetic radiograph under
 * per ``musica.<phase>`` span, the host time spent issuing its ops and its
   span on the device timeline;
 * the device time and launches of each hand-written kernel (K1-K7, KP1,
-  KP2, the pyramid's tails);
+  KP2, the pyramid's tails, KS, KT);
 * the kernels with the most device time, each by a label (its kernel
   template with the vector width, its functor or lambda with the types,
   without namespaces, argument lists and iterator plumbing; never cut),
@@ -77,6 +77,8 @@ HAND_WRITTEN = {
     "KP1 reduce_step_kernel<band>": r"reduce_step_kernel<(true|false)>",
     "KP2 upsample_smooth_kernel<mode>": r"upsample_smooth_kernel<\d>",
     "pyramid_tail_kernel<expand>": r"pyramid_tail_kernel<(true|false)>",
+    "KS sdev_kernel": r"(?<![A-Za-z_])sdev_kernel\b",
+    "KT tone_map_kernel<vec>": r"tone_map_kernel<(true|false)>",
     # KP1 in checkouts from before the fused step (--root)
     "KP1 smooth_downsample_kernel": r"smooth_downsample_kernel\b",
 }

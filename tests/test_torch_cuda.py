@@ -15,13 +15,14 @@ import torch
 
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import graphs, musica
-from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe, noise, normalize, pyramid, stats
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe, curves, noise, normalize, pyramid, stats
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_apply as k_clahe
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import histogram as k_hist
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import pyramid as k_pyr
-from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import hist_cases, pyramid_cases
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import tonemap as k_tone
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import hist_cases, pyramid_cases, tone_cases
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import synthetic_radiograph
 
 pytestmark = pytest.mark.gpu
@@ -265,6 +266,8 @@ def test_pipeline_on_card_matches_cpu_and_launches_kernels(dev, size, anatomy):
     # 512 takes the in-kernel relevance; 600 is ragged (relevance image)
     key = "grad_hist_relevant" if size % 16 == 0 else "grad_hist"
     assert counts[key] == 1
+    # KS: every analysis level's sdev; KT: the tone map
+    assert counts["sdev"] == counts["tone_map"] == 1 and counts["sdev_noise_hist"] == 0
     # every op on the path is correctly rounded on both devices (float64
     # sqrt, true divisions), so the card reproduces the CPU path bit for bit
     np.testing.assert_array_equal(out, musica.process(img, cfg, "cpu"))
@@ -880,7 +883,8 @@ def test_hist_argmax_kernel_ties_and_zero_rows(dev):
 def test_spatial_path_on_card_equals_eager(dev, n, shape):
     """process_sharded over mesh entries that are all this card equals the
     unsharded eager path bit for bit, with K1 once per shard that holds
-    covered rows, K2 once per image and K3 (or K4 at 600) once per shard."""
+    covered rows, K2 once per image and K3 (or K4 at 600), KS and KT once
+    per shard."""
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import (
         sharding, spatial)
     cfg = MusicaConfig(image_size=n)
@@ -905,6 +909,7 @@ def test_spatial_path_on_card_equals_eager(dev, n, shape):
     grad = "grad_hist_relevant" if n % 16 == 0 else "grad_hist"
     assert counts["hist_argmax"] == 2 and counts[grad] == 2 * s, counts
     assert counts["noise_hist"] == 2 * covered > 0, counts
+    assert counts["sdev"] == counts["tone_map"] == 2 * s, counts
 
 
 def test_spatial_path_over_every_card(dev):
@@ -1003,8 +1008,9 @@ def test_spatial_variants_on_card_equal_eager(dev, variant):
     """process_sharded over 1x4 entries on this card in the CLAHE + linear
     variant (clahe_graded gathered whole) and with fused_sdev equals the
     unsharded eager path bit for bit; per image K1 once per shard with
-    covered rows, K2 once, K4, K6 and K5 once per shard (CLAHE), or K7 once
-    per shard, K2 once and K3 once per shard (fused-sdev)."""
+    covered rows, KS, K4, K6 and K5 once per shard and K2 once (CLAHE), or
+    K7 once per shard, K2 once and K3 once per shard (fused-sdev), and KT
+    once per shard in both."""
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
     fused = variant == "fused_sdev"
     cfg = MusicaConfig(image_size=512, enable_clahe=not fused, grad_with_linear_image=not fused)
@@ -1025,7 +1031,8 @@ def test_spatial_variants_on_card_equal_eager(dev, variant):
         want_counts = {"sdev_noise_hist": 8, "hist_argmax": 2, "grad_hist_relevant": 8}
     else:
         want_counts = {"noise_hist": 8, "hist_argmax": 2, "grad_hist": 8, "histogram": 8,
-                       "clahe_apply": 8}
+                       "clahe_apply": 8, "sdev": 8}
+    want_counts["tone_map"] = 8  # KT on each shard's rows
     # per image over 1x4 (R = 7 sharded levels of L = 9): the down step and
     # a band on each shard at the 7 sharded levels, an expand step on each
     # at the 7 on the way back; the 2 coarse levels (4 and 2 px) one ladder
@@ -1333,3 +1340,173 @@ def test_pyramid_wrappers_reject_what_the_kernels_do_not_take(dev):
         k_pyr.reduce_tail(torch.rand(161, 161, device=dev), 2)  # past 227 KB
     with pytest.raises(ValueError):
         k_pyr.expand_tail(dn, [x, x])  # a 40-px band under a 40-px one
+
+
+# ----------------------------------------------------------------------
+# KT, the tone map (csrc/tonemap.cu), and KS, the default path's sdev
+# (sdev_kernel in csrc/sdev_noise.cu)
+# ----------------------------------------------------------------------
+
+def _tone_inputs(n, anatomy, dev, **variant):
+    """(grad_input, gpx, gpy) of a phantom's forward on the card."""
+    cfg = MusicaConfig(image_size=n, **variant)
+    res = musica.musica_forward(torch.from_numpy(synthetic_radiograph(n, anatomy)).to(dev), cfg,
+                                want_intermediates=True)
+    gpx, gpy, _ = res["intermediates"]["grad_curve"]
+    return res["intermediates"].get("linear", res["recon"]), gpx, gpy
+
+
+def _tone_cases(rng, n, dev):
+    """(name, x, gpx, gpy): the main path's and the linear gradation's real
+    curves on their images, and the adversarial curves on images that hit
+    every knot, its neighbours and the special values."""
+    out = [("main",) + _tone_inputs(n, "thorax", dev),
+           ("linear",) + _tone_inputs(n, "pelvis", dev, grad_with_linear_image=True)]
+    for name, (px, py) in tone_cases.adversarial_curves(rng).items():
+        x = torch.from_numpy(tone_cases.image(rng, (n, n), px)).to(dev)
+        out.append((name, x, torch.from_numpy(px).to(dev), torch.from_numpy(py).to(dev)))
+    return out
+
+
+def _same_tone(got, want, what, nan_bits=True):
+    """graded bit for bit (NaN where it has NaN; with ``nan_bits`` the NaN's
+    bits too: the CPU makes 0xffc00000 where the card makes 0x7fffffff) and
+    out_u8 equal."""
+    g, w = got[0], want[0]
+    if nan_bits:
+        assert _same_bits(g, w), f"{what}: graded"
+    else:
+        nan = torch.isnan(w)
+        assert torch.equal(torch.isnan(g), nan), f"{what}: graded NaN"
+        assert _same_bits(g[~nan], w[~nan]), f"{what}: graded"
+    assert got[1].dtype == torch.uint8 and torch.equal(got[1], want[1]), f"{what}: out_u8"
+
+
+@pytest.mark.parametrize("n", [3072, 600, 144])
+def test_tone_map_kernel_equals_plain(dev, n):
+    """KT against the plain chain on the card and on the CPU, bit for bit
+    (graded with its NaN, out_u8), on the real gradation curves and the
+    adversarial ones; the tables its first block builds equal
+    curves.general_tables bit for bit; one launch a call."""
+    rng = np.random.default_rng(n)
+    for name, x, gpx, gpy in _tone_cases(rng, n, dev):
+        launch.reset_launch_counts()
+        got = k_tone.tone_map(x, gpx, gpy, 10)
+        assert launch.LAUNCHES["tone_map"] == 1
+        _same_tone(got, k_tone.tone_map_plain(x, gpx, gpy, 10), f"{n} {name}")
+        cpu = k_tone.tone_map_plain(x.cpu(), gpx.cpu(), gpy.cpu(), 10)
+        _same_tone([t.cpu() for t in got], cpu, f"{n} {name} vs the CPU", nan_bits=False)
+        g, o, tab = k_tone.tone_tables(x, gpx, gpy, 10)
+        _same_tone((g, o), got, f"{n} {name}, with its tables")
+        want = curves.general_tables(gpx, gpy)
+        k = gpx.shape[0]
+        for j, w in enumerate(want):
+            assert _same_bits(tab[j, :w.shape[0]].contiguous(), w), (n, name, j)
+        assert got[1].shape == (n - 20, n - 20)
+
+
+@pytest.mark.parametrize("n,space", [(3072, 4), (600, 4), (600, 2), (144, 2), (144, 3)])
+def test_tone_map_kernel_on_windows(dev, n, space):
+    """KT on every shard's rows of a plan over ``space`` shards and on
+    windows that start on odd rows and inside the margins: each equals the
+    plain version's window, and the windows put together equal the whole
+    image's graded and out_u8."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
+    rng = np.random.default_rng(n + space)
+    cfg = MusicaConfig(image_size=n)
+    plan = spatial.row_plan(n, space, cfg)
+    cuts = {"plan": list(plan.bounds[0]), "odd": [0, 5, 11, n // 2 + 1, n - 9, n]}
+    for name, x, gpx, gpy in _tone_cases(rng, n, dev)[:4]:
+        whole = k_tone.tone_map(x, gpx, gpy, 10)
+        for kind, bounds in cuts.items():
+            parts = [k_tone.tone_map(x[a:b], gpx, gpy, 10, a) for a, b in zip(bounds, bounds[1:])]
+            for (a, b), got in zip(zip(bounds, bounds[1:]), parts):
+                _same_tone(got, k_tone.tone_map_plain(x[a:b], gpx, gpy, 10, a),
+                           f"{n} {name} {kind} rows [{a}, {b})")
+            _same_tone((torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])),
+                       whole, f"{n} {name} {kind} windows together")
+
+
+def _sdev_windows(plan, bands, levels, i):
+    rows = [plan.rows(k, i) if k < plan.replicated else (0, plan.sizes[k]) for k in levels]
+    need = [pyramid.needed_rows("img_sdev", b.shape[-1], *r) for b, r in zip(bands, rows)]
+    return [b[lo:hi] for b, (lo, hi) in zip(bands, need)], [lo for lo, _ in need], rows
+
+
+@pytest.mark.parametrize("size,source", [(3072, "thorax"), (600, "pelvis"), (144, "hand"),
+                                         (600, "random"), (144, "random")])
+def test_sdev_kernel_equals_img_sdev(dev, size, source):
+    """KS over every analysis level in one launch equals img_sdev a level on
+    the card and on the CPU bit for bit, and K7's sdev; also with a few
+    blocks whose task ranges cross levels, and on every shard's windows of
+    a 4-shard plan, 3 at 144 (img_sdev_rows, the whole image's rows)."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
+    cfg = MusicaConfig(image_size=size, quirks=size != 144)
+    lv = list(cfg.analysis_levels)
+    if source == "random":
+        bands = _random_bands(size, [-(-size // 2 ** i) for i in lv], dev)
+    else:
+        bands = _bands(synthetic_radiograph(size, source), cfg, dev)
+    want = [stats.img_sdev(b) for b in bands]
+    k7 = fh.sdev_noise_hists(bands, cfg)[0]
+    for grid in (0, 3):
+        launch.reset_launch_counts()
+        got = fh.sdevs(bands, grid=grid)
+        assert launch.LAUNCHES["sdev"] == 1 and launch.LAUNCHES["sdev_noise_hist"] == 0
+        for g, w, s7, b in zip(got, want, k7, bands):
+            assert _same_bits(g, w) and _same_bits(g, s7), (size, source, grid)
+            assert _same_bits(g.cpu(), stats.img_sdev(b.cpu()))
+    space = 4 if size > 144 else 3  # 144 holds no 4 shards of whole 16-px tiles
+    plan = spatial.row_plan(size, space, cfg)
+    for i in range(space):
+        wins, los, rows = _sdev_windows(plan, bands, lv, i)
+        got = fh.sdevs_rows(wins, los, rows)
+        for g, w, p, (r0, r1) in zip(got, want, fh.sdevs_rows_plain(wins, los, rows), rows):
+            assert _same_bits(g, p) and _same_bits(g, w[r0:r1].contiguous()), (size, i)
+
+
+def test_tone_map_and_sdev_on_every_card(dev):
+    """On each visible card KT (whole and a window) and KS (whole and a
+    window) launch on their tensors' card, count one launch each and equal
+    their plain versions on the CPU bit for bit."""
+    rng = np.random.default_rng(5)
+    px, py = tone_cases.adversarial_curves(rng)["fold-back"]
+    x = tone_cases.image(rng, (600, 600), px)
+    band = rng.normal(0.0, 0.03, (600, 600)).astype(np.float32)
+
+    def run(t, cpx, cpy, b, small):
+        return (*k_tone.tone_map(t, cpx, cpy, 10), *k_tone.tone_map(t[151:450], cpx, cpy, 10, 151),
+                *fh.sdevs([b, small]), *fh.sdevs_rows([b[149:452]], [149], [(151, 450)]))
+    cpu = [torch.from_numpy(a) for a in (x, px, py, band, band[:75, :75].copy())]
+    want = run(*cpu)
+    for k in range(torch.cuda.device_count()):
+        card = torch.device("cuda", k)
+        launch.reset_launch_counts()
+        got = run(*[t.to(card) for t in cpu])
+        torch.cuda.synchronize(card)
+        assert (launch.LAUNCHES["tone_map"], launch.LAUNCHES["sdev"]) == (2, 2), k
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.device == card, (k, i)
+            assert (torch.equal(g.cpu(), w) if w.dtype == torch.uint8
+                    else _same_bits(g.cpu(), w)), (k, i)
+
+
+def test_tone_map_and_sdev_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = torch.rand(40, 40, device=dev)
+    px = torch.linspace(0, 1, 22, device=dev)
+    with pytest.raises(TypeError):
+        k_tone.tone_map(x.double(), px, px, 10)
+    with pytest.raises(ValueError):
+        k_tone.tone_map(x.T, px, px, 10)
+    with pytest.raises(ValueError):
+        k_tone.tone_map(x, px.double(), px, 10)
+    with pytest.raises(ValueError):
+        k_tone.tone_map(x, torch.rand(64, device=dev), torch.rand(64, device=dev), 10)
+    with pytest.raises(ValueError):
+        k_tone.tone_map(x, px, px, 20)  # no column left after the crop
+    with pytest.raises(ValueError):
+        k_tone.tone_map(x[30:], px, px, 10, 35)  # rows past the image
+    with pytest.raises(ValueError, match="window holds"):
+        fh.sdevs_rows([x[4:20]], [4], [(4, 20)])  # misses rows 2 and 3
+    with pytest.raises(TypeError):
+        fh.sdevs([x.double()])

@@ -1,5 +1,6 @@
-"""The formulations of the CUDA kernels K5 (CLAHE apply) and K7 (sdev +
-noise histogram), emulated on the CPU before the card runs them.
+"""The formulations of the CUDA kernels K5 (CLAHE apply), K7 (sdev + noise
+histogram), KS (K7's sdev alone) and KT (the tone map), emulated on the CPU
+before the card runs them.
 
 K5 (``csrc/clahe_apply.cu``) takes the divisions out of the per-pixel work:
 each block builds per tile and segment the float2 {y1, slope} with the
@@ -15,6 +16,15 @@ contiguous range of tasks, flushing its shared histogram where the range
 crosses into the next level.  ``sdev_partition`` below repeats the host's
 and the kernel's index arithmetic: every output pixel must lie in exactly
 one task and every group of the scanned coverage be scanned exactly once.
+KS runs the same partition at K7's 64-column tasks with nothing scanned.
+
+KT (``csrc/tonemap.cu``) builds the curve's tables in each block with the
+plain version's own float32 operations, selects per pixel the smallest
+matching interval and writes ``out_u8`` through its own row and column
+arithmetic.  ``kernel_tone_map`` below repeats that in NumPy float32 (the
+selection as the first hit of a scan, not the plain version's descending
+chain) and must equal ``ops/cuda/tonemap.py::tone_map_plain`` bit for bit,
+NaN and denormals included, every crop byte written once.
 """
 
 import numpy as np
@@ -22,8 +32,11 @@ import pytest
 import torch
 
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
-from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe, stats
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe, curves, stats
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import tonemap
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import tone_cases
 
 torch.set_num_threads(2)
 
@@ -226,3 +239,93 @@ def test_sdev_partition_at_3072_is_one_wave_of_equal_tasks():
     _, _, flushes, first = sdev_partition(ns, [stats.coverage(n, cfg) for n in ns], 16, 528)
     assert first == [0, 4608, 5760, 6048, 6120]
     assert len(flushes) == 510  # 12 tasks a block
+
+
+@pytest.mark.parametrize("wave", [1056, 132, 7, 1])
+@pytest.mark.parametrize("ladder", list(LADDERS))
+def test_ks_task_partition_covers_each_pixel_once(ladder, wave):
+    """KS (``sdev_kernel``): K7's partition at 64-column tasks, nothing
+    counted, over every level whole and over the windows of a 2-shard plan;
+    every output pixel lies in exactly one task."""
+    size, quirks = LADDERS[ladder]
+    cfg = MusicaConfig(image_size=size, quirks=quirks)
+    ns = [-(-size // 2 ** i) for i in cfg.analysis_levels]
+    assert fh.sdev_task_width(8) == fh.SDEV_WIDTH
+    covered, scanned, _, _ = sdev_partition(ns, [0] * len(ns), 8, wave)
+    assert all((c == 1).all() for c in covered) and all(s.size == 0 for s in scanned)
+    if size < 96:
+        return
+    plan = spatial.row_plan(size, 2, cfg)
+    lv = list(cfg.analysis_levels)
+    for i in range(2):
+        rows = [plan.rows(k, i) if k < plan.replicated else (0, ns[j]) for j, k in enumerate(lv)]
+        covered, _, _, _ = sdev_partition(ns, [0] * len(ns), 8, wave, rows)
+        for c, (r0, r1) in zip(covered, rows):
+            assert (c[r0:r1] == 1).all() and c[:r0].sum() == c[r1:].sum() == 0
+
+
+# ----------------------------------------------------------------------
+# KT: the tone map's tables, selection and crop addressing
+# ----------------------------------------------------------------------
+
+def kernel_tone_map(x, gpx, gpy, m, row0=0):
+    """csrc/tonemap.cu in NumPy float32: (graded [rows, n], out_u8, the
+    number of writes of each out_u8 byte, the block's tables px_e, py_e,
+    m_tab [k + 1] and px_hi [k])."""
+    f = np.float32
+    k = gpx.shape[0]
+    rows, n = x.shape
+    px_e, py_e, m_tab, hi = (np.zeros(k + 1, f) for _ in range(4))
+    with np.errstate(all="ignore"):
+        for i in range(k + 1):  # build_curve: thread i
+            px_e[i] = gpx[i] if i < k else f(0)
+            py_e[i] = gpy[i] if i < k else f(0)
+            if i < k:
+                px1 = gpx[i + 1] if i + 1 < k else f(0)
+                py1 = gpy[i + 1] if i + 1 < k else f(0)
+                ms = f(f(py1 - py_e[i]) / f(px1 - px_e[i]))
+                nonmono = px1 <= px_e[i]
+                m_tab[i] = f(0) if nonmono else ms
+                hi[i] = px_e[i] if nonmono else px1
+        v = np.where(np.isfinite(x), x, f(3.0e38)).astype(f).reshape(-1)
+        hit = (px_e[:k, None] <= v[None, :]) & (v[None, :] <= hi[:k, None])
+        sel = np.where(hit.any(0), hit.argmax(0), k)  # the scan's first hit
+        g = (m_tab[sel] * (v - px_e[sel])).astype(f) + py_e[sel]
+        t = np.trunc(g * f(255)).astype(f)
+        t = np.where(np.isnan(t), t, np.clip(t, f(0), f(255)))
+        u8 = np.where(np.isnan(t), 0, t).astype(np.int64).astype(np.uint8)  # NaN -> 0
+    # a block a row, 4 consecutive pixels a thread: each pixel's image row
+    # and column, and its byte of out_u8 inside the crop
+    r = row0 + np.repeat(np.arange(rows), n)
+    c = np.tile(np.arange(n), rows)
+    o0, o1 = max(row0, m), max(max(row0, m), min(row0 + rows, n - m))
+    inside = (r >= m) & (r < n - m) & (c >= m) & (c < n - m)
+    idx = (r - o0) * (n - 2 * m) + (c - m)
+    out = np.zeros((o1 - o0) * (n - 2 * m), np.uint8)
+    writes = np.zeros_like(out, np.int32)
+    np.add.at(writes, idx[inside], 1)
+    out[idx[inside]] = u8[inside]
+    return g.reshape(rows, n), out.reshape(o1 - o0, n - 2 * m), writes, (px_e, py_e, m_tab, hi[:k])
+
+
+@pytest.mark.parametrize("curve", sorted(tone_cases.adversarial_curves(np.random.default_rng(0))))
+@pytest.mark.parametrize("n,cuts", [(64, (0, 64)), (75, (0, 3, 11, 40, 66, 75)),
+                                    (96, (0, 48, 96))])
+def test_tone_map_kernel_formulation_equals_plain(curve, n, cuts):
+    """KT's in-block tables, first-hit selection, float32 lerp, u8 cast and
+    crop addressing on whole images and on row windows (inside the margins,
+    odd rows) equal the plain chain bit for bit, NaN and denormal x
+    included (curves.general_tables equal the block's tables too)."""
+    px, py = tone_cases.adversarial_curves(np.random.default_rng(0))[curve]
+    rng = np.random.default_rng(n)
+    x = tone_cases.image(rng, (n, n), px)
+    want = curves.general_tables(torch.from_numpy(px), torch.from_numpy(py))
+    for a, b in zip(cuts, cuts[1:]):
+        g, o, writes, tables = kernel_tone_map(x[a:b], px, py, 10, a)
+        pg, po = tonemap.tone_map_plain(torch.from_numpy(x[a:b]), torch.from_numpy(px),
+                                        torch.from_numpy(py), 10, a)
+        np.testing.assert_array_equal(g.view(np.int32), pg.numpy().view(np.int32))
+        np.testing.assert_array_equal(o, po.numpy())
+        assert (writes == 1).all()
+    for got, w in zip(tables, want):
+        np.testing.assert_array_equal(got.view(np.int32), w.numpy().view(np.int32))
