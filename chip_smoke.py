@@ -153,10 +153,12 @@ KERNEL_EVENTS = {
     "clahe_apply": r"clahe_apply_kernel\b",
     "sdev_noise_hist": r"sdev_noise_hist_kernel\b",
     "sdev": r"(?<![A-Za-z_])sdev_kernel\b",
-    "tone_map": r"tone_map_kernel<(true|false)>",
+    "tone_map": r"tone_map_kernel<(true|false)(, (true|false))?>",
     "pyramid_down": r"reduce_step_kernel<(true|false)>",
     "pyramid_up": r"upsample_smooth_kernel<\d>",
     "pyramid_tail": r"pyramid_tail_kernel<(true|false)>",
+    # KS's tail alone ([3g]'s check of its rounding; never on a path)
+    "sdev_tail": r"sdev_tail_kernel\b",
 }
 # clahe_graded against the port's CPU path: the LUTs are order-stable sums
 # and the apply is exact, so only a recon that differs could move it; the
@@ -846,8 +848,54 @@ def tone_inputs(x_dev, c, fused):
     return res["intermediates"].get("linear", res["recon"]), gpx, gpy
 
 
-# [3g]'s curves on row windows: two paths' and three adversarial ones
-WINDOW_CURVES = ("main", "CLAHE + linear", "fold-back", "infinite slope", "63 random")
+# [3g]'s curves on row windows: two paths' and four adversarial ones (fold-back
+# and 63 random take KT's chain, infinite slope and increasing 22 its search)
+WINDOW_CURVES = ("main", "CLAHE + linear", "fold-back", "infinite slope", "63 random",
+                 "increasing 22")
+
+
+def searched(gpx) -> bool:
+    """Whether KT takes the binary search on the curve ``gpx``
+    (csrc/tonemap.cu: strictly increasing, its last point >= 0) rather than
+    the descending chain."""
+    return bool((gpx[1:] > gpx[:-1]).all()) and float(gpx[-1]) >= 0.0
+
+
+def check_sdev_tail(rec, rng, dev):
+    """[3g]: KS's and K7's per-output tail (``sdev_tail_kernel``: div25 and
+    sqrt_to_f32 of csrc/sdev_noise.cu) against ``torch.sqrt(s / 25)`` to
+    float32 bit for bit (NaN where it has NaN) on the adversarial sums of
+    ``testing/sdev_cases.py`` and 4 million random doubles; and the relative
+    error of rsqrt.approx.ftz.f64, where sqrt_to_f32 starts, on every
+    significand its high word holds and on random q over the tail's range:
+    the proof needs it below 2^-16."""
+    import math
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import sdev_cases
+    counts = {}
+    for what, s in (("adversarial", sdev_cases.adversarial_sums(rng)),
+                    ("random", sdev_cases.random_doubles(rng, 4 << 20))):
+        t = torch.from_numpy(s).to(dev)
+        got, want = fh.sdev_tail(t), fh.sdev_tail_plain(t)
+        nan = torch.isnan(want)
+        rec.equal("sdev", f"tail on {what} sums, NaN positions", torch.isnan(got), nan)
+        rec.equal_bits("sdev", f"tail on {what} sums", got[~nan].contiguous(),
+                       want[~nan].contiguous())
+        counts[what] = (s.size, int(nan.sum()))
+    hi = np.arange(1 << 20, dtype=np.int64)
+    q = np.concatenate([((e << 52) | (hi << 32) | low).view(np.float64)
+                        for e in (1022, 1023) for low in (0, 0xffffffff)])
+    t = torch.from_numpy(q).to(dev)
+    e_high = (fh.sdev_tail_rsqrt(t) * torch.sqrt(t) - 1.0).abs().max().item()
+    t = torch.from_numpy(np.exp2(rng.uniform(-245.0, 236.0, 4 << 20))).to(dev)
+    e_rand = (fh.sdev_tail_rsqrt(t) * torch.sqrt(t) - 1.0).abs().max().item()
+    assert max(e_high, e_rand) < 2.0 ** -16, (e_high, e_rand)
+    log(f"  KS's tail (div25, sqrt_to_f32): {counts['adversarial'][0]} adversarial sums and "
+        f"{counts['random'][0]} random doubles ({counts['random'][1]} NaN) bit for bit as "
+        f"torch.sqrt(s / 25) to float32; rsqrt.approx.ftz.f64's relative error at most "
+        f"2^{math.log2(e_high):.2f} over every high word of two binades, 2^{math.log2(e_rand):.2f} "
+        f"over 4M random q (the proof needs < 2^-16)")
 
 
 def check_tone_sdev(rec, rng, dev, variants):
@@ -898,9 +946,12 @@ def check_tone_sdev(rec, rng, dev, variants):
                 rec.equal_bits("tone_map", f"{what}, table {j}", tab[j, :w.shape[0]].contiguous(),
                                w)
             nan += int(torch.isnan(got[0]).sum())
+        way = {c[0]: "search" if searched(c[2]) else "chain" for c in cases}
+        assert {"search", "chain"} <= set(way.values())
         log(f"  KT at {n}: {len(cases)} curves (the paths' {', '.join(v[0] for v in variants)}; "
             f"{', '.join(c[0] for c in cases[len(variants):])}): graded bit for bit ({nan} NaN "
-            f"px in all), out_u8 equal, the block's tables equal curves.general_tables")
+            f"px in all), out_u8 equal, the block's tables equal curves.general_tables; "
+            f"selection: {way}")
         tile = 16 if n > 144 else 12
         cfg_n = MusicaConfig(image_size=n, quirks=n > 144, histogram_area_size=tile)
         windows = 0
@@ -1312,26 +1363,31 @@ def grad_scan(recon, cfg):
 
 
 def fp64_sass_lengths():
-    """FP64 instructions of ``__ddiv_rn(x, 25.0)`` and ``__dsqrt_rn(x)`` as
-    this toolkit compiles them for sm_90a: one probe kernel each, built with
-    the kernels' flags, ``cuobjdump -sass``, counting the float64
-    instructions (D*, MUFU.*64H, F2F to or from F64) from the function's
-    start to its first EXIT (the fast path; the slow-path subroutine placed
-    after it runs only for special operands)."""
+    """FP64 instructions of ``__ddiv_rn(x, 25.0)``, ``__dsqrt_rn(x)`` and
+    KS's tail (csrc/sdev_noise.cu::sdev_tail: the division, square root and
+    rounding to float32 that replace them) as this toolkit compiles them for
+    sm_90a: one probe kernel each, built with the kernels' flags,
+    ``cuobjdump -sass``, counting the float64 instructions (D*, MUFU.*64H,
+    F2F to or from F64) from the function's start to its first EXIT (the
+    fast path; the slow-path subroutine placed after it runs only for
+    special operands)."""
     import re
     from pathlib import Path
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import build
     src = ('extern "C" __global__ void probe_ddiv(const double* a, double* o) '
            '{ o[threadIdx.x] = __ddiv_rn(a[threadIdx.x], 25.0); }\n'
            'extern "C" __global__ void probe_dsqrt(const double* a, double* o) '
-           '{ o[threadIdx.x] = __dsqrt_rn(a[threadIdx.x]); }\n')
+           '{ o[threadIdx.x] = __dsqrt_rn(a[threadIdx.x]); }\n'
+           '#include "sdev_noise.cu"\n'
+           'extern "C" __global__ void probe_tail(const double* a, float* o) '
+           '{ bool slow; o[threadIdx.x] = sdev_tail(a[threadIdx.x], &slow); }\n')
     nvcc = build._nvcc()
     with tempfile.TemporaryDirectory() as tmp:
         cu, cubin = os.path.join(tmp, "probe.cu"), os.path.join(tmp, "probe.cubin")
         with open(cu, "w") as f:
             f.write(src)
-        subprocess.run([nvcc, *build.ARCH, "-O3", "-fmad=false", "-cubin", "-o", cubin, cu],
-                       check=True, capture_output=True, timeout=120)
+        subprocess.run([nvcc, *build.ARCH, "-O3", "-fmad=false", "-I", str(build.SRC_DIR),
+                        "-cubin", "-o", cubin, cu], check=True, capture_output=True, timeout=120)
         sass = subprocess.run([str(Path(nvcc).with_name("cuobjdump")), "-sass", cubin],
                               check=True, capture_output=True, text=True, timeout=60).stdout
     fp64 = re.compile(r"^(?!DEPBAR)(D[A-Z]+|MUFU\.\w*64H|F2F\.F64\.\w+|F2F\.\w+\.F64)")
@@ -1349,7 +1405,7 @@ def fp64_sass_lengths():
             done = True
         elif fp64.match(m.group(1)):
             out[name] += 1
-    return out["probe_ddiv"], out["probe_dsqrt"]
+    return out["probe_ddiv"], out["probe_dsqrt"], out["probe_tail"]
 
 
 def fp64_rate():
@@ -1447,19 +1503,19 @@ def kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b
     m = v_recon.numel()
     out["clahe_apply"] = bound(8 * m + 2 * 4 * v_px.numel(), 20 * m)
     # K7: the bands in, the sdev out; per pixel 8 float64 additions, the
-    # square's conversion to float64 and the sdev's back, a division and a
-    # square root, each as long as its SASS, at 64 float64 instructions per
-    # SM per clock
+    # square's conversion to float64, and the tail (the division, the square
+    # root and the rounding to float32) as long as its SASS, at 64 float64
+    # instructions per SM per clock
     px7 = sum(b.numel() for b in b3072)
-    n_div, n_sqrt = fp64_sass_lengths()
-    per_px = 8 + 2 + n_div + n_sqrt
+    n_div, n_sqrt, n_tail = fp64_sass_lengths()
+    per_px = 8 + 1 + n_tail
     rate64, sms, mhz = fp64_rate()
     t_bytes = (8 * px7 + 4 * L * nbn) / HBM_BYTES_PER_S * 1e3
     t_fp64 = px7 * per_px / rate64 * 1e3
     log(f"  K7's bound: bytes {t_bytes} ms ({8 * px7 + 4 * L * nbn} B); float64 issue {t_fp64} "
-        f"ms ({per_px} FP64 instructions a pixel: 8 additions, 2 conversions, __ddiv_rn "
-        f"{n_div}, __dsqrt_rn {n_sqrt} in their SASS; {px7} px at 64 a clock on {sms} SMs "
-        f"at {mhz:.0f} MHz)")
+        f"ms ({per_px} FP64 instructions a pixel: 8 additions, a conversion, the tail's "
+        f"{n_tail} in its SASS, where __ddiv_rn's {n_div}, __dsqrt_rn's {n_sqrt} and a "
+        f"conversion were; {px7} px at 64 a clock on {sms} SMs at {mhz:.0f} MHz)")
     out["sdev_noise_hist"] = (max(t_bytes, t_fp64), "bytes" if t_bytes >= t_fp64 else "operations")
     # KS: K7's without the histograms
     t_bytes_s = 8 * px7 / HBM_BYTES_PER_S * 1e3
@@ -1947,6 +2003,7 @@ def main() -> int:
     cfg16 = cfg.with_(storage="bfloat16")
     check_tone_sdev(rec, rng, dev, [("main", cfg, False), ("CLAHE + linear", cfg_var, False),
                                     ("fused-sdev", cfg, True), ("bf16", cfg16, False)])
+    check_sdev_tail(rec, rng, dev)
 
     # ---- 4. the main path at 3072^2 ----------------------------------------
     log(f"[4] main path: process() on a {SIZE}^2 thorax phantom; a first call captures its "
@@ -2644,6 +2701,10 @@ def main() -> int:
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
         if name == "grad_hist_relevant":
             row.update({k: cuda_ms(fn, 20, 2, device_only=True) for k, fn in k3_parts.items()})
+        if name == "tone_map":  # the main path's curve: the binary search or the chain
+            row["selection"] = "search" if searched(gpx) else "chain"
+            extra_kt = ", ".join(f"{k} {row[k]}" for k in ("selection",))
+            log(f"  tone_map on the main path's {gpx.shape[0]}-point curve: {extra_kt}")
         row.update(pyr_extra.get(name, {}))
         if kern is None:
             row.update(fold)

@@ -27,8 +27,10 @@ wrapper                    replaces (JAX package, ops/pallas/fused_hist.py)
 ``sdevs``, ``sdevs_rows``  no Pallas kernel: ``ops/stats.py::img_sdev``
                            (XLA in the JAX package) on the default
                            analysis path, every level in one launch of
-                           KS (``sdev_kernel``: K7's tasks without the
-                           noise scan), whole or on a shard's rows
+                           KS (``sdev_kernel``: K7's sums and tail
+                           without the noise scan, a warp a strip of
+                           columns down a run of rows), whole or on a
+                           shard's rows
 ``hist_argmax``            ``noise_hist_argmax_multi``'s argmax, a launch of
                            its own on the spatial path's summed histograms
 =========================  ==================================================
@@ -78,8 +80,10 @@ from . import launch
 from .histogram import histogram_plain
 
 _MAX_LEVELS = 16  # MUSICA_MAX_LEVELS in fused_hist.cu
-# csrc/sdev_noise.cu: output rows of a task, its least width in columns
+# csrc/sdev_noise.cu: K7's output rows of a task, its least width in
+# columns; KS's output columns of a warp's strip and rows of its run
 SDEV_BAND, SDEV_WIDTH = 32, 64
+KS_STRIP, KS_RUN = 120, 32
 
 
 def sdev_task_width(tile: int) -> int:
@@ -336,8 +340,10 @@ def _launch_sdev(bands, los, out_rows, counted, cfg, argmax: bool, grid: int = 0
 
 def sdevs(bands, grid: int = 0):
     """``stats.img_sdev`` of each of a list of [n_i, n_i] float32 bandpass
-    levels (list of float32 [n_i, n_i]), in one launch: K7's tasks and sums
-    without its noise scan.  ``grid`` as in ``sdev_noise_hists``."""
+    levels (list of float32 [n_i, n_i]), in one launch: K7's sums and tail
+    without its noise scan.  ``grid`` > 0 launches at most that many blocks
+    (of 4 warps), whose warps then walk several strips and levels each (the
+    tests use it)."""
     dev = launch.device_of(bands)
     if dev.type == "cpu":
         return sdevs_plain(bands)
@@ -364,6 +370,41 @@ def _launch_sdevs(bands, los, out_rows, grid: int = 0):
     launch.launch(launch.lib(), "musica_sdev", "sdev", dev, src, dst, ns, *rows, len(bands),
                   int(grid))
     return sdevs_out
+
+
+def sdev_tail_plain(s: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``sdev_tail``: ``img_sdev``'s last step, the square
+    root of a true float64 division by 25 rounded to float32."""
+    return torch.sqrt(s / torch.full((), 25.0, dtype=s.dtype, device=s.device)
+                      ).to(torch.float32)
+
+
+def sdev_tail(s: torch.Tensor) -> torch.Tensor:
+    """KS's (and K7's) per-output tail on any float64 values ``s`` (the sums
+    of 25 squares in the kernels): float32 of the same shape, one launch of
+    ``sdev_tail_kernel`` (``csrc/sdev_noise.cu``), which must equal
+    ``sdev_tail_plain`` bit for bit (NaN where it has NaN)."""
+    dev = launch.device_of([s])
+    if dev.type == "cpu":
+        return sdev_tail_plain(s)
+    return _launch_sdev_tail(s, 0)
+
+
+def sdev_tail_rsqrt(q: torch.Tensor) -> torch.Tensor:
+    """The card's ``rsqrt.approx.ftz.f64`` of each float64 ``q`` (CUDA
+    only, no plain version): the start of KS's square root, whose relative
+    error ``chip_smoke.py`` [3g] bounds over every significand it reads."""
+    return _launch_sdev_tail(q, 1)
+
+
+def _launch_sdev_tail(s, mode: int):
+    dev = launch.device_of([s])
+    if s.dtype != torch.float64 or not s.is_contiguous():
+        raise ValueError(f"s: expected contiguous float64, got {s.dtype}")
+    out = torch.empty(s.shape, dtype=torch.float32 if mode == 0 else torch.float64, device=dev)
+    launch.launch(launch.lib(), "musica_sdev_tail", "sdev_tail", dev, s.data_ptr(),
+                  out.data_ptr(), s.numel(), mode)
+    return out
 
 
 # ----------------------------------------------------------------------

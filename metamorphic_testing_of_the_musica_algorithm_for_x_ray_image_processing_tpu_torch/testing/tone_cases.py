@@ -17,8 +17,8 @@ def _curve(px, py):
 
 
 def adversarial_curves(rng) -> dict:
-    """name -> (px, py) float32 [k] curves that the descending chain must
-    get right."""
+    """name -> (px, py) float32 [k] curves that the descending chain (and,
+    on a strictly increasing curve, the binary search) must get right."""
     t = np.linspace(0.0, 1.0, 22, dtype=F32)
     out = {}
     # the gradation curve's shape with its second segment folding back past
@@ -41,6 +41,12 @@ def adversarial_curves(rng) -> dict:
     # one point; and the most points the kernel takes, in random order
     out["one point"] = _curve([0.5], [0.75])
     out["63 random"] = _curve(rng.uniform(-0.1, 1.1, 63), rng.uniform(-0.5, 1.5, 63))
+    # a strictly increasing 22-point gradation curve from 0 to 1 (the
+    # kernel's binary search); its own generator leaves the others as they
+    # were
+    px = np.sort(np.random.default_rng(22).uniform(0.0, 1.0, 20).astype(F32))
+    out["increasing 22"] = _curve(np.concatenate([[0.0], px, [1.0]]),
+                                  np.sqrt(np.linspace(0.0, 1.0, 22)))
     return out
 
 

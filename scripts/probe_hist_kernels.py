@@ -41,15 +41,14 @@ Variants:
 * ``no_atomics``    diagnostic, inexact: K1's shared atomics removed;
 * ``k7_no_hist``    diagnostic, inexact: K7 without its noise scan;
 * ``k7_no_flush``   diagnostic, inexact: K7 without its global atomics;
-* ``k7_no_divsqrt`` diagnostic, inexact: K7's float64 division and square
-                    root replaced by one product with 0.04;
+* ``k7_no_divsqrt`` diagnostic, inexact: K7's float64 tail (division, square
+                    root, rounding) replaced by one product with 0.04;
 * ``k7_band16``, ``k7_band64``  K7 with 16- and 64-row tasks (32 in the
                     sources);
-* ``k7_vseg8``, ``k7_vseg32``  K7 with a thread's vertical sums over 8 or
-                    32 rows (16 in the sources);
+* ``k7_vseg16``, ``k7_vseg32``  K7 with a thread's vertical sums over 16 or
+                    32 rows (8 in the sources);
 * ``k7_band28``     K7 with 28-row tasks (14-row vertical sums) held to 51
-                    registers, so that 5 blocks fit on an SM (4 in the
-                    sources);
+                    registers, so that 5 blocks fit on an SM;
 * ``k7_t128``, ``k7_t512``  K7 with blocks of 128 or 512 threads (256);
 * ``argmax_lane8``, ``argmax_lane32``  the argmax tail of K1 and K7
                     (csrc/hist_argmax.cuh) with 8 or 32 loads a lane in
@@ -127,10 +126,10 @@ CLASSIFY = "bin[q] = noise_bin(v, fbins, max_noise);"
 K1_ADD = "hist_add(sh, add ? bin[q] : -1, 1);"
 K7_SCAN = "    const bool on = r < scan_rows && c / kTile < groups;"
 K7_FLUSH = "    if (c != 0) atomicAdd(&out[i], c);"
-K7_DIVSQRT = "__dsqrt_rn(__ddiv_rn(s, 25.0))"
+K7_TAIL = "    x[j] = sdev_tail(sum(j), &sl);"
 K7_BAND = "constexpr int kBand = 32;"
-K7_VSEG = "constexpr int kVSeg = 16;"
-K7_BOUNDS = "__global__ void __launch_bounds__(kThreads)\nsdev_noise_hist_kernel("
+K7_VSEG = "constexpr int kVSeg = 8;"
+K7_BOUNDS = "__global__ void __launch_bounds__(kThreads, kMinBlocks)\nsdev_noise_hist_kernel("
 K5_BUILD = "tbl[off + i].x = __ldg(a.luts + off + i);"
 K5_BLEND = "  if (!(x >= 0.0f && x <= 1.0f)) return 0.0f;\n"
 K5_BOUNDS = "__global__ void __launch_bounds__(kThreads) clahe_apply_kernel("
@@ -143,16 +142,18 @@ CARVEOUT = ("  cudaFuncSetAttribute({k}, cudaFuncAttributePreferredSharedMemoryC
             "  const int e = wave_blocks({k}, kThreads, smem, &wave);")
 PRINT_GRID = ("  {{ static bool once = false; if (!once) {{ once = true; printf(\"{name} grid %lld "
               "blocks, %lld a block, wave %lld\\n\", (long long)blocks, (long long){per}, "
-              "wave); }} }}\n{launch}")
+              "(long long){wave}); }} }}\n{launch}")
 
 
-def carveout(src: dict, name: str, kernel: str, launch: str, per: str) -> dict:
+def carveout(src: dict, name: str, kernel: str, launch: str, per: str, wave: str = "wave") -> dict:
     """The kernel's carveout set to the most shared memory, its grid printed
-    once."""
+    once (``wave``: the expression of the wave where the launch is, -1 where
+    none is in scope)."""
     text = substitute(src[name], INCLUDE, "#include <cstdio>\n" + INCLUDE)
     text = substitute(text, f"  const int e = wave_blocks({kernel}, kThreads, smem, &wave);",
                       CARVEOUT.format(k=kernel))
-    text = substitute(text, launch, PRINT_GRID.format(name=name, per=per, launch=launch))
+    text = substitute(text, launch, PRINT_GRID.format(name=name, per=per, wave=wave,
+                                                      launch=launch))
     return dict(src, **{name: text})
 # mangled names of the timed kernels (a template instance at tile 16, or the
 # parent's non-template kernel)
@@ -205,7 +206,8 @@ def variants(src: dict, parent: str | None):
                        ("K7",), False),
         "k7_no_flush": (with_file(src, "sdev_noise.cu", K7_FLUSH, "    if (c == -7) out[i] = c;"),
                         ("K7",), False),
-        "k7_no_divsqrt": (with_file(src, "sdev_noise.cu", K7_DIVSQRT, "__dmul_rn(s, 0.04)"),
+        "k7_no_divsqrt": (with_file(src, "sdev_noise.cu", K7_TAIL,
+                                    "    x[j] = (float)__dmul_rn(sum(j), 0.04);\n    sl = false;"),
                           ("K7",), False),
         "k7_band16": (with_file(src, "sdev_noise.cu", K7_BAND, "constexpr int kBand = 16;"),
                       ("K7",), True),
@@ -220,8 +222,8 @@ def variants(src: dict, parent: str | None):
                               "constexpr int kThreads = 128;"), ("K7",), True),
         "k7_t512": (with_file(src, "sdev_noise.cu", "constexpr int kThreads = 256;",
                               "constexpr int kThreads = 512;"), ("K7",), True),
-        "k7_vseg8": (with_file(src, "sdev_noise.cu", K7_VSEG, "constexpr int kVSeg = 8;"),
-                     ("K7",), True),
+        "k7_vseg16": (with_file(src, "sdev_noise.cu", K7_VSEG, "constexpr int kVSeg = 16;"),
+                      ("K7",), True),
         "k7_vseg32": (with_file(src, "sdev_noise.cu", K7_VSEG, "constexpr int kVSeg = 32;"),
                       ("K7",), True),
         "k5_no_tables": (with_file(src, "clahe_apply.cu", K5_BUILD, "(void)0;"), ("K5",), False),
@@ -237,8 +239,9 @@ def variants(src: dict, parent: str | None):
                                 "clahe_apply_kernel("), ("K5",), True),
         "k5_carveout": (carveout(src, "clahe_apply.cu", "clahe_apply_kernel",
                                  "  clahe_apply_kernel<<<", "a.per_block"), ("K5",), True),
-        "k7_carveout": (carveout(src, "sdev_noise.cu", "sdev_noise_hist_kernel<kTile>",
-                                 "  sdev_noise_hist_kernel<kTile><<<", "lv.per_block"),
+        # K7's occupancy is read in split_tasks, for any kernel it is given
+        "k7_carveout": (carveout(src, "sdev_noise.cu", "kernel",
+                                 "  sdev_noise_hist_kernel<kTile><<<", "lv.per_block", "-1"),
                         ("K7",), True),
         "argmax_lane8": (with_file(src, "hist_argmax.cuh", ARGMAX_LANE,
                                    "constexpr int kArgmaxPerLane = 8;"), argmax, True),

@@ -1465,6 +1465,67 @@ def test_sdev_kernel_equals_img_sdev(dev, size, source):
             assert _same_bits(g, p) and _same_bits(g, w[r0:r1].contiguous()), (size, i)
 
 
+def _same_nan_bits(g, w):
+    """float32 bit for bit where w is a number, NaN where w is NaN."""
+    nan = torch.isnan(w)
+    return bool(torch.equal(torch.isnan(g), nan)
+                and torch.equal(g[~nan].view(torch.int32), w[~nan].view(torch.int32)))
+
+
+def test_sdev_tail_equals_the_plain_chain(dev):
+    """KS's and K7's per-output tail (sdev_tail_kernel: div25 and
+    sqrt_to_f32) equals torch.sqrt(s / 25).to(float32) on the card bit for
+    bit, NaN where it has NaN, on the adversarial sums of
+    testing/sdev_cases.py and on a million random doubles; one launch a
+    call."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import sdev_cases
+    rng = np.random.default_rng(15)
+    for what, s in (("adversarial", sdev_cases.adversarial_sums(rng)),
+                    ("random", sdev_cases.random_doubles(rng, 1 << 20))):
+        t = torch.from_numpy(s).to(dev)
+        launch.reset_launch_counts()
+        got = fh.sdev_tail(t)
+        assert launch.LAUNCHES["sdev_tail"] == 1
+        assert _same_nan_bits(got, fh.sdev_tail_plain(t)), what
+
+
+def test_sdev_tail_rsqrt_start_is_within_the_proofs_bound(dev):
+    """rsqrt.approx.ftz.f64, where sqrt_to_f32 starts, has a relative error
+    below 2^-16 (the proof's requirement) on every significand its high
+    word holds (both exponent parities, low word 0 and all ones) and on
+    random q over the tail's range."""
+    hi = np.arange(1 << 20, dtype=np.int64)
+    q = np.concatenate([((e << 52) | (hi << 32) | low).view(np.float64)
+                        for e in (1022, 1023) for low in (0, 0xffffffff)])
+    rng = np.random.default_rng(16)
+    q = np.concatenate([q, np.exp2(rng.uniform(-245.0, 236.0, 1 << 20))])
+    t = torch.from_numpy(q).to(dev)
+    err = (fh.sdev_tail_rsqrt(t) * torch.sqrt(t) - 1.0).abs().max().item()
+    assert err < 2.0 ** -16, err
+
+
+@pytest.mark.parametrize("n,space", [(600, 4), (600, 2), (144, 2)])
+def test_tone_map_kernel_search_and_chain_on_windows(dev, n, space):
+    """KT on a strictly increasing curve (the binary search) and on a folded
+    one (the chain), whole and on every shard's rows of a plan over
+    ``space`` shards: each window equals the plain version's, and the
+    windows put together equal the whole image's."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
+    rng = np.random.default_rng(n * space)
+    curves_ = tone_cases.adversarial_curves(np.random.default_rng(0))
+    bounds = list(spatial.row_plan(n, space, MusicaConfig(image_size=n)).bounds[0])
+    for name in ("increasing 22", "fold-back"):
+        px, py = (torch.from_numpy(a).to(dev) for a in curves_[name])
+        x = torch.from_numpy(tone_cases.image(rng, (n, n), curves_[name][0])).to(dev)
+        whole = k_tone.tone_map(x, px, py, 10)
+        _same_tone(whole, k_tone.tone_map_plain(x, px, py, 10), f"{n} {name}")
+        parts = [k_tone.tone_map(x[a:b], px, py, 10, a) for a, b in zip(bounds, bounds[1:])]
+        for (a, b), got in zip(zip(bounds, bounds[1:]), parts):
+            _same_tone(got, k_tone.tone_map_plain(x[a:b], px, py, 10, a), f"{n} {name} [{a}, {b})")
+        _same_tone((torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])), whole,
+                   f"{n} {name} windows together")
+
+
 def test_tone_map_and_sdev_on_every_card(dev):
     """On each visible card KT (whole and a window) and KS (whole and a
     window) launch on their tensors' card, count one launch each and equal

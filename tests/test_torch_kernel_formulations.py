@@ -16,15 +16,17 @@ contiguous range of tasks, flushing its shared histogram where the range
 crosses into the next level.  ``sdev_partition`` below repeats the host's
 and the kernel's index arithmetic: every output pixel must lie in exactly
 one task and every group of the scanned coverage be scanned exactly once.
-KS runs the same partition at K7's 64-column tasks with nothing scanned.
+KS walks strips of 120 columns down runs of 32 rows, a warp each;
+``ks_partition`` repeats its index arithmetic.
 
 KT (``csrc/tonemap.cu``) builds the curve's tables in each block with the
 plain version's own float32 operations, selects per pixel the smallest
-matching interval and writes ``out_u8`` through its own row and column
-arithmetic.  ``kernel_tone_map`` below repeats that in NumPy float32 (the
-selection as the first hit of a scan, not the plain version's descending
-chain) and must equal ``ops/cuda/tonemap.py::tone_map_plain`` bit for bit,
-NaN and denormals included, every crop byte written once.
+matching interval (by a binary search on a strictly increasing curve, by
+the descending chain otherwise) and writes ``out_u8`` through its own row
+and column arithmetic, in aligned words completed from the next lane where
+the widths allow.  ``kernel_tone_map`` below repeats that in NumPy float32
+and must equal ``ops/cuda/tonemap.py::tone_map_plain`` bit for bit, NaN and
+denormals included, every crop byte written once.
 """
 
 import numpy as np
@@ -241,27 +243,59 @@ def test_sdev_partition_at_3072_is_one_wave_of_equal_tasks():
     assert len(flushes) == 510  # 12 tasks a block
 
 
+def ks_partition(ns, warps, rows=None):
+    """Repeat csrc/sdev_noise.cu's musica_sdev and sdev_kernel over levels of
+    sizes ``ns``, each computing its output rows ``rows[l]`` = (r0, r1)
+    (default: every row), with ``warps`` warps looping over the tasks (a
+    strip of KS_STRIP output columns by a run of KS_RUN output rows; lane l
+    holds columns c0 - 4 + 4 l, lanes 1..30 store): per level the number of
+    stores of each output pixel [n, n], and the band rows each level's runs
+    read, which must lie in [r0 - 2, r1 + 2) inside the level."""
+    strip, run = fh.KS_STRIP, fh.KS_RUN
+    rows = [(0, n) for n in ns] if rows is None else rows
+    strips = [-(-n // strip) for n in ns]
+    first = [0]
+    for (r0, r1), st in zip(rows, strips):
+        first.append(first[-1] + st * -(-(r1 - r0) // run))
+    stored = [np.zeros((n, n), np.int32) for n in ns]
+    read = [set() for _ in ns]
+    for w in range(warps):
+        for t in range(w, first[-1], warps):
+            level = max(lv for lv in range(len(ns)) if first[lv] <= t)
+            local = t - first[level]
+            n, (r0, r1) = ns[level], rows[level]
+            ra = r0 + local // strips[level] * run
+            rb = min(ra + run, r1)
+            read[level].update(r for r in range(ra - 2, rb + 2) if 0 <= r < n)
+            for lane in range(1, 31):
+                c = local % strips[level] * strip - 4 + 4 * lane
+                if c < n:
+                    stored[level][ra:rb, c:min(c + 4, n)] += 1
+    return stored, read
+
+
 @pytest.mark.parametrize("wave", [1056, 132, 7, 1])
 @pytest.mark.parametrize("ladder", list(LADDERS))
 def test_ks_task_partition_covers_each_pixel_once(ladder, wave):
-    """KS (``sdev_kernel``): K7's partition at 64-column tasks, nothing
-    counted, over every level whole and over the windows of a 2-shard plan;
-    every output pixel lies in exactly one task."""
+    """KS (``sdev_kernel``): strips of 120 columns by runs of 32 rows, a
+    warp a task or ``wave`` warps looping over them, over every level whole
+    and over the windows of a 2-shard plan: every output pixel is stored
+    exactly once, and a window's runs read only the rows it holds."""
     size, quirks = LADDERS[ladder]
     cfg = MusicaConfig(image_size=size, quirks=quirks)
     ns = [-(-size // 2 ** i) for i in cfg.analysis_levels]
-    assert fh.sdev_task_width(8) == fh.SDEV_WIDTH
-    covered, scanned, _, _ = sdev_partition(ns, [0] * len(ns), 8, wave)
-    assert all((c == 1).all() for c in covered) and all(s.size == 0 for s in scanned)
+    stored, _ = ks_partition(ns, wave)
+    assert all((c == 1).all() for c in stored)
     if size < 96:
         return
     plan = spatial.row_plan(size, 2, cfg)
     lv = list(cfg.analysis_levels)
     for i in range(2):
         rows = [plan.rows(k, i) if k < plan.replicated else (0, ns[j]) for j, k in enumerate(lv)]
-        covered, _, _, _ = sdev_partition(ns, [0] * len(ns), 8, wave, rows)
-        for c, (r0, r1) in zip(covered, rows):
+        stored, read = ks_partition(ns, wave, rows)
+        for c, got, n, (r0, r1) in zip(stored, read, ns, rows):
             assert (c[r0:r1] == 1).all() and c[:r0].sum() == c[r1:].sum() == 0
+            assert got <= set(range(max(r0 - 2, 0), min(r1 + 2, n)))
 
 
 # ----------------------------------------------------------------------
@@ -271,11 +305,13 @@ def test_ks_task_partition_covers_each_pixel_once(ladder, wave):
 def kernel_tone_map(x, gpx, gpy, m, row0=0):
     """csrc/tonemap.cu in NumPy float32: (graded [rows, n], out_u8, the
     number of writes of each out_u8 byte, the block's tables px_e, py_e,
-    m_tab [k + 1] and px_hi [k])."""
+    m_tab [k + 1] and px_hi [k], whether the curve took the binary
+    search, and whether out_u8 went out in words)."""
     f = np.float32
     k = gpx.shape[0]
     rows, n = x.shape
     px_e, py_e, m_tab, hi = (np.zeros(k + 1, f) for _ in range(4))
+    search = True
     with np.errstate(all="ignore"):
         for i in range(k + 1):  # build_curve: thread i
             px_e[i] = gpx[i] if i < k else f(0)
@@ -287,45 +323,152 @@ def kernel_tone_map(x, gpx, gpy, m, row0=0):
                 nonmono = px1 <= px_e[i]
                 m_tab[i] = f(0) if nonmono else ms
                 hi[i] = px_e[i] if nonmono else px1
+                search &= bool(px1 > px_e[i]) if i + 1 < k else bool(nonmono)
+        keys = np.full(64, np.inf, f)
+        keys[:k - 1] = gpx[1:]
         v = np.where(np.isfinite(x), x, f(3.0e38)).astype(f).reshape(-1)
-        hit = (px_e[:k, None] <= v[None, :]) & (v[None, :] <= hi[:k, None])
-        sel = np.where(hit.any(0), hit.argmax(0), k)  # the scan's first hit
+        if search:  # count(px[i] < x, 1 <= i <= k - 1) by the branch-free search
+            step0 = 0
+            while 2 * step0 < k:
+                step0 = 2 * step0 if step0 else 1
+            step0 = step0 if k > 1 else 0
+            pos = np.zeros(v.shape, np.int64)
+            s = step0
+            while s > 0:
+                pos += np.where(keys[pos + s - 1] < v, s, 0)
+                s >>= 1
+            sel = np.where((px_e[0] <= v) & (v <= px_e[k - 1]), pos, k)
+        else:  # the descending chain
+            sel = np.full(v.shape, k)
+            for i in range(k - 1, -1, -1):
+                sel = np.where((px_e[i] <= v) & (v <= hi[i]), i, sel)
         g = (m_tab[sel] * (v - px_e[sel])).astype(f) + py_e[sel]
         t = np.trunc(g * f(255)).astype(f)
         t = np.where(np.isnan(t), t, np.clip(t, f(0), f(255)))
         u8 = np.where(np.isnan(t), 0, t).astype(np.int64).astype(np.uint8)  # NaN -> 0
-    # a block a row, 4 consecutive pixels a thread: each pixel's image row
-    # and column, and its byte of out_u8 inside the crop
-    r = row0 + np.repeat(np.arange(rows), n)
-    c = np.tile(np.arange(n), rows)
+    u8 = u8.reshape(rows, n)
+    # chunks of 8 pixels of a row, chunk e in lane e % 32 of its warp (the
+    # grid's stride is whole blocks); out_u8 byte by byte, or in words
+    out_w = n - 2 * m
     o0, o1 = max(row0, m), max(max(row0, m), min(row0 + rows, n - m))
-    inside = (r >= m) & (r < n - m) & (c >= m) & (c < n - m)
-    idx = (r - o0) * (n - 2 * m) + (c - m)
-    out = np.zeros((o1 - o0) * (n - 2 * m), np.uint8)
+    out = np.zeros((o1 - o0) * out_w, np.uint8)
     writes = np.zeros_like(out, np.int32)
-    np.add.at(writes, idx[inside], 1)
-    out[idx[inside]] = u8[inside]
-    return g.reshape(rows, n), out.reshape(o1 - o0, n - 2 * m), writes, (px_e, py_e, m_tab, hi[:k])
+    words = n % 8 == 0 and out_w % 4 == 0
+    lead = m & 3
+    chunks = -(-n // 8)
+
+    def put(r, col, val):
+        if m <= col < n - m:
+            i = (row0 + r - o0) * out_w + col - m
+            out[i] = val
+            writes[i] += 1
+
+    for e in range(rows * chunks):
+        r, c = divmod(e, chunks)
+        c *= 8
+        lane = e % 32
+        if not m <= row0 + r < n - m:
+            continue
+        b = [u8[r, c + j] if c + j < n else 0 for j in range(8)]
+        if not words:
+            for j in range(8):
+                if c + j < n:
+                    put(r, c + j, b[j])
+            continue
+        has_prev, has_next = lane > 0 and c > 0, lane < 31 and c + 8 < n
+        nxt = divmod(e + 1, chunks)  # the next lane's chunk: its first bytes
+        nb = [u8[nxt[0], nxt[1] * 8 + j] for j in range(4)] if has_next else [None] * 4
+        if not has_prev:
+            for j in range(lead):
+                put(r, c + j, b[j])
+        c0, c1 = c + lead, c + lead + 4
+        if m <= c0 < n - m:
+            assert (c0 - m) % 4 == 0 and c0 + 4 <= n - m  # an aligned word inside
+            for j in range(4):
+                put(r, c0 + j, b[lead + j])
+        if m <= c1 < n - m:
+            assert (c1 - m) % 4 == 0 and c1 + 4 <= n - m
+            if has_next or lead == 0:
+                for j in range(4):
+                    put(r, c1 + j, (b + nb)[lead + 4 + j])
+            else:
+                for col in range(c1, c + 8):
+                    put(r, col, b[col - c])
+    return (g.reshape(rows, n), out.reshape(o1 - o0, out_w), writes,
+            (px_e, py_e, m_tab, hi[:k]), search, words)
+
+
+def check_tone_formulation(curve, n, cuts, m):
+    px, py = tone_cases.adversarial_curves(np.random.default_rng(0))[curve]
+    rng = np.random.default_rng(n)
+    x = tone_cases.image(rng, (n, n), px)
+    want = curves.general_tables(torch.from_numpy(px), torch.from_numpy(py))
+    for a, b in zip(cuts, cuts[1:]):
+        g, o, writes, tables, search, words = kernel_tone_map(x[a:b], px, py, m, a)
+        pg, po = tonemap.tone_map_plain(torch.from_numpy(x[a:b]), torch.from_numpy(px),
+                                        torch.from_numpy(py), m, a)
+        np.testing.assert_array_equal(g.view(np.int32), pg.numpy().view(np.int32))
+        np.testing.assert_array_equal(o, po.numpy())
+        assert (writes == 1).all()
+        assert search == bool((np.diff(px) > 0).all() and px[-1] >= 0)
+        assert words == (n % 8 == 0 and (n - 2 * m) % 4 == 0)
+    for got, w in zip(tables, want):
+        np.testing.assert_array_equal(got.view(np.int32), w.numpy().view(np.int32))
 
 
 @pytest.mark.parametrize("curve", sorted(tone_cases.adversarial_curves(np.random.default_rng(0))))
 @pytest.mark.parametrize("n,cuts", [(64, (0, 64)), (75, (0, 3, 11, 40, 66, 75)),
                                     (96, (0, 48, 96))])
 def test_tone_map_kernel_formulation_equals_plain(curve, n, cuts):
-    """KT's in-block tables, first-hit selection, float32 lerp, u8 cast and
-    crop addressing on whole images and on row windows (inside the margins,
-    odd rows) equal the plain chain bit for bit, NaN and denormal x
-    included (curves.general_tables equal the block's tables too)."""
-    px, py = tone_cases.adversarial_curves(np.random.default_rng(0))[curve]
-    rng = np.random.default_rng(n)
-    x = tone_cases.image(rng, (n, n), px)
-    want = curves.general_tables(torch.from_numpy(px), torch.from_numpy(py))
-    for a, b in zip(cuts, cuts[1:]):
-        g, o, writes, tables = kernel_tone_map(x[a:b], px, py, 10, a)
-        pg, po = tonemap.tone_map_plain(torch.from_numpy(x[a:b]), torch.from_numpy(px),
-                                        torch.from_numpy(py), 10, a)
-        np.testing.assert_array_equal(g.view(np.int32), pg.numpy().view(np.int32))
-        np.testing.assert_array_equal(o, po.numpy())
-        assert (writes == 1).all()
-    for got, w in zip(tables, want):
-        np.testing.assert_array_equal(got.view(np.int32), w.numpy().view(np.int32))
+    """KT's in-block tables, selection (the binary search on a strictly
+    increasing curve, else the first hit of the descending chain), float32
+    lerp, u8 cast and out_u8 addressing (at 64 and 96 aligned words
+    completed from the next lane, 2 lead bytes; at 75 bytes) on whole images
+    and on row windows (inside the margins, odd rows) equal the plain chain
+    bit for bit, NaN and denormal x included, each out_u8 byte written once
+    (curves.general_tables equal the block's tables too)."""
+    check_tone_formulation(curve, n, cuts, 10)
+
+
+@pytest.mark.parametrize("curve", sorted(tone_cases.adversarial_curves(np.random.default_rng(0))))
+@pytest.mark.parametrize("n,cuts,m", [(96, (0, 5, 11, 49, 87, 96), 8),
+                                      (104, (0, 51, 104), 9)])
+def test_tone_map_kernel_formulation_other_margins(curve, n, cuts, m):
+    """As above at margins 8 (words with no lead byte) and 9 (an odd crop
+    width: bytes)."""
+    check_tone_formulation(curve, n, cuts, m)
+
+
+def test_tone_map_kernel_formulation_takes_both_selections():
+    """The adversarial curves take the binary search (the increasing,
+    denormal-width, infinite-slope and one-point curves) and the chain (the
+    fold-back, duplicates, descending and 63 random points) between them."""
+    x = np.linspace(-0.5, 1.5, 64 * 64, dtype=np.float32).reshape(64, 64)
+    took = {name: kernel_tone_map(x, px, py, 10)[4]
+            for name, (px, py) in tone_cases.adversarial_curves(np.random.default_rng(0)).items()}
+    assert {k for k, v in took.items() if v} == {"increasing 22", "denormal width",
+                                                "infinite slope", "one point"}
+    assert {k for k, v in took.items() if not v} == {"fold-back", "duplicates", "descending",
+                                                    "63 random"}
+
+
+@pytest.mark.parametrize("n,anatomy,linear", [(600, "pelvis", False), (256, "knee", True)])
+def test_tone_map_kernel_formulation_on_phantom_curves(n, anatomy, linear):
+    """The port forward's own gradation input and curve: the pelvis's at
+    600 is strictly increasing and takes the search, the knee's linear
+    gradation at 256 folds back and takes the chain; both equal the plain
+    chain bit for bit, every out_u8 byte written once in words."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import (
+        synthetic_radiograph)
+    cfg = MusicaConfig(image_size=n, grad_with_linear_image=linear)
+    res = musica.musica_forward(torch.from_numpy(synthetic_radiograph(n, anatomy)), cfg,
+                                want_intermediates=True)
+    x = (res["intermediates"]["linear"] if linear else res["recon"]).numpy()
+    gpx, gpy, _ = res["intermediates"]["grad_curve"]
+    g, o, writes, _, search, words = kernel_tone_map(x, gpx.numpy(), gpy.numpy(), 10)
+    pg, po = tonemap.tone_map_plain(torch.from_numpy(x), gpx, gpy, 10)
+    np.testing.assert_array_equal(g.view(np.int32), pg.numpy().view(np.int32))
+    np.testing.assert_array_equal(o, po.numpy())
+    assert (writes == 1).all() and words
+    assert search == (not linear)
