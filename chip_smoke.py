@@ -27,7 +27,12 @@ equal) and the default analysis path's sdev KS (bit for bit) at 3072, 600
 and 144 on the gradation curves of every path, on adversarial curves and
 inputs, its tables against the plain version's, and on every shard window
 of the 1x4 and 2x2 plans, KS at every analysis level and on the shards'
-row windows ([3g]), drives
+row windows ([3g]), the contrast stage KA (the contrast curves, their
+apply and the noise reduction in one launch) bit for bit with equal NaN
+masks at 3072, 600 and 144 in float32 and bf16 storage, with and without
+intermediates, on a phantom's, adversarial and random-max-bin inputs, on
+every shard window of the 1x4 and 2x2 plans, and the curves its blocks
+build at all 2,048 max bins ([3h]), drives
 the port's main path
 (``process`` on a 3072^2 uint16 radiograph, then the intermediates path of
 ``process --debug-dump``), the CLAHE + linear-gradation variant path
@@ -74,7 +79,8 @@ over the HBM rate, operations over the peak rate, at this run's inputs)
 and, where one exists, the one PyTorch call that computes the same function
 (``torch.argmax`` for the argmax, ``torch.bincount`` for the generic
 histogram, float64 ``F.conv2d`` and ``F.conv_transpose2d`` for the pyramid
-steps, float64 ``F.avg_pool2d`` of the squares for KS), with CUDA events;
+steps, float64 ``F.avg_pool2d`` of the squares for KS; none for KA, whose
+plain chain's launches are counted instead), with CUDA events;
 the folded argmax also as the difference between K1 (and K7) with and
 without it.
 
@@ -114,7 +120,8 @@ SOURCES = {"noise_hist": "fused_hist.cu", "hist_argmax": "hist_argmax.cuh",
            "histogram": "histogram.cu", "clahe_apply": "clahe_apply.cu",
            "sdev_noise_hist": "sdev_noise.cu", "pyramid_down": "pyramid.cu",
            "pyramid_up": "pyramid.cu", "pyramid_tail": "pyramid.cu",
-           "sdev": "sdev_noise.cu", "tone_map": "tonemap.cu"}
+           "sdev": "sdev_noise.cu", "tone_map": "tonemap.cu",
+           "contrast_apply": "contrast_apply.cu"}
 REPLACES = {
     "noise_hist": f"{PALLAS}:139 (_noise_kernel of noise_hist_fused; also the "
                   f"histogram of _noise_multi_kernel, :181)",
@@ -141,6 +148,10 @@ REPLACES = {
             f"sdev on the default path, {JAX_MUSICA}:106)",
     "tone_map": f"{JAX_OPS}/curves.py:151 (curve_get_y_general, XLA, no Pallas kernel) with "
                 f"curve_apply_u8_adaptive, :221, as {JAX_MUSICA}:186-190 calls them",
+    "contrast_apply": f"{JAX_OPS}/curves.py:41 (contrast_curve, XLA, no Pallas kernel) with "
+                      f"curve_get_y_sorted, :99, contrast_curve_apply, :232, and "
+                      f"{JAX_OPS}/noise.py:45 (nearest_upsample) with noise_reduction, :58, "
+                      f"as {JAX_MUSICA}:112-140 calls them",
 }
 # each hand-written kernel's CUDA kernel events as the profiler names them
 # (scripts/profile_torch.py matches them alike)
@@ -154,6 +165,7 @@ KERNEL_EVENTS = {
     "sdev_noise_hist": r"sdev_noise_hist_kernel\b",
     "sdev": r"(?<![A-Za-z_])sdev_kernel\b",
     "tone_map": r"tone_map_kernel<(true|false)(, (true|false))?>",
+    "contrast_apply": r"contrast_apply_kernel<(true|false)>",
     "pyramid_down": r"reduce_step_kernel<(true|false)>",
     "pyramid_up": r"upsample_smooth_kernel<\d>",
     "pyramid_tail": r"pyramid_tail_kernel<(true|false)>",
@@ -993,6 +1005,172 @@ def check_tone_sdev(rec, rng, dev, variants):
             f"img_sdev_rows bit for bit")
 
 
+def same_band(rec, kernel, case, got, want):
+    """Bands (float32 or bf16) equal bit for bit, NaN where the other has
+    NaN; records max |kernel - plain| without a line of its own."""
+    import torch
+    assert got.shape == want.shape and got.dtype == want.dtype, (kernel, case, got.shape,
+                                                                 want.shape, got.dtype)
+    g, w = got.float(), want.float()
+    nan = torch.isnan(w)
+    assert torch.equal(torch.isnan(g), nan), f"{kernel} [{case}]: NaN masks differ"
+    same = torch.equal(g[~nan].view(torch.int32), w[~nan].view(torch.int32))
+    err = 0.0 if same else float((g[~nan].double() - w[~nan].double()).abs().max())
+    prev = rec.err[kernel]
+    rec.err[kernel] = err if prev is None else max(prev, err)
+    assert same, f"{kernel} [{case}] differs from its plain version (max |d| {err})"
+    return int(nan.sum())
+
+
+def contrast_inputs(x_dev, c):
+    """(bands [L] in c's storage dtype, sdevs, max bins, cnr) of
+    ``musica_forward`` of ``x_dev`` under ``c``: what its contrast stage
+    reads."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import musica
+    res = musica.musica_forward(x_dev, c, want_intermediates=True)
+    it = res["intermediates"]
+    return ([it[f"red_bandpass_{k}"] for k in range(c.pyramid_levels)],
+            {k: it[f"sdev_{k}"] for k in c.analysis_levels},
+            {k: it[f"noise_max_bin_{k}"] for k in c.analysis_levels}, res["cnr"])
+
+
+def adversarial_contrast(rng, c, bands, sdevs, cnr):
+    """The stage's inputs with, at random pixels of each analysis level's
+    sdev, every control point of its curve, px[0], the float32 above the
+    last point, +-0 (the flat level also 1, its successor and 2), NaN, +-inf
+    and denormals; NaN, +-inf, denormal and huge band values; CNR cells at
+    each ramp end and its float32 neighbours, NaN and inf."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import curves
+    f32 = np.float32
+    odd = [np.nan, np.inf, -np.inf, 1e-40, -1e-40, 1e-45, float(np.finfo(f32).max)]
+
+    def put(t, values):
+        t = t.clone().reshape(-1)
+        at = torch.from_numpy(rng.choice(t.numel(), min(t.numel(), 3 * len(values)),
+                                         replace=False)).to(t.device)
+        v = torch.tensor(np.resize(np.array(values, f32), at.numel()), device=t.device)
+        t[at] = v.to(t.dtype)
+        return t
+
+    out_s = {}
+    for k, sd in sdevs.items():
+        px, _ = curves.contrast_curve(torch.zeros((), dtype=torch.int32, device=sd.device),
+                                      *c.contrast_factors[k], c)
+        px = px.cpu().numpy()
+        vals = [*px, np.nextafter(px[-1], f32(np.inf)), 0.0, -0.0, *odd]
+        if c.contrast_factors[k][0] == 1.0:
+            vals += [1.0, float(np.nextafter(f32(1), f32(2))), 2.0]
+        out_s[k] = put(sd, vals).reshape(sd.shape)
+    out_b = [put(b, odd).reshape(b.shape) for b in bands]
+    ends = [f32(v) for v in c.noise_reduction_params[0][0::2]]
+    vals = [float(w / f32(c.max_cnr_value)) for e in ends
+            for w in (e, np.nextafter(e, f32(0)), np.nextafter(e, f32(np.inf)))]
+    return out_b, out_s, put(cnr, vals + [np.nan, np.inf]).reshape(cnr.shape)
+
+
+def check_contrast(rec, rng, dev, cfg):
+    """[3h]: KA (``contrast_apply.contrast_apply``) against its plain version
+    (``contrast_apply_plain``) on the card, bit for bit with equal NaN
+    masks: the curves its blocks build (``contrast_tables``) against
+    ``curves.contrast_curve`` and their slopes at all 2,048 max bins on every
+    level; the bands the expand reads and, with intermediates, every
+    contrast band, noise-reduced band and curve, at 3072, 600 and 144 in
+    float32 and bf16 on a phantom's inputs, on the adversarial ones
+    (``adversarial_contrast``) and with random max bins; and every shard's
+    row window of the 1x4 and 2x2 plans (4 and 2 shards; 12-px tiles at 144)
+    against the plain window and the whole stage's rows."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import curves, noise
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import (
+        contrast_apply as ka)
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import (
+        synthetic_radiograph)
+
+    def compare(got, want, what):
+        nan = 0
+        for k, (g, w) in enumerate(zip(got[0], want[0])):
+            nan += same_band(rec, "contrast_apply", f"{what}, the expand's band {k}", g, w)
+        assert set(got[1]) == set(want[1]), what
+        for key, w in want[1].items():
+            if key.startswith("contrast_curve"):
+                for g_, w_ in zip(got[1][key], w):
+                    rec.equal_bits("contrast_apply", f"{what}, {key}", g_.contiguous(), w_)
+            else:
+                nan += same_band(rec, "contrast_apply", f"{what}, {key}", got[1][key], w)
+        return nan
+
+    # the curves at every max bin, on tiny bands (a row of 8 px a level)
+    L = cfg.pyramid_levels
+    one = [torch.zeros((1, 8), dtype=torch.float32, device=dev) for _ in range(L)]
+    sd1 = {k: one[k] for k in cfg.analysis_levels}
+    cnr1 = {k: (torch.zeros((1, 1), device=dev), 0) for k in ka.nr_levels(cfg, False)}
+    bez = [k for k, (lcf, _) in enumerate(cfg.contrast_factors) if lcf != 1.0]
+    for mb in range(cfg.noise_histogram_bins):
+        t = torch.tensor(mb, dtype=torch.int32, device=dev)
+        _, _, tab = ka.contrast_tables(one, sd1, {k: t for k in cfg.analysis_levels}, cnr1, cfg)
+        for k in (bez if mb else range(L)):
+            px, py = curves.contrast_curve(t, *cfg.contrast_factors[k], cfg)
+            m = px.shape[0]
+            slopes = (py[1:] - py[:-1]) / (px[1:] - px[:-1])
+            for j, w in enumerate((px, py, slopes)):
+                rec.equal_bits("contrast_apply", f"max bin {mb}, level {k}, table {j}",
+                               tab[k, j, :w.shape[0]].contiguous(), w)
+            assert m == (33 if k in bez else 2)
+    log(f"  KA's curves: all {cfg.noise_histogram_bins} max bins on the bezier levels {bez} "
+        f"(the flat levels at max bin 0): points and slopes equal curves.contrast_curve's")
+
+    for n, anatomy in ((SIZE, "thorax"), (600, "pelvis"), (144, "hand")):
+        tile = 16 if n > 144 else 12
+        c32 = MusicaConfig(image_size=n, quirks=n > 144, histogram_area_size=tile)
+        x_dev = torch.from_numpy(synthetic_radiograph(n, anatomy)).to(dev)
+        for c in (c32, c32.with_(storage="bfloat16")):
+            bands, sdevs, mbs, cnr = contrast_inputs(x_dev, c)
+            adv = adversarial_contrast(rng, c, bands, sdevs, cnr)
+            rnd_mb = {k: torch.tensor(int(rng.integers(0, c.noise_histogram_bins)), dtype=torch.int32,
+                                    device=dev)
+                      for k in mbs}
+            cases = {"phantom": (bands, sdevs, mbs, cnr), "adversarial": (adv[0], adv[1], mbs,
+                                                                         adv[2]),
+                     "random max bins": (bands, sdevs, rnd_mb, cnr)}
+            nans, windows = 0, 0
+            for name, (b, sd, mb, cn) in cases.items():
+                what = f"{n} {anatomy} {c.storage}, {name}"
+                for inter in (False, True):
+                    cnrs = {k: (cn, 0) for k in ka.nr_levels(c, inter)}
+                    got = ka.contrast_apply(b, sd, mb, cnrs, c, intermediates=inter)
+                    nans += compare(got, ka.contrast_apply_plain(b, sd, mb, cnrs, c,
+                                                                 intermediates=inter),
+                                    f"{what}{', intermediates' if inter else ''}")
+                whole = got[0]
+                for space in (4, 2):
+                    plan = spatial.row_plan(n, space, c)
+                    for i in range(space):
+                        rows = [plan.rows(k, i) if k < plan.replicated else (0, plan.sizes[k])
+                                for k in range(c.pyramid_levels)]
+                        cnrs = {}
+                        for k in ka.nr_levels(c, False):
+                            lo, hi = noise.cnr_rows(cn.shape[-1], plan.sizes[k], *rows[k])
+                            cnrs[k] = (cn[lo:hi], lo)
+                        wb = [b[k][r0:r1] for k, (r0, r1) in enumerate(rows)]
+                        ws = {k: sd[k][r0:r1] for k, (r0, r1) in enumerate(rows) if k in sd}
+                        r0s = [r0 for r0, _ in rows]
+                        got_w = ka.contrast_apply(wb, ws, mb, cnrs, c, r0s)
+                        want_w = ka.contrast_apply_plain(wb, ws, mb, cnrs, c, r0s)
+                        for k, (r0, r1) in enumerate(rows):
+                            wc = f"{what}, shard {i} of {space}, level {k}"
+                            same_band(rec, "contrast_apply", wc, got_w[0][k], want_w[0][k])
+                            same_band(rec, "contrast_apply", wc + " vs the whole",
+                                      got_w[0][k], whole[k][r0:r1])
+                        windows += 1
+            log(f"  KA at {n} {c.storage}: {len(cases)} input sets (the phantom's, adversarial, "
+                f"random max bins), with and without intermediates, bit for bit ({nans} NaN px "
+                f"in all); {windows} shard windows (1x4, 2x2) equal their plain versions and "
+                f"the whole stage's rows")
+
+
 def covered(c, space):
     """Shards of a ``space``-way plan that hold rows inside some analysis
     level's histogram coverage (K1 launches on those alone)."""
@@ -1033,8 +1211,8 @@ def spatial_launches(c, fused, s, b):
     pyr = {"pyramid_down": b * s * (plan.replicated + big),
            "pyramid_up": b * s * (2 * plan.replicated + big),
            "pyramid_tail": 2 * b * s * (big < len(coarse))}
-    # KT on every shard's rows; KS every level's sdev rows of a shard
-    pyr["tone_map"] = b * s
+    # KT and KA on every shard's rows; KS every level's sdev rows of a shard
+    pyr["tone_map"] = pyr["contrast_apply"] = b * s
     if fused:
         return {"sdev_noise_hist": b * s, "hist_argmax": b, "grad_hist_relevant": b * s, **pyr}
     want = {"noise_hist": b * covered(c, s), "hist_argmax": b, "sdev": b * s, **pyr}
@@ -1462,6 +1640,34 @@ def pyramid_work(sizes, tail_from=None):
     return out
 
 
+def contrast_bound(bands, sdevs, max_bins, cnr, c):
+    """KA's least time at these inputs (ms, "bytes" or "operations"): each
+    band read and the band the expand reads written once, each analysis
+    level's sdev, the CNR map and the max bins read once; per pixel 10
+    float32 operations with an sdev (6 search steps, the lerp's 3, the gain),
+    1 without, 5 more where the noise reduction runs."""
+    px = [b.numel() for b in bands]
+    n_bytes = (sum(2 * b.numel() * b.element_size() for b in bands)
+               + sum(4 * s.numel() for s in sdevs.values()) + 4 * cnr.numel()
+               + 4 * len(max_bins))
+    ops = (sum(10 * p if k in sdevs else p for k, p in enumerate(px))
+           + 5 * sum(px[:c.cnr_level - 1]))
+    return bound(n_bytes, ops)
+
+
+def kernel_events(fn) -> int:
+    """The CUDA kernels one call of ``fn`` launches (the profiler's kernel
+    events; copies and fills of memory not counted)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset")))
+
+
 def kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b3072, gpx):
     """Per kernel (ms, "bytes" or "operations"): the bound at this run's
     main-path inputs (``gpx``: the tone map's curve).  Where a scan stops
@@ -1608,11 +1814,11 @@ def check_host_surface(img, cfg, dev):
         assert launches_cli["noise_hist"] == launches_cli["grad_hist_relevant"] == 1, launches_cli
         assert launches_rep["noise_hist"] == launches_rep["grad_hist"] == 1, launches_rep
         hist = {k: v for k, v in launches_rep.items()
-                if not k.startswith("pyramid") and k not in ("sdev", "tone_map")}
+                if not k.startswith("pyramid") and k not in ("sdev", "tone_map", "contrast_apply")}
         assert sum(hist.values()) == 2, launches_rep
-        # KS: the analysis levels' sdev; KT: the tone map
-        assert launches_cli["sdev"] == launches_cli["tone_map"] == 1, launches_cli
-        assert launches_rep["sdev"] == launches_rep["tone_map"] == 1, launches_rep
+        # KS: the analysis levels' sdev; KT: the tone map; KA: the contrast stage
+        for counts in (launches_cli, launches_rep):
+            assert counts["sdev"] == counts["tone_map"] == counts["contrast_apply"] == 1, counts
         # report runs with intermediates: the ladder (the fused step at
         # 3072 .. 96 px, one tail from 48 px), then an exp_lowpass and an
         # expand step at each of the 12 levels
@@ -1842,6 +2048,8 @@ def main() -> int:
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import histogram as k_hist
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import tonemap as k_tone
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import (
+        contrast_apply as k_ka)
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import (
         analysis, campaign, metrics, perturb)
@@ -2005,6 +2213,10 @@ def main() -> int:
                                     ("fused-sdev", cfg, True), ("bf16", cfg16, False)])
     check_sdev_tail(rec, rng, dev)
 
+    log("[3h] the contrast stage KA (contrast_apply_kernel<bf16>) vs its plain version, bit "
+        "for bit with equal NaN masks")
+    check_contrast(rec, rng, dev, cfg)
+
     # ---- 4. the main path at 3072^2 ----------------------------------------
     log(f"[4] main path: process() on a {SIZE}^2 thorax phantom; a first call captures its "
         f"graph (eager warm-up, capture, one replay), the next (one replay) is counted")
@@ -2020,8 +2232,9 @@ def main() -> int:
     # K1 + K2: one launch, which takes the argmaxes too
     assert launches["noise_hist"] == 1 and launches["hist_argmax"] == 0, launches
     assert launches["sdev_noise_hist"] == 0, "the default analysis launched K7"
-    # KS: the four analysis levels' sdev in one launch; KT: the tone map
-    assert launches["sdev"] == launches["tone_map"] == 1, launches
+    # KS: the four analysis levels' sdev in one launch; KT: the tone map; KA:
+    # the contrast stage
+    assert launches["sdev"] == launches["tone_map"] == launches["contrast_apply"] == 1, launches
     # the fused step at 3072 .. 96 px, the ladder's tail from 48 px, the
     # expand's tail up to 48 px, an expand step at 96 .. 3072
     L = cfg.pyramid_levels
@@ -2046,6 +2259,8 @@ def main() -> int:
     # the ladder's 6 fused steps and tail, then an exp_lowpass_{i} and an
     # expand step at each of the 12 levels
     assert pyramid_counts(launches_dbg) == (6, 24, 1), launches_dbg
+    # KA writes the intermediates' contrast and noise-reduced bands too
+    assert launches_dbg["contrast_apply"] == 1, launches_dbg
     assert np.array_equal(dbg["out_u8"].cpu().numpy(), out_gpu)
     assert all(bool(torch.isfinite(v).all()) for v in dbg["intermediates"].values()
                if isinstance(v, torch.Tensor) and v.is_floating_point())
@@ -2067,7 +2282,8 @@ def main() -> int:
     log(f"  launches (process, one replay: the profiler's kernel events, equal to LAUNCHES): "
         f"{launches_var}")
     assert np.array_equal(var_replay, var_out), "the variant's replay differs from musica_forward"
-    for k in ("noise_hist", "grad_hist", "histogram", "clahe_apply", "sdev", "tone_map"):
+    for k in ("noise_hist", "grad_hist", "histogram", "clahe_apply", "sdev", "tone_map",
+              "contrast_apply"):
         assert launches_var[k] == 1, f"the variant's replay launched {k} {launches_var[k]} times"
     assert pyramid_counts(launches_var) == (6, 6, 2), launches_var
     assert var_out.shape == out_gpu.shape and var_out.dtype == np.uint8
@@ -2139,7 +2355,8 @@ def main() -> int:
     assert launches_fused["sdev_noise_hist"] == launches_fused["grad_hist_relevant"] == 1, \
         launches_fused
     assert launches_fused["noise_hist"] == 0, "the fused-sdev replay launched K1"
-    assert launches_fused["sdev"] == 0 and launches_fused["tone_map"] == 1, launches_fused
+    assert launches_fused["sdev"] == 0, launches_fused
+    assert launches_fused["tone_map"] == launches_fused["contrast_apply"] == 1, launches_fused
     assert pyramid_counts(launches_fused) == (6, 6, 2), launches_fused
     f_out, f_times = musica.timed_process(img, cfg, "cuda", fused_sdev=True)
     assert np.array_equal(f_out, out_gpu), "timed_process(fused_sdev=True) out_u8"
@@ -2161,7 +2378,7 @@ def main() -> int:
     log(f"  launches (process, one replay: the profiler's kernel events, equal to LAUNCHES): "
         f"{launches_bf16}")
     assert np.array_equal(replay16, out16), "the bf16 replay differs from its first call"
-    for k in ("noise_hist", "grad_hist_relevant", "sdev", "tone_map"):
+    for k in ("noise_hist", "grad_hist_relevant", "sdev", "tone_map", "contrast_apply"):
         assert launches_bf16[k] == 1, f"the bf16 replay launched {k} {launches_bf16[k]} times"
     assert pyramid_counts(launches_bf16) == (6, 6, 2), launches_bf16
     assert out16.shape == out_gpu.shape and out16.dtype == np.uint8
@@ -2480,6 +2697,14 @@ def main() -> int:
     gpx, gpy, _ = inter["intermediates"]["grad_curve"]
     m = cfg.out_margin
     wplane = fh.relevance_weight_plane(cnr, cfg).contiguous()
+    # KA on the main path's inputs, in float32 and in bf16 band storage
+    ka_cfg = {"float32": cfg, "bfloat16": cfg16}
+    ka_in = {st: contrast_inputs(x_dev, c) for st, c in ka_cfg.items()}
+
+    def ka_call(fn, st):
+        b, sd, mb, cn = ka_in[st]
+        return fn(b, sd, mb, {k: (cn, 0) for k in k_ka.nr_levels(ka_cfg[st], False)},
+                  ka_cfg[st])
     cases = {
         "noise_hist": (lambda: fh.noise_hists(lv3072, cfg),
                        lambda: fh.noise_hists_plain(lv3072, cfg)),
@@ -2508,6 +2733,9 @@ def main() -> int:
         "sdev": (lambda: fh.sdevs(b3072), lambda: fh.sdevs_plain(b3072)),
         "tone_map": (lambda: k_tone.tone_map(recon, gpx, gpy, m),
                      lambda: k_tone.tone_map_plain(recon, gpx, gpy, m)),
+        # the contrast stage of the thorax's main path
+        "contrast_apply": (lambda: ka_call(k_ka.contrast_apply, "float32"),
+                           lambda: ka_call(k_ka.contrast_apply_plain, "float32")),
     }
     # one PyTorch call computing the same function, where there is one
     # (timed as a yardstick only; the port never calls it)
@@ -2596,6 +2824,17 @@ def main() -> int:
                                             3, 1, device_only=True),
             "expand_tail_bound_ms": b_ms("expand_tail")},
     }
+    # KA in bf16 storage, and the kernels its plain chain launches (the
+    # profiler's kernel events over one call)
+    pyr_extra["contrast_apply"] = {
+        "bf16_ms": cuda_ms(lambda: ka_call(k_ka.contrast_apply, "bfloat16"), 20, 2,
+                           device_only=True),
+        "bf16_plain_ms": cuda_ms(lambda: ka_call(k_ka.contrast_apply_plain, "bfloat16"), 5, 1,
+                                 device_only=True),
+        "bf16_bound_ms": contrast_bound(*ka_in["bfloat16"], cfg16)[0],
+        "plain_launches": kernel_events(lambda: ka_call(k_ka.contrast_apply_plain, "float32")),
+        "bf16_plain_launches": kernel_events(
+            lambda: ka_call(k_ka.contrast_apply_plain, "bfloat16"))}
     log("  pyramid bounds, ms: " + ", ".join(
         f"{k} {b_ms(k)}" for k in ("step", "ladder", "subtract", "add", "expand", "tail",
                                    "expand_tail")))
@@ -2622,6 +2861,7 @@ def main() -> int:
         f"in run order: {fold_runs}")
     bounds = kernel_bounds(cfg, lv3072, recon, cnr, linear, v_recon, v_joint, nb, v_px, b3072,
                            gpx)
+    bounds["contrast_apply"] = contrast_bound(*ka_in["float32"], cfg)
     # each count: the profiler's kernel events over one process call (one
     # graph replay), checked equal to LAUNCHES ([4], [4c], [4e])
     from_run = {"noise_hist": (launches, "process (one graph replay)"),
@@ -2638,14 +2878,15 @@ def main() -> int:
                 "pyramid_up": (launches, "process (one graph replay)"),
                 "pyramid_tail": (launches, "process (one graph replay)"),
                 "sdev": (launches, "process (one graph replay)"),
-                "tone_map": (launches, "process (one graph replay)")}
+                "tone_map": (launches, "process (one graph replay)"),
+                "contrast_apply": (launches, "process (one graph replay)")}
     # the spatial path's own count of each kernel ([4n]: 1x4 at 3072, the
     # main path, the CLAHE + linear variant and fused-sdev)
     sp_path = f"process_sharded of 2 x {SIZE}^2 over 1x4 on {dev}"
     spatial_from = {k: (sp_counts, sp_path) for k in ("noise_hist", "hist_argmax",
                                                       "grad_hist_relevant", "pyramid_down",
                                                       "pyramid_up", "pyramid_tail", "sdev",
-                                                      "tone_map")}
+                                                      "tone_map", "contrast_apply")}
     for k in ("grad_hist", "histogram", "clahe_apply"):
         spatial_from[k] = (spatial_run["counts"][f"CLAHE + linear, 1x4 on {dev}"],
                            f"{sp_path}, enable_clahe and grad_with_linear_image")
@@ -2665,7 +2906,20 @@ def main() -> int:
     d0, d1 = plan4.rows(1, 1)
     dlo, dhi = pyramid.needed_rows("smooth_downsample", SIZE, d0, d1)
     ulo, uhi = pyramid.needed_rows("upsample_smooth", SIZE, a1, b1)
+    # KA: every level's rows of shard 1 (the replicated levels whole), the
+    # CNR rows each noise-reduced level reads
+    ka_rows = [plan4.rows(k, 1) if k < plan4.replicated else (0, plan4.sizes[k])
+               for k in range(cfg.pyramid_levels)]
+    ka_b, ka_s, ka_mb, ka_cn = ka_in["float32"]
+    ka_cnrs = {}
+    for k in k_ka.nr_levels(cfg, False):
+        lo, hi = noise.cnr_rows(ka_cn.shape[-1], plan4.sizes[k], *ka_rows[k])
+        ka_cnrs[k] = (ka_cn[lo:hi], lo)
+    ka_wb = [ka_b[k][r0:r1] for k, (r0, r1) in enumerate(ka_rows)]
+    ka_ws = {k: ka_s[k][r0:r1] for k, (r0, r1) in enumerate(ka_rows) if k in ka_s}
     windows = {
+        "contrast_apply": lambda: k_ka.contrast_apply(ka_wb, ka_ws, ka_mb, ka_cnrs, cfg,
+                                                      [r0 for r0, _ in ka_rows]),
         "noise_hist": lambda: fh.noise_hists_rows(lv_wins, [a for a, _ in lv_rows], cfg),
         "grad_hist_relevant": lambda: fh.grad_hist_relevant(recon[a1:b1], nrm[a1:b1],
                                                             cnr[c0:c1], cfg, a1, c0),

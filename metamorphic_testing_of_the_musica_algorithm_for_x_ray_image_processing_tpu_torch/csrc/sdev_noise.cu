@@ -198,7 +198,7 @@ __device__ __forceinline__ void stage(const SdevLevels& lv, const Task& k, const
 // ---------------------------------------------------------------------
 // The tail of an output: sqrt(s / 25) in float64, rounded to float32, bit
 // for bit as the plain chain rounds it (__double2float_rn(__dsqrt_rn(
-// __ddiv_rn(s, 25.0))); the port's torch.sqrt(s / 25.0).to(float32)).
+// __ddiv_rn(s, 25.0))); the port's stats.sdev_of_sums).
 // RN(x) below is x rounded to the nearest float64 (ties to even), RN32 to
 // the nearest float32, ulp(x) the float64 spacing at x.
 

@@ -5,9 +5,9 @@ the CLAHE and linear-gradation variants, bf16 band storage (``cfg.storage``)
 and the opt-in fused-sdev analysis.
 
 PyTorch runs eagerly, so the function below is the schedule: each stage is
-a handful of device ops, and the pyramid's steps, the histograms and the
-CLAHE apply go through the CUDA kernels of ``ops/cuda`` when the image is
-on a CUDA device.  Histogram
+a handful of device ops, and the pyramid's steps, the histograms, the
+contrast stage and the CLAHE apply go through the CUDA kernels of
+``ops/cuda`` when the image is on a CUDA device.  Histogram
 argmaxes, curve points and t0/ta/t1 stay on the device as small tensors:
 nothing in ``musica_forward`` waits for the host.  Each phase is a
 ``torch.profiler`` span named ``musica.<phase>`` (no cost without a
@@ -20,8 +20,10 @@ Phase map (reference -> here):
                          of csrc/pyramid.cu)
   4. image analysis   -> ops.stats (sdev of every level in one kernel, noise
                          histograms + argmax; with fused_sdev one kernel for
-                         sdev + histograms) + curves
-  5. apply            -> ops.curves (contrast gain), ops.noise (CNR, NR)
+                         sdev + histograms)
+  5. apply            -> ops.noise (CNR), then the contrast curves, their gain
+                         and the noise reduction (ops.curves, ops.noise; one
+                         kernel on a CUDA device: ops.cuda.contrast_apply)
   6. pyramid expand   -> ops.pyramid (expand + band in one step)
   7. gradation        -> ops.gradation (relevance-weighted histogram, curve);
                          ENABLE_CLAHE: ops.clahe (per-tile LUTs, blended apply)
@@ -46,8 +48,8 @@ import torch
 from torch.profiler import record_function
 
 from .. import MusicaConfig
-from ..ops import clahe, curves, gradation, noise, normalize, pyramid, stats
-from ..ops.cuda import tonemap
+from ..ops import clahe, gradation, noise, normalize, pyramid, stats
+from ..ops.cuda import contrast_apply, tonemap
 from . import graphs
 
 
@@ -128,7 +130,6 @@ def _forward(img_u16: torch.Tensor, cfg: MusicaConfig, want_intermediates: bool,
     if tuple(img_u16.shape) != (n, n):
         raise ValueError(f"image {tuple(img_u16.shape)} != cfg.image_size {n}")
     L = cfg.pyramid_levels
-    dev = img_u16.device
     inter: Dict[str, object] = {}
 
     # ---- phase 2: normalize -------------------------------------------------
@@ -150,34 +151,19 @@ def _forward(img_u16: torch.Tensor, cfg: MusicaConfig, want_intermediates: bool,
         else:
             sdevs = stats.analysis_sdevs(bands)
             hists, max_bins = stats.analysis_noise_hists(sdevs, cfg)
-        no_bin = torch.zeros((), dtype=torch.int32, device=dev)
-        curve_list = [curves.contrast_curve(max_bins.get(i, no_bin), lcf, hcf, cfg)
-                      for i, (lcf, hcf) in enumerate(cfg.contrast_factors)]
 
     # ---- phase 5: apply -----------------------------------------------------
+    # the contrast curves, each level's gain and the noise reduction of the
+    # levels the expand reads (< cnr_level - 1; with intermediates also level
+    # cnr_level - 1): one launch on a CUDA device (ops/cuda/contrast_apply.py)
     with phase("apply"):
         cnr = noise.img_cnr(sdevs[cfg.cnr_level], max_bins[cfg.cnr_level], cfg)
-        exp_bandpass = []
-        for i in range(L):
-            px, py = curve_list[i]
-            if i in sdevs:
-                eb = curves.contrast_curve_apply(bands[i], sdevs[i], px, py)
-            else:
-                # sdev is never computed for these levels in the reference;
-                # the flat 2-point curve gives a constant hcf gain
-                eb = bandpass[i].float() * cfg.contrast_factors[i][1]
-            exp_bandpass.append(eb.to(sd))
-        nr_bandpass: Dict[int, torch.Tensor] = {}
-        for lvl in range(cfg.cnr_level):
-            lo_c, lo_f, hi_c, hi_f = cfg.noise_reduction_params[lvl]
-            nr_bandpass[lvl] = noise.noise_reduction(
-                exp_bandpass[lvl].float(), cnr, lo_c, lo_f, hi_c, hi_f, cfg).to(sd)
+        cnrs = {lvl: (cnr, 0) for lvl in contrast_apply.nr_levels(cfg, want_intermediates)}
+        bands_in, stage = contrast_apply.contrast_apply(bandpass, sdevs, max_bins, cnrs, cfg,
+                                                        intermediates=want_intermediates)
 
     # ---- phase 6: pyramid expand -------------------------------------------
-    # only levels < cnr_level - 1 consume the noise-reduced bandpass
     with phase("expand"):
-        bands_in = [nr_bandpass[lvl] if lvl < cfg.cnr_level - 1 else exp_bandpass[lvl]
-                    for lvl in range(L)]
         if want_intermediates:
             # exp_lowpass_{i} needs every level's expand: a step a level
             recon = downs[L - 1]
@@ -233,12 +219,7 @@ def _forward(img_u16: torch.Tensor, cfg: MusicaConfig, want_intermediates: bool,
             inter[f"sdev_{i}"] = sdv
         for i, mb in max_bins.items():
             inter[f"noise_max_bin_{i}"] = mb
-        for i, eb in enumerate(exp_bandpass):
-            inter[f"contrast_bandpass_{i}"] = eb
-        for lvl, nb in nr_bandpass.items():
-            inter[f"nr_bandpass_{lvl}"] = nb
-        for i, (px, py) in enumerate(curve_list):
-            inter[f"contrast_curve_{i}"] = (px, py)
+        inter.update(stage)  # contrast_bandpass_*, nr_bandpass_*, contrast_curve_*
         result["intermediates"] = inter
     return result
 

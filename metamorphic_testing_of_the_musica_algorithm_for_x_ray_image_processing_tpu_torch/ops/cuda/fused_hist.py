@@ -373,10 +373,10 @@ def _launch_sdevs(bands, los, out_rows, grid: int = 0):
 
 
 def sdev_tail_plain(s: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``sdev_tail``: ``img_sdev``'s last step, the square
-    root of a true float64 division by 25 rounded to float32."""
-    return torch.sqrt(s / torch.full((), 25.0, dtype=s.dtype, device=s.device)
-                      ).to(torch.float32)
+    """Plain version of ``sdev_tail``: ``img_sdev``'s last step
+    (``stats.sdev_of_sums``), the correctly rounded square root of a true
+    float64 division by 25, rounded to float32."""
+    return stats.sdev_of_sums(s)
 
 
 def sdev_tail(s: torch.Tensor) -> torch.Tensor:

@@ -46,8 +46,48 @@ def img_sdev_rows(x: torch.Tensor, x0: int, h: int, r0: int, r1: int) -> torch.T
     s = tmp[..., :, 0:w]
     for n in range(1, 5):
         s = s + tmp[..., :, n:n + w]
-    return torch.sqrt(s / torch.full((), 25.0, dtype=s.dtype, device=s.device)
-                      ).to(x.dtype)
+    return sdev_of_sums(s).to(x.dtype)
+
+
+def sdev_of_sums(s: torch.Tensor) -> torch.Tensor:
+    """``img_sdev``'s last step on float64 sums of 25 squares: the square
+    root of a true division by 25, both correctly rounded in float64, then
+    rounded to float32 (the golden model's chain, NumPy's IEEE operations)."""
+    return sqrt64(s / torch.full((), 25.0, dtype=s.dtype, device=s.device)).to(torch.float32)
+
+
+def sqrt64(q: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of float64 ``q`` on every device.
+
+    PyTorch's CPU float64 ``sqrt`` (2.13, AVX512) misses the nearest double
+    by one step on ~0.9 % of values, where the card's and NumPy's do not; a
+    miss moves the float32 sdev where the root lies next to a float32
+    midpoint.  So the root r of q's significand m in [0.5, 2) (q = m 2^2k)
+    is corrected by its exact residual m - r^2 (Dekker's product: p = r r
+    rounded and err = r r - p exactly, from Veltkamp's 26-bit halves of r):
+    the root exceeds the midpoint r + u/2 to the next double iff m - r^2 >
+    r u, and lies below r - ul/2 iff m - r^2 <= -r ul (u, ul: the steps to
+    r's neighbours; both sides are multiples of 2^-106 and where they are
+    rounded their difference exceeds |err|).  One step suffices for a start
+    within one step of the root.  0, +inf, NaN and negative q take
+    ``torch.sqrt``."""
+    m, e = torch.frexp(q)  # q = m 2^e, m in [0.5, 1)
+    odd = e & 1
+    m = torch.where(odd == 1, m * 2.0, m)
+    r = torch.sqrt(m)
+    u = torch.nextafter(r, torch.full_like(r, 2.0)) - r
+    ul = r - torch.nextafter(r, torch.zeros_like(r))
+    c = r * 134217729.0  # 2^27 + 1
+    hi = c - (c - r)
+    lo = r - hi
+    p = r * r
+    err = ((hi * hi - p) + 2.0 * hi * lo) + lo * lo
+    d = m - p  # exact: p is within a few steps of m
+    r = torch.where(d - r * u > err, r + u, torch.where(d + r * ul <= err, r - ul, r))
+    # 2^k from its bits (a normal double for every finite q > 0), exact
+    k = ((e - odd) >> 1).to(torch.int64)
+    scale = ((k + 1023) << 52).view(torch.float64)
+    return torch.where((q > 0) & torch.isfinite(q), r * scale, torch.sqrt(q))
 
 
 def coverage(n: int, cfg) -> int:

@@ -24,8 +24,10 @@ pyramid's steps (``pyramid.smooth_downsample_rows``, ``upsample_subtract``,
 ``upsample_add`` on windows) go through KP1 and KP2 (``csrc/pyramid.cu``)
 on a CUDA device, as in the unsharded path, and so does the analysis
 levels' sdev (``fused_hist.sdevs_rows``, KS: every level's sdev rows of the
-shard in one launch) and the tone map (``tonemap.tone_map``, KT: the
-shard's graded rows and its rows of the crop).  The
+shard in one launch), the contrast stage (``contrast_apply.contrast_apply``,
+KA: every level's curve, gain and noise reduction on the shard's rows in one
+launch) and the tone map (``tonemap.tone_map``, KT: the shard's graded rows
+and its rows of the crop).  The
 histograms go through the kernels on row windows: K1 (``noise_hists_rows``)
 on each shard's rows inside each analysis level's coverage (a shard with no
 covered row launches nothing), or with ``fused_sdev`` K7
@@ -68,8 +70,8 @@ import torch
 
 from ..config import MusicaConfig
 from ..models.musica import _band_dtype
-from ..ops import clahe, curves, gradation, noise, normalize, pyramid
-from ..ops.cuda import clahe_apply, fused_hist, tonemap
+from ..ops import clahe, gradation, noise, normalize, pyramid
+from ..ops.cuda import clahe_apply, contrast_apply, fused_hist, tonemap
 
 OUTPUTS = ("out_u8", "graded", "recon", "cnr", "clahe_graded")
 
@@ -370,13 +372,7 @@ def forward(img_u16, cfg: MusicaConfig, entries: Sequence[Entry],
     max_bins = row.broadcast(mb_first)
     max_bin = [{k: mb[j] for j, k in enumerate(levels)} for mb in max_bins]
 
-    def curve_list(i):
-        no_bin = torch.zeros((), dtype=torch.int32, device=E[i].device)
-        return [curves.contrast_curve(max_bin[i].get(k, no_bin), lcf, hcf, cfg)
-                for k, (lcf, hcf) in enumerate(cfg.contrast_factors)]
-    cl = row.each(curve_list)
-
-    # ---- apply: contrast, CNR, noise reduction --------------------------------
+    # ---- apply: CNR, then contrast and noise reduction (KA) on each shard ----
     c = cfg.cnr_level
     cnr = row.each(lambda i: noise.img_cnr(sdevs[c][i], max_bin[i][c], cfg))
 
@@ -388,30 +384,18 @@ def forward(img_u16, cfg: MusicaConfig, entries: Sequence[Entry],
             return row.fetch(cnr, c, lo, hi, i), lo
         return cnr[i], 0
 
-    exp_bandpass = []
-    for k in range(L):
-        def exp(i, k=k):
-            px, py = cl[i][k]
-            if k in sdevs:
-                return curves.contrast_curve_apply(bands[k][i], sdevs[k][i], px, py).to(sd)
-            return (bandpass[k][i].float() * cfg.contrast_factors[k][1]).to(sd)
-        exp_bandpass.append(row.each(exp))
-    # only levels < cnr_level - 1 consume the noise-reduced bandpass
-    nr_bandpass = {}
-    for k in range(cfg.cnr_level - 1):
-        lo_c, lo_f, hi_c, hi_f = cfg.noise_reduction_params[k]
-
-        def nr(i, k=k, lo_c=lo_c, lo_f=lo_f, hi_c=hi_c, hi_f=hi_f):
-            win, w0 = cnr_window(i, k)
-            return noise.noise_reduction(exp_bandpass[k][i].float(), win, lo_c, lo_f, hi_c,
-                                         hi_f, cfg, rows_of(k, i)[0], w0).to(sd)
-        nr_bandpass[k] = row.each(nr)
+    # every level's curve, gain and (below cnr_level - 1, the levels the
+    # expand reads) noise reduction on the shard's rows, in one launch
+    bands_in = row.each(lambda i: contrast_apply.contrast_apply(
+        [bandpass[k][i] for k in range(L)], {k: sdevs[k][i] for k in levels}, max_bin[i],
+        {k: cnr_window(i, k) for k in contrast_apply.nr_levels(cfg, False)}, cfg,
+        [rows_of(k, i)[0] for k in range(L)])[0])
 
     # ---- expand: the coarse end whole, then down through the sharded levels --
     def band_of(k: int, i: int) -> torch.Tensor:
         """Level k's band on entry i, in its storage dtype (the expand reads
         it as float32)."""
-        return (nr_bandpass[k] if k < cfg.cnr_level - 1 else exp_bandpass[k])[i]
+        return bands_in[i][k]
 
     recon_w = row.each(lambda i: pyramid.expand_ladder(top[i], [band_of(k, i)
                                                                  for k in range(R, L)]))

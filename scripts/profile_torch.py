@@ -79,6 +79,7 @@ HAND_WRITTEN = {
     "pyramid_tail_kernel<expand>": r"pyramid_tail_kernel<(true|false)>",
     "KS sdev_kernel": r"(?<![A-Za-z_])sdev_kernel\b",
     "KT tone_map_kernel<vec, words>": r"tone_map_kernel<(true|false)(, (true|false))?>",
+    "KA contrast_apply_kernel<bf16>": r"contrast_apply_kernel<(true|false)>",
     # KP1 in checkouts from before the fused step (--root)
     "KP1 smooth_downsample_kernel": r"smooth_downsample_kernel\b",
 }

@@ -17,6 +17,7 @@ from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.models import graphs, musica
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe, curves, noise, normalize, pyramid, stats
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_apply as k_clahe
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import contrast_apply as k_ka
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import histogram as k_hist
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import launch
@@ -266,8 +267,9 @@ def test_pipeline_on_card_matches_cpu_and_launches_kernels(dev, size, anatomy):
     # 512 takes the in-kernel relevance; 600 is ragged (relevance image)
     key = "grad_hist_relevant" if size % 16 == 0 else "grad_hist"
     assert counts[key] == 1
-    # KS: every analysis level's sdev; KT: the tone map
-    assert counts["sdev"] == counts["tone_map"] == 1 and counts["sdev_noise_hist"] == 0
+    # KS: every analysis level's sdev; KT: the tone map; KA: the contrast stage
+    assert counts["sdev"] == counts["tone_map"] == counts["contrast_apply"] == 1
+    assert counts["sdev_noise_hist"] == 0
     # every op on the path is correctly rounded on both devices (float64
     # sqrt, true divisions), so the card reproduces the CPU path bit for bit
     np.testing.assert_array_equal(out, musica.process(img, cfg, "cpu"))
@@ -883,8 +885,8 @@ def test_hist_argmax_kernel_ties_and_zero_rows(dev):
 def test_spatial_path_on_card_equals_eager(dev, n, shape):
     """process_sharded over mesh entries that are all this card equals the
     unsharded eager path bit for bit, with K1 once per shard that holds
-    covered rows, K2 once per image and K3 (or K4 at 600), KS and KT once
-    per shard."""
+    covered rows, K2 once per image and K3 (or K4 at 600), KS, KA and KT
+    once per shard."""
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import (
         sharding, spatial)
     cfg = MusicaConfig(image_size=n)
@@ -909,7 +911,7 @@ def test_spatial_path_on_card_equals_eager(dev, n, shape):
     grad = "grad_hist_relevant" if n % 16 == 0 else "grad_hist"
     assert counts["hist_argmax"] == 2 and counts[grad] == 2 * s, counts
     assert counts["noise_hist"] == 2 * covered > 0, counts
-    assert counts["sdev"] == counts["tone_map"] == 2 * s, counts
+    assert counts["sdev"] == counts["tone_map"] == counts["contrast_apply"] == 2 * s, counts
 
 
 def test_spatial_path_over_every_card(dev):
@@ -1010,7 +1012,7 @@ def test_spatial_variants_on_card_equal_eager(dev, variant):
     unsharded eager path bit for bit; per image K1 once per shard with
     covered rows, KS, K4, K6 and K5 once per shard and K2 once (CLAHE), or
     K7 once per shard, K2 once and K3 once per shard (fused-sdev), and KT
-    once per shard in both."""
+    and KA once per shard in both."""
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
     fused = variant == "fused_sdev"
     cfg = MusicaConfig(image_size=512, enable_clahe=not fused, grad_with_linear_image=not fused)
@@ -1032,7 +1034,7 @@ def test_spatial_variants_on_card_equal_eager(dev, variant):
     else:
         want_counts = {"noise_hist": 8, "hist_argmax": 2, "grad_hist": 8, "histogram": 8,
                        "clahe_apply": 8, "sdev": 8}
-    want_counts["tone_map"] = 8  # KT on each shard's rows
+    want_counts["tone_map"] = want_counts["contrast_apply"] = 8  # KT and KA on each shard's rows
     # per image over 1x4 (R = 7 sharded levels of L = 9): the down step and
     # a band on each shard at the 7 sharded levels, an expand step on each
     # at the 7 on the way back; the 2 coarse levels (4 and 2 px) one ladder
@@ -1571,3 +1573,153 @@ def test_tone_map_and_sdev_wrappers_reject_what_the_kernels_do_not_take(dev):
         fh.sdevs_rows([x[4:20]], [4], [(4, 20)])  # misses rows 2 and 3
     with pytest.raises(TypeError):
         fh.sdevs([x.double()])
+
+
+# ----------------------------------------------------------------------
+# KA, the contrast stage (csrc/contrast_apply.cu)
+# ----------------------------------------------------------------------
+
+def _contrast_inputs(n, anatomy, dev, storage="float32"):
+    """(cfg, bands, sdevs, max bins, cnr) of the port's forward at n px."""
+    tile = 16 if n > 144 else 12
+    cfg = MusicaConfig(image_size=n, quirks=n > 144, histogram_area_size=tile, storage=storage)
+    res = musica.musica_forward(torch.from_numpy(synthetic_radiograph(n, anatomy)).to(dev), cfg,
+                                want_intermediates=True)
+    it = res["intermediates"]
+    return (cfg, [it[f"red_bandpass_{k}"] for k in range(cfg.pyramid_levels)],
+            {k: it[f"sdev_{k}"] for k in cfg.analysis_levels},
+            {k: it[f"noise_max_bin_{k}"] for k in cfg.analysis_levels}, res["cnr"])
+
+
+def _odd(t, seed, values=(np.nan, np.inf, -np.inf, 1e-40, 1e-45, 3e38, 0.0, -0.0)):
+    """``t`` with a few pixels set to each of ``values``."""
+    rng = np.random.default_rng(seed)
+    t = t.clone().reshape(-1)
+    at = torch.from_numpy(rng.choice(t.numel(), min(t.numel(), 3 * len(values)),
+                                     replace=False)).to(t.device)
+    t[at] = torch.tensor(np.resize(np.array(values, np.float32), at.numel()),
+                         device=t.device).to(t.dtype)
+    return t
+
+
+def _same_band(got, want, what):
+    """float32 or bf16 bands equal bit for bit, NaN where the other has NaN."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    g, w = got.float(), want.float()
+    nan = torch.isnan(w)
+    assert torch.equal(torch.isnan(g), nan), what
+    assert torch.equal(g[~nan].view(torch.int32), w[~nan].view(torch.int32)), what
+
+
+def _same_stage(got, want, what):
+    for k, (g, w) in enumerate(zip(got[0], want[0])):
+        _same_band(g, w, f"{what}: the expand's band {k}")
+    assert set(got[1]) == set(want[1]), what
+    for key, w in want[1].items():
+        if key.startswith("contrast_curve"):
+            for g_, w_ in zip(got[1][key], w):
+                assert torch.equal(g_.view(torch.int32), w_.view(torch.int32)), (what, key)
+        else:
+            _same_band(got[1][key], w, f"{what}: {key}")
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,anatomy", [(3072, "thorax"), (600, "pelvis"), (144, "hand")])
+def test_contrast_kernel_equals_plain(dev, n, anatomy, storage):
+    """KA equals contrast_apply_plain on the card bit for bit (NaN masks
+    equal), with and without intermediates, on the forward's inputs and
+    with NaN, +-inf, denormal and huge bands, sdevs and CNR cells; one
+    launch a call."""
+    cfg, bands, sdevs, mbs, cnr = _contrast_inputs(n, anatomy, dev, storage)
+    odd = ([_odd(b, k).reshape(b.shape) for k, b in enumerate(bands)],
+           {k: _odd(s, 20 + k).reshape(s.shape) for k, s in sdevs.items()},
+           _odd(cnr, 40).reshape(cnr.shape))
+    for what, (b, sd, cn) in (("forward", (bands, sdevs, cnr)), ("odd values", odd)):
+        for inter in (False, True):
+            cnrs = {k: (cn, 0) for k in k_ka.nr_levels(cfg, inter)}
+            launch.reset_launch_counts()
+            got = k_ka.contrast_apply(b, sd, mbs, cnrs, cfg, intermediates=inter)
+            assert launch.LAUNCHES["contrast_apply"] == 1
+            _same_stage(got, k_ka.contrast_apply_plain(b, sd, mbs, cnrs, cfg, intermediates=inter),
+                        f"{n} {storage} {what}, intermediates {inter}")
+            cpu = k_ka.contrast_apply_plain([t.cpu() for t in b], {k: t.cpu() for k, t in sd.items()},
+                                            {k: t.cpu() for k, t in mbs.items()},
+                                            {k: (c.cpu(), r) for k, (c, r) in cnrs.items()}, cfg,
+                                            intermediates=inter)
+            for k, (g, w) in enumerate(zip(got[0], cpu[0])):
+                nan = torch.isnan(w.float())
+                assert torch.equal(torch.isnan(g.cpu().float()), nan), (n, storage, what, k)
+                assert torch.equal(g.cpu().float()[~nan], w.float()[~nan]), (n, storage, what, k)
+
+
+def test_contrast_tables_at_every_max_bin(dev):
+    """The curves KA's blocks build equal curves.contrast_curve and its
+    slopes at all 2,048 max bins."""
+    cfg = MusicaConfig(image_size=3072)
+    L = cfg.pyramid_levels
+    one = [torch.zeros((1, 8), device=dev) for _ in range(L)]
+    sd = {k: one[k] for k in cfg.analysis_levels}
+    cnrs = {k: (torch.zeros((1, 1), device=dev), 0) for k in k_ka.nr_levels(cfg, False)}
+    for mb in range(cfg.noise_histogram_bins):
+        t = torch.tensor(mb, dtype=torch.int32, device=dev)
+        _, _, tab = k_ka.contrast_tables(one, sd, {k: t for k in cfg.analysis_levels}, cnrs, cfg)
+        for k, (lcf, hcf) in enumerate(cfg.contrast_factors):
+            if mb and lcf == 1.0:
+                continue
+            px, py = curves.contrast_curve(t, lcf, hcf, cfg)
+            for j, w in enumerate((px, py, (py[1:] - py[:-1]) / (px[1:] - px[:-1]))):
+                got = tab[k, j, :w.shape[0]].contiguous()
+                assert torch.equal(got.view(torch.int32), w.view(torch.int32)), (mb, k, j)
+
+
+@pytest.mark.parametrize("n,space", [(3072, 4), (600, 4), (600, 2), (144, 2), (144, 4)])
+def test_contrast_kernel_on_windows(dev, n, space):
+    """Every shard's rows of the spatial plan: KA equals its plain version
+    and the whole stage's rows, in float32 and bf16."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
+    for storage in ("float32", "bfloat16"):
+        cfg, bands, sdevs, mbs, cnr = _contrast_inputs(n, "knee", dev, storage)
+        nrl = k_ka.nr_levels(cfg, False)
+        whole = k_ka.contrast_apply(bands, sdevs, mbs, {k: (cnr, 0) for k in nrl}, cfg)[0]
+        plan = spatial.row_plan(n, space, cfg)
+        for i in range(space):
+            rows = [plan.rows(k, i) if k < plan.replicated else (0, plan.sizes[k])
+                    for k in range(cfg.pyramid_levels)]
+            cnrs = {}
+            for k in nrl:
+                lo, hi = noise.cnr_rows(cnr.shape[-1], plan.sizes[k], *rows[k])
+                cnrs[k] = (cnr[lo:hi], lo)
+            wb = [b[r0:r1] for b, (r0, r1) in zip(bands, rows)]
+            ws = {k: sdevs[k][r0:r1] for k, (r0, r1) in enumerate(rows) if k in sdevs}
+            r0s = [r0 for r0, _ in rows]
+            got = k_ka.contrast_apply(wb, ws, mbs, cnrs, cfg, r0s)[0]
+            want = k_ka.contrast_apply_plain(wb, ws, mbs, cnrs, cfg, r0s)[0]
+            for k, (r0, r1) in enumerate(rows):
+                _same_band(got[k], want[k], f"{n} {storage} shard {i}, level {k}")
+                _same_band(got[k], whole[k][r0:r1], f"{n} {storage} shard {i}, level {k} whole")
+
+
+def test_contrast_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    cfg, bands, sdevs, mbs, cnr = _contrast_inputs(144, "hand", dev)
+    cnrs = {k: (cnr, 0) for k in k_ka.nr_levels(cfg, False)}
+    with pytest.raises(ValueError):
+        k_ka.contrast_apply([bands[0].cpu(), *bands[1:]], sdevs, mbs, cnrs, cfg)  # two devices
+    with pytest.raises(TypeError):
+        k_ka.contrast_apply([b.double() for b in bands], sdevs, mbs, cnrs, cfg)
+    with pytest.raises(ValueError):
+        k_ka.contrast_apply([bands[0].T, *bands[1:]], sdevs, mbs, cnrs, cfg)
+    with pytest.raises(ValueError):
+        k_ka.contrast_apply(bands, sdevs, mbs, {0: (cnr[:1], 0), 1: cnrs[1]}, cfg)
+    with pytest.raises(ValueError):
+        k_ka.contrast_apply(bands * 2, sdevs, mbs, cnrs, cfg)
+
+
+def test_contrast_kernel_on_every_card(dev):
+    """KA on each visible card's tensors equals its plain version there."""
+    for i in range(torch.cuda.device_count()):
+        d = torch.device(f"cuda:{i}")
+        cfg, bands, sdevs, mbs, cnr = _contrast_inputs(600, "pelvis", d)
+        cnrs = {k: (cnr, 0) for k in k_ka.nr_levels(cfg, True)}
+        _same_stage(k_ka.contrast_apply(bands, sdevs, mbs, cnrs, cfg, intermediates=True),
+                    k_ka.contrast_apply_plain(bands, sdevs, mbs, cnrs, cfg, intermediates=True),
+                    f"cuda:{i}")

@@ -1,6 +1,9 @@
 """The per-output tail of the sdev kernels KS and K7 (``csrc/sdev_noise.cu``:
 ``div25``, ``sqrt_to_f32``, ``sdev_tail``), modelled on the CPU before the
-card runs it, against the plain chain ``torch.sqrt(s / 25).to(float32)``.
+card runs it, against the plain chain ``stats.sdev_of_sums`` (``sqrt(s /
+25)`` in float64, rounded to float32), which equals NumPy's IEEE chain on
+every sum: its float64 square root (``stats.sqrt64``) is correctly rounded
+on the CPU too.
 
 The kernel divides by 25 with a product, one exact FMA residual and
 Markstein's correction, and rounds the square root to float32 from an approximate reciprocal square root,
@@ -20,7 +23,7 @@ import pytest
 import torch
 
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import MusicaConfig
-from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import normalize, pyramid
+from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import normalize, pyramid, stats
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import sdev_cases
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import synthetic_radiograph
@@ -108,16 +111,8 @@ def ieee(s):
 
 
 def plain(s):
-    """(``sdev_tail_plain`` on the CPU, where its float64 square root is
-    correctly rounded): PyTorch's CPU square root of float64 (2.13, AVX512)
-    misses the nearest double by one step on ~1 % of values, the card's
-    does not, so the CPU's plain chain is the reference only there."""
-    s = np.asarray(s, F64)
-    q = torch.from_numpy(s) / torch.full((), 25.0, dtype=torch.float64)
-    with np.errstate(invalid="ignore"):
-        rounded = torch.sqrt(q).numpy().view(I64) == np.sqrt(q.numpy()).view(I64)
-    rounded |= np.isnan(s) | (s < 0)
-    return fh.sdev_tail_plain(torch.from_numpy(s)).numpy(), rounded
+    """``sdev_tail_plain`` on the CPU."""
+    return fh.sdev_tail_plain(torch.from_numpy(np.asarray(s, F64))).numpy()
 
 
 def assert_same(got, want, what):
@@ -128,12 +123,9 @@ def assert_same(got, want, what):
 
 
 def assert_plain(got, s, what):
-    """got equals the IEEE chain everywhere and the port's plain version
-    wherever the CPU's square root is correctly rounded."""
+    """got equals the IEEE chain and the port's plain version everywhere."""
     assert_same(got, ieee(s), what + " vs IEEE")
-    want, rounded = plain(s)
-    assert rounded.mean() > 0.97, what
-    assert_same(got[rounded], want[rounded], what + " vs sdev_tail_plain")
+    assert_same(got, plain(s), what + " vs sdev_tail_plain")
 
 
 def single_rounding(q: float) -> np.float32:
@@ -227,8 +219,58 @@ def test_tail_probe_runs_the_plain_version_on_the_cpu():
     s = torch.from_numpy(sdev_cases.random_doubles(rng, 4000))
     got = fh.sdev_tail(s)
     assert got.dtype == torch.float32 and got.shape == s.shape
-    assert_same(got.numpy(), plain(s.numpy())[0], "cpu")
+    assert_same(got.numpy(), plain(s.numpy()), "cpu")
     model, _ = model_tail(s.numpy(), "high")
     assert_plain(model, s.numpy(), "model")
     with pytest.raises(ValueError):
         fh._launch_sdev_tail(s.float(), 0)
+
+
+@pytest.mark.parametrize("case", ["adversarial", "midpoint squares", "random"])
+def test_the_plain_chain_equals_the_ieee_chain_on_every_sum(case):
+    """``sdev_tail_plain`` (``stats.sdev_of_sums``) on the CPU equals NumPy's
+    IEEE chain on every sum of ``testing/sdev_cases.py``, NaN where it has
+    NaN."""
+    rng = np.random.default_rng(16)
+    s = {"adversarial": lambda: sdev_cases.adversarial_sums(rng),
+         "midpoint squares": lambda: sdev_cases.midpoint_squares(rng)[0],
+         "random": lambda: sdev_cases.random_doubles(rng, 1 << 20)}[case]()
+    assert_same(plain(s), ieee(s), case)
+    assert_same(stats.sdev_of_sums(torch.from_numpy(s)).numpy(), ieee(s), case)
+
+
+def test_sqrt64_is_correctly_rounded():
+    """``stats.sqrt64`` equals NumPy's square root bit for bit on every high
+    word of three binades (both ends of each low word), on subnormal,
+    huge and random doubles, and keeps sqrt's special values."""
+    hi = np.arange(1 << 20, dtype=I64)
+    q = np.concatenate([((e << 52) | (hi << 32) | low).view(F64)
+                        for e in (1, 1022, 1023) for low in (0, 0xffffffff)])
+    rng = np.random.default_rng(5)
+    q = np.concatenate([q, rng.integers(1, 1 << 52, 4096).view(F64),
+                        ((2046 << 52) | rng.integers(0, 1 << 52, 4096)).view(F64),
+                        sdev_cases.random_doubles(rng, 1 << 18), sdev_cases.SPECIAL])
+    with np.errstate(invalid="ignore"):
+        want = np.sqrt(q)
+    got = stats.sqrt64(torch.from_numpy(q)).numpy()
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(I64), want[~nan].view(I64))
+
+
+@pytest.mark.parametrize("size,anatomy", [(128, "thorax"), (144, "hand")])
+def test_img_sdev_equals_the_ieee_chain(size, anatomy):
+    """``img_sdev`` (and so ``img_sdev_rows``) of every analysis level's band
+    equals NumPy's IEEE chain on the same float64 sums, and a window of
+    rows the whole level's rows."""
+    cfg = MusicaConfig(image_size=size)
+    nrm, _, _ = normalize.normalize_from_u16(
+        torch.from_numpy(synthetic_radiograph(size, anatomy)), cfg.quirks)
+    bands = pyramid.reduce_ladder(nrm, cfg.pyramid_levels)[0]
+    for level in cfg.analysis_levels:
+        got = stats.img_sdev(bands[level]).numpy()
+        assert_same(got, ieee(band_sums(size, anatomy, level)), f"level {level}")
+        h = bands[level].shape[-1]
+        r0, r1 = h // 3, h // 3 + max(1, h // 4)
+        win = stats.img_sdev_rows(bands[level], 0, h, r0, r1).numpy()
+        assert_same(win, got[r0:r1], f"level {level}, rows [{r0}, {r1})")
