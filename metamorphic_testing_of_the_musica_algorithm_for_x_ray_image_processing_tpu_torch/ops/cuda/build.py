@@ -52,6 +52,10 @@ _SIGNATURES = {
     "musica_sdev_tail": ([_VP, _VP, ctypes.c_longlong, _I, _VP], _I),
     "musica_contrast_apply": ([_VP, _I, _I, ctypes.c_float, ctypes.c_float, ctypes.c_float, _VP],
                               _I),
+    "musica_normalize_extrema": ([_VP, _I, ctypes.c_longlong, _VP, _I, _VP], _I),
+    "musica_normalize_apply": ([_VP, _I, ctypes.c_longlong, _VP, _VP, _VP, _I, _I, _I, _I, _VP,
+                                _VP], _I),
+    "musica_gradation_curve": ([_VP, _I, _I, *[ctypes.c_float] * 5, _VP, _VP], _I),
     "musica_tone_map": ([_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP], _I),
     "musica_reduce_step": ([_VP, _I, _I, _I, _I, _VP, _I, _I, _VP, _VP], _I),
     "musica_upsample_smooth": ([_VP, _I, _I, _I, _VP, _I, _I, _I, _VP, _I, _VP], _I),

@@ -93,17 +93,29 @@ def gradation_histogram_fused_relevance(recon: torch.Tensor,
 
 def gradation_curve(hist: torch.Tensor, cfg):
     """Tone curve from the gradation histogram
-    (shaders/gradation_curve_generate.comp:49-182).
+    (shaders/gradation_curve_generate.comp:49-182): (px[22], py[22], (t0,
+    ta, t1)) as float32 tensors on the histogram's device.  A CUDA
+    histogram launches the kernel KG (``ops/cuda/gradation.py``, one
+    launch) or raises; a CPU one runs ``gradation_curve_plain``."""
+    from .cuda import launch
 
-    Returns (px[22], py[22], (t0, ta, t1)) as device tensors.  Quirks
-    preserved: uint32 wrap-around of the weighted-mean accumulators (QUIRKS
-    #18; computed in int64, masked to 32 bits, which is the same sum modulo
-    2^32), integer division for the mean bin, thresholds truncated to int
-    (#19, #20)."""
+    if launch.device_of([hist]).type == "cpu":
+        return gradation_curve_plain(hist, cfg)
+    from .cuda import gradation as kg
+    return kg.gradation_curve(hist, cfg)
+
+
+def gradation_curve_plain(hist: torch.Tensor, cfg):
+    """Plain version of ``gradation_curve``.  Quirks preserved: the bins
+    read as the reference shader's uint32 (a negative int32 bin, one that
+    int32 atomics wrapped, is a count near 2^32 / 100), uint32 wrap-around
+    of the weighted-mean accumulators (QUIRKS #18; computed in int64,
+    masked to 32 bits, which is the same sum modulo 2^32), integer division
+    for the mean bin, thresholds truncated to int (#19, #20)."""
     bins = cfg.grad_histogram_bins
     lowest = cfg.grad_lowest_relevant_bin
     dev = hist.device
-    counts = hist.to(torch.int64) // 100
+    counts = (hist.to(torch.int64) & _U32) // 100
     idx = torch.arange(bins, dtype=torch.int64, device=dev)
     rel = idx >= lowest
 

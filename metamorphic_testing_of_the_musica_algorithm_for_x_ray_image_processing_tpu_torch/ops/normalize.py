@@ -35,6 +35,15 @@ def _chain_misaligned(n: int, area: int = 8) -> bool:
     return False
 
 
+def _zero_min(shape, windowed: bool, quirks: bool) -> bool:
+    """Whether quirks mode pins vmin to 0 (QUIRKS #2) for an integer image
+    of ``shape`` [..., rows, n]: its chain misaligns along either side.  A
+    window (``windowed``: the spatial path's rows, with given extrema)
+    stands for the whole [n, n] image."""
+    h = shape[-1] if windowed else shape[-2]
+    return quirks and (_chain_misaligned(shape[-1]) or _chain_misaligned(h))
+
+
 def img_sqrt(img_u16: torch.Tensor) -> torch.Tensor:
     """Variance-stabilizing sqrt (shaders/img_sqrt.comp:15-18), correctly
     rounded float32."""
@@ -54,7 +63,7 @@ def global_min(sqrt_img: torch.Tensor, quirks: bool = True) -> torch.Tensor:
     chain pins the result to 0 (QUIRKS #2, decided from the image size)."""
     if not quirks:
         return sqrt_img.amin(dim=(-2, -1))
-    if _chain_misaligned(sqrt_img.shape[-1]) or _chain_misaligned(sqrt_img.shape[-2]):
+    if _zero_min(sqrt_img.shape, False, quirks):
         return sqrt_img.new_zeros(sqrt_img.shape[:-2])
     return torch.trunc(sqrt_img.amin(dim=(-2, -1)))
 
@@ -74,23 +83,53 @@ def img_normalize(sqrt_img: torch.Tensor, vmax, vmin, quirks: bool = True) -> to
 def normalize_from_u16(img_u16: torch.Tensor, quirks: bool = True, extrema=None):
     """(normalized, vmax, vmin) from an integer image [..., n, n].
 
-    sqrt is monotone, so the global max/min commute with it: the reductions
-    run on the input values and the sqrt is applied to the two scalars.
     vmax and vmin stay 0-d (or batch-shaped) tensors on the input's device.
-
     ``extrema``: the image's (max, min) as float32 tensors, reduced
     elsewhere; ``img_u16`` is then a window of rows [rows, n] of an [n, n]
-    image (the spatial path's shard) and is normalized as the whole."""
+    image (the spatial path's shard) and is normalized as the whole.
+
+    A CUDA image [rows, n] launches the kernel KN (``ops/cuda/normalize.py``:
+    the extrema pass unless ``extrema`` is given, then the apply pass) or
+    raises; a CPU image runs ``normalize_from_u16_plain``."""
+    from .cuda import launch
+
+    dev = launch.device_of([img_u16, *(extrema or ())])
+    if dev.type == "cpu":
+        return normalize_from_u16_plain(img_u16, quirks, extrema)
+    from .cuda import normalize as kn
+    return kn.normalize(img_u16, quirks, _zero_min(img_u16.shape, extrema is not None, quirks),
+                        extrema)
+
+
+def extrema_partials(img_u16: torch.Tensor) -> torch.Tensor:
+    """float32 [k, 2] whose columns' max and min are the integer image's max
+    and min as float32: KN's extrema pass on a CUDA image (a pair a block),
+    one pair on the CPU.  The spatial path reduces its shards' partials
+    into the whole image's ``extrema``."""
+    from .cuda import launch
+
+    if launch.device_of([img_u16]).type == "cpu":
+        x = img_u16.to(torch.float32)
+        return torch.stack([x.amax(), x.amin()])[None]
+    from .cuda import normalize as kn
+    return kn.extrema_partials(img_u16)
+
+
+def normalize_from_u16_plain(img_u16: torch.Tensor, quirks: bool = True, extrema=None):
+    """Plain version of ``normalize_from_u16``.
+
+    sqrt is monotone, so the global max/min commute with it: the reductions
+    run on the input values and the sqrt is applied to the two scalars."""
     x = img_u16.to(torch.float32)  # u16 -> f32 is exact
     if extrema is None:
-        hi, lo, h = x.amax(dim=(-2, -1)), x.amin(dim=(-2, -1)), img_u16.shape[-2]
+        hi, lo = x.amax(dim=(-2, -1)), x.amin(dim=(-2, -1))
     else:
-        (hi, lo), h = extrema, img_u16.shape[-1]
+        hi, lo = extrema
     vmax = _sqrt(hi)
     vmin = _sqrt(lo)
     if quirks:
         vmax = torch.trunc(vmax)
-        if _chain_misaligned(img_u16.shape[-1]) or _chain_misaligned(h):
+        if _zero_min(img_u16.shape, extrema is not None, quirks):
             vmin = torch.zeros_like(vmin)
         else:
             vmin = torch.trunc(vmin)

@@ -285,10 +285,9 @@ def forward(img_u16, cfg: MusicaConfig, entries: Sequence[Entry],
         x = list(img_u16)
     else:
         x = row.each(lambda i: img_u16[slice(*plan.rows(0, i))].to(E[i].device).contiguous())
-    ext = row.each(lambda i: torch.stack([x[i].to(torch.float32).amax(),
-                                          x[i].to(torch.float32).amin()]))
-    ext = row.all_reduce(ext, lambda p: torch.stack([torch.stack(p)[:, 0].amax(),
-                                                     torch.stack(p)[:, 1].amin()]))
+    ext = row.each(lambda i: normalize.extrema_partials(x[i]))
+    ext = row.all_reduce(ext, lambda p: torch.stack([torch.cat(p)[:, 0].amax(),
+                                                     torch.cat(p)[:, 1].amin()]))
     normalized = row.each(lambda i: normalize.normalize_from_u16(
         x[i], cfg.quirks, extrema=(ext[i][0], ext[i][1]))[0])
 

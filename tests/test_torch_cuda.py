@@ -1011,8 +1011,8 @@ def test_spatial_variants_on_card_equal_eager(dev, variant):
     variant (clahe_graded gathered whole) and with fused_sdev equals the
     unsharded eager path bit for bit; per image K1 once per shard with
     covered rows, KS, K4, K6 and K5 once per shard and K2 once (CLAHE), or
-    K7 once per shard, K2 once and K3 once per shard (fused-sdev), and KT
-    and KA once per shard in both."""
+    K7 once per shard, K2 once and K3 once per shard (fused-sdev), and KT,
+    KA and KG once per shard and KN's two passes on each shard in both."""
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
     fused = variant == "fused_sdev"
     cfg = MusicaConfig(image_size=512, enable_clahe=not fused, grad_with_linear_image=not fused)
@@ -1035,6 +1035,7 @@ def test_spatial_variants_on_card_equal_eager(dev, variant):
         want_counts = {"noise_hist": 8, "hist_argmax": 2, "grad_hist": 8, "histogram": 8,
                        "clahe_apply": 8, "sdev": 8}
     want_counts["tone_map"] = want_counts["contrast_apply"] = 8  # KT and KA on each shard's rows
+    want_counts["gradation_curve"], want_counts["normalize"] = 8, 16  # KG; KN's two passes
     # per image over 1x4 (R = 7 sharded levels of L = 9): the down step and
     # a band on each shard at the 7 sharded levels, an expand step on each
     # at the 7 on the way back; the 2 coarse levels (4 and 2 px) one ladder
@@ -1723,3 +1724,115 @@ def test_contrast_kernel_on_every_card(dev):
         _same_stage(k_ka.contrast_apply(bands, sdevs, mbs, cnrs, cfg, intermediates=True),
                     k_ka.contrast_apply_plain(bands, sdevs, mbs, cnrs, cfg, intermediates=True),
                     f"cuda:{i}")
+
+
+# ----------------------------------------------------------------------
+# KN (normalize) and KG (the gradation curve)
+# ----------------------------------------------------------------------
+
+def _norm_images():
+    """[3i]'s cases at small sizes: name -> integer image."""
+    rng = np.random.default_rng(31)
+    v = np.arange(65536, dtype=np.uint16)
+    return {"600 pelvis": synthetic_radiograph(600, "pelvis"),
+            "144 hand": synthetic_radiograph(144, "hand"),
+            "512 thorax (aligned chain)": synthetic_radiograph(512, "thorax"),
+            "256 all values": rng.permutation(v).reshape(256, 256),
+            "512 constant": np.full((512, 512), 5000, np.uint16),
+            "600 constant": np.full((600, 600), 5000, np.uint16),
+            "512 zero": np.zeros((512, 512), np.uint16),
+            "75 random": rng.integers(0, 65536, (75, 75)).astype(np.uint16),
+            "144 int32": rng.integers(0, 2 ** 31, (144, 144)).astype(np.int32),
+            "144 int32 negative": rng.integers(-2 ** 31, 2 ** 31, (144, 144)).astype(np.int32)}
+
+
+def _same_norm(got, want, what):
+    for part, g, w in zip(("image", "vmax", "vmin"), got, want):
+        nan = torch.isnan(w)
+        assert torch.equal(torch.isnan(g), nan), (what, part)
+        assert torch.equal(g[~nan].view(torch.int32), w[~nan].view(torch.int32)), (what, part)
+
+
+@pytest.mark.parametrize("quirks", [True, False])
+@pytest.mark.parametrize("name", sorted(_norm_images()))
+def test_normalize_kernel_matches_plain(dev, name, quirks):
+    x = torch.from_numpy(_norm_images()[name]).to(dev)
+    launch.reset_launch_counts()
+    got = normalize.normalize_from_u16(x, quirks)
+    assert launch.LAUNCHES["normalize"] == 2
+    _same_norm(got, normalize.normalize_from_u16_plain(x, quirks), name)
+
+
+def test_normalize_kernel_at_an_odd_address_and_its_root(dev):
+    """An input 2 bytes past a 16-byte boundary (the pixel-a-thread path);
+    the root alone over all 65,536 values (extrema 1 and 0 on a 512-wide
+    window) equals NumPy's float32 sqrt."""
+    flat = torch.from_numpy(synthetic_radiograph(600, "pelvis")).reshape(-1).to(dev)
+    buf = torch.empty(flat.numel() + 1, dtype=torch.uint16, device=dev)
+    buf[1:] = flat
+    x = buf[1:].view(600, 600)
+    assert x.data_ptr() % 16 == 2
+    for quirks in (True, False):
+        _same_norm(normalize.normalize_from_u16(x, quirks),
+                   normalize.normalize_from_u16_plain(x, quirks), f"odd address {quirks}")
+    v = torch.from_numpy(np.arange(65536, dtype=np.uint16).reshape(128, 512)).to(dev)
+    one, zero = torch.ones((), device=dev), torch.zeros((), device=dev)
+    got = normalize.normalize_from_u16(v, True, extrema=(one, zero))[0].cpu().numpy()
+    want = np.sqrt(np.arange(65536, dtype=np.float32)).reshape(128, 512)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("n,space", [(600, 4), (600, 2), (144, 4)])
+def test_normalize_windows_match_plain_and_the_whole(dev, n, space):
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
+    cfg = MusicaConfig(image_size=n, histogram_area_size=16 if n > 144 else 12)
+    x = torch.from_numpy(synthetic_radiograph(n, "pelvis")).to(dev)
+    bounds = spatial.row_plan(n, space, cfg).bounds[0]
+    q = torch.cat([normalize.extrema_partials(x[a:b]) for a, b in zip(bounds, bounds[1:])])
+    ext = (q[:, 0].amax(), q[:, 1].amin())
+    xf = x.to(torch.float32)
+    assert float(ext[0]) == float(xf.amax()) and float(ext[1]) == float(xf.amin())
+    for quirks in (True, False):
+        whole = normalize.normalize_from_u16(x, quirks)[0]
+        for a, b in zip(bounds, bounds[1:]):
+            got = normalize.normalize_from_u16(x[a:b], quirks, extrema=ext)
+            _same_norm(got, normalize.normalize_from_u16_plain(x[a:b], quirks, extrema=ext),
+                       (a, b, quirks))
+            _same_norm(got[:1], (whole[a:b],), (a, b, quirks, "whole"))
+
+
+def _curve_bits(curve):
+    px, py, t = curve
+    return torch.cat([px, py, torch.stack(list(t))]).cpu().view(torch.int32)
+
+
+def test_gradation_curve_kernel_matches_plain(dev):
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import gradation
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import grad_cases
+    cfg = MusicaConfig(image_size=512)
+    hists = {k: torch.from_numpy(h).to(dev) for k, (h, _) in grad_cases.cases().items()}
+    for n, anatomy in ((512, "thorax"), (256, "hand")):
+        c = MusicaConfig(image_size=n)
+        x = torch.from_numpy(synthetic_radiograph(n, anatomy)).to(dev)
+        for name, cc in (("main", c), ("CLAHE + linear",
+                                       c.with_(enable_clahe=True, grad_with_linear_image=True))):
+            res = musica.musica_forward(x, cc, want_intermediates=True)
+            hists[f"{n} {anatomy} {name}"] = res["intermediates"]["grad_hist"]
+    for name, h in hists.items():
+        launch.reset_launch_counts()
+        got = gradation.gradation_curve(h, cfg)
+        assert launch.LAUNCHES["gradation_curve"] == 1
+        want = _curve_bits(gradation.gradation_curve_plain(h, cfg))
+        assert torch.equal(_curve_bits(got), want), name
+        assert torch.equal(_curve_bits(gradation.gradation_curve_plain(h.cpu(), cfg)), want), name
+
+
+def test_forward_launches_normalize_twice_and_the_curve_once(dev):
+    cfg = MusicaConfig(image_size=256)
+    x = torch.from_numpy(synthetic_radiograph(256, "hand")).to(dev)
+    musica.musica_forward(x, cfg)  # build the kernels first
+    launch.reset_launch_counts()
+    out = musica.musica_forward(x, cfg)["out_u8"]
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["normalize"] == 2 and launch.LAUNCHES["gradation_curve"] == 1
+    assert torch.equal(out.cpu(), musica.musica_forward(x.cpu(), cfg)["out_u8"])

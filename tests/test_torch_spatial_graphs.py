@@ -413,7 +413,8 @@ def test_every_op_of_the_schedule_runs_inside_an_entry(variant):
     cfg = _cfg(variant)
     entries = _entries(2)
     t = _Checked(entries)
+    img = _imgs(1)[0]  # made (or taken from the cache) before the mode watches
     with _OnlyInside(t) as mode:
-        out = spatial.forward(_imgs(1)[0], cfg, entries, names, fused, transport=t)
+        out = spatial.forward(img, cfg, entries, names, fused, transport=t)
     assert mode.outside == []
     _assert_equal([out[k][None] for k in names], [o[:1] for o in _eager(variant, 2)], variant)
