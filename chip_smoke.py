@@ -39,6 +39,14 @@ uint16 values, constant, zero, int32 and unaligned inputs and every shard
 window of the 1x4 and 2x2 plans, its square root over all 65,536 values,
 and the gradation curve KG bit for bit on every path's histograms at 3072,
 600 and 144 and on adversarial and random ones with negative bins ([3i]),
+the relevance mask inside the kernels that read it: K3 computing each CNR
+block's weight from the CNR map against the route that reads the weight
+plane and its plain version on dense CNR values (every float32 within 64
+ulps of the rule's edges, 0, NaN, +-inf), whole and on every shard window,
+the CLAHE joint histogram KH (its relevance test inside) and the LUTs KC bit
+for bit at 3072, 600 and 144 with 4x4 and 8x8 tiles on the paths' and
+adversarial inputs (bin edges +-1 ulp, NaN, +-inf, max_pixel +-1 ulp), on
+every shard window, KC also on 256 random histograms ([3j]),
 drives
 the port's main path
 (``process`` on a 3072^2 uint16 radiograph, then the intermediates path of
@@ -72,8 +80,8 @@ and one image over every card where there are several), each image a
 replay of the mesh row's captured graph (``models/graphs.py::SpatialGraph``,
 cut into segments at the exchanges between cards), against the eager
 spatial path and ``process_batch_jit`` bit for bit, counting K1 per shard
-with covered rows, K2 per image and K3 per shard (CLAHE: K4, K6 and K5 per
-shard; fused-sdev: K7 and K3 per shard) against the profiler's kernel
+with covered rows, K2 per image and K3 per shard (CLAHE: K3, KH and K5 per
+shard, KC per entry; fused-sdev: K7 and K3 per shard) against the profiler's kernel
 events, with each graph's capture seconds and pool MB, and times the
 replays beside the eager spatial path and one card's unsharded replay of
 the same variant ([4n]), runs a batch of 4 through
@@ -86,8 +94,9 @@ over the HBM rate, operations over the peak rate, at this run's inputs)
 and, where one exists, the one PyTorch call that computes the same function
 (``torch.argmax`` for the argmax, ``torch.bincount`` for the generic
 histogram, float64 ``F.conv2d`` and ``F.conv_transpose2d`` for the pyramid
-steps, float64 ``F.avg_pool2d`` of the squares for KS; none for KA, KN
-and KG, whose plain chains' launches are counted instead), with CUDA events;
+steps, float64 ``F.avg_pool2d`` of the squares for KS; none for KA, KN,
+KG, KH and KC, whose plain chains' launches are counted instead), with CUDA
+events;
 the folded argmax also as the difference between K1 (and K7) with and
 without it.
 
@@ -129,7 +138,8 @@ SOURCES = {"noise_hist": "fused_hist.cu", "hist_argmax": "hist_argmax.cuh",
            "pyramid_up": "pyramid.cu", "pyramid_tail": "pyramid.cu",
            "sdev": "sdev_noise.cu", "tone_map": "tonemap.cu",
            "contrast_apply": "contrast_apply.cu", "normalize": "normalize.cu",
-           "gradation_curve": "gradation_curve.cu"}
+           "gradation_curve": "gradation_curve.cu", "clahe_hist": "clahe_hist.cu",
+           "clahe_curves": "clahe_curves.cu"}
 REPLACES = {
     "noise_hist": f"{PALLAS}:139 (_noise_kernel of noise_hist_fused; also the "
                   f"histogram of _noise_multi_kernel, :181)",
@@ -137,7 +147,8 @@ REPLACES = {
                    f"that _noise_multi_kernel takes on its last row block, :202-211; "
                    f"folded into noise_hist and sdev_noise_hist)",
     "grad_hist_relevant": f"{PALLAS}:397 (_grad_relevant_kernel of "
-                          f"grad_hist_relevant_fused)",
+                          f"grad_hist_relevant_fused, pallas_call :485; with the block weight "
+                          f"plane that grad_hist_relevant_fused makes with XLA ops, :468-480)",
     "grad_hist": f"{PALLAS}:381 (_grad_kernel of grad_hist_fused)",
     "histogram": f"{PALLAS_DIR}/histogram.py:97 (_hist_kernel of "
                  f"factorized_histogram_pallas, pallas_call :148)",
@@ -164,6 +175,12 @@ REPLACES = {
                  f"img_normalize, :78, as {JAX_MUSICA}:80 calls them",
     "gradation_curve": f"{JAX_OPS}/gradation.py:119 (gradation_curve, XLA, no Pallas kernel) "
                        f"with curves.py:21's bezier_points, as {JAX_MUSICA}:179 calls it",
+    "clahe_hist": f"{JAX_OPS}/noise.py:78 (img_relevant, XLA, no Pallas kernel) with "
+                  f"clahe.py:30 (clahe_histograms: its joint bins, XLA, counted by "
+                  f"{PALLAS_DIR}/histogram.py:148, factorized_histogram_pallas), as "
+                  f"{JAX_MUSICA}:166-172 calls them",
+    "clahe_curves": f"{JAX_OPS}/clahe.py:52 (clahe_curves, XLA, no Pallas kernel), as "
+                    f"clahe_grade calls it ({JAX_MUSICA}:170-171)",
 }
 # each hand-written kernel's CUDA kernel events as the profiler names them
 # (scripts/profile_torch.py matches them alike)
@@ -180,6 +197,8 @@ KERNEL_EVENTS = {
     "contrast_apply": r"contrast_apply_kernel<(true|false)>",
     "normalize": r"normalize_(extrema|apply)_kernel<",
     "gradation_curve": r"gradation_curve_kernel\b",
+    "clahe_hist": r"clahe_hist_kernel\b",
+    "clahe_curves": r"clahe_curves_kernel\b",
     "pyramid_down": r"reduce_step_kernel<(true|false)>",
     "pyramid_up": r"upsample_smooth_kernel<\d>",
     "pyramid_tail": r"pyramid_tail_kernel<(true|false)>",
@@ -461,8 +480,8 @@ def random_clahe(rng, n, dev):
 
 
 def check_clahe(rec, cfg, recon, relevant, case):
-    """K6 on the CLAHE joint histogram and K5 on the resulting LUTs, each
-    against its plain version on the same inputs."""
+    """K6 on the CLAHE joint histogram, KC on it and K5 on the resulting
+    LUTs, each against its plain version on the same inputs."""
     import torch
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_apply as k_clahe
@@ -471,12 +490,134 @@ def check_clahe(rec, cfg, recon, relevant, case):
     joint, w = clahe.clahe_joint_bins(recon, relevant, cfg)
     h = k_hist.histogram(joint, w, nb)
     rec.equal("histogram", f"{case}, {nb} joint bins", h, k_hist.histogram_plain(joint, w, nb))
-    px, py = clahe.clahe_curves(h.reshape(cfg.clahe_tiles, cfg.clahe_tiles, -1), cfg)
+    px, py = check_kc(rec, case, h.reshape(cfg.clahe_tiles, cfg.clahe_tiles, -1), cfg)
     nan_tiles = int(torch.isnan(py).all(dim=-1).sum())
     rec.equal_float("clahe_apply", f"{case}, {nan_tiles} NaN tile(s)",
                     k_clahe.clahe_apply(recon, px, py, cfg),
                     k_clahe.clahe_apply_plain(recon, px, py, cfg))
     return nan_tiles
+
+
+def check_k3(rec, case, recon, nrm, cnr, cfg, row0=0, c0=0):
+    """K3 (``grad_hist_relevant``: each CNR block's weight computed in the
+    kernel) against its plain version and against the same kernel reading
+    ``relevance_weight_plane`` (the route of an exponent that is no integer
+    in 1..8), exactly; returns K3's histogram."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
+    got = fh.grad_hist_relevant(recon, nrm, cnr, cfg, row0, c0)
+    rec.equal("grad_hist_relevant", case, got,
+              fh.grad_hist_relevant_plain(recon, nrm, cnr, cfg, row0, c0))
+    rec.equal_bytes("grad_hist_relevant", f"{case}, vs the weight plane", got,
+                    fh._launch_grad_hist_relevant(recon, nrm, cnr, cfg, row0, c0, 0))
+    return got
+
+
+def check_kc(rec, case, hists, cfg):
+    """KC (``clahe.clahe_curves`` on the card) against
+    ``clahe_curves_plain``: px and py bit for bit, NaN masks equal; returns
+    (px, py)."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import clahe
+    px, py = clahe.clahe_curves(hists, cfg)
+    ppx, ppy = clahe.clahe_curves_plain(hists, cfg)
+    rec.equal_bits("clahe_curves", f"{case}, px", px, ppx)
+    nan_g, nan_w = torch.isnan(py), torch.isnan(ppy)
+    assert torch.equal(nan_g, nan_w), f"clahe_curves [{case}]: NaN masks differ"
+    rec.equal_bits("clahe_curves", case, py.nan_to_num(), ppy.nan_to_num())
+    return px, py
+
+
+def check_kh(rec, case, recon, nrm, cnr, cfg, space):
+    """KH (``clahe_hist``) against its plain version (the relevance image,
+    then ``clahe_histograms_rows``) on the whole image, every shard's rows
+    of ``spatial.row_plan(n, space)`` and a partition whose inner windows start on odd rows, the
+    windows summed against the whole; KC on the whole histogram.  Returns
+    the whole histogram."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import noise
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_hist as kh
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
+    n, ws = cfg.image_size, cnr.shape[-1]
+    whole = kh.clahe_hist(recon, nrm, cnr, cfg)
+    rec.equal("clahe_hist", case, whole, kh.clahe_hist_plain(recon, nrm, cnr, cfg))
+    parts = 0
+    for bounds in (spatial.row_plan(n, space, cfg).bounds[0], odd_bounds(n, space)):
+        total = torch.zeros_like(whole)
+        for a, b in zip(bounds, bounds[1:]):
+            c0, c1 = noise.cnr_rows(ws, n, a, b)
+            got = kh.clahe_hist(recon[a:b], nrm[a:b], cnr[c0:c1], cfg, a, c0)
+            rec.equal_bytes("clahe_hist", f"{case}, rows [{a}, {b})", got, kh.clahe_hist_plain(
+                recon[a:b], nrm[a:b], cnr[c0:c1], cfg, a, c0))
+            total += got
+            parts += 1
+        rec.equal_bytes("clahe_hist", f"{case}, windows {list(bounds)} summed", total, whole)
+    _, py = check_kc(rec, case, whole, cfg)
+    log(f"  clahe_hist [{case}]: {parts} windows equal to the plain version's and summing to "
+        f"the whole; clahe_curves: {int(torch.isnan(py).all(dim=-1).sum())} NaN tile(s)")
+    return whole
+
+
+def check_relevance(rec, rng, dev, cfg, main, var):
+    """[3j]: the relevance mask inside the kernels that read it.  K3 on
+    dense CNR maps (``dense_cnr``) at 3072 over 4 shards and 144 over 2
+    (border 10: the default 100-px border leaves no pixel of 144 inside),
+    with an integer exponent and with 4.5 (the plane route), and at 640
+    with 4-px tiles (the serial kernel) over 2; KH on the
+    CLAHE path's inputs (``var``: recon, normalized, cnr) and on adversarial
+    ones (``clahe_recon``, ``pixel_tests``, ``dense_cnr``) at 3072, 600 and
+    144 with 4x4 and 8x8 tiles, whole and on every shard's window, also with
+    exponent 4.5; KC on every histogram KH gave, on the main path's
+    inputs' (``main``), and on 256 random histograms with empty tiles
+    (``testing/relevance_cases.py``)."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import noise
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import spatial
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import (
+        hist_cases, relevance_cases)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    # the CNR map at scale 8; at 4-px tiles at scale 4, where the serial
+    # kernel (a thread a tile) computes the weights
+    for c, space, scale in ((cfg, 4, 8),
+                            (cfg.with_(image_size=144, quirks=False, relevant_border=10), 2, 8),
+                            (cfg.with_(relevant_k=4.5), 4, 8),
+                            (cfg.with_(image_size=640, histogram_area_size=4, relevant_border=10),
+                             2, 4)):
+        n, m = c.image_size, -(-c.image_size // scale)
+        recon = t(hist_cases.gradation_image(rng, n))
+        nrm = t(relevance_cases.pixel_tests(rng, n, c))
+        cnr = t(relevance_cases.dense_cnr(rng, c, m))
+        case = f"{n} dense CNR, tile {c.histogram_area_size}, exponent {c.relevant_k}"
+        whole = check_k3(rec, case, recon, nrm, cnr, c)
+        total = torch.zeros_like(whole)
+        plan = spatial.row_plan(n, space, c)
+        for i in range(space):
+            a, b = plan.rows(0, i)
+            c0, c1 = noise.cnr_rows(m, n, a, b)
+            total += check_k3(rec, f"{case}, shard {i} rows [{a}, {b})", recon[a:b], nrm[a:b],
+                              cnr[c0:c1], c, a, c0)
+        rec.equal("grad_hist_relevant", f"{case}, {space} windows summed vs the whole", total,
+                  whole)
+    cfg_var = cfg.with_(enable_clahe=True, grad_with_linear_image=True)
+    for tiles in (4, 8):
+        c = cfg_var.with_(clahe_tiles=tiles)
+        check_kh(rec, f"3072 thorax, the CLAHE path's inputs, {tiles}x{tiles} tiles", *var, c, 4)
+        check_kh(rec, f"3072 thorax, the main path's inputs, {tiles}x{tiles} tiles", *main, c, 4)
+        for n, q, border, space, k in ((3072, True, 100, 4, 5), (600, True, 100, 4, 5),
+                                       (144, False, 10, 2, 5), (3072, True, 100, 4, 4.5)):
+            cn = c.with_(image_size=n, quirks=q, relevant_border=border, relevant_k=k)
+            recon = t(relevance_cases.clahe_recon(rng, n, cn.clahe_bins))
+            nrm = t(relevance_cases.pixel_tests(rng, n, cn))
+            cnr = t(relevance_cases.dense_cnr(rng, cn, -(-n // 8)))
+            check_kh(rec, f"{n} adversarial, {tiles}x{tiles} tiles, border {border}, exponent "
+                     f"{cn.relevant_k}", recon, nrm, cnr, cn, space)
+    for k in range(256):
+        c = cfg_var.with_(clahe_tiles=4 if k % 2 else 8)
+        check_kc(rec, f"random {k}", t(relevance_cases.random_clahe_hists(rng, c)), c)
+    log("  clahe_curves: 256 random histograms (4x4 and 8x8 tiles, empty bins and tiles) bit "
+        "for bit, NaN masks equal")
 
 
 def check_clahe_edges(rec, rng, n, dev, t=4, bins=256):
@@ -538,9 +679,7 @@ def check_adversarial(rec, rng, dev):
                 rec.equal("grad_hist", f"{n} {case}", fh.grad_hist(r, rel, cfg),
                           fh.grad_hist_plain(r, rel, cfg))
             if "K3" in grad_kernels:
-                rec.equal("grad_hist_relevant", f"{n} {case}",
-                          fh.grad_hist_relevant(r, nrm, cnr, cfg),
-                          fh.grad_hist_relevant_plain(r, nrm, cnr, cfg))
+                check_k3(rec, f"{n} {case}", r, nrm, cnr, cfg)
     # the quirks coverage of a 256 image is 0: every histogram empty, every
     # folded argmax bin 0
     cfg = MusicaConfig(image_size=256)
@@ -567,9 +706,7 @@ def check_adversarial(rec, rng, dev):
             if tile % 8 == 0 and n % tile == 0:
                 nrm = t(rng.uniform(0.0, 1.01, (n, n)).astype(np.float32))
                 cnr = t(rng.uniform(0.0, 0.1, (n // 8, n // 8)).astype(np.float32))
-                rec.equal("grad_hist_relevant", f"{n} adversarial, tile {tile}",
-                          fh.grad_hist_relevant(recon, nrm, cnr, cfg),
-                          fh.grad_hist_relevant_plain(recon, nrm, cnr, cfg))
+                check_k3(rec, f"{n} adversarial, tile {tile}", recon, nrm, cnr, cfg)
 
 
 def plan_rows(plan, k, i):
@@ -614,11 +751,8 @@ def check_windows(rec, cfg, levels, case, space=4, grad=None, relevant=None, cfg
         if grad is not None:
             recon, nrm, cnr = grad
             c0, c1 = noise.cnr_rows(cnr.shape[-1], n, a, b)
-            got = fh.grad_hist_relevant(recon[a:b], nrm[a:b], cnr[c0:c1], cfg, a, c0)
-            rec.equal("grad_hist_relevant", f"{case}, shard {i} rows [{a}, {b}), CNR rows "
-                      f"[{c0}, {c1})", got, fh.grad_hist_relevant_plain(
-                          recon[a:b], nrm[a:b], cnr[c0:c1], cfg, a, c0))
-            h3 += got
+            h3 += check_k3(rec, f"{case}, shard {i} rows [{a}, {b}), CNR rows [{c0}, {c1})",
+                           recon[a:b], nrm[a:b], cnr[c0:c1], cfg, a, c0)
         if relevant is not None:
             img, rel = relevant
             c = cfg_grad or cfg
@@ -1378,10 +1512,14 @@ def spatial_launches(c, fused, s, b):
     if fused:
         return {"sdev_noise_hist": b * s, "hist_argmax": b, "grad_hist_relevant": b * s, **pyr}
     want = {"noise_hist": b * covered(c, s), "hist_argmax": b, "sdev": b * s, **pyr}
+    # K3 where the CNR scale divides the tile and the tile divides n, else K4
+    scale = -(-c.image_size // plan.sizes[c.cnr_level])
+    tile = c.histogram_area_size
+    fused_relevance = tile % scale == 0 and c.image_size % tile == 0
+    want["grad_hist_relevant" if fused_relevance else "grad_hist"] = b * s
     if c.enable_clahe:
-        want.update({"grad_hist": b * s, "histogram": b * s, "clahe_apply": b * s})
-    else:
-        want["grad_hist_relevant"] = b * s
+        # KH per shard, KC on every entry after the all-reduce, K5 per shard
+        want.update({"clahe_hist": b * s, "clahe_curves": b * s, "clahe_apply": b * s})
     return want
 
 
@@ -1437,8 +1575,9 @@ def check_spatial(imgs, cfg, dev, imgs600, cfg_var, cfg16):
     before a run and read just after (the 1 x 4 run under the profiler, its
     kernel events equal to the counts, and each kernel's device ms per
     launch inside the replay): K1 once per shard that holds covered rows,
-    K2 once per image, K3 once per shard (CLAHE: K4, K6 and K5 per shard;
-    fused-sdev: K7 and K3 per shard); a second call captures nothing.
+    K2 once per image, K3 once per shard (CLAHE: K3, KH and K5 per shard,
+    KC per entry; fused-sdev: K7 and K3 per shard); a second call captures
+    nothing.
     Then ``imgs600`` over 1 x 4 (K4), and where two or more cards are
     visible one image over ``n_space`` = every card (the graph cut into
     segments at the exchanges between cards; a 512^2 image of each variant
@@ -2254,6 +2393,7 @@ def main() -> int:
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import build, launch
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import pyramid as k_pyr
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_apply as k_clahe
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_hist as k_kh
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import histogram as k_hist
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import tonemap as k_tone
@@ -2310,16 +2450,12 @@ def main() -> int:
     recon, nrm, cnr = inter["recon"], inter["intermediates"]["normalized"], inter["cnr"]
     relevant = inter["intermediates"]["relevant"]
     assert cnr.shape == (384, 384), cnr.shape
-    rec.equal("grad_hist_relevant", "3072 thorax, 384^2 CNR",
-              fh.grad_hist_relevant(recon, nrm, cnr, cfg),
-              fh.grad_hist_relevant_plain(recon, nrm, cnr, cfg))
+    check_k3(rec, "3072 thorax, 384^2 CNR", recon, nrm, cnr, cfg)
     r_recon = torch.from_numpy(rng.uniform(-0.1, 1.2, (SIZE, SIZE)).astype(np.float32)).to(dev)
     r_recon[torch.from_numpy(rng.uniform(size=(SIZE, SIZE)) < 0.002).to(dev)] = 0.0
     r_nrm = torch.from_numpy(rng.uniform(0.0, 1.01, (SIZE, SIZE)).astype(np.float32)).to(dev)
     r_cnr = torch.from_numpy(rng.uniform(0.0, 0.1, (384, 384)).astype(np.float32)).to(dev)
-    rec.equal("grad_hist_relevant", "3072 random",
-              fh.grad_hist_relevant(r_recon, r_nrm, r_cnr, cfg),
-              fh.grad_hist_relevant_plain(r_recon, r_nrm, r_cnr, cfg))
+    check_k3(rec, "3072 random", r_recon, r_nrm, r_cnr, cfg)
     rec.equal("grad_hist", "3072 thorax (debug-dump path)",
               fh.grad_hist(recon, relevant, cfg), fh.grad_hist_plain(recon, relevant, cfg))
     cfg600 = MusicaConfig(image_size=600)
@@ -2432,6 +2568,13 @@ def main() -> int:
     check_normalize_curve(rec, rng, dev, [("main", cfg, False), ("CLAHE + linear", cfg_var, False),
                                           ("fused-sdev", cfg, True), ("bf16", cfg16, False)])
 
+    log("[3j] the relevance mask inside the kernels that read it: K3's block weights from the "
+        "CNR map (grad_hist_kernel<tile, true>), the CLAHE joint histogram KH "
+        "(clahe_hist_kernel) and its LUTs KC (clahe_curves_kernel) vs their plain versions, "
+        "bit for bit with equal NaN masks")
+    check_relevance(rec, rng, dev, cfg, (recon, nrm, cnr),
+                    (v_recon, var_inter["intermediates"]["normalized"], var_inter["cnr"]))
+
     # ---- 4. the main path at 3072^2 ----------------------------------------
     log(f"[4] main path: process() on a {SIZE}^2 thorax phantom; a first call captures its "
         f"graph (eager warm-up, capture, one replay), the next (one replay) is counted")
@@ -2492,7 +2635,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches_var_eager = dict(launch.LAUNCHES)
     log(f"  launches (musica_forward): {launches_var_eager}")
-    for k in ("noise_hist", "grad_hist", "histogram", "clahe_apply"):
+    for k in ("noise_hist", "grad_hist_relevant", "clahe_hist", "clahe_curves", "clahe_apply"):
         assert launches_var_eager[k] > 0, f"the variant path did not launch {k}"
     musica.process(img, cfg_var, "cuda")  # captures the variant's graph
     var_replay, launches_var = profiled_run(lambda: musica.process(img, cfg_var, "cuda"),
@@ -2500,9 +2643,11 @@ def main() -> int:
     log(f"  launches (process, one replay: the profiler's kernel events, equal to LAUNCHES): "
         f"{launches_var}")
     assert np.array_equal(var_replay, var_out), "the variant's replay differs from musica_forward"
-    for k in ("noise_hist", "grad_hist", "histogram", "clahe_apply", "sdev", "tone_map",
-              "contrast_apply", "gradation_curve"):
+    for k in ("noise_hist", "grad_hist_relevant", "clahe_hist", "clahe_curves", "clahe_apply",
+              "sdev", "tone_map", "contrast_apply", "gradation_curve"):
         assert launches_var[k] == 1, f"the variant's replay launched {k} {launches_var[k]} times"
+    # no relevance image: neither K4 nor the joint bins' histogram K6
+    assert launches_var["grad_hist"] == launches_var["histogram"] == 0, launches_var
     assert launches_var["normalize"] == 2, launches_var
     assert pyramid_counts(launches_var) == (6, 6, 2), launches_var
     assert var_out.shape == out_gpu.shape and var_out.dtype == np.uint8
@@ -2521,6 +2666,23 @@ def main() -> int:
         f"({int(nan_c.sum())} NaN px), max |GPU - CPU| = {clahe_err} on finite px "
         f"(bound {CLAHE_ATOL}), {int((d_clahe > 1e-2).sum())} px > 1e-2")
     assert clahe_err <= CLAHE_ATOL, "clahe_graded differs from the CPU path"
+    # the parent's route on the card: the relevance image, K4 on the squared
+    # image, K6 on the joint bins, the plain LUTs and K5
+    v_nrm = var_inter["intermediates"]["normalized"]
+    rel_old = noise.img_relevant(v_nrm, var["cnr"], cfg_var)
+    lin_old = var["recon"] * var["recon"]
+    gpx_o, gpy_o, _ = gradation.gradation_curve(fh.grad_hist(lin_old, rel_old, cfg_var), cfg_var)
+    graded_o, out_o = k_tone.tone_map(lin_old, gpx_o, gpy_o, cfg_var.out_margin)
+    px_o, py_o = clahe.clahe_curves_plain(clahe.clahe_histograms(var["recon"], rel_old, cfg_var),
+                                          cfg_var)
+    clahe_o = k_clahe.clahe_apply(var["recon"], px_o, py_o, cfg_var)
+    for name, got, want in (("clahe_graded", var["clahe_graded"], clahe_o),
+                            ("graded", var["graded"], graded_o)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            f"{name} differs from the parent's route"
+    assert torch.equal(var["out_u8"], out_o), "out_u8 differs from the parent's route"
+    log("  clahe_graded, graded and out_u8 equal, bit for bit, the parent's route on the card "
+        "(the relevance image, K4, K6, the plain LUTs, K5)")
     # each variant alone: CLAHE leaves the tone map alone, linear gradation
     # alone gives the variant path's tone map
     only_clahe = musica.musica_forward(x_dev, cfg.with_(enable_clahe=True))
@@ -2648,9 +2810,7 @@ def main() -> int:
         rec.equal("grad_hist", f"3072 thorax, tile {tile}", fh.grad_hist(r_t, rel_t, cfg_t),
                   fh.grad_hist_plain(r_t, rel_t, cfg_t))
         if tile % 8 == 0:
-            rec.equal("grad_hist_relevant", f"3072 thorax, tile {tile}",
-                      fh.grad_hist_relevant(r_t, n_t, c_t, cfg_t),
-                      fh.grad_hist_relevant_plain(r_t, n_t, c_t, cfg_t))
+            check_k3(rec, f"3072 thorax, tile {tile}", r_t, n_t, c_t, cfg_t)
         d = np.abs(out_t.astype(np.int64) - out_gpu.astype(np.int64))
         log(f"  tile {tile}: launches {launches_t}; out_u8 differs from the 16-px tile's at "
             f"{int((d > 0).sum())} px (max {int(d.max())}); fused_sdev gives the same out_u8")
@@ -2659,10 +2819,15 @@ def main() -> int:
     res_c8 = musica.musica_forward(x_dev, cfg_c8, want_intermediates=True)
     torch.cuda.synchronize()
     launches_c8 = dict(launch.LAUNCHES)
-    assert launches_c8["histogram"] == launches_c8["clahe_apply"] == 1, launches_c8
+    assert (launches_c8["clahe_hist"] == launches_c8["clahe_curves"] == launches_c8["clahe_apply"]
+            == 1 and launches_c8["histogram"] == 0), launches_c8
     assert np.array_equal(res_c8["out_u8"].cpu().numpy(), out_gpu)
     nan_tiles = check_clahe(rec, cfg_c8, res_c8["recon"], res_c8["intermediates"]["relevant"],
                             "3072 thorax, 8x8 tiles, the run's LUTs")
+    h_c8 = check_kh(rec, "3072 thorax, 8x8 tiles, the run's inputs", res_c8["recon"],
+                    res_c8["intermediates"]["normalized"], res_c8["cnr"], cfg_c8, 4)
+    assert torch.equal(h_c8, clahe.clahe_histograms(res_c8["recon"],
+                                                    res_c8["intermediates"]["relevant"], cfg_c8))
     assert np.array_equal(musica.process(img, cfg_c8, "cuda"), out_gpu)
     log(f"  8x8 CLAHE tiles: launches {launches_c8}; {nan_tiles} NaN tile(s); out_u8 equals "
         f"the main path's (CLAHE leaves the tone map alone)")
@@ -2919,7 +3084,10 @@ def main() -> int:
     # the main path's tone map: its gradation input (recon) and curve
     gpx, gpy, _ = inter["intermediates"]["grad_curve"]
     m = cfg.out_margin
-    wplane = fh.relevance_weight_plane(cnr, cfg).contiguous()
+    # KH and KC on the CLAHE + linear path's inputs: its recon, normalized
+    # image and CNR map, its joint histogram
+    v_nrm, v_cnr = var_inter["intermediates"]["normalized"], var_inter["cnr"]
+    v_h = k_kh.clahe_hist(v_recon, v_nrm, v_cnr, cfg_var)
     # KN's and KG's main-path inputs: the thorax and its gradation histogram;
     # the image's extrema for KN's apply pass on a window
     ghist = inter["intermediates"]["grad_hist"]
@@ -2969,6 +3137,11 @@ def main() -> int:
                       lambda: normalize.normalize_from_u16_plain(x_dev, cfg.quirks)),
         "gradation_curve": (lambda: gradation.gradation_curve(ghist, cfg),
                             lambda: gradation.gradation_curve_plain(ghist, cfg)),
+        # the CLAHE + linear path's joint histogram and LUTs
+        "clahe_hist": (lambda: k_kh.clahe_hist(v_recon, v_nrm, v_cnr, cfg_var),
+                       lambda: k_kh.clahe_hist_plain(v_recon, v_nrm, v_cnr, cfg_var)),
+        "clahe_curves": (lambda: clahe.clahe_curves(v_h, cfg_var),
+                         lambda: clahe.clahe_curves_plain(v_h, cfg_var)),
     }
     # one PyTorch call computing the same function, where there is one
     # (timed as a yardstick only; the port never calls it)
@@ -3070,6 +3243,14 @@ def main() -> int:
             lambda: normalize.normalize_from_u16_plain(x_dev, cfg.quirks))}
     pyr_extra["gradation_curve"] = {
         "plain_launches": kernel_events(lambda: gradation.gradation_curve_plain(ghist, cfg))}
+    # the kernels of KH's and KC's plain chains, and of the weight plane K3
+    # computes itself now (the profiler's kernel events over one call)
+    pyr_extra["clahe_hist"] = {"plain_launches": kernel_events(
+        lambda: k_kh.clahe_hist_plain(v_recon, v_nrm, v_cnr, cfg_var))}
+    pyr_extra["clahe_curves"] = {"plain_launches": kernel_events(
+        lambda: clahe.clahe_curves_plain(v_h, cfg_var))}
+    pyr_extra["grad_hist_relevant"] = {"weight_plane_launches": kernel_events(
+        lambda: fh.relevance_weight_plane(cnr, cfg))}
     pyr_extra["contrast_apply"] = {
         "bf16_ms": cuda_ms(lambda: ka_call(k_ka.contrast_apply, "bfloat16"), 20, 2,
                            device_only=True),
@@ -3082,9 +3263,6 @@ def main() -> int:
     log("  pyramid bounds, ms: " + ", ".join(
         f"{k} {b_ms(k)}" for k in ("step", "ladder", "subtract", "add", "expand", "tail",
                                    "expand_tail")))
-    # K3's kernel alone and its wrapper's weight-plane ops alone
-    k3_parts = {"kernel_ms": lambda: fh._launch_grad_hist_relevant(recon, nrm, wplane, cfg),
-                "weight_plane_ms": lambda: fh.relevance_weight_plane(cnr, cfg)}
     # the fold: K1 and K7 with and without the argmax, and K1 without it
     # followed by one argmax launch, as the main path ran before the fold
     # (torch.argmax in place of the argmax kernel it had); 5 interleaved
@@ -3113,16 +3291,35 @@ def main() -> int:
     px_n = x_dev.numel()
     bounds["normalize"] = bound((x_dev.element_size() + 4) * px_n, 3 * px_n)
     bounds["gradation_curve"] = bound(ghist.numel() * 4 + 47 * 4)
+    # KH: recon read where a pixel is relevant, normalized where a pixel
+    # inside the border lies in a solid block (32-byte sectors), the CNR
+    # map, the histogram written; a product and a sum a relevant pixel.  KC:
+    # the histograms read, the LUTs written (its time is one block's latency)
+    scale_v = -(-SIZE // v_cnr.shape[-1])
+    weights = fh.relevance_weight_plane(v_cnr, cfg_var).repeat_interleave(scale_v, 0) \
+        .repeat_interleave(scale_v, 1)[:SIZE, :SIZE]
+    xs = torch.arange(SIZE, device=dev)
+    inner = (xs > cfg_var.relevant_border) & (xs < SIZE - cfg_var.relevant_border)
+    need_norm = (weights == -1) & inner[:, None] & inner[None, :]
+    need_recon = noise.img_relevant(v_nrm, v_cnr, cfg_var) == 1.0
+    bounds["clahe_hist"] = bound(sector_bytes(need_recon) + sector_bytes(need_norm)
+                                 + 4 * v_cnr.numel() + 4 * v_h.numel(),
+                                 2 * int(need_recon.sum()))
+    bounds["clahe_curves"] = bound(4 * v_h.numel() + 4 * (v_h.numel() + cfg_var.clahe_bins))
     # each count: the profiler's kernel events over one process call (one
     # graph replay), checked equal to LAUNCHES ([4], [4c], [4e])
     from_run = {"noise_hist": (launches, "process (one graph replay)"),
                 "grad_hist_relevant": (launches, "process (one graph replay)"),
-                "grad_hist": (launches_var, "process with enable_clahe and "
-                              "grad_with_linear_image (one graph replay)"),
-                "histogram": (launches_var, "process with enable_clahe and "
-                              "grad_with_linear_image (one graph replay)"),
+                "grad_hist": (launches_dbg, "musica_forward with want_intermediates (process "
+                              "--debug-dump, eager): the relevance image is an intermediate"),
+                "histogram": (launches_mt, "run_campaign of [4h] (thorax at 3072: 31 graph "
+                              "replays and 51 rows, three value counts a row)"),
                 "clahe_apply": (launches_var, "process with enable_clahe and "
                                 "grad_with_linear_image (one graph replay)"),
+                "clahe_hist": (launches_var, "process with enable_clahe and "
+                               "grad_with_linear_image (one graph replay)"),
+                "clahe_curves": (launches_var, "process with enable_clahe and "
+                                 "grad_with_linear_image (one graph replay)"),
                 "sdev_noise_hist": (launches_fused, "process(fused_sdev=True) (one graph "
                                     "replay; the JAX package's hist_method=\"fused_sdev\")"),
                 "pyramid_down": (launches, "process (one graph replay)"),
@@ -3141,9 +3338,11 @@ def main() -> int:
                                                       "pyramid_up", "pyramid_tail", "sdev",
                                                       "tone_map", "contrast_apply",
                                                       "normalize", "gradation_curve")}
-    for k in ("grad_hist", "histogram", "clahe_apply"):
+    for k in ("clahe_hist", "clahe_curves", "clahe_apply"):
         spatial_from[k] = (spatial_run["counts"][f"CLAHE + linear, 1x4 on {dev}"],
                            f"{sp_path}, enable_clahe and grad_with_linear_image")
+    spatial_from["grad_hist"] = (spatial_run["counts"]["600 1x4"],
+                                 f"process_sharded of 600^2 over 1x4 on {dev}")
     spatial_from["sdev_noise_hist"] = (spatial_run["counts"][f"fused-sdev, 1x4 on {dev}"],
                                        f"{sp_path}, fused_sdev=True")
     # one launch on the window of the second of 4 shards at 3072 (its rows
@@ -3154,6 +3353,7 @@ def main() -> int:
     lv_rows = [plan4.rows(k, 1) for k in cfg.analysis_levels]
     lv_wins = [sd[a:b] for sd, (a, b) in zip(lv3072, lv_rows)]
     jr, wr = clahe.clahe_joint_bins_rows(v_recon[a1:b1], v_rel[a1:b1], a1, SIZE, cfg_var)
+    vc0, vc1 = noise.cnr_rows(v_cnr.shape[-1], SIZE, a1, b1)
     k7_win = k7_windows(plan4, b3072, cfg, 1)
     # KP1: level 1's rows of shard 1 from level 0's; KP2: shard 1's level-0
     # rows from level 1's
@@ -3180,6 +3380,8 @@ def main() -> int:
         "grad_hist": lambda: fh.grad_hist(linear[a1:b1], v_rel[a1:b1], cfg_var, a1),
         "histogram": lambda: k_hist.histogram(jr, wr, nb),
         "clahe_apply": lambda: k_clahe.clahe_apply(v_recon[a1:b1], v_px, v_py, cfg_var, a1),
+        "clahe_hist": lambda: k_kh.clahe_hist(v_recon[a1:b1], v_nrm[a1:b1], v_cnr[vc0:vc1],
+                                              cfg_var, a1, vc0),
         "sdev_noise_hist": lambda: fh.sdev_noise_hists_rows(*k7_win[:3], cfg, k7_win[3]),
         "pyramid_down": lambda: k_pyr.smooth_downsample_rows(nrm[dlo:dhi], dlo, SIZE, d0, d1),
         "pyramid_up": lambda: k_pyr.upsample_smooth_rows(dn0[ulo:uhi], ulo, SIZE, a1, b1),
@@ -3210,8 +3412,6 @@ def main() -> int:
             row.update({"launches": counts[name], "launched_by": path})
         row.update({"max_abs_err": rec.err[name], "ms": k_ms, "plain_ms": p_ms,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
-        if name == "grad_hist_relevant":
-            row.update({k: cuda_ms(fn, 20, 2, device_only=True) for k, fn in k3_parts.items()})
         if name == "tone_map":  # the main path's curve: the binary search or the chain
             row["selection"] = "search" if searched(gpx) else "chain"
             extra_kt = ", ".join(f"{k} {row[k]}" for k in ("selection",))
@@ -3228,14 +3428,14 @@ def main() -> int:
         if name in windows:
             row.update({"window_ms": cuda_ms(windows[name], 20, 2, device_only=True),
                         "window": f"rows [{a1}, {b1}) of {SIZE} (shard 1 of 4)"})
-        if name in spatial_from:
-            # device ms per launch inside the 1x4 replay ([4n], profiler spans)
-            variant = {"grad_hist": "CLAHE + linear", "histogram": "CLAHE + linear",
+        if name in spatial_from and name != "grad_hist":
+            # device ms per launch inside the 1x4 replay at 3072 ([4n],
+            # profiler spans)
+            variant = {"clahe_hist": "CLAHE + linear", "clahe_curves": "CLAHE + linear",
                        "clahe_apply": "CLAHE + linear",
                        "sdev_noise_hist": "fused-sdev"}.get(name, "main")
             row["replay_window_ms"] = spatial_run["window_ms"][variant].get(name)
-        extra = ", ".join(f"{k} {row[k]}" for k in ("kernel_ms", "weight_plane_ms",
-                                                    "k7_argmax_ms", "own_ms",
+        extra = ", ".join(f"{k} {row[k]}" for k in ("k7_argmax_ms", "own_ms",
                                                     *pyr_extra.get(name, {}),
                                                     "spatial_launches", "window_ms",
                                                     "replay_window_ms") if k in row)

@@ -7,7 +7,10 @@
 //                          _noise_multi_kernel (noise_hist_argmax_multi):
 //                          every level's histogram, and its first-max bin
 //                          taken by the last block (hist_argmax.cuh)
-//   grad_hist_kernel<tile, true>  <- _grad_relevant_kernel (grad_hist_relevant_fused)
+//   grad_hist_kernel<tile, true>  <- _grad_relevant_kernel (grad_hist_relevant_fused),
+//                          with each CNR block's weight computed from the CNR
+//                          map (relevance.cuh), where the JAX package makes a
+//                          weight plane with XLA ops before its kernel
 //   grad_hist_kernel<tile, false> <- _grad_kernel (grad_hist_fused)
 //   hist_argmax_kernel  <- the argmax of noise_hist_argmax_multi, as a launch
 //                          of its own on the spatial path's summed histograms
@@ -53,6 +56,7 @@
 #include "grid.cuh"
 #include "hist_argmax.cuh"
 #include "noise_scan.cuh"
+#include "relevance.cuh"
 
 #define MUSICA_MAX_LEVELS 16
 
@@ -310,9 +314,14 @@ struct GradArgs {
   int stride;
   const float* rel;     // relevance image (kRelevance == false)
   const float* norm;    // normalized image (kRelevance == true), same stride
-  const int* wplane;    // rows [wrow0, ...) of the [ws, ws] block weights on the
-                        // CNR grid: >= 0 the weight, -1 a solid block (weight
-                        // from the pixel test)
+  // kRelevance: the rows [wrow0, ...) of the [ws, ws] CNR map, each block's
+  // weight computed from it (block_weight, relevance.cuh); or, where the
+  // ramp's exponent is no integer in 1..8 (cnr == nullptr), the same rows of
+  // the block weights on the CNR grid (relevance_weight_plane): >= 0 the
+  // weight, -1 a solid block (weight from the pixel test)
+  const float* cnr;
+  const int* wplane;
+  Relevance cnr_rule;
   int ws;
   int wrow0;
   int scale;            // the CNR nearest-upsample scale; it divides the tile
@@ -334,11 +343,11 @@ struct GradArgs {
 // the SMs) and each warp owns a contiguous range of tiles, so each block
 // flushes its shared histogram once.
 //
-// kRelevance: the weight-plane entry of a tile's next step is read one step
-// ahead (the plane is a few hundred KB and stays in cache), so the
-// normalized image is read beside recon, and only where the block is solid
-// (-1).  The CNR scale divides the tile, a power of two here, so it is one
-// too and the CNR coordinate is a shift.
+// kRelevance: the block weight of a tile's next step is taken one step ahead
+// from the CNR map (or the weight plane; either is a few hundred KB and
+// stays in cache), so the normalized image is read beside recon, and only
+// where the block is solid (-1).  The CNR scale divides the tile, a power of
+// two here, so it is one too and the CNR coordinate is a shift.
 template <int kTile, bool kRelevance>
 __global__ void __launch_bounds__(kGradThreads, kGradBlocksPerSM)
 grad_hist_kernel(GradArgs a, int* __restrict__ hist, int n_bins) {
@@ -370,9 +379,9 @@ grad_hist_kernel(GradArgs a, int* __restrict__ hist, int n_bins) {
     bool live[kSlots], y_in[kSlots], y_inner[kSlots];
     // x: a row of the window; its global row is a.row0 + x
     auto plane = [&](int x, int p) {
-      return (x < a.rows && y_in[p])
-                 ? __ldg(a.wplane + (((a.row0 + x) >> a.scale_shift) - a.wrow0) * a.ws + yc[p])
-                 : 0;
+      if (!(x < a.rows && y_in[p])) return 0;
+      const int off = (((a.row0 + x) >> a.scale_shift) - a.wrow0) * a.ws + yc[p];
+      return a.cnr ? block_weight(__ldg(a.cnr + off), a.cnr_rule) : __ldg(a.wplane + off);
     };
 #pragma unroll
     for (int p = 0; p < kSlots; ++p) {
@@ -474,7 +483,9 @@ grad_hist_serial_kernel(GradArgs a, int* __restrict__ hist, int n_bins, int tile
           const int xg = a.row0 + x;
           if (!(xg > a.border && xg < a.n - a.border && y > a.border && y < a.n - a.border))
             continue;
-          const int wp = __ldg(a.wplane + (xg / a.scale - a.wrow0) * a.ws + y / a.scale);
+          const int block = (xg / a.scale - a.wrow0) * a.ws + y / a.scale;
+          const int wp =
+              a.cnr ? block_weight(__ldg(a.cnr + block), a.cnr_rule) : __ldg(a.wplane + block);
           w = wp >= 0 ? wp : (a.norm[off] <= a.max_pixel ? 100 : 0);
         } else {
           w = __float2int_rz(__fmul_rn(a.rel[off], 100.0f));
@@ -629,18 +640,22 @@ int musica_grad_hist(const float* recon, const float* rel, int n, int stride, in
 }
 
 // Gradation histogram with the relevance weight computed in the kernel from
-// the block weight plane and the normalized image, on the row window as
-// musica_grad_hist's; wplane holds the plane's rows [wrow0, wrow0 + wrows),
-// which must cover the window's CNR rows.  hist zeroed by the caller.  The
-// CNR scale divides the tile, as where the JAX package takes its fused
-// kernel.
+// the CNR map and the normalized image, on the row window as
+// musica_grad_hist's; cnr holds the CNR map's rows [wrow0, wrow0 + wrows),
+// which must cover the window's CNR rows, and the weights are computed from
+// it with max_cnr, lo, top and the ramp's integer exponent k (1..8).  For
+// any other exponent cnr is null and wplane holds the same rows of the
+// block weight plane instead.  hist zeroed by the caller.  The CNR scale
+// divides the tile, as where the JAX package takes its fused kernel.
 int musica_grad_hist_relevant(const float* recon, const float* norm, int n, int stride,
-                              int row0, int rows, const int* wplane, int ws, int wrow0,
-                              int wrows, int scale, int border, float max_pixel, int* hist,
+                              int row0, int rows, const float* cnr, const int* wplane, int ws,
+                              int wrow0, int wrows, int scale, int border, float max_pixel,
+                              float max_cnr, float lo, float top, int k, int* hist,
                               int n_bins, int tile, void* stream) {
   if (n_bins < 1 || !grad_window_ok(n, stride, row0, rows, tile) || scale < 1 ||
       tile % scale != 0 || (long long)ws * scale < n || wrow0 < 0 || row0 / scale < wrow0 ||
-      (row0 + rows - 1) / scale >= wrow0 + wrows)
+      (row0 + rows - 1) / scale >= wrow0 + wrows || (cnr == nullptr) == (wplane == nullptr) ||
+      (cnr != nullptr && (k < 1 || k > 8)))
     return (int)cudaErrorInvalidValue;
   GradArgs a = {};
   a.recon = recon;
@@ -649,7 +664,9 @@ int musica_grad_hist_relevant(const float* recon, const float* norm, int n, int 
   a.row0 = row0;
   a.rows = rows;
   a.stride = stride;
+  a.cnr = cnr;
   a.wplane = wplane;
+  a.cnr_rule = Relevance{max_cnr, lo, top, k};
   a.ws = ws;
   a.wrow0 = wrow0;
   a.scale = scale;

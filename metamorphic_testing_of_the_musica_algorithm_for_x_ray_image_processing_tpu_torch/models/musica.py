@@ -26,7 +26,9 @@ Phase map (reference -> here):
                          kernel on a CUDA device: ops.cuda.contrast_apply)
   6. pyramid expand   -> ops.pyramid (expand + band in one step)
   7. gradation        -> ops.gradation (relevance-weighted histogram, curve);
-                         ENABLE_CLAHE: ops.clahe (per-tile LUTs, blended apply)
+                         ENABLE_CLAHE: ops.clahe (joint histogram with the
+                         relevance test inside it, per-tile LUTs, blended
+                         apply)
   output              -> tone map, margin crop + x255 truncating u8 cast
                          (one kernel on a CUDA device: ops.cuda.tonemap)
 
@@ -179,8 +181,8 @@ def _forward(img_u16: torch.Tensor, cfg: MusicaConfig, want_intermediates: bool,
     # histogram and the tone map read the squared image
     with phase("gradation"):
         grad_input = recon * recon if cfg.grad_with_linear_image else recon
-        if cfg.enable_clahe or want_intermediates:
-            # the relevance image itself is needed downstream
+        if want_intermediates:
+            # the relevance image itself is an intermediate
             relevant = noise.img_relevant(normalized, cnr, cfg)
             ghist = gradation.gradation_histogram(grad_input, relevant, cfg)
         else:
@@ -191,9 +193,10 @@ def _forward(img_u16: torch.Tensor, cfg: MusicaConfig, want_intermediates: bool,
     result: Dict[str, object] = {}
     if cfg.enable_clahe:
         # ENABLE_CLAHE grades the reconstruction itself, never the squared
-        # image, into an output of its own
+        # image, into an output of its own; its histogram tests the
+        # relevance inside the kernel (KH), so no relevance image is made
         with phase("clahe"):
-            result["clahe_graded"] = clahe.clahe_grade(recon, relevant, cfg)
+            result["clahe_graded"] = clahe.clahe_grade_cnr(recon, normalized, cnr, cfg)
 
     # the tone map is elementwise, so cropping the graded image commutes
     with phase("tonemap"):

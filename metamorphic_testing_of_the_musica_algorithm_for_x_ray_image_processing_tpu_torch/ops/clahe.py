@@ -7,12 +7,16 @@ at 1/32 with the clipped mass redistributed, cumulated into a CDF used as a
 per-tile tone LUT; application blends the LUTs of up to 4 neighbouring
 tiles bilinearly by distance to the tile centres.
 
-The joint histogram goes through ``stats.fixed_histogram`` (a CUDA kernel on
-the card) and the blended apply through ``ops/cuda/clahe_apply.py`` (a CUDA
-kernel on the card, at every size; ``clahe_apply`` below is its plain
-version).  The ``*_rows`` forms take a window of rows of an [n, n] image
-(the spatial path's shards) with the tiles and blend attributes of its
-global rows; the whole image is the window of all its rows.
+The pipeline grades through ``clahe_grade_cnr``: the joint histogram with
+the relevance test inside the kernel KH (``ops/cuda/clahe_hist.py``, no
+full-size relevance image), the LUTs in one launch of KC
+(``clahe_curves``, ``ops/cuda/clahe_curves.py``) and the blended apply
+K5 (``ops/cuda/clahe_apply.py``; ``clahe_apply`` below is its plain
+version).  ``clahe_grade`` grades from a relevance image: its joint
+histogram goes through ``stats.fixed_histogram`` (K6 on the card).  The
+``*_rows`` forms take a window of rows of an [n, n] image (the spatial
+path's shards) with the tiles and blend attributes of its global rows; the
+whole image is the window of all its rows.
 
 Numerics:
   * every division by a constant divides by a 0-d device tensor (``f32``):
@@ -26,7 +30,11 @@ Numerics:
     the card alike.  Golden's sequential float32 loop and XLA's cumsum
     round at every step and differ from it by a few float32 ulps;
   * a tile without relevant pixels normalises by 0/0 and its LUT is NaN, as
-    in the GLSL; NaN propagates through the apply.
+    in the GLSL; NaN propagates through the apply;
+  * an intensity bin converts to int32 as XLA and the card do: NaN to bin 0
+    (counted), out-of-range values saturate (dropped).  PyTorch's CPU
+    conversion gives INT_MIN for NaN, so the plain version maps NaN to 0
+    first.
 
 Undefined behaviour kept as the JAX package resolves it: at edge tiles the
 GLSL converts a negative float tile coordinate to uint
@@ -68,7 +76,8 @@ def clahe_joint_bins_rows(recon_rows: torch.Tensor, relevant_rows: torch.Tensor,
     of the rows sum to the whole image's."""
     t, bins = cfg.clahe_tiles, cfg.clahe_bins
     rows = recon_rows.shape[-2]
-    b = (recon_rows * float(bins - 1) + 0.5).to(I32)
+    bf = recon_rows * float(bins - 1) + 0.5
+    b = torch.where(torch.isnan(bf), 0.0, bf).to(I32)
     xs = tile_ids(n, t, recon_rows)
     tile_id = xs[row0:row0 + rows, None] * t + xs[None, :]
     in_range = (b >= 0) & (b < bins)
@@ -95,10 +104,21 @@ def clahe_histograms_rows(recon_rows: torch.Tensor, relevant_rows: torch.Tensor,
 
 
 def clahe_curves(hists: torch.Tensor, cfg):
-    """Per-tile clipped-CDF LUT (clahe_grad_curve.comp:22-97).
+    """Per-tile clipped-CDF LUT (clahe_grad_curve.comp:22-97) of int32
+    histograms [t, t, bins]: (px[bins], py[t, t, bins]) as float32, the x
+    grid shared (i/bins, the last point 1.0), y the redistributed CDF.  A
+    CUDA histogram launches KC (``ops/cuda/clahe_curves.py``) or raises; a
+    CPU one runs ``clahe_curves_plain``."""
+    from .cuda import launch
 
-    Returns (px[bins], py[t, t, bins]) as float32: the x grid is shared
-    (i/bins, the last point 1.0); y is the redistributed CDF."""
+    if launch.device_of([hists]).type == "cpu":
+        return clahe_curves_plain(hists, cfg)
+    from .cuda import clahe_curves as kc
+    return kc.clahe_curves(hists, cfg)
+
+
+def clahe_curves_plain(hists: torch.Tensor, cfg):
+    """Plain version of ``clahe_curves``."""
     bins = cfg.clahe_bins
     counts = hists.to(F32)
     # the tile's count as one integer, rounded to float32 once (golden's
@@ -201,4 +221,17 @@ def clahe_grade(recon: torch.Tensor, relevant: torch.Tensor,
     from .cuda import clahe_apply as k_clahe
 
     px, py = clahe_curves(clahe_histograms(recon, relevant, cfg), cfg)
+    return k_clahe.clahe_apply(recon, px, py, cfg)
+
+
+def clahe_grade_cnr(recon: torch.Tensor, normalized: torch.Tensor, cnr: torch.Tensor,
+                    cfg) -> torch.Tensor:
+    """``clahe_grade(recon, noise.img_relevant(normalized, cnr, cfg), cfg)``
+    without the relevance image: the joint histogram with the relevance test
+    inside it (KH on a CUDA device), the LUTs (KC), the blended apply (K5).
+    Equal to ``clahe_grade``'s bit for bit."""
+    from .cuda import clahe_apply as k_clahe
+    from .cuda import clahe_hist as kh
+
+    px, py = clahe_curves(kh.clahe_hist(recon, normalized, cnr, cfg), cfg)
     return k_clahe.clahe_apply(recon, px, py, cfg)

@@ -40,8 +40,11 @@ _SIGNATURES = {
                            _VP], _I),
     "musica_hist_argmax": ([_VP, _I, _I, _VP, _VP], _I),
     "musica_grad_hist": ([_VP, _VP, _I, _I, _I, _I, _VP, _I, _I, _VP], _I),
-    "musica_grad_hist_relevant": ([_VP, _VP, _I, _I, _I, _I, _VP, _I, _I, _I, _I, _I,
-                                   ctypes.c_float, _VP, _I, _I, _VP], _I),
+    "musica_grad_hist_relevant": ([_VP, _VP, _I, _I, _I, _I, _VP, _VP, _I, _I, _I, _I, _I,
+                                   *[ctypes.c_float] * 4, _I, _VP, _I, _I, _VP], _I),
+    "musica_clahe_hist": ([_VP, _VP, _I, _I, _I, _VP, _VP, _I, _I, _I, _I,
+                           *[ctypes.c_float] * 4, _I, _I, _I, _VP, _VP], _I),
+    "musica_clahe_curves": ([_VP, _I, _I, ctypes.c_float, _VP, _VP, _VP], _I),
     "musica_histogram": ([_VP, _VP, ctypes.c_longlong, _VP, _I, _VP], _I),
     "musica_clahe_apply": ([_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP], _I),
     "musica_sdev_noise_hist": ([ctypes.POINTER(_VP), ctypes.POINTER(_VP),

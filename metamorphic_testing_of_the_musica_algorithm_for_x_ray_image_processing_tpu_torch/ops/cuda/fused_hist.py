@@ -16,7 +16,10 @@ wrapper                    replaces (JAX package, ops/pallas/fused_hist.py)
                            launch over all levels, at every size (the JAX
                            package falls back to two steps where cov != n)
 ``grad_hist_relevant``     ``grad_hist_relevant_fused``
-                           (``_grad_relevant_kernel``)
+                           (``_grad_relevant_kernel``), with each CNR
+                           block's weight computed in the kernel from the
+                           CNR map (the JAX package computes that plane
+                           with XLA ops before its kernel)
 ``grad_hist``              ``grad_hist_fused`` (``_grad_kernel``)
 ``noise_hists_rows``       ``noise_hist_fused`` on the spatial path: each
                            level's histogram of a shard's rows, no argmax
@@ -73,6 +76,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from .. import f32, gradation, noise, stats
@@ -446,7 +450,9 @@ def relevance_weight_plane(cnr: torch.Tensor, cfg) -> torch.Tensor:
     where 1 <= c <= 6, -1 for a solid block (6 <= c <= 256: the weight is
     100 where the pixel's normalized value is <= 0.9), else 0; the ramp wins
     at c == 6 (img_relevant.comp:27-63).  Nearest upsampling copies, so this
-    equals the per-pixel evaluation."""
+    equals the per-pixel evaluation.  K3 computes these weights itself
+    (``csrc/relevance.cuh::block_weight``, the same operations); it reads
+    this plane only where ``noise.chain_exponent(cfg.relevant_k)`` is 0."""
     c = cnr * cfg.max_cnr_value
     top = cfg.relevant_cnr_low + cfg.relevant_cnr_ramp
     ramp = (c >= cfg.relevant_cnr_low) & (c <= top)
@@ -468,7 +474,9 @@ def grad_hist_relevant(recon: torch.Tensor, normalized: torch.Tensor,
                        cnr_row0: int = 0) -> torch.Tensor:
     """Gradation histogram (int32 [n_bins]) with the relevance weight
     computed in the kernel from the small CNR map and the normalized image
-    (no full-size relevance image).  On a CUDA device the CNR scale must
+    (no full-size relevance image; where the ramp's exponent is no integer in
+    1..8, from ``relevance_weight_plane`` instead, one explicit branch of the
+    launch).  On a CUDA device the CNR scale must
     divide the histogram tile, where ``gradation_histogram_fused_relevance``
     takes this path.  A window: recon and normalized [rows, n] hold the rows
     [row0, row0 + rows) as ``grad_hist``'s, cnr the CNR rows [cnr_row0,
@@ -493,23 +501,35 @@ def grad_hist_relevant(recon: torch.Tensor, normalized: torch.Tensor,
     if not cnr_row0 <= lo < hi <= cnr_row0 + cnr.shape[-2]:
         raise ValueError(f"cnr holds CNR rows [{cnr_row0}, {cnr_row0 + cnr.shape[-2]}), "
                          f"the window reads [{lo}, {hi})")
-    return _launch_grad_hist_relevant(recon, normalized,
-                                      relevance_weight_plane(cnr, cfg).contiguous(), cfg,
-                                      row0, cnr_row0)
+    return _launch_grad_hist_relevant(recon, normalized, cnr, cfg, row0, cnr_row0,
+                                      noise.chain_exponent(cfg.relevant_k))
 
 
-def _launch_grad_hist_relevant(recon, normalized, wplane, cfg, row0: int = 0,
-                               wrow0: int = 0) -> torch.Tensor:
-    """The kernel of ``grad_hist_relevant`` alone, on CUDA tensors the
-    wrapper has checked, given the block weight plane
-    (``relevance_weight_plane``) of the CNR rows [wrow0, ...);
-    ``chip_smoke.py`` times it so."""
+def _launch_grad_hist_relevant(recon, normalized, cnr, cfg, row0: int, cnr_row0: int,
+                               k: int) -> torch.Tensor:
+    """The launch of ``grad_hist_relevant`` on CUDA tensors the wrapper has
+    checked: for k in 1..8 (``noise.chain_exponent``) the kernel computes
+    the block weights from the CNR rows [cnr_row0, ...), for k = 0 it reads
+    them from ``relevance_weight_plane`` of those rows (``chip_smoke.py``
+    holds the two routes against each other at an integer exponent)."""
     dev = recon.device
-    nb, (rows, n), ws = cfg.grad_histogram_bins, recon.shape, wplane.shape[-1]
+    nb, (rows, n), ws = cfg.grad_histogram_bins, recon.shape, cnr.shape[-1]
+    wplane = None if k else relevance_weight_plane(cnr, cfg).contiguous()
     lib = launch.lib()
     hist = torch.zeros(nb, dtype=torch.int32, device=dev)
     launch.launch(lib, "musica_grad_hist_relevant", "grad_hist_relevant", dev,
-                  recon.data_ptr(), normalized.data_ptr(), n, n, row0, rows, wplane.data_ptr(),
-                  ws, wrow0, wplane.shape[-2], int(math.ceil(n / ws)), cfg.relevant_border,
-                  float(cfg.relevant_max_pixel), hist.data_ptr(), nb, cfg.histogram_area_size)
+                  recon.data_ptr(), normalized.data_ptr(), n, n, row0, rows,
+                  cnr.data_ptr() if k else None, None if k else wplane.data_ptr(), ws,
+                  cnr_row0, cnr.shape[-2], int(math.ceil(n / ws)), cfg.relevant_border,
+                  *relevance_rule(cfg), k, hist.data_ptr(), nb, cfg.histogram_area_size)
     return hist
+
+
+def relevance_rule(cfg):
+    """The relevance mask's float32 constants as the kernels take them
+    (``csrc/relevance.cuh``): max_pixel, max_cnr, lo and top = lo + ramp,
+    each the value the plain version compares with (PyTorch rounds a Python
+    float to the tensor's float32)."""
+    f = np.float32
+    return (f(cfg.relevant_max_pixel), f(cfg.max_cnr_value), f(cfg.relevant_cnr_low),
+            f(cfg.relevant_cnr_low + cfg.relevant_cnr_ramp))

@@ -30,7 +30,8 @@ import torch
 LAUNCHES = {"noise_hist": 0, "hist_argmax": 0, "grad_hist_relevant": 0, "grad_hist": 0,
             "histogram": 0, "clahe_apply": 0, "sdev_noise_hist": 0,
             "pyramid_down": 0, "pyramid_up": 0, "pyramid_tail": 0, "sdev": 0, "tone_map": 0,
-            "sdev_tail": 0, "contrast_apply": 0, "normalize": 0, "gradation_curve": 0}
+            "sdev_tail": 0, "contrast_apply": 0, "normalize": 0, "gradation_curve": 0,
+            "clahe_hist": 0, "clahe_curves": 0}
 _COUNT_LOCK = threading.Lock()
 _CAPTURING = threading.local()  # .tally: this thread's capture tally, if any
 

@@ -22,11 +22,20 @@ import torch
 from . import f32
 
 
+def chain_exponent(k: float) -> int:
+    """k where ``_pow_maybe_int`` takes its multiply chain (an integer in
+    1..8), else 0.  The kernels that compute the relevance mask (K3, KH)
+    take the same chain; for 0 they read the block weights that the plain
+    version computed with pow (``cuda/fused_hist.py::relevance_weight_plane``)
+    instead."""
+    return int(k) if float(k).is_integer() and 1 <= int(k) <= 8 else 0
+
+
 def _pow_maybe_int(x: torch.Tensor, k: float) -> torch.Tensor:
     """x ** k; for small integer k an exact multiply chain, so every backend
     agrees bit for bit (a library pow differs by ulps and flips uint(rel*100)
     weight boundaries, QUIRKS #24)."""
-    if float(k).is_integer() and 1 <= int(k) <= 8:
+    if chain_exponent(k):
         acc = x
         for _ in range(int(k) - 1):
             acc = acc * x

@@ -35,12 +35,12 @@ covered row launches nothing), or with ``fused_sdev`` K7
 from its band rows and the 2-row halos, and their histograms) once per
 shard, then a sum of the int32 partials and one launch of K2
 (``hist_argmax``) for the first-max bins of the image; K3 or K4 on each
-shard's rows under the unsharded path's condition (K4 under CLAHE, which
-needs the relevance image), then a sum of the 1,024-bin partials and the
-tone curve on every entry.  With ``cfg.enable_clahe`` each shard's joint
-CLAHE histogram at global tiles goes through K6, the partials are summed,
-every entry makes the tile LUTs, and K5 blends each shard's reconstruction
-rows (``clahe_graded``).  A replicated analysis level is computed whole on
+shard's rows under the unsharded path's condition, then a sum of the
+1,024-bin partials and the tone curve on every entry.  With
+``cfg.enable_clahe`` each shard's joint CLAHE histogram at global tiles
+goes through KH (the relevance test inside it, from the shard's CNR rows),
+the partials are summed, every entry makes the tile LUTs (KC), and K5
+blends each shard's reconstruction rows (``clahe_graded``).  A replicated analysis level is computed whole on
 every entry and its histogram counted by the first alone.
 
 Transport is plain tensor copies between entries (``Entry.send``): on the
@@ -71,7 +71,7 @@ import torch
 from ..config import MusicaConfig
 from ..models.musica import _band_dtype
 from ..ops import clahe, gradation, noise, normalize, pyramid
-from ..ops.cuda import clahe_apply, contrast_apply, fused_hist, tonemap
+from ..ops.cuda import clahe_apply, clahe_hist, contrast_apply, fused_hist, tonemap
 
 OUTPUTS = ("out_u8", "graded", "recon", "cnr", "clahe_graded")
 
@@ -413,8 +413,7 @@ def forward(img_u16, cfg: MusicaConfig, entries: Sequence[Entry],
                   else recon)
     tile = cfg.histogram_area_size
     scale = int(math.ceil(n / sizes[c]))
-    # CLAHE needs the relevance image itself, so its gradation goes through K4
-    fused_relevance = tile % scale == 0 and n % tile == 0 and not cfg.enable_clahe
+    fused_relevance = tile % scale == 0 and n % tile == 0
 
     def relevance(i):
         win, w0 = cnr_window(i, 0)
@@ -431,14 +430,15 @@ def forward(img_u16, cfg: MusicaConfig, entries: Sequence[Entry],
         p, (cfg.grad_histogram_bins,), E[0].device))
     gcurve = row.each(lambda i: gradation.gradation_curve(ghists[i], cfg))
 
-    # ---- CLAHE: K6 per shard, the partials summed, K5 on each shard's rows ----
+    # ---- CLAHE: KH per shard, the partials summed, KC, K5 on each shard's rows
     # (it grades the reconstruction itself, never the squared image)
     if cfg.enable_clahe:
         t, cb = cfg.clahe_tiles, cfg.clahe_bins
-        chists = row.all_reduce(
-            row.each(lambda i: clahe.clahe_histograms_rows(recon[i], relevant[i],
-                                                           plan.rows(0, i)[0], n, cfg)),
-            lambda p: _sum_int32(p, (t, t, cb), E[0].device))
+
+        def chist(i):
+            win, w0 = cnr_window(i, 0)
+            return clahe_hist.clahe_hist(recon[i], normalized[i], win, cfg, plan.rows(0, i)[0], w0)
+        chists = row.all_reduce(row.each(chist), lambda p: _sum_int32(p, (t, t, cb), E[0].device))
         luts = row.each(lambda i: clahe.clahe_curves(chists[i], cfg))
         clahe_graded = row.each(lambda i: clahe_apply.clahe_apply(
             recon[i], *luts[i], cfg, plan.rows(0, i)[0]))

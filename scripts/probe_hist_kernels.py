@@ -390,6 +390,13 @@ def main() -> int:
     def k3(lib, inp):
         h = torch.zeros(gb, dtype=torch.int32, device=dev)
         fn = lib.musica_grad_hist_relevant
+        if len(fn.argtypes) == 22:
+            # the block weights computed in the kernel from the CNR map
+            assert fn(inp["recon"].data_ptr(), nrm.data_ptr(), n, n, 0, n, cnr.data_ptr(), None,
+                      cnr.shape[-1], 0, cnr.shape[-2], n // cnr.shape[-1], cfg.relevant_border,
+                      *fh.relevance_rule(cfg), int(cfg.relevant_k), h.data_ptr(), gb, tile,
+                      stream) == 0
+            return h
         # from PR 9 on: the row window (whole here) and the plane's rows
         rows = (0, n) if len(fn.argtypes) == 17 else ()
         plane = (0, cnr.shape[-2]) if rows else ()

@@ -17,7 +17,7 @@ Runs ``musica_forward`` on a device-resident synthetic radiograph under
 * per ``musica.<phase>`` span, the host time spent issuing its ops and its
   span on the device timeline;
 * the device time and launches of each hand-written kernel (K1-K7, KP1,
-  KP2, the pyramid's tails, KS, KT, KA, KN's two passes, KG);
+  KP2, the pyramid's tails, KS, KT, KA, KN's two passes, KG, KH, KC);
 * the kernels with the most device time, each by a label (its kernel
   template with the vector width, its functor or lambda with the types,
   without namespaces, argument lists and iterator plumbing; never cut),
@@ -83,6 +83,8 @@ HAND_WRITTEN = {
     "KN normalize_extrema_kernel<T, vec>": r"normalize_extrema_kernel<",
     "KN normalize_apply_kernel<T, vec>": r"normalize_apply_kernel<",
     "KG gradation_curve_kernel": r"gradation_curve_kernel\b",
+    "KH clahe_hist_kernel": r"clahe_hist_kernel\b",
+    "KC clahe_curves_kernel": r"clahe_curves_kernel\b",
     # KP1 in checkouts from before the fused step (--root)
     "KP1 smooth_downsample_kernel": r"smooth_downsample_kernel\b",
 }

@@ -450,12 +450,15 @@ def test_variant_pipeline_on_card_matches_cpu(dev, size, anatomy, variant):
     ref = musica.musica_forward(torch.from_numpy(img), cfg)
     assert torch.equal(res["out_u8"].cpu(), ref["out_u8"])
     assert torch.equal(res["recon"].cpu(), ref["recon"])
+    # K3 where the CNR scale divides the tile and the tile divides n (512),
+    # else the relevance image and K4 (600)
+    assert counts["grad_hist_relevant" if size % 16 == 0 else "grad_hist"] == 1
     if cfg.enable_clahe:
-        assert counts["grad_hist"] == counts["histogram"] == counts["clahe_apply"] == 1
+        # the joint histogram with its relevance test (KH), the LUTs (KC)
+        assert counts["clahe_hist"] == counts["clahe_curves"] == counts["clahe_apply"] == 1
+        assert counts["histogram"] == 0
         torch.testing.assert_close(res["clahe_graded"].cpu(), ref["clahe_graded"],
                                    rtol=0, atol=0, equal_nan=True)
-    else:
-        assert counts["grad_hist_relevant"] == 1
 
 
 def test_timed_process_on_card_matches_forward(dev):
@@ -1010,7 +1013,8 @@ def test_spatial_variants_on_card_equal_eager(dev, variant):
     """process_sharded over 1x4 entries on this card in the CLAHE + linear
     variant (clahe_graded gathered whole) and with fused_sdev equals the
     unsharded eager path bit for bit; per image K1 once per shard with
-    covered rows, KS, K4, K6 and K5 once per shard and K2 once (CLAHE), or
+    covered rows, KS, K3, KH and K5 once per shard, KC once per entry and K2
+    once (CLAHE), or
     K7 once per shard, K2 once and K3 once per shard (fused-sdev), and KT,
     KA and KG once per shard and KN's two passes on each shard in both."""
     from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding
@@ -1032,8 +1036,8 @@ def test_spatial_variants_on_card_equal_eager(dev, variant):
     if fused:
         want_counts = {"sdev_noise_hist": 8, "hist_argmax": 2, "grad_hist_relevant": 8}
     else:
-        want_counts = {"noise_hist": 8, "hist_argmax": 2, "grad_hist": 8, "histogram": 8,
-                       "clahe_apply": 8, "sdev": 8}
+        want_counts = {"noise_hist": 8, "hist_argmax": 2, "grad_hist_relevant": 8,
+                       "clahe_hist": 8, "clahe_curves": 8, "clahe_apply": 8, "sdev": 8}
     want_counts["tone_map"] = want_counts["contrast_apply"] = 8  # KT and KA on each shard's rows
     want_counts["gradation_curve"], want_counts["normalize"] = 8, 16  # KG; KN's two passes
     # per image over 1x4 (R = 7 sharded levels of L = 9): the down step and
@@ -1836,3 +1840,158 @@ def test_forward_launches_normalize_twice_and_the_curve_once(dev):
     torch.cuda.synchronize()
     assert launch.LAUNCHES["normalize"] == 2 and launch.LAUNCHES["gradation_curve"] == 1
     assert torch.equal(out.cpu(), musica.musica_forward(x.cpu(), cfg)["out_u8"])
+
+
+# ----------------------------------------------------------------------
+# the relevance mask inside the kernels: K3's block weights, KH, KC
+# ----------------------------------------------------------------------
+
+def _dense_inputs(n, k=5.0, border=20, tiles=4, seed=0):
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import relevance_cases
+    cfg = MusicaConfig(image_size=n, relevant_k=k, relevant_border=border, enable_clahe=True,
+                       clahe_tiles=tiles)
+    rng = np.random.default_rng(seed + n)
+    return (cfg, relevance_cases.clahe_recon(rng, n, cfg.clahe_bins),
+            hist_cases.gradation_image(rng, n), relevance_cases.pixel_tests(rng, n, cfg),
+            relevance_cases.dense_cnr(rng, cfg, -(-n // 8)))
+
+
+@pytest.mark.parametrize("n,k", [(512, 5.0), (144, 5.0), (512, 4.5), (256, 1.0)])
+def test_k3_block_weights_in_the_kernel_match_the_plane_and_plain(dev, n, k):
+    """K3 computes each CNR block's weight from the CNR map (integer k) or
+    reads the weight plane (4.5); either equals the other route and the
+    plain version, whole and on every window, on dense CNR values."""
+    cfg, _, recon, nrm, cnr = _dense_inputs(n, k)
+    recon, nrm, cnr = (torch.from_numpy(a).to(dev) for a in (recon, nrm, cnr))
+    launch.reset_launch_counts()
+    whole = fh.grad_hist_relevant(recon, nrm, cnr, cfg)
+    assert launch.LAUNCHES["grad_hist_relevant"] == 1
+    assert torch.equal(whole, fh.grad_hist_relevant_plain(recon, nrm, cnr, cfg))
+    assert torch.equal(whole, fh._launch_grad_hist_relevant(recon, nrm, cnr, cfg, 0, 0, 0))
+    assert torch.equal(whole.cpu(), fh.grad_hist_relevant_plain(recon.cpu(), nrm.cpu(),
+                                                                cnr.cpu(), cfg))
+    total = torch.zeros_like(whole)
+    bounds = list(range(0, n, 48)) + [n]
+    for a, b in zip(bounds, bounds[1:]):
+        c0, c1 = noise.cnr_rows(cnr.shape[-1], n, a, b)
+        got = fh.grad_hist_relevant(recon[a:b], nrm[a:b], cnr[c0:c1], cfg, a, c0)
+        assert torch.equal(got, fh.grad_hist_relevant_plain(recon[a:b], nrm[a:b], cnr[c0:c1],
+                                                            cfg, a, c0)), (a, b)
+        total += got
+    assert torch.equal(total, whole)
+
+
+@pytest.mark.parametrize("n,tiles,k", [(512, 4, 5.0), (600, 8, 5.0), (144, 4, 5.0),
+                                       (256, 8, 4.5)])
+def test_clahe_hist_kernel_matches_plain(dev, n, tiles, k):
+    """KH equals its plain version (the relevance image, then the joint
+    histogram) on adversarial recon (bin edges +-1 ulp, NaN, +-inf,
+    negatives), normalized at max_pixel +-1 ulp and dense CNR values, whole
+    (at 4.5 through the weight plane), on windows starting on odd rows
+    (summing to the whole), and on the CPU."""
+    cfg, recon, _, nrm, cnr = _dense_inputs(n, k, tiles=tiles)
+    recon, nrm, cnr = (torch.from_numpy(a).to(dev) for a in (recon, nrm, cnr))
+    launch.reset_launch_counts()
+    whole = kh_mod().clahe_hist(recon, nrm, cnr, cfg)
+    assert launch.LAUNCHES["clahe_hist"] == 1 and launch.LAUNCHES["histogram"] == 0
+    assert torch.equal(whole, kh_mod().clahe_hist_plain(recon, nrm, cnr, cfg))
+    assert torch.equal(whole.cpu(), kh_mod().clahe_hist_plain(recon.cpu(), nrm.cpu(), cnr.cpu(),
+                                                              cfg))
+    assert int(whole.sum()) > 0
+    total = torch.zeros_like(whole)
+    b = _odd_bounds(n, 4)
+    for r0, r1 in zip(b, b[1:]):
+        c0, c1 = noise.cnr_rows(cnr.shape[-1], n, r0, r1)
+        got = kh_mod().clahe_hist(recon[r0:r1], nrm[r0:r1], cnr[c0:c1], cfg, r0, c0)
+        assert torch.equal(got, kh_mod().clahe_hist_plain(recon[r0:r1], nrm[r0:r1],
+                                                          cnr[c0:c1], cfg, r0, c0)), (r0, r1)
+        total += got
+    assert torch.equal(total, whole)
+
+
+def kh_mod():
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import clahe_hist
+    return clahe_hist
+
+
+@pytest.mark.parametrize("tiles,bins", [(4, 256), (8, 256), (4, 64), (2, 1000)])
+def test_clahe_curves_kernel_matches_plain(dev, tiles, bins):
+    """KC equals ``clahe_curves_plain`` bit for bit with equal NaN masks (empty
+    tiles), on random histograms, on the card and against the CPU."""
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing import relevance_cases
+    cfg = MusicaConfig(image_size=512, enable_clahe=True, clahe_tiles=tiles, clahe_bins=bins)
+    rng = np.random.default_rng(tiles * bins)
+    nan_tiles = 0
+    for _ in range(16):
+        h = torch.from_numpy(relevance_cases.random_clahe_hists(rng, cfg)).to(dev)
+        launch.reset_launch_counts()
+        px, py = clahe.clahe_curves(h, cfg)
+        assert launch.LAUNCHES["clahe_curves"] == 1
+        for want in (clahe.clahe_curves_plain(h, cfg), clahe.clahe_curves_plain(h.cpu(), cfg)):
+            assert torch.equal(px.cpu().view(torch.int32), want[0].cpu().view(torch.int32))
+            torch.testing.assert_close(py.cpu(), want[1].cpu(), rtol=0, atol=0, equal_nan=True)
+        nan_tiles += int(torch.isnan(py).all(dim=-1).sum())
+    assert nan_tiles > 0
+
+
+def _kernel_names(fn, pad=64):
+    """The CUDA kernels one call of ``fn`` launches (the profiler's events,
+    fills included).  The profiler may drop the first events of a record,
+    so each record begins with ``pad`` spin kernels and counts only if it
+    kept one of them; the names are those two counted records agree on."""
+    from torch.profiler import ProfilerActivity, profile
+    seen = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(pad):
+                torch.cuda._sleep(20_000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.name.startswith(("Memcpy", "Memset"))]
+        if not any("spin_kernel" in nm for nm in names):
+            continue
+        names = sorted(nm for nm in names if "spin_kernel" not in nm)
+        if names in seen:
+            return names
+        seen.append(names)
+    raise AssertionError(f"no two counted records agree: {seen}")
+
+
+def test_relevance_wrappers_launch_no_plain_ops(dev):
+    """Without a relevance image, K3 (integer k), KH and KC each launch
+    their kernel and at most the zeroing of their output: none of the weight
+    plane's or the relevance image's ops."""
+    cfg, recon, _, nrm, cnr = _dense_inputs(512)
+    recon, nrm, cnr = (torch.from_numpy(a).to(dev) for a in (recon, nrm, cnr))
+    h = kh_mod().clahe_hist(recon, nrm, cnr, cfg)
+    for fn, kernel in ((lambda: fh.grad_hist_relevant(recon, nrm, cnr, cfg), "grad_hist_kernel"),
+                       (lambda: kh_mod().clahe_hist(recon, nrm, cnr, cfg), "clahe_hist_kernel"),
+                       (lambda: clahe.clahe_curves(h, cfg), "clahe_curves_kernel")):
+        names = _kernel_names(fn)
+        mine = [nm for nm in names if kernel in nm]
+        assert len(mine) == 1 and len(names) - 1 <= 1, names  # the kernel, a fill at most
+
+
+@pytest.mark.parametrize("variant", ["main", "clahe_linear", "fused_sdev", "bf16"])
+def test_forward_launch_counts_of_every_path(dev, variant):
+    """One eager forward at 512 launches K3 once (no K4, no K6), and with
+    CLAHE KH, KC and K5 once each."""
+    kw, fused = {"main": ({}, False), "clahe_linear": (dict(enable_clahe=True,
+                                                           grad_with_linear_image=True), False),
+                 "fused_sdev": ({}, True), "bf16": (dict(storage="bfloat16"), False)}[variant]
+    cfg = MusicaConfig(image_size=512, relevant_border=20, **kw)
+    x = torch.from_numpy(synthetic_radiograph(512, "thorax")).to(dev)
+    musica.musica_forward(x, cfg, fused_sdev=fused)
+    launch.reset_launch_counts()
+    res = musica.musica_forward(x, cfg, fused_sdev=fused)
+    torch.cuda.synchronize()
+    c = dict(launch.LAUNCHES)
+    assert c["grad_hist_relevant"] == 1 and c["grad_hist"] == c["histogram"] == 0, c
+    n_clahe = 1 if cfg.enable_clahe else 0
+    assert c["clahe_hist"] == c["clahe_curves"] == c["clahe_apply"] == n_clahe, c
+    ref = musica.musica_forward(x.cpu(), cfg, fused_sdev=fused)
+    assert torch.equal(res["out_u8"].cpu(), ref["out_u8"])

@@ -118,7 +118,8 @@ def _launch_calls(path):
 
 
 @pytest.mark.parametrize("module", ["fused_hist.py", "histogram.py", "clahe_apply.py",
-                                    "tonemap.py", "normalize.py", "gradation.py"])
+                                    "tonemap.py", "normalize.py", "gradation.py",
+                                    "clahe_hist.py", "clahe_curves.py"])
 def test_every_wrapper_passes_its_tensors_device(module):
     """Each ``launch.launch`` call of a wrapper passes ``dev`` (the device
     its tensors lie on) and no stream of its own: ``launch`` appends that
