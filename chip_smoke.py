@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port of MUSICA on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the CUDA kernels from ``..._tpu_torch/csrc`` with nvcc, holds every
 kernel against its plain PyTorch version at the paths' 3072^2 shapes
@@ -96,7 +96,10 @@ and, where one exists, the one PyTorch call that computes the same function
 histogram, float64 ``F.conv2d`` and ``F.conv_transpose2d`` for the pyramid
 steps, float64 ``F.avg_pool2d`` of the squares for KS; none for KA, KN,
 KG, KH and KC, whose plain chains' launches are counted instead), with CUDA
-events;
+events; with ``--parent DIR`` (another checkout, e.g. the parent commit
+unpacked with ``git archive``) also KA (float32 and bf16) and KH built
+from that checkout's sources, timed in the same call as this one's, in
+turns (parent, this, this, parent);
 the folded argmax also as the difference between K1 (and K7) with and
 without it.
 
@@ -530,7 +533,8 @@ def check_kc(rec, case, hists, cfg):
 def check_kh(rec, case, recon, nrm, cnr, cfg, space):
     """KH (``clahe_hist``) against its plain version (the relevance image,
     then ``clahe_histograms_rows``) on the whole image, every shard's rows
-    of ``spatial.row_plan(n, space)`` and a partition whose inner windows start on odd rows, the
+    of ``spatial.row_plan(n, space)``, a partition whose inner windows start
+    on odd rows and one with windows of 1 and 5 rows, each partition's
     windows summed against the whole; KC on the whole histogram.  Returns
     the whole histogram."""
     import torch
@@ -541,7 +545,10 @@ def check_kh(rec, case, recon, nrm, cnr, cfg, space):
     whole = kh.clahe_hist(recon, nrm, cnr, cfg)
     rec.equal("clahe_hist", case, whole, kh.clahe_hist_plain(recon, nrm, cnr, cfg))
     parts = 0
-    for bounds in (spatial.row_plan(n, space, cfg).bounds[0], odd_bounds(n, space)):
+    # the plan's shards, odd starts, and windows of 1, 1, 5 rows and a
+    # window's worth that cross tile rows anywhere
+    few = [0, 1, 2, 7, n // 3, n // 3 + 1, n - 1, n]
+    for bounds in (spatial.row_plan(n, space, cfg).bounds[0], odd_bounds(n, space), few):
         total = torch.zeros_like(whole)
         for a, b in zip(bounds, bounds[1:]):
             c0, c1 = noise.cnr_rows(ws, n, a, b)
@@ -613,6 +620,13 @@ def check_relevance(rec, rng, dev, cfg, main, var):
             cnr = t(relevance_cases.dense_cnr(rng, cn, -(-n // 8)))
             check_kh(rec, f"{n} adversarial, {tiles}x{tiles} tiles, border {border}, exponent "
                      f"{cn.relevant_k}", recon, nrm, cnr, cn, space)
+    # 40x40 tiles of 16 bins: more tile rows than KH's strips follow (its
+    # one-segment route)
+    cn = cfg_var.with_(image_size=600, clahe_tiles=40, clahe_bins=16)
+    recon = t(relevance_cases.clahe_recon(rng, 600, 16))
+    check_kh(rec, "600 adversarial, 40x40 tiles of 16 bins", recon,
+             t(relevance_cases.pixel_tests(rng, 600, cn)),
+             t(relevance_cases.dense_cnr(rng, cn, -(-600 // 8))), cn, 4)
     for k in range(256):
         c = cfg_var.with_(clahe_tiles=4 if k % 2 else 8)
         check_kc(rec, f"random {k}", t(relevance_cases.random_clahe_hists(rng, c)), c)
@@ -1172,6 +1186,16 @@ def same_band(rec, kernel, case, got, want):
     return int(nan.sum())
 
 
+def unaligned(t):
+    """A contiguous copy of ``t`` that starts one element past an
+    allocation's start (not 16-byte aligned)."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def contrast_inputs(x_dev, c):
     """(bands [L] in c's storage dtype, sdevs, max bins, cnr) of
     ``musica_forward`` of ``x_dev`` under ``c``: what its contrast stage
@@ -1284,7 +1308,11 @@ def check_contrast(rec, rng, dev, cfg):
                       for k in mbs}
             cases = {"phantom": (bands, sdevs, mbs, cnr), "adversarial": (adv[0], adv[1], mbs,
                                                                          adv[2]),
-                     "random max bins": (bands, sdevs, rnd_mb, cnr)}
+                     "random max bins": (bands, sdevs, rnd_mb, cnr),
+                     # every array one element past a 16-byte boundary: no
+                     # level takes the vector path
+                     "unaligned": ([unaligned(t) for t in adv[0]],
+                                   {k: unaligned(t) for k, t in adv[1].items()}, mbs, adv[2])}
             nans, windows = 0, 0
             for name, (b, sd, mb, cn) in cases.items():
                 what = f"{n} {anatomy} {c.storage}, {name}"
@@ -1315,10 +1343,37 @@ def check_contrast(rec, rng, dev, cfg):
                             same_band(rec, "contrast_apply", wc + " vs the whole",
                                       got_w[0][k], whole[k][r0:r1])
                         windows += 1
+                # three windows a level, the inner ones starting on odd rows
+                # (unaligned where the level's width is odd; levels of
+                # fewer than 6 rows whole)
+                cuts = [odd_bounds(m, 3) if m >= 6 else [0, m, m, m]
+                        for m in (t.shape[-1] for t in b)]
+                for i in range(3):
+                    rows = [(cb[i], cb[i + 1]) if cb[2] < m else (0, m)
+                            for cb, m in zip(cuts, (t.shape[-1] for t in b))]
+                    cnrs = {}
+                    for k in ka.nr_levels(c, False):
+                        lo, hi = noise.cnr_rows(cn.shape[-1], b[k].shape[-1], *rows[k])
+                        cnrs[k] = (cn[lo:hi], lo)
+                    wb = [b[k][r0:r1] for k, (r0, r1) in enumerate(rows)]
+                    ws = {k: sd[k][r0:r1] for k, (r0, r1) in enumerate(rows) if k in sd}
+                    r0s = [r0 for r0, _ in rows]
+                    got_w = ka.contrast_apply(wb, ws, mb, cnrs, c, r0s)
+                    want_w = ka.contrast_apply_plain(wb, ws, mb, cnrs, c, r0s)
+                    for k, (r0, r1) in enumerate(rows):
+                        wc = f"{what}, odd window {i} of 3, level {k} rows [{r0}, {r1})"
+                        same_band(rec, "contrast_apply", wc, got_w[0][k], want_w[0][k])
+                        same_band(rec, "contrast_apply", wc + " vs the whole", got_w[0][k],
+                                  whole[k][r0:r1])
+                    windows += 1
+            small = sum(t.numel() < ka.CHUNK_PX for t in bands)
+            ragged = sum(t.numel() % ka.CHUNK_PX != 0 for t in bands)
             log(f"  KA at {n} {c.storage}: {len(cases)} input sets (the phantom's, adversarial, "
-                f"random max bins), with and without intermediates, bit for bit ({nans} NaN px "
-                f"in all); {windows} shard windows (1x4, 2x2) equal their plain versions and "
-                f"the whole stage's rows")
+                f"random max bins, unaligned), with and without intermediates, bit for bit "
+                f"({nans} NaN px in all); {windows} windows (1x4, 2x2 shards; odd rows) equal "
+                f"their plain versions and the whole stage's rows; {small} of "
+                f"{len(bands)} levels smaller than a chunk ({ka.CHUNK_PX} px), {ragged} "
+                f"ending in part of one")
 
 
 def normalize_images(rng):
@@ -1956,6 +2011,76 @@ def contrast_bound(bands, sdevs, max_bins, cnr, c):
     return bound(n_bytes, ops)
 
 
+def clahe_hist_bound(recon, nrm, cnr, c):
+    """KH's least time at these inputs (ms, "bytes" or "operations"): recon
+    read where a pixel is relevant, normalized where a pixel inside the
+    border lies in a solid block (32-byte sectors), the CNR map read, the
+    histogram written; a product and a sum a relevant pixel."""
+    import torch
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops import noise
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import fused_hist as fh
+    n = recon.shape[-1]
+    scale = -(-n // cnr.shape[-1])
+    weights = fh.relevance_weight_plane(cnr, c).repeat_interleave(scale, 0) \
+        .repeat_interleave(scale, 1)[:n, :n]
+    xs = torch.arange(n, device=recon.device)
+    inner = (xs > c.relevant_border) & (xs < n - c.relevant_border)
+    need_norm = (weights == -1) & inner[:, None] & inner[None, :]
+    need_recon = noise.img_relevant(nrm, cnr, c) == 1.0
+    hist_bytes = 4 * c.clahe_tiles ** 2 * c.clahe_bins
+    return bound(sector_bytes(need_recon) + sector_bytes(need_norm) + 4 * cnr.numel()
+                 + hist_bytes, 2 * int(need_recon.sum()))
+
+
+def build_parent(root):
+    """Start building KA's and KH's C entries from another checkout's
+    sources (each .cu with the headers beside it, one ``nvcc -shared``
+    each, started together) for [6]'s before and after; returns a function
+    that waits and gives {kernel: the loaded library}."""
+    import ctypes
+    from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.ops.cuda import build
+    csrc = os.path.join(root, PKG, "csrc")
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "parent_kernels")
+    os.makedirs(out, exist_ok=True)
+    procs = {}
+    for name, fn in (("contrast_apply", "musica_contrast_apply"),
+                     ("clahe_hist", "musica_clahe_hist")):
+        so = os.path.join(out, f"lib{name}.so")
+        procs[name] = (subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", so,
+             os.path.join(csrc, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so, fn)
+
+    def wait():
+        libs = {}
+        for name, (proc, so, fn) in procs.items():
+            text = proc.communicate()[0]
+            assert proc.returncode == 0, f"the parent's {name}.cu did not build:\n{text}"
+            lib = ctypes.CDLL(so)
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = build._SIGNATURES[fn]
+            libs[name] = lib
+        return libs
+    return wait
+
+
+def parent_turns(launch, lib, fn, rounds=2):
+    """ms of ``fn`` (device time, 20 calls) with the parent's library in
+    place of this one's and with this one's, in turns: parent, this, this,
+    parent, ``rounds`` times; returns (parent ms, this ms), each in run
+    order."""
+    real = launch.lib
+    parent, this = [], []
+    for _ in range(rounds):
+        for which in ("parent", "this", "this", "parent"):
+            launch.lib = (lambda: lib) if which == "parent" else real
+            try:
+                (parent if which == "parent" else this).append(
+                    cuda_ms(fn, 20, 2, device_only=True))
+            finally:
+                launch.lib = real
+    return parent, this
+
+
 def kernel_events(fn) -> int:
     """The CUDA kernels one call of ``fn`` launches (the profiler's kernel
     events; copies and fills of memory not counted).  Each record begins
@@ -2378,7 +2503,7 @@ def cuda_ms(fn, reps: int, warmup: int = 1, device_only: bool = False) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main() -> int:
+def main(parent_root=None) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this script "
@@ -2427,6 +2552,7 @@ def main() -> int:
     for line in build.build_log().splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    parent_libs = build_parent(parent_root) if parent_root else None
 
     # ---- 3. kernels against their plain versions -------------------------
     rec = KernelRecord()
@@ -3260,6 +3386,41 @@ def main() -> int:
         "plain_launches": kernel_events(lambda: ka_call(k_ka.contrast_apply_plain, "float32")),
         "bf16_plain_launches": kernel_events(
             lambda: ka_call(k_ka.contrast_apply_plain, "bfloat16"))}
+    # with --parent: KA (float32, bf16) and KH (4x4 and 8x8 tiles) built from
+    # the parent checkout's sources, timed in turns with this checkout's on
+    # the same inputs, after checking that the two give the same outputs
+    if parent_libs is not None:
+        plibs = parent_libs()
+        cfg_var8 = cfg_var.with_(clahe_tiles=8)
+        turns = (("", "contrast_apply", lambda: ka_call(k_ka.contrast_apply, "float32")),
+                 ("bf16_", "contrast_apply", lambda: ka_call(k_ka.contrast_apply, "bfloat16")),
+                 ("", "clahe_hist", lambda: k_kh.clahe_hist(v_recon, v_nrm, v_cnr, cfg_var)),
+                 ("8x8_", "clahe_hist", lambda: k_kh.clahe_hist(v_recon, v_nrm, v_cnr, cfg_var8)))
+        def tensors(x):
+            if isinstance(x, torch.Tensor):
+                return [x]
+            items = x.values() if isinstance(x, dict) else x
+            return [t for v in items for t in tensors(v)]
+        for key, name, fn in turns:
+            real = launch.lib
+            launch.lib = lambda lib=plibs[name]: lib
+            try:
+                theirs = tensors(fn())
+            finally:
+                launch.lib = real
+            mine = tensors(fn())
+            assert len(mine) == len(theirs)
+            for g, w in zip(mine, theirs):
+                assert torch.equal(g.float().nan_to_num(7.0).view(torch.int32),
+                                   w.float().nan_to_num(7.0).view(torch.int32)), \
+                    f"{key}{name}: the parent's kernel gives other outputs"
+            par, this = parent_turns(launch, plibs[name], fn)
+            pyr_extra.setdefault(name, {}).update({f"{key}parent_turns_ms": par,
+                                                   f"{key}this_turns_ms": this})
+            log(f"  {key}{name} built from {parent_root} beside this checkout's, ms in turns "
+                f"(parent, this, this, parent, twice): parent {par}, this {this}")
+    else:
+        log("  no --parent given: the parent's KA and KH are not timed")
     log("  pyramid bounds, ms: " + ", ".join(
         f"{k} {b_ms(k)}" for k in ("step", "ladder", "subtract", "add", "expand", "tail",
                                    "expand_tail")))
@@ -3291,20 +3452,9 @@ def main() -> int:
     px_n = x_dev.numel()
     bounds["normalize"] = bound((x_dev.element_size() + 4) * px_n, 3 * px_n)
     bounds["gradation_curve"] = bound(ghist.numel() * 4 + 47 * 4)
-    # KH: recon read where a pixel is relevant, normalized where a pixel
-    # inside the border lies in a solid block (32-byte sectors), the CNR
-    # map, the histogram written; a product and a sum a relevant pixel.  KC:
-    # the histograms read, the LUTs written (its time is one block's latency)
-    scale_v = -(-SIZE // v_cnr.shape[-1])
-    weights = fh.relevance_weight_plane(v_cnr, cfg_var).repeat_interleave(scale_v, 0) \
-        .repeat_interleave(scale_v, 1)[:SIZE, :SIZE]
-    xs = torch.arange(SIZE, device=dev)
-    inner = (xs > cfg_var.relevant_border) & (xs < SIZE - cfg_var.relevant_border)
-    need_norm = (weights == -1) & inner[:, None] & inner[None, :]
-    need_recon = noise.img_relevant(v_nrm, v_cnr, cfg_var) == 1.0
-    bounds["clahe_hist"] = bound(sector_bytes(need_recon) + sector_bytes(need_norm)
-                                 + 4 * v_cnr.numel() + 4 * v_h.numel(),
-                                 2 * int(need_recon.sum()))
+    # KH: the relevant pixels' bytes (clahe_hist_bound).  KC: the histograms
+    # read, the LUTs written (its time is one block's latency)
+    bounds["clahe_hist"] = clahe_hist_bound(v_recon, v_nrm, v_cnr, cfg_var)
     bounds["clahe_curves"] = bound(4 * v_h.numel() + 4 * (v_h.numel() + cfg_var.clahe_bins))
     # each count: the profiler's kernel events over one process call (one
     # graph replay), checked equal to LAUNCHES ([4], [4c], [4e])
@@ -3449,4 +3599,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(spatial_over_cards() if sys.argv[1:] == ["--spatial-over-cards"] else main())
+    if sys.argv[1:] == ["--spatial-over-cards"]:
+        sys.exit(spatial_over_cards())
+    if sys.argv[1:2] == ["--parent"] and len(sys.argv) == 3:
+        sys.exit(main(sys.argv[2]))
+    if sys.argv[1:]:
+        sys.exit(f"usage: {sys.argv[0]} [--parent DIR | --spatial-over-cards]")
+    sys.exit(main())

@@ -17,9 +17,9 @@ The plain version makes the full-size relevance image
 35 of them over every pixel.  KH decides each pixel's relevance from the
 small CNR map itself (K3's block weight: relevant where it is 100, or -1
 and normalized <= max_pixel), reads normalized only where a CNR block is
-solid and recon only where a pixel is relevant, and counts into a
-histogram privatised in shared memory, so the counts equal the plain
-version's exactly.  Where the ramp's exponent is no integer in 1..8
+solid and recon only where a pixel is relevant, and counts into
+histograms privatised in shared memory (a block's, of the tiles it
+reaches), so the counts equal the plain version's exactly.  Where the ramp's exponent is no integer in 1..8
 (``noise.chain_exponent``) the plain version takes pow, which the card need
 not round alike: the wrapper then hands KH the weights of
 ``fused_hist.relevance_weight_plane`` instead of the CNR map, one explicit
@@ -46,7 +46,8 @@ from .fused_hist import relevance_rule, relevance_weight_plane
 
 
 def shared_bytes(cfg) -> int:
-    """Shared memory of a block of KH: the joint histogram of every tile."""
+    """The most shared memory a block of KH takes: the joint histograms of
+    the tiles it reaches, at most every tile."""
     return 4 * cfg.clahe_tiles * cfg.clahe_tiles * cfg.clahe_bins
 
 

@@ -9,10 +9,12 @@ with ``noise_reduction`` (:58), as its ``models/musica.py:112-140`` calls them
 of ops (the twelve curves, each level's gain, the noise reduction), some 400
 launches an image on the card; KA is one, with the same bits, NaN included.
 
-The kernel builds each level's curve in its blocks from the max bin on the
-device, so nothing waits for the host and a captured graph replays it with
-each run's curves.  Bound: bytes, each band (and each analysis level's sdev)
-read once, each output written once (151 MB at 3072^2 in float32).
+The kernel builds every level's curve in each block of its one-wave grid
+from the max bin on the device, so nothing waits for the host and a
+captured graph replays it with each run's curves; the blocks then walk the
+levels' chunks of ``CHUNK_PX`` pixels.  Bound: bytes, each band (and each
+analysis level's sdev) read once, each output written once (151 MB at
+3072^2 in float32).
 
 Outputs: the bands the expand reads (the noise-reduced band of each level
 below ``cfg.cnr_level - 1``, the contrast band of every other level) and, with
@@ -41,6 +43,7 @@ from . import launch
 
 MAX_LEVELS = 16  # csrc/contrast_apply.cu: kMaxLevels
 MAX_POINTS = 33  # a bezier curve's points (kMaxPoints)
+CHUNK_PX = 512 * 2 * 4  # a block's pixels a step of its walk (kThreads * kGroups * 4)
 _STORAGE = (torch.float32, torch.bfloat16)
 
 

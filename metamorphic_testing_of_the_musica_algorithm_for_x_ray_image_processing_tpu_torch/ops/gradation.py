@@ -46,7 +46,10 @@ def gradation_bins(recon: torch.Tensor, relevant: torch.Tensor, cfg):
     zero = (v == 0.0).reshape(th, tile, t, tile).permute(0, 2, 1, 3)
     dead = torch.cumsum(zero.reshape(th, t, tile * tile).to(torch.int32), -1)
     alive = (dead == 0).reshape(th, t, tile, tile).permute(0, 2, 1, 3)
-    bins = (v * float(cfg.grad_histogram_bins)).to(torch.int32)  # trunc
+    # trunc; NaN is bin 0, as XLA's and the card's conversion give it
+    # (PyTorch's CPU conversion gives INT_MIN)
+    bf = v * float(cfg.grad_histogram_bins)
+    bins = torch.where(torch.isnan(bf), 0.0, bf).to(torch.int32)
     w = (r * 100.0).to(torch.int32).to(torch.int64)
     keep = alive.reshape(cov_h, cov) & (bins >= 0) & (bins < cfg.grad_histogram_bins)
     w = torch.where(keep, w, 0)

@@ -120,7 +120,10 @@ def noise_bins_view(v: torch.Tensor, n_bins: int, tile: int,
     true, correctly rounded division (QUIRKS #6, #7).  Weights are int64 0/1;
     a pixel survives iff no break occurs at or before it in its group."""
     adjusted = v / f32(max_noise, v)
-    bins = (adjusted * float(n_bins) + 0.5).to(torch.int32)
+    # a NaN sdev is bin 0, a break, as XLA's and the card's conversion give
+    # it (PyTorch's CPU conversion gives INT_MIN, and the group went on)
+    bf = adjusted * float(n_bins) + 0.5
+    bins = torch.where(torch.isnan(bf), 0.0, bf).to(torch.int32)
     brk = (v == 0.0) | (adjusted > 1.0) | (bins == 0)
     groups = brk.reshape(brk.shape[:-1] + (v.shape[-1] // tile, tile))
     alive = (torch.cumsum(groups.to(torch.int32), dim=-1) == 0).reshape(v.shape)

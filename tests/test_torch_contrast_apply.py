@@ -9,8 +9,10 @@ and 256 px in float32 and bf16 storage: the curves at max bins 0, 1, 2047
 and 61 seeded others; sdevs at every control point, px[0], just above the
 last point, +-0 and above 1 on the flat level; CNR values at the ramp's ends
 and their float32 neighbours.  A NumPy model of the kernel's own arithmetic
-(its curve built point by point, the branch-free search over keys padded
-with +inf, the CNR cell of each pixel's global row) equals the plain version
+(its curve built point by point; the count from the bucket table and a
+search over the points in x's bucket, ``test_torch_kernel_formulations.
+ka_count``; the noise-reduction factor once a CNR cell along each group of 4
+pixels, the cell at its pixel's global row) equals the plain version
 on the same inputs and on NaN, +-inf and denormal sdevs, whole and on the
 row windows of the spatial plans.  On a CUDA tensor the wrapper launches
 the kernel (here through a recording ``launch``), and the pipeline takes it
@@ -37,6 +39,7 @@ from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.parallel import sharding, spatial
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch.testing.phantoms import (
     synthetic_radiograph)
+from test_torch_kernel_formulations import KA_GROUP, ka_count
 
 torch.set_num_threads(2)
 
@@ -295,18 +298,11 @@ def _model_curve(mb, lcf, hcf, cfg):
 
 
 def _model_get_y(px, py, m, x):
-    """KA's getY: the branch-free count of keys (px padded with +inf to 64)
-    that are not >= x, then the clamped lerp and its two edge cases."""
+    """KA's getY: the count of points that are not >= x (``ka_count``: the
+    bucket table's start and a search over x's bucket), then the clamped
+    lerp and its two edge cases."""
     n = px.size
-    keys = np.full(64, np.inf, F32)
-    keys[:n] = px
-    pos = np.zeros(x.shape, np.int64)
-    s = 32 if n > 2 else 2
-    while s:
-        with np.errstate(invalid="ignore"):
-            pos += np.where(~(keys[pos + s - 1] >= x), s, 0)
-        s >>= 1
-    cnt = np.minimum(pos, n)
+    cnt = ka_count(px, x)[0]
     sel = np.clip(cnt - 1, 0, n - 2)
     with np.errstate(invalid="ignore", over="ignore"):
         y = m[sel] * (x - px[sel]) + py[sel]
@@ -343,9 +339,17 @@ def _model_stage(cfg, bands, sdevs, max_bins, cnrs, row0s, storage):
             cnr = cnr.numpy()
             rows, n = b.shape
             s = -(-n // cnr.shape[-1])
-            r = (row0s[k] + np.arange(rows)) // s - c0
+            # a thread's groups of KA_GROUP pixels along the level, wrapping
+            # rows: a cell is read where a pixel starts a group, a cell or a
+            # row, and each pixel takes the factor of the last pixel that
+            # read one
+            i = np.arange(rows * n)
+            col = i % n
+            fresh = (i % KA_GROUP == 0) | (col % s == 0)
+            src = np.maximum.accumulate(np.where(fresh, i, 0))
             with np.errstate(over="ignore"):
-                cu = cnr[r][:, np.arange(n) // s] * F32(cfg.max_cnr_value)
+                cell = cnr[(row0s[k] + src // n) // s - c0, src % n // s]
+                cu = (cell * F32(cfg.max_cnr_value)).reshape(rows, n)
             lo_c, lo_f, hi_c, hi_f = (F32(v) for v in cfg.noise_reduction_params[k])
             ramp = F32((cfg.noise_reduction_params[k][3] - cfg.noise_reduction_params[k][1])
                        / (cfg.noise_reduction_params[k][2] - cfg.noise_reduction_params[k][0]))

@@ -70,7 +70,8 @@ def _imported_names(path):
 
 
 @pytest.mark.parametrize("where", [PKG, "chip_smoke.py", "scripts/profile_torch.py",
-                                   "scripts/bench_torch.py", "scripts/probe_contrast.py"])
+                                   "scripts/bench_torch.py", "scripts/probe_contrast.py",
+                                   "scripts/probe_clahe_hist.py"])
 def test_no_file_imports_the_jax_package(where):
     """No file of the port, nor the port's scripts, imports JAX, the JAX
     package or Pillow (``import`` and ``from ... import`` statements, at

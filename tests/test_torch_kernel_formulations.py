@@ -299,6 +299,266 @@ def test_ks_task_partition_covers_each_pixel_once(ladder, wave):
 
 
 # ----------------------------------------------------------------------
+# KA: getY's bucketed count and the one-wave walk over every level's chunks
+# ----------------------------------------------------------------------
+
+KA_THREADS, KA_GROUPS, KA_GROUP = 512, 2, 4  # csrc/contrast_apply.cu: kThreads, kGroups
+KA_CHUNK = KA_THREADS * KA_GROUPS * KA_GROUP  # kChunk
+KA_BUCKET_SHIFT, KA_BUCKETS = 18, 512
+KA_BUCKET_OFF = (0x3F800000 >> KA_BUCKET_SHIFT) - (KA_BUCKETS - 1)
+
+
+def ka_bucket_of(x):
+    """csrc/contrast_apply.cu::bucket_of: the float32 bits shifted right,
+    offset and clamped (monotone in x over every float32 but NaN)."""
+    b = (np.asarray(x, np.float32).view(np.int32) >> KA_BUCKET_SHIFT) - KA_BUCKET_OFF
+    return np.clip(b, 0, KA_BUCKETS - 1)
+
+
+def ka_count(px, x):
+    """KA's getY count (csrc/contrast_apply.cu::get_y) at each of x: on a
+    non-decreasing curve whose buckets hold at most 2 points each, the
+    points below x's bucket (``points_below``) plus how many of the next
+    two keys are not >= x (x's bucket's points, or points of higher buckets
+    or the +inf past n, which add nothing), NaN x counting every point;
+    otherwise the full
+    branch-free search over the points padded with +inf to 64.  Returns
+    (counts, whether the curve took the bucket table)."""
+    px, x = np.asarray(px, np.float32), np.asarray(x, np.float32)
+    n = px.size
+    with np.errstate(invalid="ignore"):
+        ordered = bool(np.all(px[1:] >= px[:-1]))
+        fb = ka_bucket_of(px)
+        if not ordered or np.bincount(fb, minlength=KA_BUCKETS).max() > 2:
+            keys = np.full(64, np.inf, np.float32)
+            keys[:n] = px
+            pos = np.zeros(x.shape, np.int64)
+            s = 32
+            while s:
+                pos += np.where(~(keys[pos + s - 1] >= x), s, 0)
+                s >>= 1
+            return np.minimum(pos, n), False
+        lo = (fb[None, :] < np.arange(KA_BUCKETS)[:, None]).sum(1)[ka_bucket_of(x)]
+        keys = np.concatenate([px, np.full(2, np.inf, np.float32)])
+        c = lo + ~(keys[lo] >= x) + ~(keys[lo + 1] >= x)
+    return np.where(np.isnan(x), n, c), True
+
+
+def ka_probe_points(px):
+    """x at every point of a curve, its float32 neighbours, +-0, +-inf and
+    NaN."""
+    px = np.asarray(px, np.float32)
+    inf = np.float32(np.inf)
+    return np.concatenate([px, np.nextafter(px, inf), np.nextafter(px, -inf),
+                           np.float32([0.0, -0.0, np.inf, -np.inf, np.nan])])
+
+
+def test_ka_bucketed_count_equals_searchsorted_at_every_max_bin():
+    """At every max bin of the default config (the bezier levels' px; the
+    flat curve's), on each point, its neighbours, +-0, +-inf and NaN, the
+    kernel's count equals ``torch.searchsorted``'s left count, which the
+    plain ``curves.curve_get_y_sorted`` takes.  Every curve is in order;
+    all but 9 (those whose buckets hold 3 points or more) take the bucket
+    table, the others the full search."""
+    cfg = MusicaConfig()
+    lcf = next(l for l, _ in cfg.contrast_factors if l != 1.0)
+    flat = curves.contrast_curve(torch.zeros((), dtype=I32), 1.0, 2.0, cfg)[0]
+    full = []
+    for mb in [None, *range(cfg.noise_histogram_bins)]:
+        px = flat if mb is None else \
+            curves.contrast_curve(torch.tensor(mb, dtype=I32), lcf, 1.5, cfg)[0]
+        assert np.all(px.numpy()[1:] >= px.numpy()[:-1])
+        x = ka_probe_points(px.numpy())
+        got, bucketed = ka_count(px.numpy(), x)
+        want = torch.searchsorted(px, torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=f"max bin {mb}")
+        if not bucketed:
+            full.append(mb)
+    # max bin 0 (22 points at 0) and 1, and 7 max bins whose segment 2
+    # crowds 3 points into a bucket
+    assert len(full) == 9 and full[:2] == [0, 1]
+
+
+def test_ka_full_search_takes_a_curve_out_of_order():
+    """A curve whose last segment folds back (max_noise 1.0, so p > 0.5)
+    takes the full search; its count is the +inf-padded binary search's."""
+    cfg = MusicaConfig(max_noise_value=1.0)
+    px = curves.contrast_curve(torch.tensor(1900, dtype=I32), 0.5, 1.5, cfg)[0].numpy()
+    assert not np.all(px[1:] >= px[:-1])
+    got, bucketed = ka_count(px, ka_probe_points(px))
+    assert not bucketed and got.max() <= px.size
+
+
+def ka_div(x, d):
+    """csrc/contrast_apply.cu::div_u with make_div's multiplier for d:
+    Granlund and Montgomery's multiply and shift, in uint64 arithmetic."""
+    x = np.asarray(x, np.uint64)
+    if d == 1:
+        return x
+    lg = int(np.ceil(np.log2(d)))
+    while (1 << lg) < d:
+        lg += 1
+    m = np.uint64((((1 << lg) - d) << 32) // d + 1)
+    t = (x * m) >> np.uint64(32)
+    return (t + ((x - t) >> np.uint64(1))) >> np.uint64(lg - 1)
+
+
+def test_ka_division_by_multiply_and_shift_is_exact():
+    """KA's row, column and CNR cell divisions: exact for every divisor up
+    to 4,096 and the level widths and CNR scales of 3072, 600 and 144, at
+    numerators around each multiple of d and up to 2^31 - 1."""
+    divisors = list(range(1, 4097)) + [3072, 1536, 768, 600, 300, 150, 75, 38, 19, 10, 5,
+                                       46340, 65535, 2 ** 20 + 7]
+    rng = np.random.default_rng(0)
+    for d in divisors:
+        x = np.concatenate([np.arange(0, 3 * d + 3), (np.arange(1, 40) * d)[:, None]
+                            + np.arange(-2, 3)[None, :],
+                            rng.integers(0, 2 ** 31, 200), [2 ** 31 - 1, 2 ** 31 - 2]],
+                           axis=None).astype(np.int64)
+        x = x[(x >= 0) & (x < 2 ** 31)]
+        np.testing.assert_array_equal(ka_div(x, d), x // d, err_msg=f"d = {d}")
+
+
+def ka_walk(levels, wave):
+    """Repeat csrc/contrast_apply.cu's launch and its kernel's walk over
+    levels of (rows, n): block b takes chunks b, b + blocks, ..., each
+    chunk's level from the prefix table, thread t the KA_GROUP pixels from
+    g * KA_THREADS * KA_GROUP + KA_GROUP * t of it for g < KA_GROUPS (fewer
+    at the level's end).  Returns per level the number of visits of each
+    pixel [rows * n], and the blocks."""
+    chunk = KA_CHUNK
+    chunk0 = [0]
+    for rows, n in levels:
+        chunk0.append(chunk0[-1] + -(-rows * n // chunk))
+    total = chunk0[-1]
+    blocks = max(1, min(total, wave))
+    q = np.concatenate([np.arange(b, total, blocks) for b in range(blocks)])
+    level = np.searchsorted(np.array(chunk0), q, side="right") - 1
+    first = (q - np.array(chunk0)[level]) * chunk  # each chunk's first pixel
+    lanes = (np.arange(KA_GROUPS)[:, None] * KA_THREADS * KA_GROUP
+             + np.arange(KA_THREADS)[None, :] * KA_GROUP).reshape(-1)
+    visits = []
+    for k, (rows, n) in enumerate(levels):
+        groups = -(-rows * n // KA_GROUP)
+        g = (first[level == k][:, None] + lanes[None, :]) // KA_GROUP
+        per_group = np.bincount(g[g < groups], minlength=groups)
+        visits.append(np.repeat(per_group, KA_GROUP)[:rows * n])
+    return visits, blocks
+
+
+@pytest.mark.parametrize("size", [3072, 600, 144])
+@pytest.mark.parametrize("wave", [396, 7, 1])
+def test_ka_walk_visits_every_pixel_once(size, wave):
+    """The one-wave walk over every level's chunks (a block chunks b, b +
+    grid, ...): every pixel of every level visited once, whole and on each
+    shard's rows of the 1x4 plan (the replicated levels whole)."""
+    cfg = MusicaConfig(image_size=size, quirks=size > 144,
+                       histogram_area_size=16 if size > 144 else 12)
+    ns = [-(-size // 2 ** k) for k in range(cfg.pyramid_levels)]
+    plan = spatial.row_plan(size, 4, cfg)
+    windows = [[(0, n) for n in ns]]
+    windows += [[plan.rows(k, i) if k < plan.replicated else (0, n) for k, n in enumerate(ns)]
+                for i in range(4)]
+    for rows in windows:
+        visits, blocks = ka_walk([(b - a, n) for (a, b), n in zip(rows, ns)], wave)
+        assert all((v == 1).all() for v in visits), rows
+        assert blocks <= wave
+
+
+# ----------------------------------------------------------------------
+# KH: the strips, the tiles each block zeroes and flushes
+# ----------------------------------------------------------------------
+
+KH_BLOCK_COLS, KH_MAX_SEGMENTS = 1024, 32  # csrc/clahe_hist.cu
+
+
+def kh_tile_of(x, n, tiles):
+    """csrc/clahe_hist.cu::tile_of: uint(x / n * tiles) in float32."""
+    f = np.float32
+    return ((np.asarray(x, f) / f(n)) * f(tiles)).astype(np.int64)
+
+
+def kh_partition(n, row0, rows, tiles, blocks_per_sm, sms=132):
+    """Repeat csrc/clahe_hist.cu's musica_clahe_hist and its kernel's
+    block geometry on the rows [row0, row0 + rows) of an [n, n] image:
+    returns the visits of each pixel of the window [rows, n], each block's
+    (rows, columns, tile rows, tile columns) and the shared memory's tiles
+    (span_x, span_y)."""
+    t_first, t_last = (int(kh_tile_of(r, n, tiles)) for r in (row0, row0 + rows - 1))
+    n_seg = t_last - t_first + 1 if t_last - t_first + 1 <= KH_MAX_SEGMENTS else 1
+    xs = kh_tile_of(np.arange(row0, row0 + rows), n, tiles)
+    seg_row = [0] + [int(np.searchsorted(xs, t_first + j)) for j in range(1, n_seg)] + [rows]
+    gx = -(-n // KH_BLOCK_COLS)
+    strips = max(1, sms * blocks_per_sm // gx)
+    strip_rows = -(-rows // strips)
+    blocks, span_x = [], 0
+    for j in range(n_seg):
+        for r in range(seg_row[j], seg_row[j + 1], strip_rows):
+            r1 = min(r + strip_rows, seg_row[j + 1])
+            span_x = max(span_x, int(kh_tile_of(row0 + r1 - 1, n, tiles)
+                                     - kh_tile_of(row0 + r, n, tiles)) + 1)
+            blocks.append((r, r1))
+    span_y = max(int(kh_tile_of(min(n, (b + 1) * KH_BLOCK_COLS) - 1, n, tiles)
+                     - kh_tile_of(b * KH_BLOCK_COLS, n, tiles)) + 1 for b in range(gx))
+    visits = np.zeros((rows, n), np.int32)
+    geometry = []
+    for bx in range(gx):
+        c0, c1 = bx * KH_BLOCK_COLS, min(n, (bx + 1) * KH_BLOCK_COLS)
+        for r, r1 in blocks:
+            visits[r:r1, c0:c1] += 1
+            geometry.append(((r, r1), (c0, c1),
+                             (int(kh_tile_of(row0 + r, n, tiles)),
+                              int(kh_tile_of(row0 + r1 - 1, n, tiles))),
+                             (int(kh_tile_of(c0, n, tiles)), int(kh_tile_of(c1 - 1, n, tiles)))))
+    return visits, geometry, (min(span_x + 1, tiles), min(span_y + 1, tiles))
+
+
+def kh_rows(row0, r_begin, r_end, n, border, scale):
+    """The window rows a thread of csrc/clahe_hist.cu's kernel visits in a
+    strip [r_begin, r_end): those inside the border, a CNR row at a time
+    (every row of a CNR row with a relevant or solid block)."""
+    rows = []
+    r, r_hi = max(r_begin, border + 1 - row0), min(r_end, n - border - row0)
+    while r < r_hi:
+        cr = (row0 + r) // scale
+        r_next = min(r_hi, (cr + 1) * scale - row0)
+        while r < r_next:
+            rows.append(r)
+            r += 1
+    return rows
+
+
+@pytest.mark.parametrize("size", [3072, 600, 144])
+@pytest.mark.parametrize("tiles", [4, 8])
+def test_kh_partition_visits_each_pixel_once_in_the_tiles_it_flushes(size, tiles):
+    """KH's blocks over the whole image and the 1x4 plan's shard windows, at
+    2, 4 and 8 blocks an SM: every pixel visited once; every pixel's tile
+    (global row and column) among the tiles its block zeroes and flushes;
+    each block's tiles fit the shared memory the launch gives; a strip lies
+    in one tile row where the window holds few; a thread's walk a CNR row
+    at a time (scale 8, border 100 or 10) visits every row of its strip
+    inside the border once and no other."""
+    cfg = MusicaConfig(image_size=size, quirks=size > 144,
+                       histogram_area_size=16 if size > 144 else 12)
+    bounds = spatial.row_plan(size, 4, cfg).bounds[0]
+    for a, b in [(0, size), *zip(bounds, bounds[1:])]:
+        for per_sm in (2, 4, 8):
+            visits, geometry, (sx, sy) = kh_partition(size, a, b - a, tiles, per_sm)
+            assert (visits == 1).all(), (a, b, per_sm)
+            for (r0, r1), (c0, c1), (tx0, tx1), (ty0, ty1) in geometry:
+                rt = kh_tile_of(np.arange(a + r0, a + r1), size, tiles)
+                ct = kh_tile_of(np.arange(c0, c1), size, tiles)
+                assert tx0 <= rt.min() and rt.max() <= tx1 and ty0 <= ct.min() and ct.max() <= ty1
+                assert tx1 - tx0 + 1 <= sx and ty1 - ty0 + 1 <= sy
+                assert tx0 == tx1  # cut at the tile rows' edges
+                if c0 == 0:
+                    border = 100 if size > 144 else 10
+                    want = [r for r in range(r0, r1) if border < a + r < size - border]
+                    assert kh_rows(a, r0, r1, size, border, 8) == want
+            assert sx * sy <= tiles * tiles
+
+
+# ----------------------------------------------------------------------
 # KT: the tone map's tables, selection and crop addressing
 # ----------------------------------------------------------------------
 
