@@ -15,6 +15,7 @@ Usage:
     python -m ...cli report in.raw report_dir/
     python -m ...cli view --port 8000 in.raw
     python -m ...cli batch --size 3072 'raws/*.raw' outdir/
+    python -m ...cli batch --profile prof/ 'raws/*.raw' outdir/
     python -m ...cli campaign --size 3072 --out-dir mt_out/
     python -m ...cli slope-analysis mt_out/deltas.csv
     python -m ...cli mean-cnr cnr_bmps/
@@ -40,6 +41,39 @@ def _add_common(p):
                    help="torch device to run on (cuda, cuda:N or cpu)")
 
 
+def _start_profile(out_dir, device):
+    """A started ``torch.profiler`` for ``--profile DIR`` (None without the
+    flag): the deep-profiling analogue of the reference's MSVC /PROFILE
+    link flag (CMakeLists.txt:14-16), a Chrome trace of the host and, on a
+    CUDA device, of the device timeline with the port's ``musica.*`` spans
+    (``utils/spans.py``).  Only starting the profiler may fail, with a
+    warning."""
+    if not out_dir:
+        return None
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    try:
+        prof = profile(activities=activities)
+        prof.start()
+    except Exception as e:  # noqa: BLE001 - profiling must never break processing
+        print(f"profiler unavailable ({type(e).__name__}: {e})", file=sys.stderr)
+        return None
+    return prof
+
+
+def _stop_profile(prof, out_dir) -> None:
+    """Stop ``_start_profile``'s profiler and write ``out_dir/trace.json``."""
+    if prof is None:
+        return
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    print(f"profile trace -> {os.path.join(out_dir, 'trace.json')}")
+
+
 def cmd_process(args) -> int:
     from . import MusicaConfig
     from .models import musica
@@ -54,23 +88,7 @@ def cmd_process(args) -> int:
     if args.save_last_raw:
         # saveLastRawImage analogue (src/vk_processing.cpp:2811-2815)
         uio.save_raw(args.save_last_raw, raw)
-    prof = None
-    if args.profile:
-        # deep-profiling analogue of the reference's MSVC /PROFILE link flag
-        # (CMakeLists.txt:14-16): a torch.profiler Chrome trace of the host
-        # and, on a CUDA device, the device timeline with the musica.<phase>
-        # spans.  Only starting the profiler may fail with a warning.
-        import torch
-        from torch.profiler import ProfilerActivity, profile
-        activities = [ProfilerActivity.CPU]
-        if torch.device(args.device).type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        try:
-            prof = profile(activities=activities)
-            prof.start()
-        except Exception as e:  # noqa: BLE001 - profiling must never break processing
-            print(f"profiler unavailable ({type(e).__name__}: {e})", file=sys.stderr)
-            prof = None
+    prof = _start_profile(args.profile, args.device)
     t0 = time.perf_counter()
     res = None
     if args.timing:
@@ -96,11 +114,7 @@ def cmd_process(args) -> int:
             res = musica.musica_forward(musica.to_device(raw, args.device), cfg)
         uio.save_bmp8(args.cnr_out, cnr_u8(numpy_tree(res["cnr"])))
     dt = time.perf_counter() - t0
-    if prof is not None:
-        prof.stop()
-        os.makedirs(args.profile, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
-        print(f"profile trace -> {os.path.join(args.profile, 'trace.json')}")
+    _stop_profile(prof, args.profile)
     uio.save_bmp8(args.output, out)
     print(f"processed {args.input} ({args.size}^2) on {args.device} in "
           f"{dt * 1e3:.1f} ms (incl. kernel build on first use) -> {args.output}")
@@ -122,6 +136,7 @@ def cmd_batch(args) -> int:
                        storage="bfloat16" if args.bf16 else "float32")
     os.makedirs(args.out_dir, exist_ok=True)
     B = max(1, args.batch)
+    prof = _start_profile(args.profile, args.device)
     t0 = time.perf_counter()
     for start in range(0, len(files), B):
         chunk = files[start:start + B]
@@ -131,6 +146,7 @@ def cmd_batch(args) -> int:
             name = os.path.splitext(os.path.basename(f))[0] + ".bmp"
             uio.save_bmp8(os.path.join(args.out_dir, name), out)
     dt = time.perf_counter() - t0
+    _stop_profile(prof, args.profile)
     print(f"{len(files)} images on {args.device} in {dt:.2f}s "
           f"({len(files) * args.size ** 2 / dt / 1e9:.3f} GPix/s incl. IO)")
     return 0
@@ -229,6 +245,11 @@ def main(argv=None) -> int:
     p.add_argument("out_dir")
     p.add_argument("--batch", type=int, default=4,
                    help="images per process_batch call")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the run to "
+                        "DIR/trace.json, with the spans musica.request (a "
+                        "process_batch call), musica.replay and musica.graph "
+                        "(each image's graph replay; see `process --profile`)")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 storage for the pyramid band streams (fast "
                         "mode; see `process --bf16`)")

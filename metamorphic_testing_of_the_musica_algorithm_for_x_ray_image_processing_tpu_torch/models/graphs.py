@@ -21,7 +21,9 @@ then launches them all with one call:
 * replay: copy the image into the static input (``copy_`` takes a strided
   image, as ``musica_forward`` takes ``.contiguous()``), replay on the
   caller's current stream, and copy the requested outputs out before the
-  next replay can overwrite them.
+  next replay can overwrite them.  A ``run_batch`` call is the profiler
+  span ``musica.request``, each image's copy in, launch and copies out
+  ``musica.replay``, the launch ``musica.graph`` (``utils/spans.py``).
 
 The forward is passed in (``models/musica.py`` passes ``musica_forward``),
 so this module sits on top of the pipeline and imports nothing of it.
@@ -89,6 +91,7 @@ import torch
 
 from ..config import MusicaConfig
 from ..ops.cuda import launch
+from ..utils.spans import span
 
 Forward = Callable[..., Dict[str, torch.Tensor]]
 
@@ -213,13 +216,15 @@ class ForwardGraph:
     def run(self, x: torch.Tensor, into: Dict[str, torch.Tensor]) -> None:
         """Replay on ``x``; copy output ``k`` into ``into[k]``.  Copy in,
         replay and copy out are queued under one lock, so two threads on the
-        graph's stream cannot interleave them."""
+        graph's stream cannot interleave them; they are the span
+        ``musica.replay``, the replay alone ``musica.graph``."""
         if tuple(x.shape) != tuple(self.static_in.shape) or x.dtype != self.static_in.dtype:
             raise ValueError(f"image {tuple(x.shape)} {x.dtype}: the graph was captured for "
                              f"{tuple(self.static_in.shape)} {self.static_in.dtype}")
-        with self._lock:
+        with self._lock, span("musica.replay"):
             self.static_in.copy_(x)
-            self._replay()
+            with span("musica.graph"):
+                self._replay()
             launch.add_launches(self.tally)
             for k, dst in into.items():
                 dst.copy_(self.outputs[k])
@@ -489,19 +494,21 @@ def run_batch(forward: Forward, imgs: torch.Tensor, cfg: MusicaConfig,
               outputs: Sequence[str] = ("out_u8",)) -> Tuple[torch.Tensor, ...]:
     """``forward`` of each [n, n] image of ``imgs`` [B, n, n], one after
     another, through its graph on a CUDA device (eagerly on the CPU): one
-    [B, ...] tensor per name in ``outputs``, on ``imgs``' device."""
+    [B, ...] tensor per name in ``outputs``, on ``imgs``' device.  The call
+    is the span ``musica.request``, each image's replay ``musica.replay``."""
     n = cfg.image_size
     if imgs.ndim != 3 or tuple(imgs.shape[1:]) != (n, n):
         raise ValueError(f"images {tuple(imgs.shape)}: expected [B, {n}, {n}]")
-    g = _GRAPHS.graph(forward, imgs[0], cfg, fused_sdev) if len(imgs) else None
-    if g is None:
-        res = [forward(im, cfg, fused_sdev=fused_sdev) for im in imgs]
-        return tuple(torch.stack([r[k] for r in res]) for k in outputs)
-    out = tuple(torch.empty((len(imgs), *g.outputs[k].shape), dtype=g.outputs[k].dtype,
-                            device=imgs.device) for k in outputs)
-    for i, im in enumerate(imgs):
-        g.run(im, {k: o[i] for k, o in zip(outputs, out)})
-    return out
+    with span("musica.request"):
+        g = _GRAPHS.graph(forward, imgs[0], cfg, fused_sdev) if len(imgs) else None
+        if g is None:
+            res = [forward(im, cfg, fused_sdev=fused_sdev) for im in imgs]
+            return tuple(torch.stack([r[k] for r in res]) for k in outputs)
+        out = tuple(torch.empty((len(imgs), *g.outputs[k].shape), dtype=g.outputs[k].dtype,
+                                device=imgs.device) for k in outputs)
+        for i, im in enumerate(imgs):
+            g.run(im, {k: o[i] for k, o in zip(outputs, out)})
+        return out
 
 
 def run_spatial(forward, imgs: torch.Tensor, cfg: MusicaConfig, entries, bounds: Sequence[int],

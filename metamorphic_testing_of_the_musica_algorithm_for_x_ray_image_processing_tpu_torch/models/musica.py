@@ -10,8 +10,8 @@ contrast stage and the CLAHE apply go through the CUDA kernels of
 ``ops/cuda`` when the image is on a CUDA device.  Histogram
 argmaxes, curve points and t0/ta/t1 stay on the device as small tensors:
 nothing in ``musica_forward`` waits for the host.  Each phase is a
-``torch.profiler`` span named ``musica.<phase>`` (no cost without a
-profiler; scripts/profile_torch.py reads them).
+``torch.profiler`` span named ``musica.<phase>`` (``utils/spans.py``: ~0.6
+µs a phase without a profiler; scripts/profile_torch.py reads them).
 
 Phase map (reference -> here):
   2. normalize        -> ops.normalize (sqrt + quirk-exact global max/min)
@@ -47,11 +47,11 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import MusicaConfig
 from ..ops import clahe, gradation, noise, normalize, pyramid, stats
 from ..ops.cuda import contrast_apply, tonemap
+from ..utils.spans import span
 from . import graphs
 
 
@@ -73,8 +73,8 @@ def _band_dtype(cfg: MusicaConfig) -> torch.dtype:
 
 
 def _span(name: str):
-    """musica_forward's phase marker: a profiler span ``musica.<name>``."""
-    return record_function(f"musica.{name}")
+    """musica_forward's phase marker: the span ``musica.<name>``."""
+    return span("musica." + name)
 
 
 # timed_process's phase keys (the JAX package's, after the reference's
