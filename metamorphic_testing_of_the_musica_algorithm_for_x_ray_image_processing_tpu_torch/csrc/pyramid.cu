@@ -51,27 +51,30 @@
 // Layout.  At the large levels the bytes bound these steps; a block's
 // chain of dependent float64 operations and shared-memory loads, between
 // its barriers, sets the rest (a 192 px level is a few dozen blocks, and
-// every level waits for the one before it).  So each kernel stages its input
-// with cp.async once, reads taps through small tables of staged rows and
-// columns that resolve the mirror and the extension once a block (a tap out
-// of range reads a zero row or column; a block inside the image takes the
-// tables' linear form without them), keeps the sums that a stride-2 stencil
-// reads in column-parity planes (consecutive threads, consecutive words),
-// and writes four adjacent outputs a thread with 16-byte stores:
+// every level waits for the one before it).
 //
-// * reduce_step_kernel<true> (the big levels of the ladder): a block owns
-//   a 16 x 32 tile of the down image and the 32 x 64 tile of the band above
-//   it.  It stages the 40 x 72 input pixels that these read into shared
-//   memory once (16-byte copies where the row width and alignment allow),
-//   computes the float64 vertical sums at each row of the down tile and of a
-//   one-pixel ring around it (the halo that the band's expand reads; these
-//   sums are redundant across blocks and deterministically equal), the down
-//   tile with its ring (written: the block's own pixels), the expand's
-//   vertical phase on that tile, and the band from the staged input: 4 B read
-//   and 4 + 1 B written per input pixel, where a separate down and band step
-//   read the input twice.  <false> is the down step alone, on a whole image
-//   or on a window of rows (the spatial path's shards, parallel/spatial.py),
-//   without the ring.
+// * reduce_step_kernel<true> (the big levels of the ladder, a level's down
+//   and band: 4 B read and 4 + 1 B written per input pixel): no shared
+//   memory and no barrier.  A warp walks a strip of 120 band columns (60
+//   down columns) down a run of down rows, its sums in registers: each lane
+//   4 band and 2 down columns, the horizontal taps and the expand's
+//   neighbouring columns from the next lanes (shuffles; lanes 0 and 31 only
+//   lend theirs), the rows of the down's vertical taps and the three down
+//   rows of the expand's vertical phase as a rolling window.  The run's
+//   length comes from the level's size (ops/cuda/pyramid.py::strip_rows):
+//   long runs at the large levels, where the run's halo rows cost, short
+//   ones at the small levels, which then spread over hundreds of warps.
+// * reduce_step_kernel<false> (the down step alone, on a whole image or on
+//   a window of rows: the spatial path's shards, parallel/spatial.py) and
+//   upsample_smooth_kernel<mode> stage their input with cp.async once, read
+//   taps through small tables of staged rows and columns that resolve the
+//   mirror and the extension once a block (a tap out of range reads a zero
+//   row or column; a block inside the image takes the tables' linear form
+//   without them), keep the sums that a stride-2 stencil reads in
+//   column-parity planes (consecutive threads, consecutive words), and write
+//   four adjacent outputs a thread with 16-byte stores.  <false>: a block
+//   owns a 16 x 32 tile of the down image and stages the 40 x 72 input
+//   pixels it reads.
 // * upsample_smooth_kernel<mode> (the big levels of the expand, and every
 //   level of the intermediates path and of the shards): a block stages the
 //   small image's rows and columns that its 32 x 64 output tile reads and
@@ -110,12 +113,17 @@ constexpr double kW1 = (double)(float)0.25;
 constexpr double kW2 = (double)(float)0.3;
 
 constexpr int kThreads = 256;
-// reduce_step_kernel: the down tile a block owns, the input it stages (down
-// positions D0 - 1 .. D0 + 16 read input positions 2 D0 - 4 .. 2 D0 + 34),
-// and the down tile's slots with the ring
+constexpr unsigned kFull = 0xffffffffu;
+// reduce_step_kernel<false>: the down tile a block owns and the input it
+// stages (down positions D0 .. D0 + 15 read input positions 2 D0 - 2 ..
+// 2 D0 + 32; the tile starts at 2 D0 - 4, a multiple of 4)
 constexpr int kDH = 16, kDW = 32;
 constexpr int kCurRows = 2 * kDH + 8, kCurCols = 2 * kDW + 8;
-constexpr int kSlotRows = kDH + 2, kSlotCols = kDW + 2;
+// reduce_step_kernel<true>: the band columns of a warp's strip (30 lanes x
+// 4), 4 warps a block, at most 128 registers a thread (4 blocks an SM)
+constexpr int kStripCols = 120;
+constexpr int kStripThreads = 128;
+constexpr int kStripBlocks = 4;
 // upsample_smooth_kernel: the output tile, the small image it stages (rows
 // of positions r/2 - 1 .. r/2 + 1, columns aligned down to 4 for cp.async)
 constexpr int kUpH = 32, kUpW = 64;
@@ -257,7 +265,7 @@ __device__ float upsample_pixel_small(const T* small, int src, int n, int row, i
 }
 
 // ----------------------------------------------------------------------
-// the big levels of the ladder: the fused reduce step
+// the ladder's reduce step: the down step alone, and the fused step
 // ----------------------------------------------------------------------
 
 struct StepArgs {
@@ -265,6 +273,7 @@ struct StepArgs {
   float* dn;       // rows [j0, j1) of the [dh, dw] down image
   float* band;     // <true>: the [h, w] band (a square whole image)
   int x0, xrows, h, w, j0, j1, dh, dw, vec_in, vec_out;
+  int strip_rows, vec_dn;  // <true>: down rows a warp walks; 8-byte down stores
 };
 
 // byte m of a packed tap table entry
@@ -276,54 +285,43 @@ __device__ __forceinline__ int tap(uint2 t, int m) {
 // the odd ones, so that threads reading every second column (a stride-2
 // stencil's taps) read consecutive words.
 constexpr int kVsHalf = (kCurCols + 2) / 2;   // staged columns and a zero column
-constexpr int kUvHalf = kSlotCols / 2;
 
 template <bool kBand>
-__global__ void __launch_bounds__(kThreads) reduce_step_kernel(StepArgs a) {
+__global__ void reduce_step_kernel(StepArgs a);
+
+// the down step alone, on a whole image or a window of rows
+template <>
+__global__ void __launch_bounds__(kThreads) reduce_step_kernel<false>(StepArgs a) {
   __shared__ __align__(16) float cs[kCurRows + 1][kCurCols];  // staged input; a zero row last
-  // the vertical sums (the zero column at 2 kVsHalf - 2), then the expand's
-  // vertical phase [2 kDH][2][kUvHalf]
-  __shared__ double vsuv[kSlotRows * 2 * kVsHalf];
-  __shared__ double dt[kSlotRows][kSlotCols];   // the down tile (float32 values)
-  __shared__ uint2 rt[kSlotRows], ct[kSlotCols];  // each slot's 5 taps: staged rows, columns
-  double(*vs)[2][kVsHalf] = reinterpret_cast<double(*)[2][kVsHalf]>(vsuv);
-  double(*uv)[2][kUvHalf] = reinterpret_cast<double(*)[2][kUvHalf]>(vsuv);
-  static_assert(2 * kDH * 2 * kUvHalf <= kSlotRows * 2 * kVsHalf, "uv fits in vs");
+  __shared__ double vs[kDH][2][kVsHalf];  // the vertical sums (the zero column at 2 kVsHalf - 2)
+  __shared__ uint2 rt[kDH], ct[kDW];      // each slot's 5 taps: staged rows, columns
   const int D0 = a.j0 + blockIdx.y * kDH, E0 = blockIdx.x * kDW;
   const int rbase = 2 * D0 - 4, cbase = 2 * E0 - 4;
-  // slot s is down position p0 + s (<true>: the ring first), valid up to
-  // pmax (<true>: dh, the extension's last position)
-  const int p0 = kBand ? D0 - 1 : D0, q0 = kBand ? E0 - 1 : E0;
-  constexpr int n_rows = kBand ? kSlotRows : kDH, n_cols = kBand ? kSlotCols : kDW;
-  const int pmax = kBand ? a.dh : a.j1 - 1, qmax = kBand ? a.dw : a.dw - 1;
-  // an interior block: every slot a down row or column of the image (no
-  // extension) whose taps are in the image (no mirror), so slot s's taps are
-  // staged rows (columns) 2 s + m + off, the tables' identity
-  constexpr int off = kBand ? 0 : 2;
-  const bool inner_r = p0 >= 1 && p0 + n_rows - 1 <= min(pmax, a.dh - 1) &&
-                       2 * (p0 + n_rows - 1) + 2 <= a.h - 1;
-  const bool inner_c = q0 >= 1 && q0 + n_cols - 1 <= min(qmax, a.dw - 1) &&
-                       2 * (q0 + n_cols - 1) + 2 <= a.w - 1;
+  // slot s is down position D0 + s (E0 + s), valid up to pmax (qmax)
+  const int pmax = a.j1 - 1, qmax = a.dw - 1;
+  // an interior block: every slot's taps are in the image (no mirror), so
+  // slot s's taps are staged rows (columns) 2 s + m + 2, the tables' identity
+  const bool inner_r = D0 >= 1 && D0 + kDH - 1 <= pmax && 2 * (D0 + kDH - 1) + 2 <= a.h - 1;
+  const bool inner_c = E0 >= 1 && E0 + kDW - 1 <= qmax && 2 * (E0 + kDW - 1) + 2 <= a.w - 1;
 
   stage(&cs[0][0], kCurCols, rbase, cbase, a.x, a.x0, a.w, max(rbase, a.x0),
         min(rbase + kCurRows, a.x0 + a.xrows), max(cbase, 0), min(cbase + kCurCols, a.w),
         a.vec_in);
   // while the copies land: the zero row, and the tap tables (a tap out of
   // range, or any tap of a slot past the image, reads the zero row or column)
-  for (int t = threadIdx.x; t < kCurCols + n_rows + n_cols; t += kThreads) {
+  for (int t = threadIdx.x; t < kCurCols + kDH + kDW; t += kThreads) {
     if (t < kCurCols) {
       cs[kCurRows][t] = 0.0f;
       continue;
     }
-    const bool is_row = t < kCurCols + n_rows;
-    const int s = t - kCurCols - (is_row ? 0 : n_rows);
-    const int p = (is_row ? p0 : q0) + s, n = is_row ? a.h : a.w;
+    const bool is_row = t < kCurCols + kDH;
+    const int s = t - kCurCols - (is_row ? 0 : kDH);
+    const int p = (is_row ? D0 : E0) + s, n = is_row ? a.h : a.w;
     const bool ok = p <= (is_row ? pmax : qmax);
-    const int k = !ok ? 0 : kBand ? (is_row ? extend(p, a.dh, a.h) : extend(p, a.dw, a.w)) : p;
     unsigned b[5];
 #pragma unroll
     for (int m = 0; m < 5; ++m) {
-      const int v = ok ? mirror(2 * k + m - 2, n) : -1;
+      const int v = ok ? mirror(2 * p + m - 2, n) : -1;
       b[m] = v >= 0 ? v - (is_row ? rbase : cbase) : is_row ? kCurRows : kCurCols;
     }
     const uint2 packed = make_uint2(b[0] | b[1] << 8 | b[2] << 16 | b[3] << 24, b[4]);
@@ -339,11 +337,11 @@ __global__ void __launch_bounds__(kThreads) reduce_step_kernel(StepArgs a) {
   // vertical sums: the slot's down row, at every staged column; an interior
   // block takes two slots a thread (rows 2 s .. 2 s + 6, seven loads)
   if (inner_r) {
-    for (int t = threadIdx.x; t < n_rows / 2 * (kCurCols + 1); t += kThreads) {
+    for (int t = threadIdx.x; t < kDH / 2 * (kCurCols + 1); t += kThreads) {
       const int s = 2 * (t / (kCurCols + 1)), i = t - s / 2 * (kCurCols + 1);
       double v0 = 0.0, v1 = 0.0;
       if (i < kCurCols) {
-        const float* c = &cs[2 * s + off][i];
+        const float* c = &cs[2 * s + 2][i];
         const double r2 = c[2 * kCurCols], r3 = c[3 * kCurCols], r4 = c[4 * kCurCols];
         v0 = taps5_f32(c[0], c[kCurCols], r2, r3, r4);
         v1 = taps5_f32(r2, r3, r4, c[5 * kCurCols], c[6 * kCurCols]);
@@ -352,7 +350,7 @@ __global__ void __launch_bounds__(kThreads) reduce_step_kernel(StepArgs a) {
       vs[s + 1][i & 1][i >> 1] = v1;
     }
   } else {
-    for (int t = threadIdx.x; t < n_rows * (kCurCols + 1); t += kThreads) {
+    for (int t = threadIdx.x; t < kDH * (kCurCols + 1); t += kThreads) {
       const int s = t / (kCurCols + 1), i = t - s * (kCurCols + 1);
       double v = 0.0;
       if (i < kCurCols) {
@@ -365,13 +363,13 @@ __global__ void __launch_bounds__(kThreads) reduce_step_kernel(StepArgs a) {
   }
   __syncthreads();
 
-  // the down tile (with its ring): horizontal sums at even columns
-  for (int t = threadIdx.x; t < n_rows * n_cols; t += kThreads) {
-    const int s = t / n_cols, b = t - s * n_cols;
+  // the down tile: horizontal sums at even columns
+  for (int t = threadIdx.x; t < kDH * kDW; t += kThreads) {
+    const int s = t / kDW, b = t - s * kDW;
     double h[5];
     if (inner_c) {
 #pragma unroll
-      for (int m = 0; m < 5; ++m) h[m] = vs[s][m & 1][b + ((m + off) >> 1)];
+      for (int m = 0; m < 5; ++m) h[m] = vs[s][m & 1][b + ((m + 2) >> 1)];
     } else {
       const uint2 c = ct[b];
 #pragma unroll
@@ -380,48 +378,161 @@ __global__ void __launch_bounds__(kThreads) reduce_step_kernel(StepArgs a) {
         h[m] = vs[s][i & 1][i >> 1];
       }
     }
-    const float d = __double2float_rn(taps5(h[0], h[1], h[2], h[3], h[4]));
-    const int p = p0 + s, q = q0 + b;
-    const bool own = kBand ? (s >= 1 && s <= kDH && b >= 1 && b <= kDW && p < a.dh && q < a.dw)
-                           : (p <= pmax && q <= qmax);
-    if (own) a.dn[(size_t)(p - a.j0) * a.dw + q] = d;
-    if (kBand) dt[s][b] = (double)d;
+    const int p = D0 + s, q = E0 + b;
+    if (p <= pmax && q <= qmax)
+      a.dn[(size_t)(p - a.j0) * a.dw + q] = __double2float_rn(taps5(h[0], h[1], h[2], h[3], h[4]));
   }
-  if (!kBand) return;
-  __syncthreads();
+}
 
-  // the expand's vertical phase of band row 2 D0 + rr at each slot column:
-  // positions j - 1, j, j + 1 (j = D0 + rr / 2) are slots rr / 2 .. + 2
-  for (int t = threadIdx.x; t < 2 * kDH * kSlotCols; t += kThreads) {
-    const int rr = t / kSlotCols, b = t - rr * kSlotCols, s = rr >> 1;
-    const double e1 = dt[s + 1][b], e2 = dt[s + 2][b];
-    uv[rr][b & 1][b >> 1] = (rr & 1) ? phase_odd_f32(e1, e2) : phase_even_f32(dt[s][b], e1, e2);
-  }
-  __syncthreads();
+// mirror() of a position the fused step's walk reaches, clamped into [0, n)
+// where it reaches past the mirror (lanes and rows whose sums no output reads)
+__device__ __forceinline__ int mirror_clamp(int p, int n) {
+  const int v = p < 0 ? -p : p > n - 1 ? 2 * (n - 1) - p : p;
+  return min(max(v, 0), n - 1);
+}
 
-  // the band, four adjacent columns a thread: output column 2 E0 + 4 qd + i
-  // reads slots 2 qd + i / 2 .. + 2
-  constexpr int kQuads = 2 * kDW / 4;
-  for (int t = threadIdx.x; t < 2 * kDH * kQuads; t += kThreads) {
-    const int rr = t / kQuads, qd = t - rr * kQuads;
-    const int row = 2 * D0 + rr, col = 2 * E0 + 4 * qd;
-    if (row >= a.h || col >= a.w) continue;
-    const double e0 = uv[rr][0][qd], e1 = uv[rr][1][qd], e2 = uv[rr][0][qd + 1],
-                 e3 = uv[rr][1][qd + 1];
-    const float up[4] = {gain4(phase_even(e0, e1, e2)), gain4(phase_odd(e1, e2)),
-                         gain4(phase_even(e1, e2, e3)), gain4(phase_odd(e2, e3))};
-    const float* cur = &cs[rr + 4][4 * qd + 4];
-    float* out = a.band + (size_t)row * a.w + col;
-    if (a.vec_out && col + 4 <= a.w) {
-      const float4 c4 = *reinterpret_cast<const float4*>(cur);
-      *reinterpret_cast<float4*>(out) =
-          make_float4(__fsub_rn(c4.x, up[0]), __fsub_rn(c4.y, up[1]), __fsub_rn(c4.z, up[2]),
-                      __fsub_rn(c4.w, up[3]));
-    } else {
+// the lane's 4 columns of the level's row r (through the mirror)
+__device__ __forceinline__ float4 strip_load(const float* __restrict__ x, int n, int r,
+                                             const int* col, bool vec) {
+  const float* p = x + (size_t)mirror_clamp(r, n) * n;
+  if (vec) return __ldg(reinterpret_cast<const float4*>(p + col[0]));
+  return make_float4(__ldg(p + col[0]), __ldg(p + col[1]), __ldg(p + col[2]), __ldg(p + col[3]));
+}
+
+__device__ __forceinline__ void widen(float4 v, double* d) {
+  d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
+}
+
+// the vertical sums of 5 rows at the lane's 4 columns, then its 2 down
+// pixels: the horizontal taps take the 2 sums left of its columns and the
+// one right of them from the neighbouring lanes
+__device__ __forceinline__ void strip_down(const double* r0, const double* r1, const double* r2,
+                                           const double* r3, const double* r4, float* d) {
+  double v[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (col + i < a.w) out[i] = __fsub_rn(cur[i], up[i]);
+  for (int e = 0; e < 4; ++e) v[e] = taps5_f32(r0[e], r1[e], r2[e], r3[e], r4[e]);
+  const double l2 = __shfl_up_sync(kFull, v[2], 1), l3 = __shfl_up_sync(kFull, v[3], 1);
+  const double r = __shfl_down_sync(kFull, v[0], 1);
+  d[0] = __double2float_rn(taps5(l2, l3, v[0], v[1], v[2]));
+  d[1] = __double2float_rn(taps5(v[0], v[1], v[2], v[3], r));
+}
+
+// One band row from the expand's vertical phase u0, u1 at the lane's down
+// columns dq, dq + 1: its 4 columns 2 dq .. 2 dq + 3 read positions dq - 1
+// .. dq + 2, the outer two from the neighbouring lanes, through the
+// extension (position -1 reads 1, position dh reads n - 1 - dh).
+__device__ __forceinline__ void strip_band(const StepArgs& a, double u0, double u1, int dq,
+                                           int row, float4 cur, bool out, bool vec) {
+  double ul = __shfl_up_sync(kFull, u1, 1), ur = __shfl_down_sync(kFull, u0, 1);
+  const bool odd = a.h & 1;
+  if (dq == 0) ul = u1;
+  if (dq + 1 == a.dh) u1 = odd ? ul : u0;
+  if (dq + 2 == a.dh) ur = odd ? u0 : u1;
+  if (!out) return;
+  const float o[4] = {__fsub_rn(cur.x, gain4(phase_even(ul, u0, u1))),
+                      __fsub_rn(cur.y, gain4(phase_odd(u0, u1))),
+                      __fsub_rn(cur.z, gain4(phase_even(u0, u1, ur))),
+                      __fsub_rn(cur.w, gain4(phase_odd(u1, ur)))};
+  float* dst = a.band + (size_t)row * a.w + 2 * dq;
+  if (vec) {
+    *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (2 * dq + e < a.w) dst[e] = o[e];
+  }
+}
+
+// The fused step of a whole square level: no shared memory and no barrier.
+// A warp walks a strip of kStripCols band columns (kStripCols / 2 down
+// columns) down a run of a.strip_rows down rows, [ja, jb); lane l holds the
+// band columns c .. c + 3 and the down columns dq, dq + 1 (c = 2 dq, dq = 60
+// s - 2 + 2 l for strip s; lanes 0 and 31 only lend their sums to their
+// neighbours).  At down row j the lane holds, as float64 in registers, the
+// level rows 2 j .. 2 j + 2 (with their float32 values, the band rows
+// 2 j and 2 j + 1 among them) and down rows j - 1 and j; it adds the rows
+// 2 j + 3 and 2 j + 4 (loaded a step ahead) for down row j + 1, and the band
+// rows 2 j and 2 j + 1 then take down rows j - 1 .. j + 1.  A run starts
+// with the level rows 2 ja - 4 .. 2 ja + 2 (down rows ja - 1 and ja), and
+// through the mirror reads the rows its walk reaches past the level;
+// columns past the level mirror the same way.  16-byte loads and band
+// stores where the width and alignment allow, 8-byte down stores.
+template <>
+__global__ void __launch_bounds__(kStripThreads, kStripBlocks) reduce_step_kernel<true>(StepArgs a) {
+  const int n = a.h, dh = a.dh, rows = a.strip_rows;
+  const int strips = (n + kStripCols - 1) / kStripCols;
+  const int task = blockIdx.x * (kStripThreads / 32) + (threadIdx.x >> 5);
+  if (task >= strips * ((dh + rows - 1) / rows)) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const int ja = task / strips * rows, jb = min(ja + rows, dh);
+  const int dq = task % strips * (kStripCols / 2) - 2 + 2 * lane, c = 2 * dq;
+  int col[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) col[e] = mirror_clamp(c + e, n);
+  const bool vec_in = a.vec_in && c >= 0 && c + 4 <= n;
+  const bool out = lane >= 1 && lane <= 30 && c < n;
+  const bool vec_band = a.vec_out && c + 4 <= n;
+  const bool odd = n & 1;
+
+  double w[7][4];
+  float4 cur[3];  // the float32 values of the rows in r0, r1, r2 below
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    const float4 v = strip_load(a.x, n, 2 * ja - 4 + i, col, vec_in);
+    widen(v, w[i]);
+    if (i >= 4) cur[i - 4] = v;
+  }
+  float4 next0 = strip_load(a.x, n, 2 * ja + 3, col, vec_in);
+  float4 next1 = strip_load(a.x, n, 2 * ja + 4, col, vec_in);
+  float fp[2], fc[2];
+  strip_down(w[0], w[1], w[2], w[3], w[4], fp);
+  strip_down(w[2], w[3], w[4], w[5], w[6], fc);
+  double dp[2] = {fp[0], fp[1]}, dc[2] = {fc[0], fc[1]};
+  double r0[4], r1[4], r2[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) r0[e] = w[4][e], r1[e] = w[5][e], r2[e] = w[6][e];
+
+  for (int j = ja; j < jb; ++j) {  // warp-uniform
+    const float4 v3 = next0, v4 = next1;
+    if (j + 1 < jb) {
+      next0 = strip_load(a.x, n, 2 * j + 5, col, vec_in);
+      next1 = strip_load(a.x, n, 2 * j + 6, col, vec_in);
     }
+    double r3[4], r4[4];
+    widen(v3, r3);
+    widen(v4, r4);
+    float fn[2];
+    strip_down(r0, r1, r2, r3, r4, fn);
+    double dn[2] = {fn[0], fn[1]};
+    // the extension: down row dh reads row n - 1 - dh, row -1 reads row 1
+    if (j + 1 == dh) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) dn[i] = odd ? dp[i] : dc[i];
+    }
+    if (j == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) dp[i] = dn[i];
+    }
+    if (out && dq < dh) {
+      float* o = a.dn + (size_t)j * a.dw + dq;
+      if (a.vec_dn && dq + 2 <= dh) {
+        *reinterpret_cast<float2*>(o) = make_float2(fc[0], fc[1]);
+      } else {
+        o[0] = fc[0];
+        if (dq + 1 < dh) o[1] = fc[1];
+      }
+    }
+    strip_band(a, phase_even_f32(dp[0], dc[0], dn[0]), phase_even_f32(dp[1], dc[1], dn[1]),
+               dq, 2 * j, cur[0], out, vec_band);
+    if (2 * j + 1 < n)
+      strip_band(a, phase_odd_f32(dc[0], dn[0]), phase_odd_f32(dc[1], dn[1]), dq, 2 * j + 1,
+                 cur[1], out, vec_band);
+    // the walk moves down a row of the down image (two of the level)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) dp[i] = dc[i], dc[i] = dn[i], fc[i] = fn[i];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) r0[e] = r2[e], r1[e] = r3[e], r2[e] = r4[e];
+    cur[0] = cur[2], cur[1] = v3, cur[2] = v4;
   }
 }
 
@@ -799,24 +910,30 @@ extern "C" {
 // must hold every row the window's taps read (ops/pyramid.py::needed_rows).
 // With band (a [h, w] float32 output): the fused step of a whole square
 // image at the expand's polyphase size (x0 = 0, xrows = h = w >= 6, j0 = 0,
-// j1 = ceil(h/2)), band = x - upsample_smooth(dn, h).  Returns a
-// cudaError_t.
+// j1 = ceil(h/2)), band = x - upsample_smooth(dn, h), a warp walking
+// strip_rows >= 1 down rows (strip_rows is not read without band).
+// Returns a cudaError_t.
 int musica_reduce_step(const float* x, int x0, int xrows, int h, int w, float* dn, int j0, int j1,
-                       float* band, void* stream) {
+                       float* band, int strip_rows, void* stream) {
   const int dh = (h + 1) / 2, dw = (w + 1) / 2;
   if (h < 1 || w < 1 || j0 < 0 || j1 <= j0 || j1 > dh || x0 < 0 || xrows < 1 ||
       x0 + xrows > h)
     return (int)cudaErrorInvalidValue;
-  if (band != nullptr &&
-      (h != w || !(h >= 6) || x0 != 0 || xrows != h || j0 != 0 || j1 != dh))
+  if (band != nullptr && (h != w || !(h >= 6) || x0 != 0 || xrows != h || j0 != 0 ||
+                          j1 != dh || strip_rows < 1))
     return (int)cudaErrorInvalidValue;
   StepArgs a = {x, dn, band, x0, xrows, h, w, j0, j1, dh, dw,
-                w % 4 == 0 && aligned(x, 16), w % 4 == 0 && aligned(band, 16)};
-  const dim3 grid((dw + kDW - 1) / kDW, (j1 - j0 + kDH - 1) / kDH);
+                w % 4 == 0 && aligned(x, 16), w % 4 == 0 && aligned(band, 16),
+                strip_rows, dw % 2 == 0 && aligned(dn, 8)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (band != nullptr) {
-    reduce_step_kernel<true><<<grid, kThreads, 0, s>>>(a);
+    const long long warps = (long long)((w + kStripCols - 1) / kStripCols) *
+                            ((dh + strip_rows - 1) / strip_rows);
+    const int per_block = kStripThreads / 32;
+    reduce_step_kernel<true><<<(unsigned)((warps + per_block - 1) / per_block), kStripThreads, 0,
+                               s>>>(a);
   } else {
+    const dim3 grid((dw + kDW - 1) / kDW, (j1 - j0 + kDH - 1) / kDH);
     reduce_step_kernel<false><<<grid, kThreads, 0, s>>>(a);
   }
   return (int)cudaGetLastError();

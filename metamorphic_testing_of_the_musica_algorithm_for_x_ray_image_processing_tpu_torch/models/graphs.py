@@ -198,8 +198,8 @@ class ForwardGraph:
     """``forward(x, cfg, fused_sdev=fused_sdev)`` captured for images of
     ``x``'s shape and dtype on ``x``'s device, replayed on one stream.
     ``tally`` is the kernel launches a replay runs (``ops.cuda``'s counter
-    names), which each replay adds to ``launch.LAUNCHES``; ``devices``:
-    where it lies."""
+    names), which each replay adds to ``launch.LAUNCHES`` (and ``geometry``
+    to ``launch.GEOMETRY``); ``devices``: where it lies."""
 
     def __init__(self, forward: Forward, x: torch.Tensor, cfg: MusicaConfig,
                  fused_sdev: bool, backend):
@@ -211,6 +211,7 @@ class ForwardGraph:
             self.outputs, self._replay = backend.capture(
                 lambda: forward(self.static_in, cfg, fused_sdev=fused_sdev), x.device)
         self.tally = {k: n for k, n in tally.items() if n}
+        self.geometry = dict(tally.geometry)
         self._lock = threading.Lock()
 
     def run(self, x: torch.Tensor, into: Dict[str, torch.Tensor]) -> None:
@@ -225,7 +226,7 @@ class ForwardGraph:
             self.static_in.copy_(x)
             with span("musica.graph"):
                 self._replay()
-            launch.add_launches(self.tally)
+            launch.add_launches(self.tally, self.geometry)
             for k, dst in into.items():
                 dst.copy_(self.outputs[k])
 
@@ -308,7 +309,8 @@ class SpatialGraph:
     (``spatial.forward``) captured for images of ``x``'s shape and dtype
     over the mesh row ``entries``, its rows split at ``bounds`` (level 0 of
     the row plan).  ``tally``: the kernel launches a replay runs, which
-    each replay adds to ``launch.LAUNCHES``; ``segments``: the graphs it
+    each replay adds to ``launch.LAUNCHES`` (``geometry``: to
+    ``launch.GEOMETRY``); ``segments``: the graphs it
     holds; ``devices``: where they lie.  ``cut_every`` cuts at every
     exchange, also between entries of one device (the tests' check of the
     segmented replay)."""
@@ -342,6 +344,7 @@ class SpatialGraph:
                 raise
         self.steps = seg.steps
         self.tally = {k: n for k, n in tally.items() if n}
+        self.geometry = dict(tally.geometry)
         self.segments = sum(s[0] == "replay" for s in self.steps)
         self.devices = tuple(seg.devices)
         self.shape, self.dtype = tuple(x.shape), x.dtype
@@ -380,7 +383,7 @@ class SpatialGraph:
                     step[2]()
                 else:
                     step[2].copy_(step[1], non_blocking=True)
-            launch.add_launches(self.tally)
+            launch.add_launches(self.tally, self.geometry)
             for k, dst in into.items():
                 dst.copy_(self.outputs[k], non_blocking=True)
 

@@ -60,7 +60,7 @@ _SIGNATURES = {
                                 _VP], _I),
     "musica_gradation_curve": ([_VP, _I, _I, *[ctypes.c_float] * 5, _VP, _VP], _I),
     "musica_tone_map": ([_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP], _I),
-    "musica_reduce_step": ([_VP, _I, _I, _I, _I, _VP, _I, _I, _VP, _VP], _I),
+    "musica_reduce_step": ([_VP, _I, _I, _I, _I, _VP, _I, _I, _VP, _I, _VP], _I),
     "musica_upsample_smooth": ([_VP, _I, _I, _I, _VP, _I, _I, _I, _VP, _I, _VP], _I),
     "musica_reduce_tail": ([_VP, _I, _I, ctypes.POINTER(_VP), ctypes.POINTER(_VP), _VP], _I),
     "musica_expand_tail": ([_VP, _I, _I, ctypes.POINTER(_VP), _I, _VP, _VP], _I),

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -32,6 +32,11 @@ LAUNCHES = {"noise_hist": 0, "hist_argmax": 0, "grad_hist_relevant": 0, "grad_hi
             "pyramid_down": 0, "pyramid_up": 0, "pyramid_tail": 0, "sdev": 0, "tone_map": 0,
             "sdev_tail": 0, "contrast_apply": 0, "normalize": 0, "gradation_curve": 0,
             "clahe_hist": 0, "clahe_curves": 0}
+# launches by the geometry a wrapper chose for them, {(kernel, geometry):
+# launches} (``pyramid.reduce_step``: ("reduce_step", the strip height));
+# kept out of LAUNCHES, whose keys and counts keep their meaning, and reset,
+# recorded under a capture and added by a replay as LAUNCHES is
+GEOMETRY: Dict[tuple, int] = {}
 _COUNT_LOCK = threading.Lock()
 _CAPTURING = threading.local()  # .tally: this thread's capture tally, if any
 
@@ -45,21 +50,34 @@ def reset_launch_counts() -> None:
     with _COUNT_LOCK:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        GEOMETRY.clear()
 
 
-def add_launches(counts: Dict[str, int]) -> None:
-    """Count ``counts[k]`` more launches of each kernel ``k``."""
+def add_launches(counts: Dict[str, int], geometry: Optional[Dict[tuple, int]] = None) -> None:
+    """Count ``counts[k]`` more launches of each kernel ``k`` (and
+    ``geometry[g]`` more of each geometry ``g``)."""
     with _COUNT_LOCK:
         for k, n in counts.items():
             LAUNCHES[k] += n
+        for g, n in (geometry or {}).items():
+            GEOMETRY[g] = GEOMETRY.get(g, 0) + n
+
+
+class Tally(dict):
+    """A capture's launches by kernel, and by geometry in ``.geometry``."""
+
+    def __init__(self):
+        super().__init__((k, 0) for k in LAUNCHES)
+        self.geometry: Dict[tuple, int] = {}
 
 
 @contextlib.contextmanager
-def recorded_launches() -> Iterator[Dict[str, int]]:
-    """Within the block, this thread's launches go to the dict it yields
-    instead of ``LAUNCHES``: the block captures a CUDA graph, whose kernels
-    run only when it is replayed.  Other threads count as before."""
-    tally = {k: 0 for k in LAUNCHES}
+def recorded_launches() -> Iterator[Tally]:
+    """Within the block, this thread's launches go to the tally it yields
+    instead of ``LAUNCHES`` and ``GEOMETRY``: the block captures a CUDA
+    graph, whose kernels run only when it is replayed.  Other threads count
+    as before."""
+    tally = Tally()
     _CAPTURING.tally = tally
     try:
         yield tally
@@ -74,6 +92,15 @@ def _count(counter: str) -> None:
         return
     with _COUNT_LOCK:
         LAUNCHES[counter] += 1
+
+
+def count_geometry(kernel: str, geometry) -> None:
+    """Count a launch of ``kernel`` that took ``geometry``, beside the
+    launch's own count (under a capture, in its tally)."""
+    tally = getattr(_CAPTURING, "tally", None)
+    counts = GEOMETRY if tally is None else tally.geometry
+    with _COUNT_LOCK:
+        counts[(kernel, geometry)] = counts.get((kernel, geometry), 0) + 1
 
 
 def device_of(tensors) -> torch.device:

@@ -1,6 +1,8 @@
 """Wrappers of the pyramid kernels in ``csrc/pyramid.cu``, each beside its
 plain PyTorch version (``ops/pyramid.py``'s float64 stencils; launch
-counters ``pyramid_down``, ``pyramid_up`` and ``pyramid_tail``).
+counters ``pyramid_down``, ``pyramid_up`` and ``pyramid_tail``; the fused
+step's launches by their strip height in ``launch.GEOMETRY`` under
+``("reduce_step", strip_rows(n))``).
 
 ==========================  =================================================
 wrapper                     replaces (JAX package, XLA code in ops/pyramid.py)
@@ -96,6 +98,23 @@ TAIL_MAX = max(s for s in range(1, 257) if tail_shared_bytes(s, False) <= launch
 # size: scripts/probe_pyramid.py, PERF.md)
 TAIL_CUT = 48
 
+# the fused step's warps (csrc/pyramid.cu::reduce_step_kernel<true>): each
+# walks a strip of STRIP_COLS band columns down a run of strip_rows(n) down
+# rows; STRIP_WARPS, the most warps a level's runs are cut into, is what the
+# H100's 132 SMs hold at once (16 each)
+STRIP_COLS = 120
+STRIP_WARPS = 2112
+
+
+def strip_rows(n: int) -> int:
+    """Down rows a warp of the fused step walks at an ``n``-px level: the
+    shortest run that cuts the level into at most ``STRIP_WARPS`` warps.
+    Long runs at the large levels, where each run's halo rows cost; a
+    row or two at the small levels, which then spread over hundreds of
+    warps and cost about one warp's short walk."""
+    strips = -(-n // STRIP_COLS)
+    return -(-_ceil2(n) // max(1, STRIP_WARPS // strips))
+
 
 # ----------------------------------------------------------------------
 # plain versions
@@ -140,7 +159,7 @@ def _launch_down(x: torch.Tensor, x0: int, h: int, j0: int, j1: int,
            "smooth_downsample")
     out = torch.empty((j1 - j0, dw), dtype=torch.float32, device=dev)
     launch.launch(launch.lib(), "musica_reduce_step", "pyramid_down", dev, x.data_ptr(),
-                  x0, rows, h, w, out.data_ptr(), j0, j1, None)
+                  x0, rows, h, w, out.data_ptr(), j0, j1, None, 0)
     return out
 
 
@@ -152,8 +171,10 @@ def _launch_step(cur: torch.Tensor, dev: torch.device) -> Tuple[torch.Tensor, to
                          "(6 px); the tail takes it")
     dn = torch.empty((_ceil2(n), _ceil2(n)), dtype=torch.float32, device=dev)
     band = torch.empty((n, n), dtype=torch.float32, device=dev)
+    rows = strip_rows(n)
     launch.launch(launch.lib(), "musica_reduce_step", "pyramid_down", dev, cur.data_ptr(),
-                  0, n, n, n, dn.data_ptr(), 0, _ceil2(n), band.data_ptr())
+                  0, n, n, n, dn.data_ptr(), 0, _ceil2(n), band.data_ptr(), rows)
+    launch.count_geometry("reduce_step", rows)
     return band, dn
 
 

@@ -14,7 +14,11 @@ issue is not in them):
   (``ops/cuda/pyramid.py::TAIL_CUT``), each level's fused step, down step
   alone and expand step (mode 2), and each tail from (ladder) or up to
   (expand) each level it holds, all levels below it included, and of that
-  level alone.
+  level alone;
+* with a fused step that walks warp strips (``strip_rows``): each level's
+  strip height, the step's bound (its bytes at 3.35 TB/s) and its time at
+  other strip heights (``--sweep``), each checked bit for bit against the
+  wrapper's step.
 
 ``--root DIR`` imports the package of another checkout (a parent unpacked
 with ``git archive``); a checkout without the tails gets the ladder and an
@@ -39,6 +43,8 @@ def main() -> int:
     ap.add_argument("--levels", type=int, default=12)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--root", default=REPO, help="the checkout whose package is timed")
+    ap.add_argument("--sweep", default="1,2,3,4,6,8,12,16,19,24,32",
+                    help="strip heights the fused step is timed at")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import importlib
@@ -70,6 +76,25 @@ def main() -> int:
         fn()
         torch.cuda.synchronize()
         return {k: v for k, v in launch.LAUNCHES.items() if v}
+
+    def sweep(cur):
+        """{rows: ms} of the fused step at each of --sweep's strip heights,
+        its outputs equal to the wrapper's."""
+        n, d = cur.shape[0], -(-cur.shape[0] // 2)
+        band = torch.empty_like(cur)
+        dn = torch.empty((d, d), dtype=torch.float32, device="cuda")
+        want = kp.reduce_step(cur)
+        out = {}
+        for r in (int(v) for v in args.sweep.split(",")):
+            def step():
+                rc = launch.lib().musica_reduce_step(
+                    cur.data_ptr(), 0, n, n, n, dn.data_ptr(), 0, d, band.data_ptr(), r,
+                    launch.stream(cur.device))
+                assert rc == 0, rc
+            out[r] = ms(step)
+            for g, w in zip((band, dn), want):
+                assert torch.equal(g.view(torch.int32), w.view(torch.int32)), (n, r)
+        return out
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.rand(args.size, args.size, device="cuda", generator=gen)
@@ -106,6 +131,11 @@ def main() -> int:
                    "down_ms": ms(lambda: kp.smooth_downsample(cur))}
             if pyramid.polyphase(h):
                 row["step_ms"] = ms(lambda: kp.reduce_step(cur))
+                if hasattr(kp, "strip_rows"):
+                    d = -(-h // 2)
+                    row["step_rows"] = kp.strip_rows(h)
+                    row["step_bound_ms"] = (8 * h * h + 4 * d * d) / 3.35e9
+                    row["sweep_ms"] = sweep(cur)
             steps[h] = row
         tails = {}
         for i, h in enumerate(sizes):

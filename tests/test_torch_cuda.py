@@ -1295,6 +1295,80 @@ def test_fused_step_and_tails_equal_plain_at_every_level(dev, n):
                     (h, case, "expand tail")
 
 
+# sizes whose last strip (120 band columns, 60 down columns) ends 2 to 0
+# columns short of, on or past a strip's edge, in both parities, and levels
+# of 3072 and 600 whose runs end short of their last row
+STRIP_EDGE_SIZES = [6, 7, 118, 119, 120, 121, 122, 123, 124, 125, 238, 239, 240, 241, 242, 243,
+                    361, 362, 363]
+
+
+def _reduce_step_rows(x, rows):
+    """The fused step of x [n, n] with runs of ``rows`` down rows (the C
+    entry called directly, past the wrapper's rule)."""
+    n = x.shape[0]
+    d = -(-n // 2)
+    band = torch.empty((n, n), dtype=torch.float32, device=x.device)
+    dn = torch.empty((d, d), dtype=torch.float32, device=x.device)
+    rc = launch.lib().musica_reduce_step(x.data_ptr(), 0, n, n, n, dn.data_ptr(), 0, d,
+                                         band.data_ptr(), rows, launch.stream(x.device))
+    assert rc == 0, rc
+    return band, dn
+
+
+@pytest.mark.parametrize("n", STRIP_EDGE_SIZES)
+def test_fused_step_equals_plain_at_strip_edges(dev, n):
+    """The fused step's warp strips at sizes on and around a strip's edge
+    (odd and even, their last down column a lane's first or second), from
+    an aligned image and from one 4 bytes off 16-byte alignment (the scalar
+    loads), and with runs of 1, 2, 3, 5 and 19 down rows (the last run
+    short), equal the plain down and band bit for bit."""
+    rng = np.random.default_rng(n)
+    for case in ("mixed", "-0.0"):
+        x = _pyramid_data(rng, (n, n), case, dev)
+        want = k_pyr.reduce_step_plain(x)
+        buf = torch.empty(n * n + 1, dtype=torch.float32, device=dev)
+        off = buf[1:].view(n, n)
+        off.copy_(x)
+        assert off.data_ptr() % 16
+        for got in (k_pyr.reduce_step(x), k_pyr.reduce_step(off),
+                    *[_reduce_step_rows(x, r) for r in (1, 2, 3, 5, 19)]):
+            for g, w in zip(got, want):
+                assert _same_bits(g, w), (n, case)
+
+
+@pytest.mark.parametrize("n,rows", [(3072, 19), (3072, 7), (1536, 5), (600, 4), (600, 2)])
+def test_fused_step_runs_equal_plain(dev, n, rows):
+    """The fused step at real level sizes with runs other than the rule's
+    (the last run short of ``rows``) equals the plain step bit for bit."""
+    x = _pyramid_data(np.random.default_rng(n + rows), (n, n), "mixed", dev)
+    for g, w in zip(_reduce_step_rows(x, rows), k_pyr.reduce_step_plain(x)):
+        assert _same_bits(g, w), (n, rows)
+
+
+def test_fused_step_tally_by_strip_height(dev):
+    """Each fused step counts one launch under the strip height the rule
+    gives its level, eagerly and in each replay of a captured forward."""
+    x = torch.rand(3072, 3072, device=dev)
+    launch.reset_launch_counts()
+    pyramid.reduce_ladder(x, 12)
+    want = {}
+    for h in pyramid_cases.level_sizes(3072)[:6]:
+        key = ("reduce_step", k_pyr.strip_rows(h))
+        want[key] = want.get(key, 0) + 1
+    assert launch.GEOMETRY == want
+    cfg = MusicaConfig(image_size=512)
+    img = torch.from_numpy(synthetic_radiograph(512, "thorax")).to(dev)
+    musica.process_jit(img, cfg)
+    launch.reset_launch_counts()
+    musica.process_jit(img, cfg)
+    torch.cuda.synchronize()
+    want = {}
+    for h in (512, 256, 128, 64):
+        key = ("reduce_step", k_pyr.strip_rows(h))
+        want[key] = want.get(key, 0) + 1
+    assert launch.GEOMETRY == want
+
+
 def test_pyramid_kernels_on_every_card(dev):
     """On each visible card, the down step, the fused step, the expand step
     (each mode, a bf16 band too) and both tails launch on their tensors'

@@ -40,13 +40,15 @@ VARIANTS = {"main": {}, "clahe_linear": dict(enable_clahe=True, grad_with_linear
 
 class FakeGraphs:
     """A capture backend for the CPU.  ``stream`` is the key's stream;
-    ``launches`` are counted through ``ops.cuda.launch`` during the capture,
-    as a kernel wrapper counts a launch that a capture records; ``fail``
-    makes the capture raise."""
+    ``launches`` (and ``geometry``, launches by their geometry) are counted
+    through ``ops.cuda.launch`` during the capture, as a kernel wrapper
+    counts a launch that a capture records; ``fail`` makes the capture
+    raise."""
 
     def __init__(self):
         self.stream_id = 0
         self.launches = {}
+        self.geometry = {}
         self.fail = False
         self.captures = 0
         self.replays = 0
@@ -61,6 +63,9 @@ class FakeGraphs:
         for k, n in self.launches.items():
             for _ in range(n):
                 launch._count(k)
+        for (k, g), n in self.geometry.items():
+            for _ in range(n):
+                launch.count_geometry(k, g)
         out = forward()
 
         def replay():
@@ -264,6 +269,26 @@ def test_the_launch_tally_is_added_once_per_replay(fake):
     assert sum(launch.LAUNCHES.values()) == 8
     musica.process_jit(xs[0], cfg)
     assert launch.LAUNCHES["noise_hist"] == 5
+
+
+def test_the_geometry_tally_is_added_once_per_replay(fake):
+    """Launches counted by their geometry (the fused pyramid step's strip
+    height) during the capture go to the graph, not to ``GEOMETRY``; each
+    replay adds them, and ``LAUNCHES`` keeps only its own keys."""
+    fake.launches = {"pyramid_down": 2}
+    fake.geometry = {("reduce_step", 19): 1, ("reduce_step", 5): 1}
+    cfg = MusicaConfig(image_size=SIZE)
+    xs = torch.stack([_img(a) for a in ("thorax", "hand", "knee", "foot")])
+    musica.process_batch_jit(xs, cfg)
+    (g,) = graphs.cached_graphs()
+    assert g.tally == {"pyramid_down": 2}
+    assert g.geometry == {("reduce_step", 19): 1, ("reduce_step", 5): 1}
+    assert launch.GEOMETRY == {("reduce_step", 19): 4, ("reduce_step", 5): 4}
+    musica.process_jit(xs[0], cfg)
+    assert launch.GEOMETRY == {("reduce_step", 19): 5, ("reduce_step", 5): 5}
+    assert set(launch.LAUNCHES) == set(launch.Tally())
+    launch.reset_launch_counts()
+    assert launch.GEOMETRY == {}
 
 
 def test_recorded_launches_leave_other_threads_counting():

@@ -4,10 +4,12 @@ dispatch.
 
 The kernels repeat the plain path's float64 sums (``ops/pyramid.py``)
 operation by operation.  The functions below compute what the kernels
-compute, block by block: ``step`` is ``reduce_step_kernel<band>`` (a block's
-staged input tile with the rows and columns it loads, its down tile with the
-one-pixel ring of the band's expand, the ring's edge maps, the block's own
-down pixels, the band from the staged tile), ``up`` is
+compute, block by block: ``step`` is ``reduce_step_kernel<false>`` (a
+block's staged input tile with the rows and columns it loads, its down
+tile), ``strip_step`` is ``reduce_step_kernel<true>`` warp by warp (each
+lane's columns through the mirror, the sums its neighbours lend it, each
+run's walk with the rows its window holds, the edge maps of the expand's
+positions), ``up`` is
 ``upsample_smooth_kernel<mode>`` (the staged small tile, the vertical phase
 on slots, the horizontal phase), ``tail_ladder`` and ``tail_expand`` are
 ``pyramid_tail_kernel`` (its shared buffers as flat arrays, the levels
@@ -17,7 +19,7 @@ exactly once; each product and sum is a correctly rounded torch operation
 as each intrinsic is on the card.  They must equal the plain functions bit
 for bit (tolerance: none; bit patterns compared, so -0.0 differs from +0.0)
 at every level of 600, 144, 75, 17, 5, 3, 2 and 1 px, at sizes whose tiles
-end 0, 1 or 15 rows past a tile boundary, on every shard window of the
+or strips end on, short of or past a boundary, on every shard window of the
 spatial plans at 600 and 144 over 4 shards, and, index maps only, at every
 level of 3072.
 """
@@ -43,9 +45,9 @@ from test_torch_pipeline import assert_u8_parity
 
 torch.set_num_threads(2)
 
-# csrc/pyramid.cu: reduce_step_kernel's down tile, staged input, slots with
-# the ring; upsample_smooth_kernel's output tile, staged small tile, slots;
-# the tail's level limit
+# csrc/pyramid.cu: reduce_step_kernel<false>'s down tile and staged input;
+# upsample_smooth_kernel's output tile, staged small tile, slots; the
+# tail's level limit
 DH, DW = 16, 32
 CUR_ROWS, CUR_COLS = 2 * DH + 8, 2 * DW + 8
 UP_H, UP_W = 32, 64
@@ -138,49 +140,46 @@ def scatter_once(shape, rows, cols, mask, vals, what):
 
 
 # ----------------------------------------------------------------------
-# reduce_step_kernel<band>
+# reduce_step_kernel<false>: the down step alone, block by block
 # ----------------------------------------------------------------------
 
-def step_axis(n, j0, j1, x0, xrows, band, tile):
-    """One axis of reduce_step_kernel's blocks (rows: tile DH, columns: DW):
-    per block, the down position of its first slot's tile (D0), the staged
-    input's first position (2 D0 - 4), which staged entries it loads, each
-    slot's validity and down row (through the ring's extension), and each
-    slot's 5 taps as staged indices (-1: the tap reads 0.0).  Asserts that
-    every tap of a valid slot reads a loaded entry."""
+def step_axis(n, j0, j1, x0, xrows, tile):
+    """One axis of reduce_step_kernel<false>'s blocks (rows: tile DH,
+    columns: DW): per block, the down position of its first slot (D0), the
+    staged input's first position (2 D0 - 4), which staged entries it
+    loads, each slot's validity and down position, and each slot's 5 taps
+    as staged indices (-1: the tap reads 0.0).  Asserts that every tap of a
+    valid slot reads a loaded entry."""
     staged = 2 * tile + 8
     d0 = j0 + tile * np.arange(-(-(j1 - j0) // tile))
     base = 2 * d0 - 4
     pos = base[:, None] + np.arange(staged)
     loaded = (pos >= np.maximum(base, x0)[:, None]) & (pos < np.minimum(base + staged,
                                                                        x0 + xrows)[:, None])
-    p = (d0 - 1 if band else d0)[:, None] + np.arange(tile + 2 if band else tile)
-    valid = p <= (ceil2(n) if band else j1 - 1)
-    k = extend(p, ceil2(n), n) if band else p
-    rows = mirror(2 * k[..., None] + np.arange(5) - 2, n)
+    p = d0[:, None] + np.arange(tile)
+    valid = p <= j1 - 1
+    rows = mirror(2 * p[..., None] + np.arange(5) - 2, n)
     idx = np.where(rows >= 0, rows - base[:, None, None], -1)
     inside = (idx >= 0) & (idx < staged)
     hit = np.take_along_axis(loaded, np.clip(idx, 0, staged - 1).reshape(len(d0), -1),
                              1).reshape(idx.shape)
     assert ((rows < 0) | (inside & hit))[valid].all(), "a tap reads an entry not staged"
-    # an interior block reads slot s's taps at staged 2 s + m + off without
+    # an interior block reads slot s's taps at staged 2 s + m + 2 without
     # its tables: they must say the same
     last = p[:, -1]
-    inner = (p[:, 0] >= 1) & (last <= min(ceil2(n) if band else j1 - 1, ceil2(n) - 1)) & (
-        2 * last + 2 <= n - 1)
-    linear = 2 * np.arange(p.shape[1])[:, None] + np.arange(5) + (0 if band else 2)
+    inner = (p[:, 0] >= 1) & (last <= j1 - 1) & (2 * last + 2 <= n - 1)
+    linear = 2 * np.arange(tile)[:, None] + np.arange(5) + 2
     assert (idx[inner] == linear).all(), "an interior block's taps are not the linear map"
     return d0, base, loaded, valid, p, idx
 
 
-def step(x, x0, h, j0, j1, band=False):
-    """reduce_step_kernel<band> block by block: rows [j0, j1) of the down
-    image of an [h, w] image from x, its rows [x0, ...); with band (a whole
-    square image): (band, down)."""
+def step(x, x0, h, j0, j1):
+    """reduce_step_kernel<false> block by block: rows [j0, j1) of the down
+    image of an [h, w] image from x, its rows [x0, ...)."""
     w = x.shape[-1]
-    dh, dw = ceil2(h), ceil2(w)
-    D0, rbase, rload, rvalid, rpos, ridx = step_axis(h, j0, j1, x0, x.shape[0], band, DH)
-    E0, cbase, cload, cvalid, cpos, cidx = step_axis(w, 0, dw, 0, w, band, DW)
+    dw = ceil2(w)
+    D0, rbase, rload, rvalid, rpos, ridx = step_axis(h, j0, j1, x0, x.shape[0], DH)
+    E0, cbase, cload, cvalid, cpos, cidx = step_axis(w, 0, dw, 0, w, DW)
     By, Bx = len(D0), len(E0)
     # the staged tiles [By, Bx, 40, 72], NaN where nothing was staged
     gr = np.clip(rbase[:, None] + np.arange(CUR_ROWS) - x0, 0, x.shape[0] - 1)
@@ -195,7 +194,7 @@ def step(x, x0, h, j0, j1, band=False):
         q.append(torch.where((im >= 0)[:, None, :, None], tiles[by, bx, im.clamp(min=0)[:, None]],
                              0.0))
     vs = torch.where(t_(rvalid[:, None, :, None] & cload[None, :, None, :]), taps5(q), 0.0)
-    # the down tile with its ring: horizontal sums of the staged columns
+    # the down tile: horizontal sums of the staged columns
     hq = []
     for k in range(5):
         ik = t_(cidx[..., k])
@@ -204,34 +203,185 @@ def step(x, x0, h, j0, j1, band=False):
     ok = rvalid[:, None, :, None] & cvalid[None, :, None, :]
     dt = torch.where(t_(ok), taps5(hq).float(), 0.0)
     assert not dt.isnan().any(), "a down pixel read an entry not staged"
-    # the block's own down pixels (not the ring)
-    s_r, s_c = np.arange(rpos.shape[1]), np.arange(cpos.shape[1])
-    own_r = rvalid & (rpos < dh) & ((s_r >= 1) & (s_r <= DH) if band else True)
-    own_c = cvalid & (cpos < dw) & ((s_c >= 1) & (s_c <= DW) if band else True)
-    dn = scatter_once((j1 - j0, dw), (rpos - j0)[:, None, :, None], cpos[None, :, None, :],
-                      own_r[:, None, :, None] & own_c[None, :, None, :], dt, "down")
-    if not band:
-        return dn
-    # the expand's vertical phase of band row 2 D0 + rr on slots rr/2 .. + 2
-    rr = np.arange(2 * DH)
-    s = t_(rr // 2)
-    e = [dt[:, :, s + i, :].double() for i in range(3)]
-    uv = torch.where(t_(rr % 2 == 1)[None, None, :, None], phase_odd(e[1], e[2]),
-                     phase_even(*e))
-    brow = 2 * D0[:, None] + rr
-    uv = torch.where(t_((brow < h)[:, None, :, None] & cvalid[None, :, None, :]), uv, 0.0)
-    # the band: column cc of the tile reads slots cc/2 .. + 2, cur the staged
-    # entry 4 rows and 4 columns in
-    cc = np.arange(2 * DW)
-    f = [uv[..., t_(cc // 2 + i)] for i in range(3)]
-    up = gain4(torch.where(t_(cc % 2 == 1), phase_odd(f[1], f[2]), phase_even(*f)))
-    cur = tiles[:, :, 4:4 + 2 * DH, 4:4 + 2 * DW]
-    bcol = 2 * E0[:, None] + cc
-    inb = (brow < h)[:, None, :, None] & (bcol < w)[None, :, None, :]
-    assert not cur[t_(np.broadcast_to(inb, cur.shape))].isnan().any(), "cur not staged"
-    out = scatter_once((h, w), brow[:, None, :, None], bcol[None, :, None, :], inb,
-                       cur.float() - up, "band")
-    return out, dn
+    return scatter_once((j1 - j0, dw), (rpos - j0)[:, None, :, None], cpos[None, :, None, :],
+                        ok, dt, "down")
+
+
+# ----------------------------------------------------------------------
+# reduce_step_kernel<true>: the fused step, warp strips
+# ----------------------------------------------------------------------
+
+STRIP = 120  # band columns of a warp's strip (kStripCols): 30 writing lanes x 4
+# the positions dq - 1, dq, dq + 1, dq + 2 of the expand's horizontal
+# phase as (lane offset, which of the lane's two down columns), and each
+# band column's taps among them (even columns 3, odd 2)
+U_SOURCES = ((-1, 1), (0, 0), (0, 1), (1, 0))
+BAND_TAPS = ((0, 1, 2), (1, 2), (1, 2, 3), (2, 3))
+
+
+def mirror_clamp(p, n):
+    """The kernel's mirror_clamp(): mirror(), clamped into [0, n) where a
+    position lies past the mirror's reach."""
+    p = np.asarray(p)
+    return np.clip(np.where(p < 0, -p, np.where(p > n - 1, 2 * (n - 1) - p, p)), 0, n - 1)
+
+
+def strip_lanes(n):
+    """The fused step's lanes at an n-px level, per strip and lane: its
+    down columns dq (and dq + 1), the level columns it loads (its band
+    columns 2 dq .. 2 dq + 3 through the mirror), whether it writes, and
+    the source (lane offset, down column) of each position dq - 1 .. dq + 2
+    that its band reads, after the extension (position -1 reads 1, dh reads
+    n - 1 - dh)."""
+    dh = ceil2(n)
+    lane = np.arange(32)
+    dq = (STRIP // 2) * np.arange(-(-n // STRIP))[:, None] - 2 + 2 * lane
+    cols = mirror_clamp(2 * dq[..., None] + np.arange(4), n)
+    out = (lane >= 1) & (lane <= 30) & (2 * dq < n)
+    src = np.broadcast_to(np.array(U_SOURCES), dq.shape + (4, 2)).copy()
+    src[dq == 0, 0] = (0, 1)
+    src[dq + 1 == dh, 2] = (-1, 1) if n % 2 else (0, 0)
+    src[dq + 2 == dh, 3] = (0, 0) if n % 2 else (0, 1)
+    return dq, cols, out, src
+
+
+def strip_walk(n, rows):
+    """The fused step's runs of ``rows`` down rows at an n-px level, each
+    walked down as the kernel walks it: per run, the down rows it computes
+    (ja - 1 .. ja + rows) with the level rows of each one's 5 vertical taps
+    (through the mirror) as the walk's window holds them, and per step its
+    down row j, whether the run has it, and the computed rows it reads as
+    down rows j - 1, j, j + 1 after the extension.  Asserts that the window
+    holds each down row's taps in order, each row loaded once."""
+    dh = ceil2(n)
+    runs = -(-dh // rows)
+    ja = rows * np.arange(runs)
+    jb = np.minimum(ja + rows, dh)
+    taps = np.zeros((runs, rows + 2, 5), np.int64)
+    for r in range(runs):
+        window = list(range(2 * ja[r] - 4, 2 * ja[r] + 3))   # the first 7 rows
+        got = [window[:5], window[2:]]                       # down rows ja - 1, ja
+        loaded = list(window)
+        window = window[4:]
+        for j in range(ja[r], jb[r]):
+            new = [2 * j + 3, 2 * j + 4]
+            loaded += new
+            window = window + new
+            got.append(window)                               # down row j + 1
+            window = window[2:]
+        assert len(set(loaded)) == len(loaded), "a level row loaded twice"
+        for i, rows_of in enumerate(got):
+            d = ja[r] - 1 + i
+            assert rows_of == list(range(2 * d - 2, 2 * d + 3)), "a down row's taps"
+            taps[r, i] = rows_of
+    k = np.arange(rows)
+    j = ja[:, None] + k
+    live = j < jb[:, None]
+    # computed row i of a run is down row ja - 1 + i: row j is slot k + 1
+    prev, cur, nxt = (np.broadcast_to(k + i, j.shape) for i in range(3))
+    nxt = np.where(j + 1 == dh, prev if n % 2 else cur, nxt)
+    prev = np.where(j == 0, nxt, prev)
+    return ja, j, live, mirror_clamp(taps, n), np.stack([prev, cur, nxt], -1)
+
+
+def shfl(a, off):
+    """__shfl_up_sync (off -1) or __shfl_down_sync (off 1) by one lane along
+    the lane axis (-2): a lane past the warp's edge reads its own value."""
+    return torch.cat([a[..., :1, :], a[..., :-1, :]] if off < 0 else [a[..., 1:, :], a[..., -1:, :]],
+                     dim=-2)
+
+
+def strip_step(x, rows=None):
+    """reduce_step_kernel<true> warp by warp: (band, down) of the square
+    level x, each run ``rows`` down rows long (the wrapper's
+    ``strip_rows``)."""
+    n = x.shape[0]
+    dh = ceil2(n)
+    rows = rows or kp.strip_rows(n)
+    dq, cols, out, src = strip_lanes(n)
+    ja, j, live, taps, slots = strip_walk(n, rows)
+    X = x.double()
+    # the vertical sums of each computed down row at each lane's 4 columns:
+    # [runs, rows + 2, strips, 32, 4]
+    v = taps5([X[t_(taps[..., m])][..., t_(cols)] for m in range(5)])
+    left, right = shfl(v, -1), shfl(v, 1)
+    d = torch.stack([taps5([left[..., 2], left[..., 3], v[..., 0], v[..., 1], v[..., 2]]),
+                     taps5([v[..., 0], v[..., 1], v[..., 2], v[..., 3], right[..., 0]])],
+                    -1).float()
+    # each step's down rows j - 1, j, j + 1: [runs, rows, strips, 32, 2]
+    run = torch.arange(len(ja))[:, None]
+    lo, mid, hi = (d[run, t_(slots[..., i])].double() for i in range(3))
+    # each lane's source of positions dq - 1 .. dq + 2: one of its own two
+    # down columns or of either neighbour's, code (offset + 1) * 2 + column
+    code = t_((src[..., 0] + 1) * 2 + src[..., 1])
+    band = {}
+    for r, u in ((0, phase_even(lo, mid, hi)), (1, phase_odd(mid, hi))):
+        cand = torch.stack([(shfl(u, o) if o else u)[..., i] for o in (-1, 0, 1) for i in (0, 1)],
+                           -1)
+        pos = torch.gather(cand, -1, code.expand(*cand.shape[:-1], 4))
+        up = [gain4(phase_even(*[pos[..., t] for t in tp]) if len(tp) == 3
+                    else phase_odd(*[pos[..., t] for t in tp])) for tp in BAND_TAPS]
+        row = 2 * j + r
+        cur = X[t_(np.minimum(row, n - 1))][..., t_(cols)].float()
+        band[r] = (row, cur - torch.stack(up, -1))
+    bcol = 2 * dq[..., None] + np.arange(4)
+    rows_all = np.stack([band[0][0], band[1][0]])[:, :, :, None, None, None]
+    ok = (live[None, :, :, None, None, None] & out[None, None, None, :, :, None]
+          & (bcol < n)[None, None, None] & (rows_all < n))
+    got_band = scatter_once((n, n), rows_all, bcol[None, None, None], ok,
+                            torch.stack([band[0][1], band[1][1]]), "band")
+    dcol = dq[..., None] + np.arange(2)
+    ok = live[:, :, None, None, None] & out[None, None, :, :, None] & (dcol < dh)[None, None]
+    got_dn = scatter_once((dh, dh), j[:, :, None, None, None], dcol[None, None], ok,
+                          d[:, 1:rows + 1], "down")
+    return got_band, got_dn
+
+
+def strip_check(n, rows=None):
+    """The fused step's maps at an n-px level (no data): every down pixel
+    and band pixel written once, by a writing lane; each down pixel's
+    taps, and each band pixel's down rows and columns, the plain path's
+    (its mirror table, the polyphase extension), each of those down columns
+    computed by a lane whose neighbours lend it its sums."""
+    rows = rows or kp.strip_rows(n)
+    dh = ceil2(n)
+    idx, valid = pyramid._mirror_idx(n)
+    dq, cols, out, src = strip_lanes(n)
+    ja, j, live, taps, slots = strip_walk(n, rows)
+    drow = ja[:, None] - 1 + np.arange(rows + 2)
+    # down rows a step reads: the extension of j - 1, j, j + 1, computed from
+    # the plain path's rows
+    read = np.take_along_axis(drow, slots.reshape(len(ja), -1), 1).reshape(slots.shape)
+    want = extend(j[..., None] + np.arange(-1, 2), dh, n)
+    assert (read == want)[live].all(), "a band row reads the wrong down rows"
+    inside = (drow >= 0) & (drow < dh)
+    pos = np.clip(2 * drow[..., None] + np.arange(5) - 2, -2, n + 1) + 2
+    assert (valid[pos] > 0)[inside].all() and (taps == idx[pos])[inside].all(), \
+        "a down row's taps are not the plain path's"
+    assert np.array_equal(np.sort(j[live]), np.arange(dh)), "each down row once"
+    # columns: the lanes' level columns are the plain mirror of their band
+    # columns wherever a down column < dh reads them
+    vcol = 2 * dq[..., None] + np.arange(4)
+    near = (vcol >= -2) & (vcol <= n + 1)
+    assert (cols == idx[np.clip(vcol, -2, n + 1) + 2])[near].all()
+    for s, l in zip(*np.nonzero(out)):
+        for e, tp in enumerate(BAND_TAPS):
+            if 2 * dq[s, l] + e >= n:
+                continue
+            for t in tp:
+                o, i = src[s, l, t]
+                ln = l + o
+                assert dq[s, ln] + i == extend(dq[s, l] - 1 + t, dh, n), \
+                    "a band column reads the wrong down column"
+                assert (1 <= ln + i <= 31) and 0 <= dq[s, ln] + i < dh, \
+                    "a down column read from a lane without its neighbours' sums"
+    cover = np.zeros(n, np.int64)
+    np.add.at(cover, (2 * dq[..., None] + np.arange(4))[out[..., None] & (vcol < n)], 1)
+    assert (cover == 1).all(), "each band column once"
+    dcover = np.zeros(dh, np.int64)
+    dcol = dq[..., None] + np.arange(2)
+    np.add.at(dcover, dcol[out[..., None] & (dcol < dh)], 1)
+    assert (dcover == 1).all(), "each down column once"
 
 
 # ----------------------------------------------------------------------
@@ -443,26 +593,27 @@ def test_kernel_taps_are_the_plain_weights():
 @pytest.mark.parametrize("level", range(12))
 def test_index_maps_at_every_level_of_3072(level):
     """At each level of the 3072 ladder (no data): every tap of the down
-    step, the fused step (its ring through the extension) and the expand
-    step reads a row and column that its block staged, the plain path's
-    mirror table and polyphase extension name the same rows, the expand
-    takes the plain path's form, and a level goes to the fused step or the
-    tail as the schedule says."""
+    step and the expand step reads a row and column that its block staged,
+    the plain path's mirror table and polyphase extension name the same
+    rows, the expand takes the plain path's form, the fused step's lanes,
+    halo lanes and runs (the rule's strip height and others) read the
+    plain path's taps and write each pixel once, and a
+    level goes to the fused step or the tail as the schedule says."""
     h = pc.level_sizes(3072)[level]
     dh = ceil2(h)
     idx, valid = pyramid._mirror_idx(h)
-    D0, rbase, _, rvalid, rpos, ridx = step_axis(h, 0, dh, 0, h, False, DH)
+    D0, rbase, _, rvalid, rpos, ridx = step_axis(h, 0, dh, 0, h, DH)
     rows = np.where(ridx >= 0, ridx + rbase[:, None, None], -1)[rvalid]
     pos = 2 * rpos[rvalid][:, None] + np.arange(5) - 2
     assert np.array_equal(rows >= 0, valid[pos + 2] > 0)
     assert np.array_equal(np.where(rows >= 0, rows, 0), np.where(valid[pos + 2] > 0, idx[pos + 2], 0))
     assert np.array_equal(np.sort(rpos[rvalid]), np.arange(dh))   # each down row once
-    step_axis(h, 0, dh, 0, h, False, DW)
+    step_axis(h, 0, dh, 0, h, DW)
     src = ceil2(h)
     assert polyphase(h) == pyramid.polyphase(h) == (h >= 6)
     if polyphase(h):
-        step_axis(h, 0, dh, 0, h, True, DH)
-        step_axis(h, 0, dh, 0, h, True, DW)
+        for rows in (None, 1, 2, 5, 19):
+            strip_check(h, rows)
         edge = h - 1 - src
         tap = pyramid._up_map(h)
         k = np.arange(h) >> 1
@@ -503,32 +654,61 @@ def test_formulation_equals_plain_at_every_level(n):
 
 @pytest.mark.parametrize("n", [600, 144, 75, 17])
 def test_fused_step_equals_plain_at_every_level(n):
-    """The fused step (down, ring, band from the staged tile) on every
-    level of the n-px ladder at the expand's polyphase size, on the
-    adversarial data and constant planes, equals the plain path's down and
-    band bit for bit."""
+    """The fused step (warp strips: the down and its neighbouring rows
+    and columns in registers, the band) on every level of the n-px ladder
+    at the expand's polyphase size, on the adversarial data and constant
+    planes, equals the plain path's down and band bit for bit."""
     rng = np.random.default_rng(n + 1)
     for h in [s for s in pc.level_sizes(n) if polyphase(s)]:
         for case in pc.CASES:
             x = torch.from_numpy(pc.adversarial(rng, (h, h), case))
-            band, dn = step(x, 0, h, 0, ceil2(h), band=True)
+            band, dn = strip_step(x)
             want_band, want_dn = kp.reduce_step_plain(x)
             assert_bits(dn, want_dn, f"fused down {h} {case}")
             assert_bits(band, want_band, f"fused band {h} {case}")
 
 
-@pytest.mark.parametrize("h", [6, 7, 8, 62, 63, 64, 65, 66, 67, 126, 127, 128, 129, 130, 131])
+@pytest.mark.parametrize("h", [6, 7, 8, 62, 63, 64, 65, 66, 67, 126, 127, 128, 129, 130, 131,
+                               118, 119, 120, 121, 122, 123, 124, 125, 238, 239, 240, 241, 242,
+                               243])
 def test_fused_step_at_tile_edges(h):
-    """Sizes whose last block of down rows (16) and columns (32) holds 15,
-    16 or 1 of them, with the band's last row odd or even: the ring's edge
-    maps (position -1 -> row 1, ceil(h/2) -> h - 1 - ceil(h/2)), not the
-    neighbour tile's rows, reach the plain path's band bit for bit."""
+    """Sizes whose last strip (120 band, 60 down columns) ends 2 to 0
+    columns short of, on or past a strip's edge, with the last down column
+    a lane's first or second and the band's last row odd or even, walked in
+    runs of the rule's rows and of 2, 3 and 5 (the last run short): the
+    edge maps (position -1 -> 1, ceil(h/2) -> h - 1 -
+    ceil(h/2), down row and column alike), not a neighbour's rows or
+    columns, reach the plain path's band bit for bit."""
     rng = np.random.default_rng(h)
     x = torch.from_numpy(pc.adversarial(rng, (h, h)))
-    band, dn = step(x, 0, h, 0, ceil2(h), band=True)
     want_band, want_dn = kp.reduce_step_plain(x)
-    assert_bits(dn, want_dn, f"fused down {h}")
-    assert_bits(band, want_band, f"fused band {h}")
+    for rows in (None, 2, 3, 5):
+        strip_check(h, rows)
+        band, dn = strip_step(x, rows)
+        assert_bits(dn, want_dn, f"fused down {h} {rows}")
+        assert_bits(band, want_band, f"fused band {h} {rows}")
+
+
+@pytest.mark.parametrize("n", [3072, 600, 144])
+def test_strip_rows_rule_at_every_level(n):
+    """The fused step's strip height is a function of the level size alone:
+    at every level of an n-px ladder that the fused step takes, the fewest
+    down rows that keep the level's warps (strips x runs) within
+    STRIP_WARPS, one warp's strip a run; long runs at 3072 and 1536, a row
+    or two from 768 down (a small level spread over hundreds of warps)."""
+    got = {}
+    for h in [s for s in pc.level_sizes(n) if polyphase(s)]:
+        rows = kp.strip_rows(h)
+        strips, dh = -(-h // STRIP), ceil2(h)
+        assert rows >= 1 and (strips * -(-dh // rows) <= kp.STRIP_WARPS or rows == dh)
+        assert rows == 1 or strips * -(-dh // (rows - 1)) > kp.STRIP_WARPS
+        assert kp.strip_rows(h) == rows   # no state
+        got[h] = rows
+    if n == 3072:
+        assert got == {3072: 19, 1536: 5, 768: 2, 384: 1, 192: 1, 96: 1, 48: 1, 24: 1, 12: 1,
+                       6: 1}
+    else:
+        assert set(got.values()) == {1}
 
 
 @pytest.mark.parametrize("n", [600, 144, 75, 17, 5, 3, 2, 1])
@@ -721,9 +901,9 @@ def test_cuda_tensors_launch_the_kernels(card):
     assert names == [("musica_reduce_step", "pyramid_down")] * 2 + [
         ("musica_upsample_smooth", "pyramid_up")] * 5 + [("musica_reduce_step", "pyramid_down")]
     args = [a for _, _, a in card]
-    # x0, rows, h, w; j0, j1, band (none: the down step alone)
-    assert args[0][1:5] == (0, 40, 40, 40) and args[0][6:] == (0, 20, None)
-    assert args[1][1:5] == (4, 26, 40, 40) and args[1][6:] == (3, 12, None)
+    # x0, rows, h, w; j0, j1, band (none: the down step alone), strip rows
+    assert args[0][1:5] == (0, 40, 40, 40) and args[0][6:] == (0, 20, None, 0)
+    assert args[1][1:5] == (4, 26, 40, 40) and args[1][6:] == (3, 12, None, 0)
     assert args[2][1:4] == (0, 20, 40) and args[2][5:] == (0, 40, 0, None, 0)
     assert args[3][1:4] == (3, 12, 40) and args[3][5:] == (9, 26, 0, None, 0)
     assert args[4][5:8] == (0, 40, 1) and args[4][8] == x.data_ptr() and args[4][9] == 0
@@ -731,6 +911,7 @@ def test_cuda_tensors_launch_the_kernels(card):
     assert args[6][1:4] == (0, 2, 4) and args[6][5:8] == (3, 4, 2)
     assert args[7][1:5] == (0, 40, 40, 40) and args[7][6:8] == (0, 20)
     assert args[7][8] == band.data_ptr()                                  # the fused step
+    assert args[7][9] == kp.strip_rows(40)
 
 
 def test_cuda_ladder_and_expand_schedules_at_3072(card):
@@ -760,6 +941,21 @@ def test_cuda_ladder_and_expand_schedules_at_3072(card):
     for _, counter, _ in card:
         counts[counter] = counts.get(counter, 0) + 1
     assert counts == {"pyramid_down": 6, "pyramid_tail": 2, "pyramid_up": 6}
+
+
+def test_fused_step_tally_by_strip_height(card):
+    """Each fused step counts its launch under the strip height it took,
+    beside LAUNCHES (whose keys stay as they were); the down step alone
+    counts none; reset_launch_counts clears the tally."""
+    launch.reset_launch_counts()
+    pyramid.reduce_ladder(torch.empty(3072, 3072), 12)
+    kp.smooth_downsample(torch.empty(40, 40))
+    assert launch.GEOMETRY == {("reduce_step", 19): 1, ("reduce_step", 5): 1,
+                               ("reduce_step", 2): 1, ("reduce_step", 1): 3}
+    assert [a[9] for fn, _, a in card if fn == "musica_reduce_step"] == [19, 5, 2, 1, 1, 1, 0]
+    assert "reduce_step" not in launch.LAUNCHES
+    launch.reset_launch_counts()
+    assert launch.GEOMETRY == {}
 
 
 def test_cuda_tail_splits_past_its_level_limit(card):
