@@ -17,9 +17,8 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..reference import musica_plain
 from . import compare, entries, phantoms, spec, trace as trace_mod
-from .traffic import Mix, Sample, requests
+from .traffic import Done, Mix, Sample, requests
 
 PACKAGE = "metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch"
 # top-level module names that no run may load (the port's name begins
@@ -57,10 +56,16 @@ def run(cell: str, seed: int, seconds: float, trace: bool, t0: float,
     ``program_fields`` replaces fields of the program's configuration only
     (the control: the program in a lower precision, held to the
     reference at the configuration's).  ``bench`` replaces the contents of
-    ``BENCHMARK.json`` (the tests' cells that the file does not hold)."""
+    ``BENCHMARK.json`` (the tests' cells that the file does not hold).  The
+    configuration's ``options`` go to the entry, which passes them to the
+    port's call, and are reported under ``options``."""
     bench = bench or spec.benchmark()
     w = spec.workload(bench, cell)
-    fields = dict(spec.config(bench, w["config"])["fields"])
+    conf = spec.config(bench, w["config"])
+    fields, options = dict(conf["fields"]), dict(conf.get("options", {}))
+    if set(options) & set(fields):
+        raise ValueError(f"options {sorted(set(options) & set(fields))} are MusicaConfig "
+                         "fields: set them under 'fields'")
     if size is not None:
         fields["image_size"] = size
     mix = Mix.from_json(spec.traffic(w["traffic"]))
@@ -73,13 +78,13 @@ def run(cell: str, seed: int, seconds: float, trace: bool, t0: float,
     # ---- set-up: the pool, the program's kernels and graphs -------------
     marks = [("imports", time.perf_counter())]
     pool = phantoms.pool(seed, mix.pool_images, cfg.image_size, mix.dose, devices[0])
-    entry_cls = entries.ENTRIES[mix.entry]
-    if mix.pool not in entry_cls.pools:
-        raise ValueError(f"entry {mix.entry!r} takes a pool on {entry_cls.pools}, "
+    entry_mod = spec.entry(mix.entry)
+    if mix.pool not in entry_mod.Entry.pools:
+        raise ValueError(f"entry {mix.entry!r} takes a pool on {entry_mod.Entry.pools}, "
                          f"not {mix.pool!r}")
     if mix.pool == "host":
         pool = pool.cpu().numpy()
-    entry = entry_cls(prog, cfg, pool, devices)
+    entry = entry_mod.Entry(prog, cfg, pool, devices, options, seed)
     entries.synchronize(devices)
     marks.append(("pool", time.perf_counter()))
     for r in range(WARM_ROUNDS):
@@ -104,18 +109,19 @@ def run(cell: str, seed: int, seconds: float, trace: bool, t0: float,
     peak = max((torch.cuda.max_memory_allocated(d) for d in cuda), default=0)
 
     # ---- after the window: free the program's state, then the reference -
-    names, entry = entry.products, None
+    keys, entry = {name: entry.keys[name] for name in entry.products}, None
     prog.graphs.release_graphs()
     if cuda:
         torch.cuda.empty_cache()
-    pcfg = musica_plain.PlainConfig(fields)
     ref_dev = devices[0]
     t_ref = time.perf_counter()
     nums = compare.compare(
-        sample.items(), lambda i: torch.as_tensor(pool[i]).to(ref_dev),
-        lambda img: musica_plain.forward(img, pcfg), names, ref_dev)
+        sample.items(),
+        lambda item: entry_mod.expected(item, lambda i: torch.as_tensor(pool[i]).to(ref_dev),
+                                        fields),
+        keys, ref_dev)
     checks = compare.judge(nums, limits)
-    log(f"compared {sum(c for _, c, _ in sample.items())} images of "
+    log(f"compared {sum(item.count for item in sample.items())} images of "
         f"{len(sample.items())} requests with the reference in "
         f"{time.perf_counter() - t_ref:.3f} s")
     correct = (win["failed"] == 0 and win["attempted"] > 0 and bool(sample.items())
@@ -148,12 +154,14 @@ def run(cell: str, seed: int, seconds: float, trace: bool, t0: float,
         result.update(metrics=metrics, device=device)
         log(f"window {win['window_s']:.3f} s: {win['attempted']} requests, {win['images']} "
             f"images" + (f", latency median {np.median(lat) * 1e3:.4f} ms" if lat else ""))
+    if options:
+        result["options"] = options
     result["checks"] = {k: {"value": c["value"], "limit": c["limit"]} for k, c in checks.items()}
     return result
 
 
-def _request(entry, start: int, count: int, state: dict, log, span=None):
-    """One request; its outputs, or None where it raised."""
+def _request(entry, start: int, count: int, state: dict, log, span=None) -> Optional[Done]:
+    """One request; what it returned, or None where it raised."""
     state["attempted"] += 1
     try:
         if span is None:
@@ -164,7 +172,8 @@ def _request(entry, start: int, count: int, state: dict, log, span=None):
                 outs = entry.submit(start, count)
             with span("bench.wait"):
                 entry.wait()
-        return outs
+        n = len(entry.products)
+        return Done(start, count, tuple(outs[:n]), tuple(outs[n:]))
     except Exception:  # a request that fails counts as failed; the run goes on
         state["failed"] += 1
         if state["failed"] == 1:
@@ -185,12 +194,12 @@ def _timed(entry, gen, sample: Sample, seconds: float, log) -> dict:
         t = time.perf_counter()
         if t >= deadline:
             break
-        outs = _request(entry, start, count, state, log)
+        done = _request(entry, start, count, state, log)
         t_last = time.perf_counter()
-        if outs is not None:
+        if done is not None:
             latency.append(t_last - t)
             images += count
-            sample.offer((start, count, outs), count)
+            sample.offer(done, count)
     return {**state, "images": images, "latency_s": latency, "window_s": t_last - t_start}
 
 
@@ -216,12 +225,12 @@ def _traced(entry, mix: Mix, gen, sample: Sample, devices, cfg, log) -> dict:
                     start, count = next(gen)
                     t = time.perf_counter()
                     with record_function("bench.request"):
-                        outs = _request(entry, start, count, state, log, record_function)
+                        done = _request(entry, start, count, state, log, record_function)
                     with record_function("bench.next"):
-                        if outs is not None:
+                        if done is not None:
                             latency.append(time.perf_counter() - t)
                             images += count
-                            sample.offer((start, count, outs), count)
+                            sample.offer(done, count)
         t_reduce = time.perf_counter()
         tr = trace_mod.reduce_events(prof.events(), images, DeviceType.CUDA, DeviceType.CPU)
         log(f"trace attempt {attempt + 1}: reduced in {time.perf_counter() - t_reduce:.3f} s"

@@ -1,19 +1,23 @@
 """The comparison that decides ``correct``: the outputs that the window's
 requests returned, for a sample of the requests drawn from the seed,
-against the plain reference (``benchmark/reference/musica_plain.py``)
-computed again from the same raw images.
+against the outputs that the entry's ``expected`` has the plain reference
+(``benchmark/reference/musica_plain.py``) compute again from the same raw
+images (``harness/entries.py``).
 
-Numbers compared, each the worst over the sampled images:
+Numbers compared, each the worst over the sampled images, named by the key
+that the entry gives each product (``u8`` for the uint8 image, ``clahe``
+for the float32 CLAHE image):
 
-* ``u8_diff_share``: the share of the output's uint8 pixels that differ
-  from the reference's;
-* ``u8_max_diff``: the largest |difference| of a uint8 pixel;
-* ``clahe_diff_share``, ``clahe_max_diff`` (with CLAHE on): the same for
-  the float32 CLAHE image (a pixel differs unless both are equal or both
-  NaN; the largest |difference| over pixels finite on both sides);
-* ``missing``: sampled requests whose outputs have the wrong shape or type.
+* ``<key>_diff_share``: the share of the product's pixels that differ from
+  the reference's (a float pixel differs unless both are equal or both
+  NaN);
+* ``<key>_max_diff``: the largest |difference| of a pixel (of a float
+  product, over pixels finite on both sides);
+* ``missing``: outputs of a sampled image with the wrong shape or type.
 
-Each has its limit in ``benchmark/limits/<cell>.json``.
+A uint8 product is compared by ``u8_numbers``, any other by
+``float_numbers``.  Each number has its limit in
+``benchmark/limits/<cell>.json``.
 """
 
 from __future__ import annotations
@@ -42,32 +46,29 @@ def float_numbers(got: torch.Tensor, want: torch.Tensor):
     return float((~same).double().mean()), float(d.max())
 
 
-def compare(items: Iterable[tuple], raw: Callable[[int], torch.Tensor],
-            reference: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
-            names: tuple, dev: torch.device) -> Dict[str, float]:
-    """The numbers over the sampled requests ``items`` ((start, count,
-    outputs) with one output per name of ``names``): ``raw(i)`` is pool
-    image i on ``dev``, ``reference(img)`` the reference's outputs."""
-    nums = {"u8_diff_share": 0.0, "u8_max_diff": 0, "missing": 0}
-    if "clahe_graded" in names:
-        nums.update(clahe_diff_share=0.0, clahe_max_diff=0.0)
-    for start, count, outs in items:
-        for i in range(count):
-            want = reference(raw(start + i))
-            for name, out in zip(names, outs):
-                got = _as_tensor(out[i], dev) if len(out) == count else None
-                if got is None or tuple(got.shape) != tuple(want[name].shape) \
-                        or got.dtype != want[name].dtype:
-                    nums["missing"] += 1
+def compare(items: Iterable[tuple], expected: Callable[[tuple], Iterable[Dict[str, torch.Tensor]]],
+            keys: Dict[str, str], dev: torch.device) -> Dict[str, float]:
+    """The numbers over the sampled requests ``items`` (``traffic.Done``,
+    one output per product in the order of ``keys``, {product: key}):
+    ``expected(item)`` gives the reference's outputs of each image of the
+    request, a dict by product."""
+    nums: Dict[str, float] = {}
+    missing = 0
+    for item in items:
+        for i, want in enumerate(expected(item)):
+            for (name, key), out in zip(keys.items(), item.outputs):
+                ref = want[name]
+                got = _as_tensor(out[i], dev) if len(out) == item.count else None
+                if got is None or tuple(got.shape) != tuple(ref.shape) or got.dtype != ref.dtype:
+                    missing += 1
                     continue
-                if name == "out_u8":
-                    share, dmax = u8_numbers(got, want[name])
-                    key = "u8"
-                else:
-                    share, dmax = float_numbers(got, want[name])
-                    key = "clahe"
-                nums[f"{key}_diff_share"] = max(nums[f"{key}_diff_share"], share)
-                nums[f"{key}_max_diff"] = max(nums[f"{key}_max_diff"], dmax)
+                numbers = u8_numbers if ref.dtype == torch.uint8 else float_numbers
+                for k, v in zip((f"{key}_diff_share", f"{key}_max_diff"), numbers(got, ref)):
+                    nums[k] = max(nums.get(k, v), v)
+    for key in keys.values():  # nothing compared: the run is not correct anyway
+        nums.setdefault(f"{key}_diff_share", 0.0)
+        nums.setdefault(f"{key}_max_diff", 0)
+    nums["missing"] = missing
     return nums
 
 

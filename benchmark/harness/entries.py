@@ -1,28 +1,39 @@
-"""How a request enters the program: one class per ``entry`` of a traffic
-mix.  Each is built at set-up with the program, its configuration, the
-pool and the cell's devices, and is called as ``submit(start, count)``
-(the program's call on the pool's images ``[start, start + count)``,
-returning its outputs, one per name in ``products``) then ``wait()``
-(until those outputs are ready).  They call the program through its
-modules' attributes at every request, so a test can break the timed path
-underneath.
+"""What every entry shares.  An entry is how a request enters the program:
+``benchmark/entries/<entry>.py``, named by a traffic mix's ``entry`` and
+found by that name (``spec.entry``).  The module gives
 
-* ``Resident``: ``process_batch_jit`` on images on the card, the replay
-  of the forward's CUDA graph an image.  With CLAHE on, ``process_batch_jit``
-  drops the CLAHE image, so the request asks its graphs for both outputs
-  through ``graphs.run_batch``, the function it wraps.
-* ``Host``: ``process_batch`` on images in pageable host memory; it copies
-  a request to the card and returns host uint8 arrays.
-* ``Mesh``: ``process_sharded`` over a data-parallel mesh of the cell's
-  cards, each card's share copied to it from where the pool lies, the
-  outputs gathered on the first card.
+* ``Entry``, the class built at set-up as ``Entry(prog, cfg, pool,
+  devices, options, seed)``: the program's modules, its configuration, the
+  pool, the cell's devices, the configuration file's ``options`` (keyword
+  arguments of the port's call that are not ``MusicaConfig`` fields, passed
+  on to that call) and the run's seed.  It has ``pools`` (where it takes
+  the pool: ``device`` and/or ``host``), ``products`` (the names of its
+  outputs), ``keys`` ({product: the key its compared numbers are named
+  under}, ``compare.py``), ``submit(start, count)`` (the program's call on
+  the pool's images ``[start, start + count)``, returning one output per
+  product, then whatever the entry records for the reference: the
+  request's note) and ``wait()`` (until those outputs are ready).  It calls
+  the program through its modules' attributes at every request, so a test
+  can break the timed path underneath;
+* ``expected(item, raw, fields)``, a module-level function: for a sampled
+  request ``item`` (``traffic.Done``), the outputs the reference expects of
+  each of its images, a dict by product name, from ``raw(i)`` (pool image
+  ``i`` on the reference's device) and the configuration's ``fields``
+  alone.  It runs after the program's state is freed, so it needs none of
+  it: an entry whose requests alter their inputs records in the note what
+  ``expected`` needs to rebuild them.  ``plain_expected`` is the default.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Dict, Iterator, Sequence
 
 import torch
+
+from ..reference import musica_plain
+
+# the key of each product's compared numbers (``compare.py``)
+KEYS = {"out_u8": "u8", "clahe_graded": "clahe"}
 
 
 def products(cfg) -> tuple:
@@ -36,56 +47,10 @@ def synchronize(devices: Sequence[torch.device]) -> None:
             torch.cuda.synchronize(d)
 
 
-class Resident:
-    pools = ("device",)
-
-    def __init__(self, prog, cfg, pool, devices):
-        self.prog, self.cfg, self.pool, self.devices = prog, cfg, pool, list(devices)
-        self.products = products(cfg)
-
-    def submit(self, start: int, count: int) -> tuple:
-        batch = self.pool[start:start + count]
-        if self.products == ("out_u8",):
-            return (self.prog.musica.process_batch_jit(batch, self.cfg),)
-        return self.prog.graphs.run_batch(self.prog.musica.musica_forward, batch, self.cfg,
-                                          False, self.products)
-
-    def wait(self) -> None:
-        synchronize(self.devices[:1])
-
-
-class Host:
-    pools = ("host",)
-
-    def __init__(self, prog, cfg, pool, devices):
-        if cfg.enable_clahe:
-            raise ValueError("the host API (process_batch) returns no CLAHE image")
-        self.prog, self.cfg, self.pool, self.devices = prog, cfg, pool, list(devices)
-        self.products = ("out_u8",)
-
-    def submit(self, start: int, count: int) -> tuple:
-        return (self.prog.musica.process_batch(self.pool[start:start + count], self.cfg,
-                                               self.devices[0]),)
-
-    def wait(self) -> None:
-        """``process_batch`` returns host arrays: nothing is left to wait for."""
-
-
-class Mesh:
-    pools = ("device", "host")
-
-    def __init__(self, prog, cfg, pool, devices):
-        self.prog, self.cfg, self.pool, self.devices = prog, cfg, pool, list(devices)
-        self.products = products(cfg)
-        self.mesh = prog.sharding.make_mesh(len(self.devices), devices=self.devices)
-
-    def submit(self, start: int, count: int) -> tuple:
-        out = self.prog.sharding.process_sharded(self.pool[start:start + count], self.cfg,
-                                                 self.mesh, outputs=self.products)
-        return out if isinstance(out, tuple) else (out,)
-
-    def wait(self) -> None:
-        synchronize(self.devices)
-
-
-ENTRIES = {"resident": Resident, "host": Host, "mesh": Mesh}
+def plain_expected(item, raw: Callable[[int], torch.Tensor],
+                   fields: dict) -> Iterator[Dict[str, torch.Tensor]]:
+    """The reference's outputs of each pool image the request sent as it
+    is: ``musica_plain.forward`` of images ``[start, start + count)``."""
+    pcfg = musica_plain.PlainConfig(fields)
+    for i in range(item.start, item.start + item.count):
+        yield musica_plain.forward(raw(i), pcfg)

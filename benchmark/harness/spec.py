@@ -3,9 +3,11 @@ root, and the files of a cell's configuration, traffic mix, per-layer
 metrics and pipeline stages, each found by its name.
 
 * a configuration: ``BENCHMARK.json``'s ``configs[].file`` (JSON: the
-  ``MusicaConfig`` fields under ``fields``);
+  ``MusicaConfig`` fields under ``fields``; optionally ``options``, keyword
+  arguments of the port's call that are not fields);
 * a traffic mix: ``benchmark/traffic/<traffic>.json``, read by the one
   generator in ``harness/traffic.py``;
+* an entry: ``benchmark/entries/<entry>.py`` (``harness/entries.py``);
 * a per-layer metric: ``benchmark/metrics/<name>.py``, a module with
   ``read(trace) -> float or None``;
 * a stage: ``benchmark/stages/<stage>.json`` (the kernel labels it owns,
@@ -73,6 +75,14 @@ def _module(path: Path, name: str) -> ModuleType:
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
     return mod
+
+
+def entry(name: str, bench_dir: Path = BENCH_DIR) -> ModuleType:
+    path = bench_dir / "entries" / f"{name}.py"
+    if not path.is_file():
+        have = sorted(p.name for p in (bench_dir / "entries").glob("*.py"))
+        raise KeyError(f"no entry {name!r}: {path} does not exist (entries: {', '.join(have)})")
+    return _module(path, f"benchmark_entry_{name}")
 
 
 def metric_reader(name: str, bench_dir: Path = BENCH_DIR) -> ModuleType:

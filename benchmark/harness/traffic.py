@@ -2,9 +2,10 @@
 seeded phantoms, read from a traffic mix's parameters
 (``benchmark/traffic/<name>.json``):
 
-* ``entry``: how a request enters the program (``harness/entries.py``):
-  ``resident`` (images on the card), ``host`` (pageable host memory in,
-  host arrays out) or ``mesh`` (batches over every card of the cell);
+* ``entry``: how a request enters the program, the name of a module in
+  ``benchmark/entries/`` (``harness/entries.py``): ``resident`` (images on
+  the card), ``host`` (pageable host memory in, host arrays out), ``mesh``
+  (batches over every card of the cell), or one that a later change adds;
 * ``pool``: where the pool lies, ``device`` (the first card) or ``host``
   (pageable host memory);
 * ``pool_images``: distinct phantoms in the pool;
@@ -25,7 +26,7 @@ from __future__ import annotations
 
 import random
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Tuple
 
 
 @dataclass(frozen=True)
@@ -65,6 +66,17 @@ def requests(mix: Mix, seed: int) -> Iterator[Tuple[int, int]]:
         rng.shuffle(order)
         for k in order:
             yield rng.randrange(mix.pool_images - k + 1), k
+
+
+class Done(NamedTuple):
+    """A request that returned: its run of the pool, its outputs (one per
+    product of the entry) and its note (what the entry returned after them
+    for the reference; empty where the request sent the pool's images as
+    they are)."""
+    start: int
+    count: int
+    outputs: tuple
+    note: tuple
 
 
 class Sample:

@@ -15,8 +15,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-from benchmark.harness import compare, phantoms, spec, trace as trace_mod  # noqa: E402
-from benchmark.harness.traffic import Sample  # noqa: E402
+from benchmark.harness import compare, entries, phantoms, spec, trace as trace_mod  # noqa: E402
+from benchmark.harness.traffic import Done, Sample  # noqa: E402
 from benchmark.reference import musica_plain  # noqa: E402
 from metamorphic_testing_of_the_musica_algorithm_for_x_ray_image_processing_tpu_torch import (  # noqa: E402
     MusicaConfig)
@@ -91,13 +91,15 @@ def test_the_comparison_fails_on_a_perturbed_output():
     limits = spec.load_json(spec.BENCH_DIR / "limits" / "clahe-linear.resident.json")
 
     def judged(outs):
-        nums = compare.compare([(0, 2, outs)], lambda i: pool[i],
-                               lambda im: musica_plain.forward(im, pcfg),
-                               ("out_u8", "clahe_graded"), CPU)
+        nums = compare.compare([Done(0, 2, outs, ())],
+                               lambda item: entries.plain_expected(item, lambda i: pool[i], fields),
+                               {"out_u8": "u8", "clahe_graded": "clahe"}, CPU)
         return nums, compare.judge(nums, limits)
 
     nums, checks = judged(outs)
     assert all(c["ok"] for c in checks.values()) and nums["u8_max_diff"] == 0
+    assert set(nums) == set(limits)
+    assert type(nums["u8_max_diff"]) is int and type(nums["clahe_max_diff"]) is float
     bad = outs[0].clone()
     bad[1, 70, 70] ^= 4
     nums, checks = judged((bad, outs[1]))
@@ -123,10 +125,12 @@ def test_sample_keeps_the_largest_and_a_seeded_uniform_sample():
 
 
 def _events(spec_list):
-    """Fake profiler events: (name, device_type, start_us, end_us, device)."""
+    """Fake profiler events: (name, device_type, start_us, end_us, device[,
+    thread, id])."""
     return [SimpleNamespace(name=n, device_type=t, device_index=d,
-                            time_range=SimpleNamespace(start=a, end=b))
-            for n, t, a, b, d in spec_list]
+                            time_range=SimpleNamespace(start=a, end=b),
+                            thread=rest[0] if rest else 0, id=rest[1] if rest else -1)
+            for n, t, a, b, d, *rest in spec_list]
 
 
 def test_trace_reduction():
@@ -165,5 +169,83 @@ def test_trace_reduction():
     assert readers["device_idle_pct"](tr) == pytest.approx(40.0)
     assert readers["copy_ms_per_img"](tr) == pytest.approx(0.01)
     assert readers["mesh_busy_min_pct"](tr) is None
+    # no musica.request span: the idle split has nothing to read
+    assert tr.program == [] and tr.idle_split(0) is None
+    for name in ("request_gap_pct", "image_gap_pct", "graph_gap_pct"):
+        assert readers[name](tr) is None
     # a record that kept no spin kernel is not counted
     assert trace_mod.reduce_events(evs[1:], 2, cuda, cpu) is None
+
+
+# two requests of a port's traced window (us): the first of two images, the
+# second of one; each image a replay (copy in, copies out) around a graph
+_HARNESS = [
+    ("spin_kernel", "cuda", 0, 10, 0),
+    ("bench.window", "cpu", 20, 200, -1),
+    ("bench.submit", "cpu", 22, 120, -1),
+    ("bench.wait", "cpu", 120, 128, -1),
+    ("bench.submit", "cpu", 128, 190, -1),
+    ("bench.wait", "cpu", 190, 200, -1),
+    ("Memcpy DtoD (Device -> Device)", "cuda", 40, 45, 0),
+    ("void reduce_step_kernel<true>(float const*, int)", "cuda", 48, 60, 0),
+    ("void contrast_apply_kernel<false>(Args)", "cuda", 62, 70, 0),
+    ("Memcpy DtoD (Device -> Device)", "cuda", 72, 75, 0),
+    ("Memcpy DtoD (Device -> Device)", "cuda", 80, 82, 0),
+    ("void reduce_step_kernel<true>(float const*, int)", "cuda", 85, 95, 0),
+    ("Memcpy DtoD (Device -> Device)", "cuda", 98, 100, 0),
+    ("Memcpy DtoD (Device -> Device)", "cuda", 150, 152, 0),
+    ("void reduce_step_kernel<true>(float const*, int)", "cuda", 155, 170, 0),
+    ("Memcpy DtoD (Device -> Device)", "cuda", 172, 175, 0),
+]
+_PORT = [  # (name, device_type, start, end, card, thread, id)
+    ("musica.normalize", "cpu", 2, 8, -1, 1, 90),   # before the window: dropped
+    ("musica.phase", "cpu", 10, 30, -1, 1, 91),     # clipped to the window
+    ("musica.request", "cpu", 25, 120, -1, 1, 1),
+    ("musica.replay", "cpu", 30, 60, -1, 1, 2),
+    ("musica.graph", "cpu", 35, 55, -1, 1, 3),
+    ("musica.replay", "cpu", 70, 110, -1, 1, 4),
+    ("musica.graph", "cpu", 75, 100, -1, 1, 5),
+    ("musica.replay", "cuda", 40, 75, 0, 7, 2),
+    ("musica.graph", "cuda", 48, 70, 0, 7, 3),
+    ("musica.replay", "cuda", 80, 100, 0, 7, 4),
+    ("musica.graph", "cuda", 85, 95, 0, 7, 5),
+    ("musica.request", "cpu", 130, 190, -1, 1, 6),
+    ("musica.replay", "cpu", 135, 150, -1, 1, 7),
+    ("musica.graph", "cpu", 137, 148, -1, 1, 8),
+    ("musica.replay", "cuda", 150, 175, 0, 7, 7),
+    ("musica.graph", "cuda", 155, 170, 0, 7, 8),
+    ("musica.replay", "cpu", 210, 220, -1, 1, 9),   # after the window: dropped
+]
+
+
+def test_trace_keeps_the_ports_spans_apart():
+    """``reduce_events`` fills ``Trace.program`` with the port's spans
+    clipped to the window, and keeps kernels, copies and the breakdown as
+    a record without them gives."""
+    with_port = trace_mod.reduce_events(_events(_HARNESS + _PORT), 3, "cuda", "cpu")
+    without = trace_mod.reduce_events(_events(_HARNESS), 3, "cuda", "cpu")
+    assert with_port.kernels == without.kernels and with_port.copies == without.copies
+    assert with_port.spans == without.spans and with_port.breakdown() == without.breakdown()
+    assert without.program == []
+    prog = with_port.program
+    assert len(prog) == len(_PORT) - 2
+    assert prog[0] == ("musica.phase", 20e-6, 30e-6, -1, 1, 91)
+    assert ("musica.graph", 48e-6, 70e-6, 0, 7, 3) in prog
+    assert ("musica.request", 130e-6, 190e-6, -1, 1, 6) in prog
+
+
+def test_the_idle_split_sums_to_the_idle_share():
+    tr = trace_mod.reduce_events(_events(_HARNESS + _PORT), 3, "cuda", "cpu")
+    # gaps: before and between the requests and after the last, 20 + 50 + 25;
+    # in graphs, 60-62; at image edges, 45-48, 70-72, 75-80, 82-85, 95-98,
+    # 152-155, 170-172
+    split = tr.idle_split(0)
+    assert split == pytest.approx({"request": 95e-6, "graph": 2e-6, "image": 21e-6})
+    assert sum(b - a for a, b in tr.idle_gaps(0)) == pytest.approx(118e-6)
+    read = {n: spec.metric_reader(n).read(tr)
+            for n in ("request_gap_pct", "image_gap_pct", "graph_gap_pct", "device_idle_pct")}
+    assert read["request_gap_pct"] == pytest.approx(100 * 95 / 180)
+    assert read["image_gap_pct"] == pytest.approx(100 * 21 / 180)
+    assert read["graph_gap_pct"] == pytest.approx(100 * 2 / 180)
+    assert read["request_gap_pct"] + read["image_gap_pct"] + read["graph_gap_pct"] \
+        == pytest.approx(read["device_idle_pct"], abs=1e-9)
